@@ -10,7 +10,10 @@ binds the backlog, a kubelet tick, a churn of 256 pods, and a steady
 cycle in auto mode. It checks engine, kernel launches, one counted
 device->host copy per solve, gang all-or-nothing, and that every solve's
 host block equals the plain version's word for word; on cfg2 the fused
-cycle must also bind exactly what the host oracle binds.
+cycle must also bind exactly what the host oracle binds. Last it times
+the kernels at the main path's shapes, and beside each fused solve its
+roofline bound, the node-state re-read at the memory rate, and two
+floors of the one-block design measured with csrc/chain_probe.cu.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
@@ -34,10 +37,22 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: kernels/csrc/fused_allocate.cu eval_node and node_score.cuh
 OPS_PER_NODE_FUSED = 90
 OPS_PER_NODE_SCORE = 68
-#: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
-#: float32 non-tensor FLOP/s
+#: bytes of node state one node-pass evaluation reads (eval_node): idle,
+#: backfilled and releasing (3 x f32 each), n_tasks and max_task_num
+#: (i32), node_ok and the sig_pred byte, the sig_scores f32, nz_req and
+#: allocatable_cm (2 x f32 each)
+NODE_PASS_BYTES = 66
+#: block barriers of a node-solve iteration that resumes a visit
+#: (fused_allocate.cu: loop top, job resume, task pick, block_argmax's
+#: three, loop end); an iteration that pops a queue and picks a job adds 16
+BARRIERS_PER_SOLVE = 7
+#: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and
+#: float32 operations/s outside the tensor cores without FMA contraction.
+#: The data sheet's 67 TFLOP/s counts a fused multiply-add as two
+#: operations; the sources are built with -fmad=false, so every operation
+#: is one instruction and the lanes issue half that rate.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
+PEAK_F32_PER_S = 33.5e12
 
 
 def log(msg: str) -> None:
@@ -56,6 +71,51 @@ def bound(nbytes: int, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_bounds(kw, out) -> dict:
+    """The fused solve's bounds for one run, from its inputs and results.
+
+    ``bound_ms`` is the roofline: each input read once and each output
+    written once over the memory rate, against the node passes' float
+    operations over the float32 rate. ``reread_ms`` counts what the node
+    pass moves instead: the node state read again by every node solve,
+    over the memory rate (a floor for a design that streams it from
+    memory each time; the one-block kernel streams it from L2)."""
+    frame = out[0][0, -20:].tolist()
+    iters, n_solves = frame[1], frame[2] + frame[3]     # placed + failed
+    n_pad = kw["idle"].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values()
+                 if hasattr(t, "numel"))
+    nbytes += sum(t.numel() * t.element_size() for t in out)
+    b_ms, b_by = bound(nbytes, n_solves * n_pad * OPS_PER_NODE_FUSED)
+    return {"iters": iters, "n_solves": n_solves, "n_pad": n_pad,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "reread_ms": n_solves * n_pad * NODE_PASS_BYTES
+            / PEAK_BYTES_PER_S * 1e3}
+
+
+def probe_ms(n_pad: int, words: int, iters: int) -> float:
+    """Device ms of csrc/chain_probe.cu: ``iters`` dependent iterations of
+    one 1024-thread block, each with BARRIERS_PER_SOLVE barriers and an
+    argmax over what a pass reading ``words`` words per node returns."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import _build
+
+    lib = _build.library("chain_probe.cu")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    buf = torch.rand(max(words, 1) * n_pad, generator=gen, device="cuda")
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = lib.kb_chain_probe(buf.data_ptr(), n_pad, words, iters,
+                                 BARRIERS_PER_SOLVE, out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+        _build.check_launch("chain_probe", err)
+        _build.count_launch("chain_probe")
+
+    return cuda_ms(run, reps=2)
 
 
 def max_abs_err(want, got) -> float:
@@ -389,14 +449,13 @@ def main() -> int:
     fused_prof_ms = profiled_ms(lambda: fused_allocate(**kw1),
                                 "fused_allocate_kernel", reps=2)
     fused_ms = fused_prof_ms if fused_prof_ms is not None else fused_event_ms
-    inputs_bytes = sum(t.numel() * t.element_size() for t in kw1.values()
-                       if hasattr(t, "numel"))
-    out_bytes = sum(t.numel() * t.element_size() for t in out1)
-    frame = out1[0][0, -20:].tolist()
-    n_solves = frame[2] + frame[3]        # placed + failed tasks
-    n_pad = kw1["idle"].shape[0]
-    f_bound, f_by = bound(inputs_bytes + out_bytes,
-                          n_solves * n_pad * OPS_PER_NODE_FUSED)
+    # bounds, and the one-block design's floors, for both cycles' solves
+    fb = [fused_bounds(kw, out) for kw, out in rec.calls]
+    words = NODE_PASS_BYTES // 4          # rounded down: a floor
+    for b in fb:
+        b["chain_ms"] = probe_ms(b["n_pad"], 0, b["iters"])
+        b["stream_ms"] = probe_ms(b["n_pad"], words, b["n_solves"])
+    n_pad = fb[0]["n_pad"]
 
     dev_session_args = (kw1["nz_req0"], kw1["task_nz"][0],
                         kw1["allocatable_cm"], kw1["dyn_weights"])
@@ -419,21 +478,33 @@ def main() -> int:
          "source": "kubebatch_tpu_torch/kernels/csrc/fused_allocate.cu",
          "replaces": "kubebatch_tpu/kernels/fused.py:112",
          "launches": launches["fused_allocate"], "max_abs_err": fused_err,
-         "ms": fused_ms, "plain_ms": plain_ms[1], "bound_ms": f_bound,
-         "bound_by": f_by, "library_ms": None},
+         "ms": fused_ms, "plain_ms": plain_ms[1],
+         "bound_ms": fb[0]["bound_ms"], "bound_by": fb[0]["bound_by"],
+         "library_ms": None, "reread_ms": fb[0]["reread_ms"],
+         "chain_floor_ms": fb[0]["chain_ms"],
+         "stream_floor_ms": fb[0]["stream_ms"]},
         {"name": "dynamic_node_score", "route": "cuda",
          "source": "kubebatch_tpu_torch/kernels/csrc/node_score.cu",
          "replaces": "kubebatch_tpu/kernels/solver.py:67",
          "launches": launches["dynamic_node_score"],
          "max_abs_err": score_err, "ms": score_ms,
          "plain_ms": score_plain_ms, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None},
+         "library_ms": None, "runs_inside": "fused_allocate"},
     ]
     log(f"fused_allocate cfg5 cycle 1: kernel {fused_event_ms:.3f} ms per "
         f"launch (CUDA events, 3 launches), {fused_prof_ms} ms device time "
         f"(profiler); plain {plain_ms[1]:.1f} ms; cycle 2 plain "
-        f"{plain_ms[2]:.1f} ms; {frame[1]} iterations, {n_solves} node "
-        f"solves over {n_pad} nodes")
+        f"{plain_ms[2]:.1f} ms")
+    for k, (b, c) in enumerate(zip(fb, cycles), 1):
+        log(f"fused_allocate cycle {k}: {b['iters']} iterations, "
+            f"{b['n_solves']} node solves over {b['n_pad']} nodes; kernel "
+            f"{c['phases']['kernel']:.3f} ms (events, main path); roofline "
+            f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}); node state "
+            f"re-read per solve at the memory rate {b['reread_ms']:.3f} ms; "
+            f"one-block floors (chain_probe.cu): {BARRIERS_PER_SOLVE} "
+            f"barriers + argmax per iteration {b['chain_ms']:.3f} ms, plus "
+            f"streaming {words * 4} B/node per solve {b['stream_ms']:.3f} "
+            f"ms")
     log(f"dynamic_node_score N={n_pad}: {score_event_ms:.4f} ms per launch "
         f"back to back (CUDA events, 200 launches), {score_prof_ms} ms "
         f"device time (profiler); plain {score_plain_ms:.4f} ms")
@@ -441,11 +512,12 @@ def main() -> int:
         wall = c["phases"]["snapshot"] + c["phases"]["open"] + \
             c["phases"]["allocate"] + c["phases"]["close"]
         log(f"cycle {k}: wall {wall:.1f} ms, kernel {c['phases']['kernel']:.3f}"
-            f" ms, device idle share {1 - c['phases']['kernel'] / wall:.4f} "
-            f"(kernel time over the cycle's host wall)")
+            f" ms, kernel share of host wall "
+            f"{c['phases']['kernel'] / wall:.4f}")
     log(f"dynamic_node_score: {launches['dynamic_node_score']} main-path "
-        f"launches, all inside fused_allocate (node_score.cuh); the "
-        f"standalone kernel is timed at N={n_pad}")
+        f"launches of the standalone kernel; on the main path its "
+        f"arithmetic (node_score.cuh) runs inside every fused_allocate "
+        f"launch; the standalone kernel is timed at N={n_pad}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     cache.stop()
 

@@ -12,8 +12,10 @@ Solver modes (constructor arg):
   vs the host heap algorithm; the host replays the decisions through
   Session.allocate/pipeline so plugins and the gang barrier observe
   identical events. A snapshot the solve cannot express (custom order
-  plugins, inter-pod affinity, host ports, a real volume binder) runs the
-  host path instead, counted in metrics.engine_demotions_total.
+  plugins, inter-pod affinity, host ports, a real volume binder) needs an
+  engine this package does not have yet: on a CUDA cache the cycle
+  raises NotImplementedError; on a CPU cache it runs the host path,
+  counted in metrics.engine_demotions_total.
 - "host": the reference-literal per-pair loops — the semantic oracle.
 
 ref: pkg/scheduler/actions/allocate/allocate.go. Control flow is preserved
@@ -86,6 +88,14 @@ class AllocateAction(Action):
             if cycle_supported(ssn) and execute_fused(ssn):
                 last_cycle_engine = "fused"
                 return
+            if ssn.cache.device.type == "cuda":
+                raise NotImplementedError(
+                    "this cycle is outside the fused solve's vocabulary "
+                    "(custom order/overused/ready plugins, inter-pod "
+                    "affinity, host ports or a volume binder); its device "
+                    "engines are not ported yet (ROADMAP queue A, affinity "
+                    "vocabulary; queue B, B8 per-visit mode). Use "
+                    "mode='host' to run the host algorithm")
             count_engine_demotion("fused", "host")
         self._execute_queued(ssn)
         last_cycle_engine = "host-visit"
@@ -162,7 +172,6 @@ class AllocateAction(Action):
                     delta = node.idle.clone()
                     delta.fit_delta(task.resreq)
                     job.nodes_fit_delta[node.name] = delta
-                    ssn.touched_jobs.add(job.uid)
                 if task.init_resreq.less_equal(node.releasing):
                     ssn.pipeline(task, node.name)
                     assigned = True

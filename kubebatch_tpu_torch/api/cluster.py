@@ -45,10 +45,6 @@ class ClusterInfo:
         self.jobs: Dict[str, JobInfo] = jobs if jobs is not None else {}
         self.nodes: Dict[str, NodeInfo] = nodes if nodes is not None else {}
         self.queues: Dict[str, QueueInfo] = queues if queues is not None else {}
-        #: uids freshly cloned from cache truth this snapshot; None =
-        #: every job (full clones). Close-session uses this to know which
-        #: untouched jobs verifiably carry an unchanged status.
-        self.refreshed_jobs = None
 
     def __repr__(self) -> str:
         return (f"ClusterInfo(jobs={len(self.jobs)}, nodes={len(self.nodes)}, "

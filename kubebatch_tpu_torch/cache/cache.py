@@ -157,10 +157,6 @@ class SchedulerCache:
         #: persistent static-term encoder state (kernels/encode.TermsCache);
         #: invalidated whenever node labels/taints/shape change
         self.terms_cache = None
-        #: cross-cycle plugin state (drf/proportion/job-valid memos). With
-        #: full snapshots (refreshed_jobs None) every entry is rebuilt at
-        #: each session open.
-        self.plugin_scratch: Dict[str, object] = {}
         #: per-cache sticky shape holds (kernels/tensorize.sticky_bucket)
         self.pad_sticky: Dict[str, list] = {}
         #: maintained sum of node allocatable over the cluster

@@ -55,8 +55,6 @@ class Session:
         self.jobs: Dict[str, JobInfo] = snapshot.jobs
         self.nodes: Dict[str, NodeInfo] = snapshot.nodes
         self.queues: Dict[str, QueueInfo] = snapshot.queues
-        #: job uids freshly re-cloned from cache truth (None = all)
-        self.refreshed_jobs = getattr(snapshot, "refreshed_jobs", None)
         #: cache-maintained cluster allocatable sum (None on hand-built
         #: snapshots; total_allocatable then falls back to a node walk)
         self._snapshot_allocatable_total = getattr(
@@ -102,13 +100,9 @@ class Session:
         #: fault can never leak half-applied evictions into write-back
         self.open_statements: List = []
 
-        #: entities this session mutated in ways a fresh cache clone would
-        #: not reproduce — folded into the cache's dirty sets when the
-        #: snapshot is adopted as the next cycle's base (cache.py
-        #: adopt_snapshot). Every session mutator records here; missing a
-        #: site breaks the incremental==full snapshot invariant (pinned by
-        #: tests/test_incremental_snapshot.py).
-        self.touched_jobs: set = set()
+        #: node names whose rows this session mutated on the host; the
+        #: device snapshot is rebuilt from host truth once any are set
+        #: (kernels/solver.ensure_device_snapshot)
         self.touched_nodes: set = set()
 
     # ------------------------------------------------------------------
@@ -369,7 +363,6 @@ class Session:
     def pipeline(self, task: TaskInfo, hostname: str) -> None:
         """Session-only assignment onto releasing resources
         (ref: session.go:199-235)."""
-        self.touched_jobs.add(task.job)
         self.touched_nodes.add(hostname)
         job = self.jobs.get(task.job)
         if job is not None:
@@ -400,7 +393,6 @@ class Session:
             self.cache.allocate_volumes(task, hostname)
         except Exception as e:
             raise VolumeAllocationError(str(e)) from e
-        self.touched_jobs.add(task.job)
         self.touched_nodes.add(hostname)
         new_status = (TaskStatus.ALLOCATED_OVER_BACKFILL
                       if using_backfill_task_res else TaskStatus.ALLOCATED)
@@ -423,7 +415,6 @@ class Session:
 
     def dispatch(self, task: TaskInfo) -> None:
         """Bind an allocated task for real (ref: session.go:299-321)."""
-        self.touched_jobs.add(task.job)
         job = self.jobs.get(task.job)
         if job is not None:
             task = job.own_task(task)   # CoW (see pipeline)
@@ -438,7 +429,6 @@ class Session:
     def evict(self, reclaimee: TaskInfo, reason: str) -> None:
         """Real eviction through the cache plus session bookkeeping
         (ref: session.go:323-357)."""
-        self.touched_jobs.add(reclaimee.job)
         self.touched_nodes.add(reclaimee.node_name)
         job = self.jobs.get(reclaimee.job)
         if job is not None:
@@ -454,11 +444,6 @@ class Session:
     def update_job_condition(self, job_info: JobInfo,
                              cond: PodGroupCondition) -> None:
         """ref: session.go:360-382."""
-        # a condition stamp IS a status mutation: the close-session
-        # write-skip must not bypass this job's PUT/events, and the next
-        # snapshot re-clones it (the shared pod_group makes the re-clone
-        # redundant but harmless)
-        self.touched_jobs.add(job_info.uid)
         job = self.jobs.get(job_info.uid)
         if job is None:
             raise KeyError(f"failed to find job "
@@ -494,44 +479,13 @@ def open_session(cache, enable_preemption: bool = False,
 def validate_jobs(ssn: Session) -> None:
     """Apply JobValid and drop failing jobs after stamping an Unschedulable
     condition on their (session-local) PodGroup (ref: session.go:92-111).
-    Called after plugins install their job_valid fns.
-
-    Verdicts are memoized across cycles (SCALING.md item 2; contract at
-    cache.plugin_scratch): validity reads only job truth, so a verdict
-    holds while the job's clone is reused. Failing jobs re-stamp their
-    condition each cycle (the stamp marks them touched, so they are
-    refreshed — and re-validated — next cycle, like the reference's
-    per-cycle pass)."""
-    scratch = getattr(ssn.cache, "plugin_scratch", None)
-    fingerprint = tuple(opt.name for tier in ssn.tiers
-                        for opt in tier.plugins)
-    state = scratch.get("job_valid") if scratch is not None else None
-    refreshed = ssn.refreshed_jobs
-    if (state is None or refreshed is None
-            or state["fingerprint"] != fingerprint):
-        memo: Dict[str, Optional[ValidateResult]] = {}
-        recheck = list(ssn.jobs)
-    else:
-        memo = state["memo"]
-        for uid in list(memo):
-            if uid not in ssn.jobs:
-                del memo[uid]
-        recheck = [uid for uid in ssn.jobs
-                   if uid in refreshed or uid not in memo]
-    for uid in recheck:
-        memo[uid] = ssn.job_valid(ssn.jobs[uid])
-    if scratch is not None:
-        scratch["job_valid"] = {"memo": memo, "fingerprint": fingerprint}
-    for uid, vr in memo.items():
+    Called after plugins install their job_valid fns; every job is
+    validated every cycle."""
+    verdicts = [(uid, ssn.job_valid(job)) for uid, job in ssn.jobs.items()]
+    for uid, vr in verdicts:
         if vr is None or vr.passed:
             continue
-        job = ssn.jobs.get(uid)
-        if job is None:
-            continue
-        # a dropped job leaves ssn.jobs, and adoption stores ssn.jobs as
-        # the next snapshot base — mark it touched so the next cycle
-        # re-clones it from truth regardless of the condition-stamp path
-        ssn.touched_jobs.add(uid)
+        job = ssn.jobs[uid]
         if job.pod_group is not None:
             cond = PodGroupCondition(
                 type=UNSCHEDULABLE_CONDITION, status="True",
@@ -564,37 +518,16 @@ def job_status(ssn: Session, job: JobInfo) -> PodGroupStatus:
 
 
 def close_session(ssn: Session) -> None:
-    """Write job status back through the cache (ref: session.go:124-156).
-
-    Jobs the session never mutated AND whose clone was reused from the
-    previous cycle (truth unchanged) AND that hold no pending/allocated
-    work recompute to an identical status with no events to emit — the
-    write is skipped (a changed-nothing PUT any production updater would
-    coalesce anyway). Full snapshots (refreshed = None) write every job,
-    matching the reference cycle for cycle. Integrations that treat the
-    per-cycle PodGroup PUT as a liveness heartbeat (session.go:124-156
-    writes every job every cycle) can set KUBEBATCH_FAITHFUL_CLOSE=1 to
-    restore the reference-faithful every-cycle writes."""
-    import os as _os
+    """Write every job's status back through the cache
+    (ref: session.go:124-156)."""
     scheduled = 0
     unschedulable = 0
-    refreshed = ssn.refreshed_jobs
-    if _os.environ.get("KUBEBATCH_FAITHFUL_CLOSE", "") not in ("", "0",
-                                                               "false"):
-        refreshed = None
-    touched = ssn.touched_jobs
-    for uid, job in ssn.jobs.items():
+    for job in ssn.jobs.values():
         pending = job.count(TaskStatus.PENDING)
         scheduled += job.count(TaskStatus.BINDING)
         unschedulable += pending
         if job.pod_group is None:
             ssn.cache.record_job_status_event(job)
-            continue
-        if (refreshed is not None and uid not in refreshed
-                and uid not in touched and pending == 0
-                and TaskStatus.ALLOCATED not in job.task_status_index
-                and TaskStatus.ALLOCATED_OVER_BACKFILL
-                not in job.task_status_index):
             continue
         job.pod_group.status = job_status(ssn, job)
         ssn.cache.update_job_status(job)
@@ -602,11 +535,6 @@ def close_session(ssn: Session) -> None:
     # results follow the upstream scheduler's vocabulary)
     update_pod_schedule_status("scheduled", scheduled)
     update_pod_schedule_status("unschedulable", unschedulable)
-    # hand the session's clones back as the next snapshot's base (the
-    # incremental-snapshot protocol; no-op for caches without it)
-    adopt = getattr(ssn.cache, "adopt_snapshot", None)
-    if adopt is not None:
-        adopt(ssn)
     ssn.jobs = {}
     ssn.nodes = {}
     ssn.queues = {}

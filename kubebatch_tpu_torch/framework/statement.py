@@ -21,7 +21,6 @@ class Statement:
     # --- session-visible ops ---------------------------------------------
     def evict(self, reclaimee: TaskInfo, reason: str) -> None:
         """ref: statement.go:35-67."""
-        self.ssn.touched_jobs.add(reclaimee.job)
         self.ssn.touched_nodes.add(reclaimee.node_name)
         job = self.ssn.jobs.get(reclaimee.job)
         if job is not None:
@@ -38,7 +37,6 @@ class Statement:
 
     def pipeline(self, task: TaskInfo, hostname: str) -> None:
         """ref: statement.go:110-151."""
-        self.ssn.touched_jobs.add(task.job)
         self.ssn.touched_nodes.add(hostname)
         job = self.ssn.jobs.get(task.job)
         if job is not None:
@@ -56,7 +54,6 @@ class Statement:
         """ref: statement.go:81-108. Rollback is a divergence source too:
         the sub-then-add Resource round trip need not restore the exact
         float bits a fresh clone carries."""
-        self.ssn.touched_jobs.add(reclaimee.job)
         self.ssn.touched_nodes.add(reclaimee.node_name)
         job = self.ssn.jobs.get(reclaimee.job)
         if job is not None:
@@ -68,7 +65,6 @@ class Statement:
 
     def _unpipeline(self, task: TaskInfo) -> None:
         """ref: statement.go:156-192."""
-        self.ssn.touched_jobs.add(task.job)
         self.ssn.touched_nodes.add(task.node_name)
         job = self.ssn.jobs.get(task.job)
         if job is not None:

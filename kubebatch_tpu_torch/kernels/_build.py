@@ -43,6 +43,9 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "fused_allocate.cu": {
         "kb_fused_allocate": "p" * 35 + "i" * 15 + "p",
     },
+    "chain_probe.cu": {
+        "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
+    },
 }
 
 _lock = threading.Lock()

@@ -45,7 +45,6 @@ import numpy as np
 import torch
 
 from . import _build
-from .narrow import score_dtype
 from .solver import dynamic_node_score_plain
 from .telemetry import ENGINE_FUSED, TELEM_WIDTH, decision_frame
 from .tensorize import VEC_EPS
@@ -121,14 +120,13 @@ def fused_allocate_plain(
         gang_enabled: bool = True, prop_overused: bool = True,
         dyn_enabled: bool = False, max_iters: int = 0,
         narrow: bool = False, narrow_gate: bool = False):
-    """The fused allocate loop in plain PyTorch, on the inputs' device."""
+    """The fused allocate loop in plain PyTorch, on the inputs' device.
+    ``narrow`` and ``narrow_gate`` set only the telemetry words
+    (kernels/narrow.py); the score matrix is read at float32."""
     dev = idle.device
     f32, i32 = torch.float32, torch.int32
     if dyn_weights is None:
         dyn_weights = torch.zeros(2, dtype=f32, device=dev)
-    # the score matrix is stored at the narrow-policy dtype (an exact
-    # round trip for the integer-valued scores); arithmetic is float32
-    scores = sig_scores.to(score_dtype(narrow)).to(f32)
     eps = torch.from_numpy(VEC_EPS).to(dev)
     idle = idle.clone()
     releasing = releasing.clone()
@@ -206,7 +204,7 @@ def fused_allocate_plain(
         fit_idle = (t_init <= idle + eps).all(dim=-1)
         fit_pipe = (t_init <= releasing + eps).all(dim=-1)
         eligible = pred & (fit_alloc | fit_pipe)
-        score = scores[sig]
+        score = sig_scores[sig]
         if dyn_enabled:
             score = score + dynamic_node_score_plain(
                 nz, task_nz[ti], allocatable_cm, dyn_weights)
@@ -324,9 +322,6 @@ def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
             raise ValueError(f"fused_allocate: {name} must have shape "
                              f"{shape}, got {tuple(a[name].shape)}")
     c = {k: v.contiguous() for k, v in a.items()}
-    if narrow:
-        c["sig_scores"] = c["sig_scores"].to(score_dtype(True)).to(
-            torch.float32)
     # node carries live in the outputs (the JAX kernel returns new arrays)
     idle = c["idle"].clone()
     releasing = c["releasing"].clone()
@@ -359,8 +354,4 @@ def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("fused_allocate", err)
     _build.count_launch("fused_allocate")
-    if dyn_enabled:
-        # the node score kernel's code (csrc/node_score.cuh) runs inside
-        # this launch: the main path's score launches are these
-        _build.count_launch("dynamic_node_score")
     return host_block, idle, releasing, n_tasks, nz

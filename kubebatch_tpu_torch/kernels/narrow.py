@@ -4,24 +4,22 @@ Scores the engines read are integer-valued and small: the static sig
 terms are host plugin scores (``floor(10 * x) * weight`` per nodeorder
 plugin) and the dynamic least-requested / balanced-resource terms are
 threshold counts (kernels/solver.dynamic_node_score), all exactly
-representable in bfloat16's 8-bit mantissa up to 256. Past a size
-threshold the score matrix is stored at bfloat16; every comparison
-still runs in float32 after the exact round trip, so decisions are
-identical. Resource arithmetic stays float32.
+representable in bfloat16's 8-bit mantissa up to 256. The reference
+package stores the score matrix at bfloat16 past a size threshold, and
+only when that round trip is exact, so its decisions are those of the
+float32 matrix. This package keeps the matrix at float32 and takes the
+same policy decision only for the solve's telemetry words (narrow,
+narrow_gate).
 
-Selection: ``KUBEBATCH_NARROW=1/0`` forces; unset, the policy is
-auto-by-size — narrow engages when the [T, N] product crosses
-``NARROW_AUTO_CELLS`` or the node axis crosses ``NARROW_AUTO_NODES``.
-At cfg5 (16384 x 8192) neither holds, so the matrix stays float32.
+The policy is auto-by-size: narrow engages when the [T, N] product
+crosses ``NARROW_AUTO_CELLS`` or the node axis crosses
+``NARROW_AUTO_NODES``, and the scores are bf16-exact. At cfg5
+(16384 x 8192) neither threshold holds.
 """
 from __future__ import annotations
 
-import os
-
-import torch
-
-__all__ = ["NARROW_AUTO_CELLS", "SCORE_WIDE_DTYPE", "SCORE_NARROW_DTYPE",
-           "narrow_enabled", "score_dtype"]
+__all__ = ["NARROW_AUTO_CELLS", "NARROW_AUTO_NODES", "narrow_enabled",
+           "scores_bf16_exact"]
 
 #: auto threshold on the [T, N] cell count: cfg5 (16384 x 8192 = 1.3e8)
 #: stays f32; cfg6 (53248 x 53248 = 2.8e9) narrows.  2**29 ~= 5.4e8
@@ -39,9 +37,6 @@ NARROW_AUTO_NODES = 16384
 #: integer neighbors collapse and argmax ties break differently than
 #: f32 — the decision-identity contract's hard boundary
 BF16_EXACT_MAX = 256.0
-
-SCORE_WIDE_DTYPE = torch.float32
-SCORE_NARROW_DTYPE = torch.bfloat16
 
 
 def scores_bf16_exact(static_scores, dyn_weights=None,
@@ -78,22 +73,12 @@ def narrow_enabled(n_pad: int, t_pad: int, static_scores=None,
     """The policy decision for one (node bucket, other-axis bucket)
     pair — called at arg-build time (prepare_fused).
 
-    When ``static_scores`` is given, AUTO narrowing additionally
-    requires :func:`scores_bf16_exact` — a cycle whose score scale
-    exceeds bf16's exact-integer range keeps f32 rather than silently
-    trading decisions for memory. The env override skips the gate (an
-    explicit operator/A-B choice, e.g. tools/narrow_ab.py)."""
-    env = os.environ.get("KUBEBATCH_NARROW", "").strip()
-    if env:
-        return env not in ("0", "false", "off")
+    When ``static_scores`` is given, narrowing additionally requires
+    :func:`scores_bf16_exact` — a cycle whose score scale exceeds bf16's
+    exact-integer range keeps f32."""
     if not (int(n_pad) >= NARROW_AUTO_NODES
             or int(n_pad) * int(t_pad) >= NARROW_AUTO_CELLS):
         return False
     if static_scores is None:
         return True
     return scores_bf16_exact(static_scores, dyn_weights, ip_weight)
-
-
-def score_dtype(narrow: bool):
-    """The dtype the score matrix is stored at."""
-    return SCORE_NARROW_DTYPE if narrow else SCORE_WIDE_DTYPE

@@ -44,36 +44,15 @@ class DrfPlugin(Plugin):
     def on_session_open(self, ssn: Session) -> None:
         self.total_resource.add(ssn.total_allocatable())
 
-        # Cross-cycle attr reuse (SCALING.md item 2; contract documented
-        # at cache.plugin_scratch): an attr stays valid while its job's
-        # clone is reused by the incremental snapshot — shares depend only
-        # on job.allocated (the maintained aggregate; the reference
-        # recomputes per open, drf.go:59-82) and on the cluster total,
-        # which only changes with node shape (total_changed below).
-        scratch = getattr(ssn.cache, "plugin_scratch", None)
-        state = scratch.get(NAME) if scratch is not None else None
-        refreshed = ssn.refreshed_jobs
-        attrs: Dict[str, DrfAttr]
-        if (state is None or refreshed is None
-                or state["total"] != self.total_resource):
-            attrs = {}
-            rebuild = ssn.jobs.values()
-        else:
-            attrs = state["attrs"]
-            for uid in list(attrs):
-                if uid not in ssn.jobs:
-                    del attrs[uid]
-            rebuild = [job for uid, job in ssn.jobs.items()
-                       if uid in refreshed or uid not in attrs]
-        for job in rebuild:
+        # shares from job.allocated, the maintained aggregate (the
+        # reference recomputes it per open, drf.go:59-82)
+        attrs: Dict[str, DrfAttr] = {}
+        for job in ssn.jobs.values():
             attr = DrfAttr()
             attr.allocated = job.allocated.clone()
             self._update_share(attr)
             attrs[job.uid] = attr
         self.job_opts = attrs
-        if scratch is not None:
-            scratch[NAME] = {"attrs": attrs,
-                             "total": self.total_resource.clone()}
 
         def preemptable_fn(preemptor: TaskInfo,
                            preemptees: List[TaskInfo]) -> List[TaskInfo]:

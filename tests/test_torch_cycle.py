@@ -14,6 +14,7 @@ import os
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 import kubebatch_tpu.actions  # noqa: E402,F401  (registers actions)
 import kubebatch_tpu.plugins  # noqa: E402,F401  (registers plugins)
@@ -173,9 +174,9 @@ def test_one_counted_sync_per_fused_solve(config):
 
 
 def test_unsupported_snapshot_falls_back_to_host_counted():
-    """Inter-pod affinity is outside the fused vocabulary: the cycle runs
-    the host path, the demotion is counted, and the binds still match the
-    reference package."""
+    """Inter-pod affinity is outside the fused vocabulary: on a CPU cache
+    the cycle runs the host path, the demotion is counted, and the binds
+    still match the reference package."""
     j, t = Side(False, "2p"), Side(True, "2p")
     dem0 = t_metrics.engine_demotions_total()
     j.cycle("fused")
@@ -184,6 +185,21 @@ def test_unsupported_snapshot_falls_back_to_host_counted():
     assert t_allocate_mod.last_cycle_engine == "host-visit"
     assert t.binder.calls
     _assert_same(j, t)
+
+
+def test_unsupported_snapshot_on_the_card_raises():
+    """On a CUDA cache the same cycle raises instead of moving the
+    allocate off the card. The cache only claims the card here: the
+    vocabulary check refuses the cycle before anything is uploaded."""
+    t = Side(True, "2p")
+    t.cache.device = torch.device("cuda")
+    dem0 = t_metrics.engine_demotions_total()
+    ssn = TOpen(t.cache, t_tiers())
+    with pytest.raises(NotImplementedError, match="affinity vocabulary"):
+        TAllocate(mode="fused").execute(ssn)
+    TClose(ssn)
+    assert t_metrics.engine_demotions_total() == dem0
+    assert not t.binder.calls
 
 
 def test_auto_refuses_the_batched_regime():

@@ -193,7 +193,9 @@ def test_fused_allocate_matches_reference(case):
 
 
 def test_fused_allocate_narrow_scores_match_reference(monkeypatch):
-    """The narrow (bfloat16) score store, forced on."""
+    """The reference's narrow (bfloat16) score store, forced on: its
+    integer scores round-trip exactly, so the port, reading them at
+    float32, gives the same decisions and the same telemetry words."""
     monkeypatch.setenv("KUBEBATCH_NARROW", "1")
     node, cycle, statics, ref = _reference_cycle(REDUCED5)
     assert statics["narrow"]
