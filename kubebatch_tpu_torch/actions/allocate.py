@@ -1,21 +1,28 @@
 """allocate — the primary scheduling action.
 
 Solver modes (constructor arg):
-- "auto" (default): "fused" below AUTO_BATCHED_MIN pending tasks on a
-  node axis below AUTO_HIER_MIN_NODES. The reference package runs its
-  batched round engine at or above the task threshold and its two-level
-  engine at or above the node threshold; neither is in this package yet,
-  so auto raises NotImplementedError there instead of running another
-  engine.
+- "auto" (default): the reference package's size-based choice on a node
+  axis below AUTO_HIER_MIN_NODES — "fused" below AUTO_BATCHED_MIN pending
+  tasks, "batched" at or above it. The reference runs its sharded round
+  engine instead of batched when it sees more than one device and a
+  large node axis; this package has no sharded engine (ROADMAP queue A,
+  multi-device), so it picks "batched" on any number of visible cards.
+  At or above AUTO_HIER_MIN_NODES the reference runs its two-level
+  engine, not in this package yet: auto raises NotImplementedError there.
 - "fused": the whole cycle as ONE device solve (kernels/fused.py) —
   queue/job/task selection and fairness state live in the solve, bit-exact
   vs the host heap algorithm; the host replays the decisions through
   Session.allocate/pipeline so plugins and the gang barrier observe
-  identical events. A snapshot the solve cannot express (custom order
-  plugins, inter-pod affinity, host ports, a real volume binder) needs an
-  engine this package does not have yet: on a CUDA cache the cycle
-  raises NotImplementedError; on a CPU cache it runs the host path,
-  counted in metrics.engine_demotions_total.
+  identical events.
+- "batched": the round engine (kernels/batched.py) as ONE device solve —
+  many placements per round, every round on the device; the same replay.
+  Exact in capacity, predicates and gang semantics, round-granular in
+  ordering (its docstring states the contract).
+- For "fused" and "batched" alike, a snapshot the solve cannot express
+  (custom order plugins, inter-pod affinity, host ports, a real volume
+  binder) needs an engine this package does not have yet: on a CUDA cache
+  the cycle raises NotImplementedError; on a CPU cache it runs the host
+  path, counted in metrics.engine_demotions_total.
 - "host": the reference-literal per-pair loops — the semantic oracle.
 
 ref: pkg/scheduler/actions/allocate/allocate.go. Control flow is preserved
@@ -40,10 +47,11 @@ AUTO_BATCHED_MIN = 512
 #: ... and to its two-level engine at this many nodes
 AUTO_HIER_MIN_NODES = 16384
 
-MODES = ("auto", "fused", "host")
+MODES = ("auto", "fused", "batched", "host")
 
 #: engine that consumed the last allocate cycle in this process
-#: ("fused" / "host-visit") — a fallback off the device engine shows here
+#: ("fused" / "batched" / "host-visit") — a fallback off the device
+#: engines shows here
 last_cycle_engine: str = ""
 
 
@@ -61,7 +69,8 @@ class AllocateAction(Action):
     @staticmethod
     def _auto_mode(ssn: Session) -> str:
         """Size-based engine selection with the reference package's
-        thresholds; only the fused regime exists here."""
+        thresholds. No sharded engine here: "batched" on any number of
+        visible cards."""
         if len(ssn.nodes) >= AUTO_HIER_MIN_NODES:
             raise NotImplementedError(
                 f"auto allocate at {len(ssn.nodes)} nodes needs the "
@@ -70,33 +79,31 @@ class AllocateAction(Action):
         pending = sum(
             len(j.task_status_index.get(TaskStatus.PENDING, {}))
             for j in ssn.jobs.values())
-        if pending >= AUTO_BATCHED_MIN:
-            raise NotImplementedError(
-                f"auto allocate with {pending} pending tasks needs the "
-                f"batched round engine, not ported yet (ROADMAP queue A, "
-                f"next slice: batched engine); use mode='fused'")
-        return "fused"
+        return "batched" if pending >= AUTO_BATCHED_MIN else "fused"
 
     def execute(self, ssn: Session) -> None:
         global last_cycle_engine
         mode = self._auto_mode(ssn) if self.mode == "auto" else self.mode
-        if mode == "fused":
-            from .allocate_fused import execute_fused
+        if mode in ("fused", "batched"):
             from .cycle_inputs import cycle_supported
-            # execute_fused returns False (without consuming state) when
-            # the snapshot carries features the solve can't model
-            if cycle_supported(ssn) and execute_fused(ssn):
-                last_cycle_engine = "fused"
+            if mode == "fused":
+                from .allocate_fused import execute_fused as run
+            else:
+                from .allocate_batched import execute_batched as run
+            # the engine returns False (without consuming state) when the
+            # snapshot carries features the solve can't model
+            if cycle_supported(ssn) and run(ssn):
+                last_cycle_engine = mode
                 return
             if ssn.cache.device.type == "cuda":
                 raise NotImplementedError(
-                    "this cycle is outside the fused solve's vocabulary "
+                    f"this cycle is outside the {mode} solve's vocabulary "
                     "(custom order/overused/ready plugins, inter-pod "
                     "affinity, host ports or a volume binder); its device "
-                    "engines are not ported yet (ROADMAP queue A, affinity "
-                    "vocabulary; queue B, B8 per-visit mode). Use "
+                    "engines are not ported yet (ROADMAP queue A, A7 "
+                    "affinity vocabulary; queue B, B8 per-visit mode). Use "
                     "mode='host' to run the host algorithm")
-            count_engine_demotion("fused", "host")
+            count_engine_demotion(mode, "host")
         self._execute_queued(ssn)
         last_cycle_engine = "host-visit"
 

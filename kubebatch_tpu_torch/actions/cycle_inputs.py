@@ -1,7 +1,7 @@
-"""Cycle tensorization for the whole-cycle device solver.
+"""Cycle tensorization for the whole-cycle device solvers.
 
-Builds every array the fused allocate solve (kernels/fused.py) consumes
-from an open Session:
+Builds every array the fused allocate solve (kernels/fused.py) and the
+batched round engine (kernels/batched.py) consume from an open Session:
 queue / job / task index spaces, fairness seeds (proportion deserved +
 allocated, DRF allocated + cluster total), order-key specs, and the
 sig-indexed static predicate/score terms.  Returns None when the session
@@ -132,8 +132,8 @@ def _gather_pending(ssn: Session, jobs: List[JobInfo]):
 
 @dataclass
 class CycleInputs:
-    """Everything the fused solve needs (numpy, host side), plus the
-    host-side indexes to map decisions back to Session objects."""
+    """Everything the whole-cycle solves need (numpy, host side), plus
+    the host-side indexes to map decisions back to Session objects."""
     # host-side indexes
     queue_ids: List[str]
     jobs: List[JobInfo]
@@ -176,10 +176,69 @@ class CycleInputs:
     queue_keys: Tuple[str, ...]
     gang_enabled: bool
     prop_overused: bool
+    #: False when no node carries releasing resources at cycle start —
+    #: lets the batched engine skip all pipeline-fit work
+    pipe_enabled: bool = True
+    # lazy cache for pair_terms(): (max_pairs budget, result)
+    _pair_terms: Optional[tuple] = None
 
     @property
     def n_tasks_real(self) -> int:
         return len(self.tasks)
+
+    def pair_terms(self, max_pairs: int = 2048):
+        """Cohorts for the batched engine's scoring and waterfall at (sig,
+        nonzero-request) granularity: tasks in one pair share the static
+        sig AND (exactly or within a quantization bucket) the nonzero
+        request, so per-pair dynamic node scores equal per-task scores.
+
+        Returns (task_pair [T_pad] int32, pair_sig [P_pad] int32,
+        pair_nz [P_pad,2] f32 member mean, exact: bool). When the exact
+        pair count exceeds ``max_pairs``, nz is bucketed on a log2 grid,
+        coarsening by octave fractions until the count fits. The result
+        is cached per budget value. (The reference package's
+        CycleInputs.pair_terms, copied.)"""
+        if self._pair_terms is not None and self._pair_terms[0] == max_pairs:
+            return self._pair_terms[1]
+        n_real = len(self.tasks)
+        t_pad = self.task_sig.shape[0]
+        sig = self.task_sig[:n_real].astype(np.int64)
+        nz = self.task_nz[:n_real]
+        exact = True
+        # bucket fractions: exact first, then 16ths of an octave downward
+        for steps in (0, 16, 8, 4, 2, 1):
+            if steps == 0:
+                key_nz = nz
+            else:
+                exact = False
+                with np.errstate(divide="ignore"):
+                    key_nz = np.exp2(
+                        np.round(np.log2(np.maximum(nz, 1e-9)) * steps)
+                        / steps).astype(np.float32)
+            keys = np.concatenate(
+                [sig[:, None].astype(np.float64),
+                 key_nz.astype(np.float64)], axis=1)
+            uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
+            if uniq.shape[0] <= max_pairs:
+                break
+        else:  # pragma: no cover — 1-octave buckets always fit max_pairs
+            uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
+        p = uniq.shape[0]
+        p_pad = pad_to_bucket(p, 4)
+        pair_sig = np.zeros(p_pad, np.int32)
+        pair_sig[:p] = uniq[:, 0].astype(np.int32)
+        # member means (exact pairs: mean of identical values = the value)
+        counts = np.bincount(inverse, minlength=p_pad).astype(np.float64)
+        denom = np.maximum(counts, 1.0)
+        pair_nz = np.zeros((p_pad, 2), np.float32)
+        for c in range(2):
+            pair_nz[:, c] = (np.bincount(inverse, weights=nz[:, c],
+                                         minlength=p_pad) / denom)
+        task_pair = np.zeros(t_pad, np.int32)
+        task_pair[:n_real] = inverse.astype(np.int32)
+        result = (task_pair, pair_sig, pair_nz, exact)
+        self._pair_terms = (max_pairs, result)
+        return result
 
 
 def build_cycle_inputs(ssn: Session) -> Optional[CycleInputs]:
@@ -318,7 +377,10 @@ def build_cycle_inputs(ssn: Session) -> Optional[CycleInputs]:
         j_alloc0=j_alloc0, cluster_total=cluster_total,
         dyn_weights=dyn_weights, dyn_enabled=dyn_enabled,
         job_keys=job_keys, queue_keys=queue_keys, gang_enabled=gang,
-        prop_overused=prop_overused)
+        prop_overused=prop_overused,
+        # the DeviceSession's numpy mirror holds every node's releasing
+        # vector in lock-step with host truth
+        pipe_enabled=bool(np.any(device.state.releasing > 0.0)))
 
 
 def _segment_lists(cols: np.ndarray):

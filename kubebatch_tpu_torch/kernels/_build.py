@@ -43,6 +43,10 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "fused_allocate.cu": {
         "kb_fused_allocate": "p" * 35 + "i" * 15 + "p",
     },
+    "batched_allocate.cu": {
+        "kb_batched_workspace": "pip",
+        "kb_batched_allocate": "pipipp",
+    },
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
     },

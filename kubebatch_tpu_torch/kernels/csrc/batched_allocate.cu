@@ -1,0 +1,1611 @@
+// The batched allocate cycle — every round, the compact continuation and
+// the stranded-gang epilogue — as one cooperative grid.
+//
+// Replaces kubebatch_tpu/kernels/batched.py:1184 _batched_packed, with
+// :436 _round, :885 _stranded_jobs, :916 _rollback_stranded and :1009
+// batched_allocate inside it (no inter-pod affinity / host-port branch),
+// kubebatch_tpu/kernels/solver.py:67 dynamic_node_score for the [P,N]
+// pair scores (node_score.cuh) and kubebatch_tpu/kernels/telemetry.py:95
+// decision_frame as the epilogue. The plain PyTorch version is
+// kubebatch_tpu_torch/kernels/batched.py batched_allocate_plain; every
+// float operation here is that version's, in the same order, so the
+// packed result and the node carry agree bit for bit (built with
+// -fmad=false and IEEE division):
+//  - cumulative sums in jnp.cumsum's 16-wide tiled order, the column sum
+//    in XLA's 32-window tree order, the segmented prefixes in
+//    jax.lax.associative_scan's odd/even tree (kernels/xla_order.py);
+//  - segment sums in task-index order: tasks are sorted by (segment,
+//    index) and one thread adds a segment's values one after another;
+//    where the reference adds onto a carry (``x + segment_sum``, which XLA
+//    folds into the scatter) the thread starts from the carry, where it
+//    subtracts it sums from 0 first. No float atomics anywhere.
+//
+// What bounds it on an H100: per round, two passes over [T_part, N] task
+// x node cells (eligibility, fit and the masked score argmax), ~20 float
+// operations a cell, and the [P,N] pair scores (~60 operations a cell);
+// at cfg5's round 0 that is ~2e9 operations (~0.06 ms at 33.5e12/s) and
+// the node state, [S,N] predicates and [P,N] scores it reads (~70 MB,
+// ~0.02 ms at 3.35 TB/s). Between those passes the round is a chain of
+// dependent steps over T (sorts, scans, segment sums) that each need every
+// earlier result: their latency, not bytes or operations, bounds it.
+// Design:
+//  - one cooperative launch (grid.sync() between phases, the grid no
+//    larger than what is co-resident) runs the whole cycle, so no round
+//    returns to the host; the host reads the packed result once;
+//  - the [T,N] passes spread over the grid: one warp per task row walks
+//    the nodes, keeping eligibility, any-eligible and the (score, lowest
+//    index) argmax in registers; nothing of size [T,N] is stored. The
+//    waterfall slot's eligibility is one cell per task;
+//  - the ordering steps (sorts of jobs, tasks, nodes and proposers; the
+//    scans; the per-node acceptance; the segment sums) run in block 0,
+//    sorting 64-bit composite keys with a bitonic sort in shared memory
+//    (the job order with a comparator over its float keys); the other
+//    blocks wait at the next grid barrier;
+//  - scalars shared across the grid sit in a small global array that
+//    every thread reads after the barrier.
+// Making the block-0 chain shorter (a counting sort per round, fewer
+// barriers) is later work.
+#include <algorithm>
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "node_score.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int NT = 512;                    // threads per block
+constexpr int SMEM_KEYS = 16384;           // sort keys held in shared memory
+constexpr int IMAX = 2147483647;
+constexpr int TELEM_WIDTH = 20;
+constexpr int WAVE_SLOTS = 4;
+constexpr int ENGINE_BATCHED = 2;
+constexpr float WINDOW_SLACK = 0.85f;
+constexpr uint64_t NONE = ~0ull;           // sorts after every real key
+constexpr unsigned FULL = 0xffffffffu;
+
+enum { SKIP = 0, ALLOC = 1, ALLOC_OB = 2, PIPELINE = 3, FAIL = 4 };
+enum { K_PRIORITY = 0, K_GANG_READY = 1, K_DRF_SHARE = 2 };
+
+// ---- arguments -------------------------------------------------------------
+
+// pointer slots, in the order the wrapper passes them
+enum {
+    P_IDLE, P_REL, P_NTASKS, P_NZ, P_BF, P_CAP, P_MAXT, P_NODE_OK,
+    P_RESREQ, P_INIT, P_TNZ, P_TJOB, P_TRANK, P_TSIG, P_TPAIR, P_TVALID,
+    P_SIG_SCORES, P_SIG_PRED, P_PAIR_SIG, P_PAIR_NZ, P_OMIN, P_INIT_ALLOC,
+    P_JQUEUE, P_JPRIO, P_JCRANK, P_JVALID, P_QDES, P_QCRANK, P_QALLOC0,
+    P_JALLOC0, P_CTOTAL, P_DYNW, P_EPS, P_OUT, P_PHASE, P_WS, N_PTRS
+};
+// int slots
+enum {
+    I_N, I_T, I_J, I_Q, I_P, I_NJK, I_JK0, I_JK1, I_JK2, I_QSHARE,
+    I_PROP_OVERUSED, I_DYN, I_PIPE, I_MAX_ROUNDS, I_BUCKET, I_GANG,
+    I_NARROW, I_NARROW_GATE, N_INTS
+};
+
+struct Params {
+    float* idle; float* rel; int32_t* ntasks; float* nz;
+    const float* bf; const float* cap; const int32_t* maxt;
+    const uint8_t* node_ok;
+    const float* resreq; const float* init; const float* tnz;
+    const int32_t* tjob; const int32_t* trank; const int32_t* tsig;
+    const int32_t* tpair; const uint8_t* tvalid;
+    const float* sig_scores; const uint8_t* sig_pred;
+    const int32_t* pair_sig; const float* pair_nz;
+    const int32_t* omin; const int32_t* init_alloc; const int32_t* jqueue;
+    const float* jprio; const int32_t* jcrank; const uint8_t* jvalid;
+    const float* qdes; const int32_t* qcrank; const float* qalloc0;
+    const float* jalloc0; const float* ctotal; const float* dynw;
+    const float* eps;
+    int32_t* out;
+    unsigned long long* phase_ns;          // [N_PHASES] device ns per phase
+    int N, T, J, Q, P, njk, jk[3], qshare, prop_overused, dyn, pipe,
+        max_rounds, bucket, gang, narrow, narrow_gate;
+    int MT, MJ, MN;                        // sort sizes (powers of two)
+};
+
+// scratch, carved from one workspace (layout() below)
+struct Work {
+    // job / queue
+    float* q_alloc; float* j_alloc; int32_t* alloc_cnt; uint8_t* alive;
+    uint8_t* overused; float* q_share; float* jkey; int32_t* jidx;
+    int32_t* job_order; int32_t* job_rank; float* job_demand;
+    uint8_t* eng_job; float* norm; float* norm_ord; float* cum_j;
+    uint8_t* q_ok; uint8_t* admitted; float* qn; int32_t* qperm;
+    int32_t* qj; int32_t* fail_rank; uint8_t* stranded; int32_t* j_rows;
+    int32_t* j_placed; int32_t* j_ob;
+    // node
+    float* accp; float* relp; uint8_t* basep; float* col_in; float* col_a;
+    float* col_b; int32_t* ord_sh; float* cm_in; float* cum_mass;
+    float* cnt_in; float* cum_cnt;
+    // pair
+    float* sc; int32_t* pair_demand;
+    // task (the current task view)
+    int32_t* tmap; uint8_t* vvalid; uint8_t* engaged; uint8_t* part;
+    uint8_t* any_elig; uint8_t* fail_now; uint8_t* fail_first;
+    uint8_t* part2; uint8_t* acc1; uint8_t* ob1; uint8_t* pa1;
+    uint8_t* retry; uint8_t* accr; uint8_t* obr; uint8_t* par;
+    uint8_t* accept; uint8_t* mask; uint8_t* unresolved;
+    int32_t* grank; int32_t* order; int32_t* fb; int32_t* fbr;
+    int32_t* prop1; int32_t* perm2; int32_t* nid; int32_t* chunk;
+    float* prefix; float* cnt_prefix; float* mass_in; float* mass_cum;
+    float* cnt_in_t; float* cnt_cum_t;
+    // segmented associative scan: levels of elements, then of results
+    float* sv; int32_t* scnt; uint8_t* sflag;
+    float* rv; int32_t* rcnt; uint8_t* rflag;
+    float* tscr;                           // tiled-cumsum level scratch
+    uint64_t* gkeys;                       // sort keys past SMEM_KEYS
+    int32_t* iscal; float* fscal;
+};
+
+enum { S_PROGRESS, S_MAJ, S_CNT, S_ANY_STRANDED, S_STRANDED, S_TCUR,
+       S_NSCAL };
+
+// phases timed between grid barriers (kernels/batched.py PHASES names
+// them in this order): the interval that ends at each barrier is added
+// to the phase the barrier closes
+enum { PH_SETUP, PH_ORDER, PH_ENGAGE, PH_WINDOW, PH_SCORES, PH_ROWS1,
+       PH_FAIL, PH_PART2, PH_WATERFALL, PH_PROPOSE, PH_FIT1, PH_ACCEPT1,
+       PH_VIEWS2, PH_ROWS2, PH_RETRY, PH_FIT2, PH_ACCEPT2, PH_COMPACT,
+       PH_EPILOGUE, N_PHASES };
+
+inline size_t align_up(size_t x) {
+    return (x + 255) & ~size_t(255);
+}
+
+__host__ __device__ inline int pow2_at_least(int n) {
+    int m = 1;
+    while (m < n) m <<= 1;
+    return m;
+}
+
+// Carve the workspace (base may be null: returns the size).
+inline size_t layout(const Params& p, char* base, Work* w) {
+    size_t off = 0;
+    auto take = [&](size_t bytes) -> char* {
+        char* ptr = base ? base + off : nullptr;
+        off = align_up(off + (bytes ? bytes : 1));
+        return ptr;
+    };
+    const size_t N = p.N, T = p.T, J = p.J, Q = p.Q, P = p.P;
+    const size_t TJ = std::max(T, J);
+    const size_t lv = 2 * TJ + 64;         // associative-scan levels
+    Work x;
+    x.q_alloc = (float*)take(Q * 3 * 4);
+    x.j_alloc = (float*)take(J * 3 * 4);
+    x.alloc_cnt = (int32_t*)take(J * 4);
+    x.alive = (uint8_t*)take(J);
+    x.overused = (uint8_t*)take(Q);
+    x.q_share = (float*)take(Q * 4);
+    x.jkey = (float*)take(J * 6 * 4);
+    x.jidx = (int32_t*)take(p.MJ * 4);
+    x.job_order = (int32_t*)take(J * 4);
+    x.job_rank = (int32_t*)take(J * 4);
+    x.job_demand = (float*)take(J * 3 * 4);
+    x.eng_job = (uint8_t*)take(J);
+    x.norm = (float*)take(J * 4);
+    x.norm_ord = (float*)take(J * 4);
+    x.cum_j = (float*)take(J * 4);
+    x.q_ok = (uint8_t*)take(J);
+    x.admitted = (uint8_t*)take(J);
+    x.qn = (float*)take(J * 4);
+    x.qperm = (int32_t*)take(J * 4);
+    x.qj = (int32_t*)take(J * 4);
+    x.fail_rank = (int32_t*)take(J * 4);
+    x.stranded = (uint8_t*)take(J);
+    x.j_rows = (int32_t*)take(J * 4);
+    x.j_placed = (int32_t*)take(J * 4);
+    x.j_ob = (int32_t*)take(J * 4);
+    x.accp = (float*)take(N * 3 * 4);
+    x.relp = (float*)take(N * 3 * 4);
+    x.basep = (uint8_t*)take(N);
+    x.col_in = (float*)take(N * 3 * 4);
+    x.col_a = (float*)take((N / 32 + 2) * 3 * 4);
+    x.col_b = (float*)take((N / 32 + 2) * 3 * 4);
+    x.ord_sh = (int32_t*)take(N * 4);
+    x.cm_in = (float*)take(N * 3 * 4);
+    x.cum_mass = (float*)take(N * 3 * 4);
+    x.cnt_in = (float*)take(N * 4);
+    x.cum_cnt = (float*)take(N * 4);
+    x.sc = (float*)take(P * N * 4);
+    x.pair_demand = (int32_t*)take(P * 4);
+    x.tmap = (int32_t*)take(T * 4);
+    uint8_t** flags[] = {&x.vvalid, &x.engaged, &x.part, &x.any_elig,
+                         &x.fail_now, &x.fail_first, &x.part2, &x.acc1,
+                         &x.ob1, &x.pa1, &x.retry, &x.accr, &x.obr, &x.par,
+                         &x.accept, &x.mask, &x.unresolved};
+    for (uint8_t** f : flags) *f = (uint8_t*)take(T);
+    int32_t** ints[] = {&x.grank, &x.order, &x.fb, &x.fbr, &x.prop1,
+                        &x.perm2, &x.nid};
+    for (int32_t** f : ints) *f = (int32_t*)take(T * 4);
+    x.chunk = (int32_t*)take((NT + 1) * 4);
+    x.prefix = (float*)take(T * 3 * 4);
+    x.cnt_prefix = (float*)take(T * 4);
+    x.mass_in = (float*)take(T * 3 * 4);
+    x.mass_cum = (float*)take(T * 3 * 4);
+    x.cnt_in_t = (float*)take(T * 4);
+    x.cnt_cum_t = (float*)take(T * 4);
+    x.sv = (float*)take(lv * 6 * 4);
+    x.scnt = (int32_t*)take(lv * 4);
+    x.sflag = (uint8_t*)take(lv);
+    x.rv = (float*)take(lv * 6 * 4);
+    x.rcnt = (int32_t*)take(lv * 4);
+    x.rflag = (uint8_t*)take(lv);
+    x.tscr = (float*)take((TJ + N) * 3 * 4);
+    x.gkeys = (uint64_t*)take((size_t)std::max(p.MT, std::max(p.MJ, p.MN))
+                              * 8);
+    x.iscal = (int32_t*)take(S_NSCAL * 4);
+    x.fscal = (float*)take(8 * 4);
+    if (w) *w = x;
+    return off;
+}
+
+// ---- small helpers ---------------------------------------------------------
+
+__device__ __forceinline__ int wrap_job(int j, int J) {
+    return j < 0 ? j + J : j;              // jnp indexing wraps -1 once
+}
+
+// reference _share: max over the resource axis of alloc/denom with
+// 0/0 -> 0, x/0 -> 1
+__device__ __forceinline__ float share3(const float* alloc,
+                                        const float* denom) {
+    float m = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        const float d = denom[r], a = alloc[r];
+        const float f = d == 0.0f ? (a == 0.0f ? 0.0f : 1.0f)
+                                  : a / fmaxf(d, 1e-30f);
+        m = r == 0 ? f : fmaxf(m, f);
+    }
+    return m;
+}
+
+// float -> uint32 whose unsigned order is the float order; -0.0 maps as
+// +0.0 (JAX's sort comparator canonicalises it)
+__device__ __forceinline__ uint32_t ord_bits(float f) {
+    if (f == 0.0f) f = 0.0f;
+    const uint32_t u = __float_as_uint(f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// jnp.searchsorted(side="left")'s default method: ceil(log2(n + 1))
+// halvings of (low, high) from (0, n)
+template <class V>
+__device__ __forceinline__ int search_left(const V* a, int stride, int n,
+                                           V q) {
+    unsigned low = 0, high = (unsigned)n;
+    const int levels = 32 - __clz(n);
+    for (int l = 0; l < levels; ++l) {
+        const unsigned mid = (low + high) >> 1;
+        if (q <= a[(size_t)mid * stride]) high = mid; else low = mid;
+    }
+    return (int)high;
+}
+
+__device__ __forceinline__ int lower_bound_u64(const uint64_t* a, int n,
+                                               uint64_t q) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a[mid] < q) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// ---- block-level building blocks (block 0) ---------------------------------
+
+// Bitonic sort of a[0..m) (m a power of two), ascending by ``less``.
+template <class V, class Less>
+__device__ void block_sort(V* a, int m, Less less) {
+    for (int k = 2; k <= m; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            for (int q = threadIdx.x; q < (m >> 1); q += blockDim.x) {
+                const int i = 2 * j * (q / j) + (q % j);
+                const int ixj = i + j;
+                const V x = a[i], y = a[ixj];
+                const bool up = (i & k) == 0;
+                if (up ? less(y, x) : less(x, y)) { a[i] = y; a[ixj] = x; }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+struct U64Less {
+    __device__ bool operator()(uint64_t a, uint64_t b) const { return a < b; }
+};
+
+// Sort keys[0..m), m = pow2 >= n, entries past n set to NONE first.
+// ``fill(i)`` gives the key of entry i < n.
+template <class Fill>
+__device__ void sort_keys(uint64_t* keys, int n, int m, Fill fill) {
+    for (int i = threadIdx.x; i < m; i += blockDim.x)
+        keys[i] = i < n ? fill(i) : NONE;
+    __syncthreads();
+    block_sort(keys, m, U64Less());
+}
+
+// Inclusive scan of x[i * ncol + c] (i < n) into y, in jnp.cumsum's
+// order: a sequential scan inside each 16-wide tile, the tile totals
+// scanned the same way (recursively), each tile's exclusive carry added.
+__device__ void block_tiled_cumsum(const float* x, float* y, int n, int ncol,
+                                   float* scratch) {
+    float* buf[8];
+    int ns[8];
+    buf[0] = y;
+    ns[0] = n;
+    int L = 0;
+    float* next = scratch;
+    // level 0 reads x; later levels scan their buffer in place
+    while (true) {
+        const int cur = ns[L];
+        const float* src = L == 0 ? x : buf[L];
+        const int tiles = (cur + 15) / 16;
+        const bool top = cur <= 16;
+        if (!top) {
+            buf[L + 1] = next;
+            ns[L + 1] = tiles;
+            next += (size_t)tiles * ncol;
+        }
+        for (int q = threadIdx.x; q < tiles * ncol; q += blockDim.x) {
+            const int tile = q / ncol, c = q % ncol;
+            const int i0 = tile * 16;
+            const int i1 = min(i0 + 16, cur);
+            float acc = src[(size_t)i0 * ncol + c];
+            buf[L][(size_t)i0 * ncol + c] = acc;
+            for (int i = i0 + 1; i < i1; ++i) {
+                acc = acc + src[(size_t)i * ncol + c];
+                buf[L][(size_t)i * ncol + c] = acc;
+            }
+            if (!top) {
+                // a tile short of 16 pads with zeros: its total is acc
+                buf[L + 1][(size_t)tile * ncol + c] = acc;
+            }
+        }
+        __syncthreads();
+        if (top) break;
+        ++L;
+    }
+    for (int l = L - 1; l >= 0; --l) {
+        for (int q = threadIdx.x; q < ns[l] * ncol; q += blockDim.x) {
+            const int i = q / ncol, c = q % ncol;
+            const int tile = i / 16;
+            const float carry = tile > 0 ? buf[l + 1][(size_t)(tile - 1) * ncol
+                                                      + c]
+                                         : 0.0f;
+            buf[l][q] = buf[l][q] + carry;
+        }
+        __syncthreads();
+    }
+}
+
+// Column sums of x[n, ncol] in the order of x.sum(axis=0): windows of 32
+// (the pad split evenly before and after) summed sequentially until 32 or
+// fewer rows remain, then those in sequence. Result in out[ncol].
+__device__ void block_column_sum(const float* x, int n, int ncol, float* a,
+                                 float* b, float* out) {
+    const float* cur = x;
+    float* dst = a;
+    while (n > 32) {
+        const int m = (n + 31) / 32;
+        const int lo = (m * 32 - n) / 2;
+        for (int q = threadIdx.x; q < m * ncol; q += blockDim.x) {
+            const int w = q / ncol, c = q % ncol;
+            float acc = 0.0f;
+            for (int j = 0; j < 32; ++j) {
+                const int i = w * 32 + j - lo;
+                const float v = (i >= 0 && i < n) ? cur[(size_t)i * ncol + c]
+                                                  : 0.0f;
+                acc = j == 0 ? v : acc + v;
+            }
+            dst[q] = acc;
+        }
+        __syncthreads();
+        cur = dst;
+        dst = dst == a ? b : a;
+        n = m;
+    }
+    for (int c = threadIdx.x; c < ncol; c += blockDim.x) {
+        float acc = cur[c];
+        for (int i = 1; i < n; ++i) acc = acc + cur[(size_t)i * ncol + c];
+        out[c] = acc;
+    }
+    __syncthreads();
+}
+
+// jax.lax.associative_scan of (values[NV], count, flag) elements with the
+// reference's segmented combine (b.flag ? b : a + b; flags or-ed), in the
+// same tree: pairs (0,1), (2,3).. combine, the halves scan recursively,
+// each even output combines the odd output before it with its element.
+// Level 0 (n elements) is filled by the caller at sv/scnt/sflag; the
+// inclusive result lands at rv/rcnt/rflag[0..n).
+template <int NV>
+struct SegScan {
+    float* sv; int32_t* sc; uint8_t* sf;
+    float* rv; int32_t* rc; uint8_t* rf;
+
+    __device__ void comb(const float* av, int ac, uint8_t af, const float* bv,
+                         int bc, uint8_t bf, float* ov, int32_t* oc,
+                         uint8_t* of) const {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) ov[v] = bf ? bv[v] : av[v] + bv[v];
+        *oc = bf ? bc : ac + bc;
+        *of = af | bf;
+    }
+
+    __device__ void run(int n) const {
+        int ns[32], off[32];
+        int L = 0;
+        ns[0] = n;
+        off[0] = 0;
+        while (ns[L] >= 2) {
+            const int h = ns[L] / 2;
+            off[L + 1] = off[L] + ns[L];
+            ns[L + 1] = h;
+            for (int i = threadIdx.x; i < h; i += blockDim.x) {
+                const int a = off[L] + 2 * i, b = a + 1, o = off[L + 1] + i;
+                comb(sv + (size_t)a * NV, sc[a], sf[a], sv + (size_t)b * NV,
+                     sc[b], sf[b], sv + (size_t)o * NV, sc + o, sf + o);
+            }
+            __syncthreads();
+            ++L;
+        }
+        // top level: its scan is itself
+        for (int i = threadIdx.x; i < ns[L]; i += blockDim.x) {
+            const int s = off[L] + i;
+            for (int v = 0; v < NV; ++v) rv[(size_t)s * NV + v] =
+                sv[(size_t)s * NV + v];
+            rc[s] = sc[s];
+            rf[s] = sf[s];
+        }
+        __syncthreads();
+        for (int l = L - 1; l >= 0; --l) {
+            for (int i = threadIdx.x; i < ns[l]; i += blockDim.x) {
+                const int o = off[l] + i;
+                if (i & 1) {
+                    const int s = off[l + 1] + i / 2;
+                    for (int v = 0; v < NV; ++v) rv[(size_t)o * NV + v] =
+                        rv[(size_t)s * NV + v];
+                    rc[o] = rc[s];
+                    rf[o] = rf[s];
+                } else if (i == 0) {
+                    for (int v = 0; v < NV; ++v) rv[(size_t)o * NV + v] =
+                        sv[(size_t)o * NV + v];
+                    rc[o] = sc[o];
+                    rf[o] = sf[o];
+                } else {
+                    const int s = off[l + 1] + i / 2 - 1;
+                    comb(rv + (size_t)s * NV, rc[s], rf[s],
+                         sv + (size_t)o * NV, sc[o], sf[o],
+                         rv + (size_t)o * NV, rc + o, rf + o);
+                }
+            }
+            __syncthreads();
+        }
+    }
+};
+
+// ---- the cycle -------------------------------------------------------------
+
+struct Cycle {
+    const Params& p;
+    const Work& w;
+    uint64_t* skeys;                       // shared-memory sort keys
+    cg::grid_group grid;
+    int gtid, gsize, lane, gwarp, nwarps;
+    bool b0;
+    unsigned long long t_last;             // thread 0's last barrier time
+
+    __device__ Cycle(const Params& p_, const Work& w_, uint64_t* s)
+        : p(p_), w(w_), skeys(s), grid(cg::this_grid()) {
+        gtid = blockIdx.x * blockDim.x + threadIdx.x;
+        gsize = gridDim.x * blockDim.x;
+        lane = threadIdx.x & 31;
+        gwarp = gtid >> 5;
+        nwarps = gsize >> 5;
+        b0 = blockIdx.x == 0;
+    }
+
+    static __device__ __forceinline__ unsigned long long now_ns() {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        return t;
+    }
+
+    // grid barrier closing phase ``ph``; thread 0 adds the interval since
+    // the previous barrier to that phase's device time
+    __device__ void sync(int ph) {
+        grid.sync();
+        if (gtid == 0) {
+            const unsigned long long t = now_ns();
+            p.phase_ns[ph] += t - t_last;
+            t_last = t;
+        }
+    }
+
+    __device__ uint64_t* keybuf(int m) const {
+        return m <= SMEM_KEYS ? skeys : w.gkeys;
+    }
+
+    __device__ int tcur() const { return w.iscal[S_TCUR]; }
+
+    // predicate + count room + fit of task t at node n against the
+    // precomputed accp = (idle + bf) + eps, relp = rel + eps, basep
+    __device__ __forceinline__ bool cell(int sig, const float* init,
+                                         int n) const {
+        if (!(p.sig_pred[(size_t)sig * p.N + n] && w.basep[n])) return false;
+        const float* a = w.accp + (size_t)n * 3;
+        bool fit = init[0] <= a[0] && init[1] <= a[1] && init[2] <= a[2];
+        if (p.pipe && !fit) {
+            const float* r = w.relp + (size_t)n * 3;
+            fit = init[0] <= r[0] && init[1] <= r[1] && init[2] <= r[2];
+        }
+        return fit;
+    }
+
+    // grid: accp / relp / basep from the current node carry
+    __device__ void node_views() {
+        for (int n = gtid; n < p.N; n += gsize) {
+#pragma unroll
+            for (int r = 0; r < 3; ++r) {
+                const int i = n * 3 + r;
+                w.accp[i] = (p.idle[i] + p.bf[i]) + p.eps[r];
+                w.relp[i] = p.rel[i] + p.eps[r];
+            }
+            w.basep[n] = p.node_ok[n] && p.ntasks[n] < p.maxt[n];
+        }
+    }
+
+    // grid, one warp per task row with mask[k]: any eligible node and the
+    // lowest-index argmax of the pair's scores over the eligible nodes
+    // (node 0 when none is)
+    __device__ void row_pass(const uint8_t* mask, uint8_t* any_out,
+                             int32_t* best_out) {
+        const int tc = tcur();
+        for (int k = gwarp; k < tc; k += nwarps) {
+            if (!mask[k]) continue;
+            const int t = w.tmap[k];
+            const int sig = p.tsig[t];
+            const float init[3] = {p.init[t * 3], p.init[t * 3 + 1],
+                                   p.init[t * 3 + 2]};
+            const float* scp = w.sc + (size_t)p.tpair[t] * p.N;
+            bool any = false;
+            float bv = -INFINITY;
+            int bi = IMAX;
+            for (int n = lane; n < p.N; n += 32) {
+                if (!cell(sig, init, n)) continue;
+                const float v = scp[n];
+                if (!any || v > bv) { bv = v; bi = n; }
+                any = true;
+            }
+            for (int o = 16; o > 0; o >>= 1) {
+                const float ov = __shfl_xor_sync(FULL, bv, o);
+                const int oi = __shfl_xor_sync(FULL, bi, o);
+                const int oa = __shfl_xor_sync(FULL, (int)any, o);
+                if (oa && (!any || ov > bv || (ov == bv && oi < bi))) {
+                    bv = ov;
+                    bi = oi;
+                }
+                any = any || oa;
+            }
+            if (lane == 0) {
+                any_out[k] = any;
+                best_out[k] = any ? bi : 0;
+            }
+        }
+    }
+
+    // ---- per-segment sums in task-index order (block 0) ---------------
+
+    // Sort (segment << 32 | k) for the tasks ``seg(k) >= 0`` of the view;
+    // returns the key array (sorted, NONE past the included ones).
+    template <class Seg>
+    __device__ uint64_t* segment_keys(Seg seg) {
+        const int tc = tcur(), m = p.MT;
+        uint64_t* keys = keybuf(m);
+        sort_keys(keys, tc, m, [&](int k) -> uint64_t {
+            const int s = seg(k);
+            return s < 0 ? NONE : ((uint64_t)s << 32) | (uint32_t)k;
+        });
+        return keys;
+    }
+
+    // ---- round phases ---------------------------------------------------
+
+    // block 0: queue overuse / shares, the job order, the demand window
+    __device__ void order_jobs() {
+        const int J = p.J, Q = p.Q;
+        for (int q = threadIdx.x; q < Q; q += blockDim.x) {
+            bool over = p.prop_overused;
+            for (int r = 0; r < 3 && over; ++r)
+                over = p.qdes[q * 3 + r] < w.q_alloc[q * 3 + r] + p.eps[r];
+            w.overused[q] = over;
+            w.q_share[q] = p.qshare ? share3(w.q_alloc + q * 3, p.qdes + q * 3)
+                                    : 0.0f;
+        }
+        __syncthreads();
+        const int nk = 3 + p.njk;
+        for (int j = threadIdx.x; j < J; j += blockDim.x) {
+            float* k = w.jkey + (size_t)j * 6;
+            const int q = p.jqueue[j];
+            k[0] = w.q_share[q];
+            k[1] = (float)p.qcrank[q];
+            for (int i = 0; i < p.njk; ++i) {
+                const int code = p.jk[i];
+                k[2 + i] = code == K_PRIORITY ? -p.jprio[j]
+                         : code == K_GANG_READY
+                             ? (w.alloc_cnt[j] >= p.omin[j] ? 1.0f : 0.0f)
+                             : share3(w.j_alloc + (size_t)j * 3, p.ctotal);
+            }
+            k[2 + p.njk] = (float)p.jcrank[j];
+        }
+        for (int i = threadIdx.x; i < p.MJ; i += blockDim.x) w.jidx[i] = i;
+        __syncthreads();
+        const float* jkey = w.jkey;
+        block_sort(w.jidx, p.MJ, [=](int a, int b) {
+            if (a >= J || b >= J) return a < b;
+            const float* ka = jkey + (size_t)a * 6;
+            const float* kb = jkey + (size_t)b * 6;
+            for (int i = 0; i < nk; ++i) {
+                if (ka[i] < kb[i]) return true;
+                if (ka[i] > kb[i]) return false;
+            }
+            return a < b;
+        });
+        for (int k = threadIdx.x; k < J; k += blockDim.x) {
+            const int j = w.jidx[k];
+            w.job_order[k] = j;
+            w.job_rank[j] = k;
+            w.fail_rank[j] = IMAX;
+        }
+        for (int q = threadIdx.x; q < p.P; q += blockDim.x)
+            w.pair_demand[q] = 0;
+        // avail_pool: column sums over the nodes of the accessible pool
+        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
+            const bool base = p.node_ok[n] && p.ntasks[n] < p.maxt[n];
+            for (int r = 0; r < 3; ++r) {
+                const int i = n * 3 + r;
+                w.col_in[i] = base ? fmaxf(p.idle[i] + p.bf[i], 0.0f) : 0.0f;
+            }
+        }
+        __syncthreads();
+        block_column_sum(w.col_in, p.N, 3, w.col_a, w.col_b, w.fscal);
+        if (p.pipe) {
+            for (int i = threadIdx.x; i < p.N * 3; i += blockDim.x)
+                w.col_in[i] = fmaxf(p.rel[i], 0.0f);
+            __syncthreads();
+            block_column_sum(w.col_in, p.N, 3, w.col_a, w.col_b, w.fscal + 3);
+            if (threadIdx.x < 3)
+                w.fscal[threadIdx.x] = w.fscal[threadIdx.x]
+                                       + w.fscal[3 + threadIdx.x];
+            __syncthreads();
+        }
+    }
+
+    // grid: engaged tasks
+    __device__ void engage() {
+        const int tc = tcur();
+        for (int k = gtid; k < tc; k += gsize) {
+            const int t = w.tmap[k];
+            const int j = wrap_job(p.tjob[t], p.J);
+            w.engaged[k] = w.vvalid[k] && p.out[t] == SKIP && w.alive[j]
+                           && p.jvalid[j] && !w.overused[p.jqueue[j]];
+        }
+    }
+
+    // block 0: the demand window and the per-queue budgets -> admitted
+    __device__ void window() {
+        const int J = p.J;
+        // job_demand: per job, engaged requests in task-index order
+        uint64_t* keys = segment_keys([&](int k) {
+            return w.engaged[k] ? max(p.tjob[w.tmap[k]], 0) : -1;
+        });
+        for (int j = threadIdx.x; j < J; j += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)j << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(j + 1) << 32);
+            float s[3] = {0.0f, 0.0f, 0.0f};
+            for (int i = lo; i < hi; ++i) {
+                const int t = w.tmap[(int)(keys[i] & 0xffffffffu)];
+                for (int r = 0; r < 3; ++r) s[r] = s[r] + p.resreq[t * 3 + r];
+            }
+            bool eng = false;
+            float nm = 0.0f;
+            for (int r = 0; r < 3; ++r) {
+                w.job_demand[j * 3 + r] = s[r];
+                eng = eng || s[r] > 0.0f;
+                const float av = w.fscal[r];
+                const float f = av > 0.0f ? s[r] / fmaxf(av, 1e-9f) : 0.0f;
+                nm = r == 0 ? f : fmaxf(nm, f);
+            }
+            w.eng_job[j] = eng;
+            w.norm[j] = nm;
+        }
+        __syncthreads();
+        for (int k = threadIdx.x; k < J; k += blockDim.x)
+            w.norm_ord[k] = w.norm[w.job_order[k]];
+        __syncthreads();
+        if (p.prop_overused) {
+            for (int j = threadIdx.x; j < J; j += blockDim.x) {
+                const int q = p.jqueue[j];
+                float nm = 0.0f;
+                for (int r = 0; r < 3; ++r) {
+                    const float rem = fmaxf(p.qdes[q * 3 + r]
+                                            - w.q_alloc[q * 3 + r], 0.0f);
+                    const float f = rem > 0.0f
+                        ? w.job_demand[j * 3 + r] / fmaxf(rem, 1e-9f) : 0.0f;
+                    nm = r == 0 ? f : fmaxf(nm, f);
+                }
+                w.qn[j] = nm;
+            }
+            // jobs grouped by queue, rank order inside each queue
+            uint64_t* jk = keybuf(p.MJ);
+            sort_keys(jk, J, p.MJ, [&](int j) {
+                return ((uint64_t)(uint32_t)p.jqueue[j] << 32)
+                       | (uint32_t)w.job_rank[j];
+            });
+            for (int k = threadIdx.x; k < J; k += blockDim.x) {
+                const int j = w.job_order[(int)(jk[k] & 0xffffffffu)];
+                w.qperm[k] = j;
+                w.qj[k] = p.jqueue[j];
+            }
+            __syncthreads();
+            for (int k = threadIdx.x; k < J; k += blockDim.x) {
+                const int st = search_left(w.qj, 1, J, w.qj[k]);
+                const int j = w.qperm[k];
+                w.sv[k * 2] = w.qn[j];
+                w.sv[k * 2 + 1] = w.eng_job[j] ? 1.0f : 0.0f;
+                w.scnt[k] = 0;
+                w.sflag[k] = k == st;
+            }
+            __syncthreads();
+            SegScan<2>{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag}.run(J);
+            for (int k = threadIdx.x; k < J; k += blockDim.x) {
+                const float qp = w.rv[k * 2] - w.sv[k * 2];
+                const float ec = w.rv[k * 2 + 1] - w.sv[k * 2 + 1];
+                const int j = w.qperm[k];
+                const bool first = w.eng_job[j] && ec == 0.0f;
+                w.q_ok[j] = qp <= 1.0f || first;
+            }
+            __syncthreads();
+            for (int k = threadIdx.x; k < J; k += blockDim.x)
+                w.norm_ord[k] = w.norm_ord[k]
+                                * (w.q_ok[w.job_order[k]] ? 1.0f : 0.0f);
+            __syncthreads();
+        } else {
+            for (int j = threadIdx.x; j < J; j += blockDim.x) w.q_ok[j] = 1;
+        }
+        block_tiled_cumsum(w.norm_ord, w.cum_j, J, 1, w.tscr);
+        for (int k = threadIdx.x; k < J; k += blockDim.x) {
+            const float excl = w.cum_j[k] - w.norm_ord[k];
+            const int j = w.job_order[k];
+            w.admitted[j] = (excl <= WINDOW_SLACK) && w.q_ok[j];
+        }
+    }
+
+    // block 0: the global task rank (job order, task rank, index)
+    __device__ void rank_tasks() {
+        const int tc = tcur(), m = p.MT;
+        uint64_t* keys = keybuf(m);
+        sort_keys(keys, tc, m, [&](int k) {
+            const int t = w.tmap[k];
+            const uint64_t jr = w.part[k]
+                ? (uint64_t)w.job_rank[wrap_job(p.tjob[t], p.J)] : 0xffffffull;
+            return (jr << 40) | ((uint64_t)(uint32_t)p.trank[t] << 20)
+                   | (uint64_t)k;
+        });
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = (int)(keys[i] & 0xfffffu);
+            w.order[i] = k;
+            w.grank[k] = i;
+        }
+    }
+
+    // grid: [P,N] pair scores against the round-start nz carry
+    __device__ void pair_scores() {
+        const size_t total = (size_t)p.P * p.N;
+        const float w0 = p.dynw[0], w1 = p.dynw[1];
+        for (size_t i = gtid; i < total; i += gsize) {
+            const int q = (int)(i / p.N), n = (int)(i % p.N);
+            float dyn = 0.0f;
+            if (p.dyn)
+                dyn = kb::dynamic_node_score(
+                    p.nz[n * 2], p.nz[n * 2 + 1], p.pair_nz[q * 2],
+                    p.pair_nz[q * 2 + 1], p.cap[n * 2], p.cap[n * 2 + 1],
+                    w0, w1);
+            w.sc[i] = p.sig_scores[(size_t)p.pair_sig[q] * p.N + n] + dyn;
+        }
+    }
+
+    // grid: failures, the kill rank, part2, pair demand
+    __device__ void fail_and_kill() {
+        const int tc = tcur();
+        for (int k = gtid; k < tc; k += gsize) {
+            const bool f = w.part[k] && !w.any_elig[k];
+            w.fail_now[k] = f;
+            if (f) atomicMin(&w.fail_rank[max(p.tjob[w.tmap[k]], 0)],
+                             w.grank[k]);
+        }
+    }
+
+    __device__ void settle_part2() {
+        const int tc = tcur();
+        for (int k = gtid; k < tc; k += gsize) {
+            const int t = w.tmap[k];
+            const int fr = w.fail_rank[wrap_job(p.tjob[t], p.J)];
+            w.fail_first[k] = w.fail_now[k] && w.grank[k] == fr;
+            const bool blocked = w.part[k] && w.grank[k] > fr;
+            const bool p2 = w.part[k] && !w.fail_now[k] && !blocked
+                            && w.any_elig[k];
+            w.part2[k] = p2;
+            if (p2) atomicAdd(&w.pair_demand[p.tpair[t]], 1);
+        }
+    }
+
+    // block 0: the shared waterfall's cumulative capacity and task prefixes
+    __device__ void waterfall() {
+        const int tc = tcur(), N = p.N;
+        __shared__ int s_best[NT / 32], s_bidx[NT / 32];
+        // maj_pair: argmax of pair_demand, lowest index on ties
+        int bv = -1, bi = 0;
+        for (int q = threadIdx.x; q < p.P; q += blockDim.x) {
+            const int v = w.pair_demand[q];
+            if (v > bv) { bv = v; bi = q; }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+            const int ov = __shfl_xor_sync(FULL, bv, o);
+            const int oi = __shfl_xor_sync(FULL, bi, o);
+            if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+        }
+        if (lane == 0) {
+            s_best[threadIdx.x >> 5] = bv;
+            s_bidx[threadIdx.x >> 5] = bi;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            int b = s_best[0], bidx = s_bidx[0];
+            for (int i = 1; i < NT / 32; ++i)
+                if (s_best[i] > b || (s_best[i] == b && s_bidx[i] < bidx)) {
+                    b = s_best[i];
+                    bidx = s_bidx[i];
+                }
+            w.iscal[S_MAJ] = bidx;
+        }
+        __syncthreads();
+        const int maj = w.iscal[S_MAJ];
+        const float* shared_sc = w.sc + (size_t)maj * N;
+        const uint8_t* maj_pred = p.sig_pred + (size_t)p.pair_sig[maj] * N;
+        uint64_t* keys = keybuf(p.MN);
+        sort_keys(keys, N, p.MN, [&](int n) {
+            return ((uint64_t)ord_bits(-shared_sc[n]) << 32) | (uint32_t)n;
+        });
+        for (int i = threadIdx.x; i < N; i += blockDim.x) {
+            const int n = (int)(keys[i] & 0xffffffffu);
+            w.ord_sh[i] = n;
+            const bool ok = maj_pred[n] && w.basep[n];
+            for (int r = 0; r < 3; ++r)
+                w.cm_in[i * 3 + r] = ok ? fmaxf(p.idle[n * 3 + r]
+                                                + p.bf[n * 3 + r], 0.0f)
+                                        : 0.0f;
+            w.cnt_in[i] = ok ? (float)max(p.maxt[n] - p.ntasks[n], 0) : 0.0f;
+        }
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = w.order[i];
+            const int t = w.tmap[k];
+            const float one = w.part2[k] ? 1.0f : 0.0f;
+            for (int r = 0; r < 3; ++r)
+                w.mass_in[i * 3 + r] = one * p.resreq[t * 3 + r];
+            w.cnt_in_t[i] = one;
+        }
+        __syncthreads();
+        block_tiled_cumsum(w.cm_in, w.cum_mass, N, 3, w.tscr);
+        block_tiled_cumsum(w.cnt_in, w.cum_cnt, N, 1, w.tscr);
+        block_tiled_cumsum(w.mass_in, w.mass_cum, tc, 3, w.tscr);
+        block_tiled_cumsum(w.cnt_in_t, w.cnt_cum_t, tc, 1, w.tscr);
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = w.order[i];
+            for (int r = 0; r < 3; ++r)
+                w.prefix[k * 3 + r] = w.mass_cum[i * 3 + r]
+                                      - w.mass_in[i * 3 + r];
+            w.cnt_prefix[k] = w.cnt_cum_t[i] - w.cnt_in_t[i];
+        }
+    }
+
+    // grid: proposals (waterfall slot, else the argmax) and their fit kind
+    __device__ void propose() {
+        const int tc = tcur(), N = p.N;
+        for (int k = gtid; k < tc; k += gsize) {
+            if (!w.part2[k]) continue;
+            const int t = w.tmap[k];
+            int slot = 0;
+            for (int r = 0; r < 3; ++r) {
+                const float need = w.prefix[k * 3 + r] + p.resreq[t * 3 + r];
+                slot = max(slot, search_left(w.cum_mass + r, 3, N, need));
+            }
+            slot = max(slot, search_left(w.cum_cnt, 1, N,
+                                         w.cnt_prefix[k] + 1.0f));
+            const bool slot_ok = slot < N;
+            const int pw = w.ord_sh[min(slot, N - 1)];
+            const float init[3] = {p.init[t * 3], p.init[t * 3 + 1],
+                                   p.init[t * 3 + 2]};
+            const bool water = cell(p.tsig[t], init, pw) && slot_ok;
+            w.prop1[k] = water ? pw : w.fb[k];
+        }
+    }
+
+    // grid: prop_alloc = the launch request fits idle + backfilled at the
+    // proposed node (against the carry as it stands)
+    __device__ void fit_kind(const uint8_t* mask, const int32_t* prop,
+                             uint8_t* pa) {
+        const int tc = tcur();
+        for (int k = gtid; k < tc; k += gsize) {
+            if (!mask[k]) continue;
+            const int t = w.tmap[k];
+            const int n = prop[k];
+            bool fit = true;
+            for (int r = 0; r < 3; ++r)
+                fit = fit && p.init[t * 3 + r]
+                                 <= (p.idle[n * 3 + r] + p.bf[n * 3 + r])
+                                    + p.eps[r];
+            pa[k] = fit;
+        }
+    }
+
+    // block 0: per node, proposers in global-rank order while the
+    // segmented prefix of accepted requests fits (reference accept_phase)
+    __device__ void accept_phase(const int32_t* prop, const uint8_t* mask,
+                                 const uint8_t* pa, uint8_t* acc,
+                                 uint8_t* ob) {
+        const int tc = tcur(), m = p.MT, N = p.N;
+        uint64_t* keys = keybuf(m);
+        sort_keys(keys, tc, m, [&](int k) {
+            const uint32_t node = mask[k] ? (uint32_t)prop[k] : (uint32_t)N;
+            return ((uint64_t)node << 32) | (uint32_t)w.grank[k];
+        });
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            w.perm2[i] = w.order[(int)(keys[i] & 0xffffffffu)];
+            w.nid[i] = (int)(keys[i] >> 32);
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = w.perm2[i];
+            const int t = w.tmap[k];
+            const bool part = mask[k], al = pa[k];
+            for (int r = 0; r < 3; ++r) {
+                const float v = p.resreq[t * 3 + r];
+                w.sv[i * 6 + r] = (al && part) ? v : 0.0f;
+                w.sv[i * 6 + 3 + r] = (!al && part) ? v : 0.0f;
+            }
+            w.scnt[i] = part ? 1 : 0;
+            w.sflag[i] = i == search_left(w.nid, 1, tc, w.nid[i]);
+        }
+        __syncthreads();
+        SegScan<6>{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag}.run(tc);
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = w.perm2[i];
+            const int t = w.tmap[k];
+            const int nc = min(w.nid[i], N - 1);
+            const bool part = mask[k], al = pa[k];
+            const int excl_cnt = w.rcnt[i] - w.scnt[i];
+            const bool room = (p.maxt[nc] - p.ntasks[nc] - excl_cnt) > 0;
+            bool fa = true, fp = true, fi = true;
+            for (int r = 0; r < 3; ++r) {
+                const float ea = w.rv[i * 6 + r] - w.sv[i * 6 + r];
+                const float ep = w.rv[i * 6 + 3 + r] - w.sv[i * 6 + 3 + r];
+                const float in = p.init[t * 3 + r];
+                const float acc_c = p.idle[nc * 3 + r] + p.bf[nc * 3 + r];
+                fa = fa && in <= (acc_c - ea) + p.eps[r];
+                fp = fp && in <= (p.rel[nc * 3 + r] - ep) + p.eps[r];
+                fi = fi && in <= (p.idle[nc * 3 + r] - ea) + p.eps[r];
+            }
+            const bool ok_alloc = al && part && room && fa;
+            const bool ok_pipe = p.pipe && !al && part && room && fp;
+            acc[k] = ok_alloc || ok_pipe;
+            ob[k] = ok_alloc && !fi;
+        }
+        __syncthreads();
+    }
+
+    // block 0: capacity commit of accepted proposals, per node in
+    // task-index order (idle/rel: sum then subtract; nz: onto the carry)
+    __device__ void commit_node(const uint8_t* acc, const int32_t* prop,
+                                const uint8_t* pa) {
+        uint64_t* keys = segment_keys([&](int k) {
+            return acc[k] ? prop[k] : -1;
+        });
+        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)n << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(n + 1) << 32);
+            if (lo == hi) continue;
+            float sa[3] = {0.0f, 0.0f, 0.0f}, sp[3] = {0.0f, 0.0f, 0.0f};
+            float z0 = p.nz[n * 2], z1 = p.nz[n * 2 + 1];
+            for (int i = lo; i < hi; ++i) {
+                const int k = (int)(keys[i] & 0xffffffffu);
+                const int t = w.tmap[k];
+                const bool al = pa[k];
+                for (int r = 0; r < 3; ++r) {
+                    const float v = p.resreq[t * 3 + r];
+                    sa[r] = sa[r] + (al ? v : 0.0f);
+                    sp[r] = sp[r] + (al ? 0.0f : v);
+                }
+                z0 = z0 + p.tnz[t * 2];
+                z1 = z1 + p.tnz[t * 2 + 1];
+            }
+            for (int r = 0; r < 3; ++r) {
+                p.idle[n * 3 + r] = p.idle[n * 3 + r] - sa[r];
+                p.rel[n * 3 + r] = p.rel[n * 3 + r] - sp[r];
+            }
+            p.ntasks[n] += hi - lo;
+            p.nz[n * 2] = z0;
+            p.nz[n * 2 + 1] = z1;
+        }
+        __syncthreads();
+    }
+
+    // block 0: merge the phases, job / queue commits, decisions
+    __device__ void commit_round(int round_idx) {
+        const int tc = tcur();
+        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+            const bool ar = w.accr[k];
+            w.accept[k] = w.acc1[k] || ar;
+            if (ar) {
+                w.ob1[k] = w.obr[k];
+                w.prop1[k] = w.fbr[k];
+                w.pa1[k] = w.par[k];
+            }
+        }
+        __syncthreads();
+        // j_allocated / alloc_cnt per job, onto the carry in index order
+        uint64_t* keys = segment_keys([&](int k) {
+            return w.accept[k] ? p.tjob[w.tmap[k]] : -1;
+        });
+        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)j << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(j + 1) << 32);
+            int cnt = 0;
+            for (int i = lo; i < hi; ++i) {
+                const int k = (int)(keys[i] & 0xffffffffu);
+                const int t = w.tmap[k];
+                for (int r = 0; r < 3; ++r)
+                    w.j_alloc[j * 3 + r] = w.j_alloc[j * 3 + r]
+                                           + p.resreq[t * 3 + r];
+                cnt += w.ob1[k] ? 0 : 1;
+            }
+            w.alloc_cnt[j] += cnt;
+            w.alive[j] = w.alive[j] && !(w.fail_rank[j] < IMAX);
+        }
+        __syncthreads();
+        keys = segment_keys([&](int k) {
+            return w.accept[k] ? p.jqueue[p.tjob[w.tmap[k]]] : -1;
+        });
+        for (int q = threadIdx.x; q < p.Q; q += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)q << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(q + 1) << 32);
+            float s[3] = {w.q_alloc[q * 3], w.q_alloc[q * 3 + 1],
+                          w.q_alloc[q * 3 + 2]};
+            for (int i = lo; i < hi; ++i) {
+                const int t = w.tmap[(int)(keys[i] & 0xffffffffu)];
+                for (int r = 0; r < 3; ++r) s[r] = s[r] + p.resreq[t * 3 + r];
+            }
+            for (int r = 0; r < 3; ++r) w.q_alloc[q * 3 + r] = s[r];
+        }
+        __shared__ int s_changed;
+        if (threadIdx.x == 0) s_changed = 0;
+        __syncthreads();
+        int changed = 0;
+        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+            const int t = w.tmap[k];
+            const bool acc = w.accept[k], ff = w.fail_first[k];
+            if (!acc && !ff) continue;
+            changed = 1;
+            int d;
+            if (ff) d = FAIL;
+            else if (!w.pa1[k]) d = PIPELINE;
+            else d = w.ob1[k] ? ALLOC_OB : ALLOC;
+            p.out[t] = d;
+            if (acc) p.out[p.T + t] = w.prop1[k];
+            p.out[2 * p.T + t] = round_idx * p.T + w.grank[k];
+        }
+        if (changed) s_changed = 1;
+        __syncthreads();
+        if (threadIdx.x == 0) w.iscal[S_PROGRESS] = s_changed;
+    }
+
+    // one round; returns progress (grid-uniform)
+    __device__ bool run_round(int round_idx) {
+        if (b0) order_jobs();
+        sync(PH_ORDER);
+        engage();
+        sync(PH_ENGAGE);
+        if (b0) window();
+        sync(PH_WINDOW);
+        {
+            const int tc = tcur();
+            for (int k = gtid; k < tc; k += gsize) {
+                const int j = wrap_job(p.tjob[w.tmap[k]], p.J);
+                w.part[k] = w.engaged[k] && w.admitted[j];
+            }
+        }
+        node_views();
+        pair_scores();
+        sync(PH_SCORES);
+        if (b0) rank_tasks();
+        row_pass(w.part, w.any_elig, w.fb);
+        sync(PH_ROWS1);
+        fail_and_kill();
+        sync(PH_FAIL);
+        settle_part2();
+        sync(PH_PART2);
+        if (b0) waterfall();
+        sync(PH_WATERFALL);
+        propose();
+        sync(PH_PROPOSE);
+        fit_kind(w.part2, w.prop1, w.pa1);
+        sync(PH_FIT1);
+        if (b0) {
+            accept_phase(w.prop1, w.part2, w.pa1, w.acc1, w.ob1);
+            commit_node(w.acc1, w.prop1, w.pa1);
+        }
+        sync(PH_ACCEPT1);
+        // retry: rejected tasks re-propose their argmax against the
+        // mid-round carry (the round's scores)
+        node_views();
+        {
+            const int tc = tcur();
+            for (int k = gtid; k < tc; k += gsize)
+                w.mask[k] = w.part2[k] && !w.acc1[k];
+        }
+        sync(PH_VIEWS2);
+        row_pass(w.mask, w.any_elig, w.fbr);
+        sync(PH_ROWS2);
+        {
+            const int tc = tcur();
+            for (int k = gtid; k < tc; k += gsize)
+                w.retry[k] = w.mask[k] && w.any_elig[k];
+        }
+        sync(PH_RETRY);
+        fit_kind(w.retry, w.fbr, w.par);
+        sync(PH_FIT2);
+        if (b0) {
+            accept_phase(w.fbr, w.retry, w.par, w.accr, w.obr);
+            commit_node(w.accr, w.fbr, w.par);
+            commit_round(round_idx);
+        }
+        sync(PH_ACCEPT2);
+        return w.iscal[S_PROGRESS] != 0;
+    }
+
+    __device__ int rounds_loop(int start) {
+        int r = start;
+        bool progress = true;
+        while (progress && r < p.max_rounds) {
+            progress = run_round(r);
+            ++r;
+        }
+        return r;
+    }
+
+    // ---- the task view -------------------------------------------------
+
+    __device__ void full_view() {
+        for (int k = gtid; k < p.T; k += gsize) {
+            w.tmap[k] = k;
+            w.vvalid[k] = p.tvalid[k];
+        }
+        if (gtid == 0) w.iscal[S_TCUR] = p.T;
+    }
+
+    // block 0: after round 0, the tasks that can still resolve; returns
+    // their count in iscal[S_CNT] and, when 0 < count <= bucket, the
+    // compact view (first ``bucket`` of them in index order, fill slots
+    // point at the last task and are invalid)
+    __device__ void compact_view() {
+        const int T = p.T;
+        for (int q = threadIdx.x; q < p.Q; q += blockDim.x) {
+            bool over = true;
+            for (int r = 0; r < 3 && over; ++r)
+                over = p.qdes[q * 3 + r] < w.q_alloc[q * 3 + r] + p.eps[r];
+            w.overused[q] = over;
+        }
+        __syncthreads();
+        for (int t = threadIdx.x; t < T; t += blockDim.x) {
+            const int j = max(p.tjob[t], 0);
+            bool u = p.tvalid[t] && p.out[t] == SKIP && w.alive[j];
+            if (p.prop_overused) u = u && !w.overused[p.jqueue[j]];
+            w.unresolved[t] = u;
+        }
+        __syncthreads();
+        // positions in index order: per-thread chunk counts, then a scan
+        const int per = (T + NT - 1) / NT;
+        const int a = threadIdx.x * per, b = min(a + per, T);
+        int c = 0;
+        for (int t = a; t < b; ++t) c += w.unresolved[t];
+        w.chunk[threadIdx.x + 1] = c;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            w.chunk[0] = 0;
+            for (int i = 1; i <= NT; ++i) w.chunk[i] += w.chunk[i - 1];
+            w.iscal[S_CNT] = w.chunk[NT];
+        }
+        __syncthreads();
+        const int cnt = w.iscal[S_CNT];
+        if (cnt == 0 || cnt > p.bucket) return;
+        int pos = w.chunk[threadIdx.x];
+        for (int t = a; t < b; ++t) {
+            if (!w.unresolved[t]) continue;
+            if (pos < p.bucket) {
+                w.tmap[pos] = t;
+                w.vvalid[pos] = p.tvalid[t];
+            }
+            ++pos;
+        }
+        for (int k = cnt + threadIdx.x; k < p.bucket; k += blockDim.x) {
+            w.tmap[k] = T - 1;
+            w.vvalid[k] = 0;
+        }
+        if (threadIdx.x == 0) w.iscal[S_TCUR] = p.bucket;
+        __syncthreads();
+    }
+
+    // ---- stranded-gang epilogue (full width, block 0) -------------------
+
+    __device__ bool placed(int t) const {
+        const int s = p.out[t];
+        return p.tvalid[t] && (s == ALLOC || s == ALLOC_OB || s == PIPELINE);
+    }
+
+    __device__ void stranded_jobs(bool include_killed) {
+        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
+            w.j_rows[j] = 0;
+            w.j_placed[j] = 0;
+            w.j_ob[j] = 0;
+        }
+        __syncthreads();
+        for (int t = threadIdx.x; t < p.T; t += blockDim.x) {
+            const int j = max(p.tjob[t], 0);
+            atomicOr(&w.j_rows[j], 1);
+            if (placed(t)) atomicOr(&w.j_placed[j], 1);
+            if (p.tvalid[t] && p.out[t] == ALLOC_OB) atomicAdd(&w.j_ob[j], 1);
+        }
+        __shared__ int s_any, s_count;
+        if (threadIdx.x == 0) { s_any = 0; s_count = 0; }
+        __syncthreads();
+        int any = 0, count = 0;
+        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
+            // segment_max's identity (int32 min) is truthy: a job with no
+            // task row reads as placed, as in the reference
+            const bool jp = !w.j_rows[j] || w.j_placed[j];
+            const bool ready = w.alloc_cnt[j] + w.j_ob[j] >= p.omin[j];
+            bool s = p.jvalid[j] && jp && !ready;
+            if (!include_killed) s = s && w.alive[j];
+            w.stranded[j] = s;
+            any |= s;
+            count += s;
+        }
+        if (any) atomicOr(&s_any, 1);
+        if (count) atomicAdd(&s_count, count);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            w.iscal[S_ANY_STRANDED] = s_any;
+            w.iscal[S_STRANDED] = s_count;
+        }
+        __syncthreads();
+    }
+
+    __device__ void rollback(bool revive) {
+        stranded_jobs(revive);
+        const int T = p.T;
+        for (int t = threadIdx.x; t < T; t += blockDim.x)
+            w.mask[t] = placed(t) && w.stranded[max(p.tjob[t], 0)];
+        __syncthreads();
+        // node carry: idle / rel onto the carry, nz summed then subtracted
+        uint64_t* keys = segment_keys([&](int t) {
+            return w.mask[t] ? p.out[T + t] : -1;
+        });
+        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)n << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(n + 1) << 32);
+            if (lo == hi) continue;
+            float id[3], rl[3], z[2] = {0.0f, 0.0f};
+            for (int r = 0; r < 3; ++r) {
+                id[r] = p.idle[n * 3 + r];
+                rl[r] = p.rel[n * 3 + r];
+            }
+            for (int i = lo; i < hi; ++i) {
+                const int t = (int)(keys[i] & 0xffffffffu);
+                const bool pipe = p.out[t] == PIPELINE;
+                for (int r = 0; r < 3; ++r) {
+                    const float v = p.resreq[t * 3 + r];
+                    id[r] = id[r] + (pipe ? 0.0f : v);
+                    rl[r] = rl[r] + (pipe ? v : 0.0f);
+                }
+                z[0] = z[0] + p.tnz[t * 2];
+                z[1] = z[1] + p.tnz[t * 2 + 1];
+            }
+            for (int r = 0; r < 3; ++r) {
+                p.idle[n * 3 + r] = id[r];
+                p.rel[n * 3 + r] = rl[r];
+            }
+            p.ntasks[n] -= hi - lo;
+            p.nz[n * 2] = p.nz[n * 2] - z[0];
+            p.nz[n * 2 + 1] = p.nz[n * 2 + 1] - z[1];
+        }
+        __syncthreads();
+        // jobs: j_allocated summed then subtracted, alloc_cnt
+        keys = segment_keys([&](int t) {
+            return w.mask[t] ? p.tjob[t] : -1;
+        });
+        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)j << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(j + 1) << 32);
+            if (lo < hi) {
+                float s[3] = {0.0f, 0.0f, 0.0f};
+                int cnt = 0;
+                for (int i = lo; i < hi; ++i) {
+                    const int t = (int)(keys[i] & 0xffffffffu);
+                    for (int r = 0; r < 3; ++r) s[r] = s[r]
+                                                       + p.resreq[t * 3 + r];
+                    cnt += p.out[t] != ALLOC_OB;
+                }
+                for (int r = 0; r < 3; ++r)
+                    w.j_alloc[j * 3 + r] = w.j_alloc[j * 3 + r] - s[r];
+                w.alloc_cnt[j] -= cnt;
+            }
+            w.alive[j] = revive ? (w.alive[j] || w.stranded[j])
+                                : (w.alive[j] && !w.stranded[j]);
+        }
+        __syncthreads();
+        keys = segment_keys([&](int t) {
+            return w.mask[t] ? p.jqueue[p.tjob[t]] : -1;
+        });
+        for (int q = threadIdx.x; q < p.Q; q += blockDim.x) {
+            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)q << 32);
+            const int hi = lower_bound_u64(keys, p.MT,
+                                           (uint64_t)(q + 1) << 32);
+            if (lo == hi) continue;
+            float s[3] = {0.0f, 0.0f, 0.0f};
+            for (int i = lo; i < hi; ++i) {
+                const int t = (int)(keys[i] & 0xffffffffu);
+                for (int r = 0; r < 3; ++r) s[r] = s[r] + p.resreq[t * 3 + r];
+            }
+            for (int r = 0; r < 3; ++r)
+                w.q_alloc[q * 3 + r] = w.q_alloc[q * 3 + r] - s[r];
+        }
+        __syncthreads();
+        for (int t = threadIdx.x; t < T; t += blockDim.x) {
+            const bool strand = w.stranded[max(p.tjob[t], 0)];
+            const bool clear = w.mask[t]
+                || (revive && p.out[t] == FAIL && strand);
+            if (clear) p.out[t] = SKIP;
+        }
+        __syncthreads();
+    }
+
+    // block 0: the telemetry frame after the round count
+    __device__ void frame(int rounds, int retries, int stranded) {
+        __shared__ int s_cnt[4 + WAVE_SLOTS];
+        if (threadIdx.x < 4 + WAVE_SLOTS) s_cnt[threadIdx.x] = 0;
+        __syncthreads();
+        int c[4 + WAVE_SLOTS] = {0};
+        for (int t = threadIdx.x; t < p.T; t += blockDim.x) {
+            if (!p.tvalid[t]) continue;
+            const int s = p.out[t];
+            const bool pl = s == ALLOC || s == ALLOC_OB || s == PIPELINE;
+            c[0] += pl;
+            c[1] += s == FAIL;
+            c[2] += s == SKIP;
+            c[3] += 1;
+            if (pl) {
+                const int slot = min(max(p.out[2 * p.T + t] / p.T, 0),
+                                     WAVE_SLOTS - 1);
+                c[4 + slot] += 1;
+            }
+        }
+        for (int i = 0; i < 4 + WAVE_SLOTS; ++i)
+            if (c[i]) atomicAdd(&s_cnt[i], c[i]);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            int32_t* f = p.out + 3 * p.T;
+            f[0] = rounds;
+            int32_t* fr = f + 1;
+            fr[0] = ENGINE_BATCHED;
+            fr[1] = rounds;
+            for (int i = 0; i < 4; ++i) fr[2 + i] = s_cnt[i];
+            for (int i = 0; i < WAVE_SLOTS; ++i) fr[6 + i] = s_cnt[4 + i];
+            for (int i = 6 + WAVE_SLOTS; i < TELEM_WIDTH; ++i) fr[i] = 0;
+            fr[12] = p.narrow;
+            fr[13] = p.narrow_gate;
+            fr[14] = retries;
+            fr[15] = stranded;
+        }
+    }
+
+    __device__ void run() {
+        if (gtid == 0) t_last = now_ns();
+        // initial carry
+        for (int i = gtid; i < p.Q * 3; i += gsize)
+            w.q_alloc[i] = p.qalloc0[i];
+        for (int i = gtid; i < p.J * 3; i += gsize)
+            w.j_alloc[i] = p.jalloc0[i];
+        for (int j = gtid; j < p.J; j += gsize) {
+            w.alloc_cnt[j] = p.init_alloc[j];
+            w.alive[j] = p.jvalid[j];
+        }
+        for (int t = gtid; t < p.T; t += gsize) {
+            p.out[t] = SKIP;
+            p.out[p.T + t] = -1;
+            p.out[2 * p.T + t] = IMAX;
+        }
+        full_view();
+        sync(PH_SETUP);
+        int rounds;
+        if (p.bucket <= 0 || p.bucket >= p.T) {
+            rounds = rounds_loop(0);
+        } else {
+            run_round(0);
+            if (b0) compact_view();
+            sync(PH_COMPACT);
+            const int cnt = w.iscal[S_CNT];
+            if (cnt > p.bucket) {
+                rounds = rounds_loop(1);
+            } else if (cnt == 0) {
+                rounds = 1;
+            } else {
+                rounds = rounds_loop(1);
+                full_view();
+                sync(PH_COMPACT);
+            }
+        }
+        int retries = 0, stranded = 0;
+        if (p.gang) {
+            while (true) {
+                if (b0) stranded_jobs(true);
+                sync(PH_EPILOGUE);
+                if (retries >= 3 || !w.iscal[S_ANY_STRANDED]) break;
+                if (b0) rollback(true);
+                sync(PH_EPILOGUE);
+                rounds = rounds_loop(rounds);
+                ++retries;
+            }
+            if (b0) rollback(false);
+            sync(PH_EPILOGUE);
+            stranded = w.iscal[S_STRANDED];
+        }
+        if (b0) frame(rounds, retries, stranded);
+    }
+};
+
+__global__ void __launch_bounds__(NT, 1)
+batched_allocate_kernel(const __grid_constant__ Params p,
+                        const __grid_constant__ Work w) {
+    extern __shared__ uint64_t skeys[];
+    Cycle c(p, w, skeys);
+    c.run();
+}
+
+Params make_params(const uint64_t* ptrs, const int* ints) {
+    Params p;
+    p.idle = (float*)ptrs[P_IDLE];
+    p.rel = (float*)ptrs[P_REL];
+    p.ntasks = (int32_t*)ptrs[P_NTASKS];
+    p.nz = (float*)ptrs[P_NZ];
+    p.bf = (const float*)ptrs[P_BF];
+    p.cap = (const float*)ptrs[P_CAP];
+    p.maxt = (const int32_t*)ptrs[P_MAXT];
+    p.node_ok = (const uint8_t*)ptrs[P_NODE_OK];
+    p.resreq = (const float*)ptrs[P_RESREQ];
+    p.init = (const float*)ptrs[P_INIT];
+    p.tnz = (const float*)ptrs[P_TNZ];
+    p.tjob = (const int32_t*)ptrs[P_TJOB];
+    p.trank = (const int32_t*)ptrs[P_TRANK];
+    p.tsig = (const int32_t*)ptrs[P_TSIG];
+    p.tpair = (const int32_t*)ptrs[P_TPAIR];
+    p.tvalid = (const uint8_t*)ptrs[P_TVALID];
+    p.sig_scores = (const float*)ptrs[P_SIG_SCORES];
+    p.sig_pred = (const uint8_t*)ptrs[P_SIG_PRED];
+    p.pair_sig = (const int32_t*)ptrs[P_PAIR_SIG];
+    p.pair_nz = (const float*)ptrs[P_PAIR_NZ];
+    p.omin = (const int32_t*)ptrs[P_OMIN];
+    p.init_alloc = (const int32_t*)ptrs[P_INIT_ALLOC];
+    p.jqueue = (const int32_t*)ptrs[P_JQUEUE];
+    p.jprio = (const float*)ptrs[P_JPRIO];
+    p.jcrank = (const int32_t*)ptrs[P_JCRANK];
+    p.jvalid = (const uint8_t*)ptrs[P_JVALID];
+    p.qdes = (const float*)ptrs[P_QDES];
+    p.qcrank = (const int32_t*)ptrs[P_QCRANK];
+    p.qalloc0 = (const float*)ptrs[P_QALLOC0];
+    p.jalloc0 = (const float*)ptrs[P_JALLOC0];
+    p.ctotal = (const float*)ptrs[P_CTOTAL];
+    p.dynw = (const float*)ptrs[P_DYNW];
+    p.eps = (const float*)ptrs[P_EPS];
+    p.out = (int32_t*)ptrs[P_OUT];
+    p.phase_ns = (unsigned long long*)ptrs[P_PHASE];
+    p.N = ints[I_N]; p.T = ints[I_T]; p.J = ints[I_J]; p.Q = ints[I_Q];
+    p.P = ints[I_P]; p.njk = ints[I_NJK];
+    p.jk[0] = ints[I_JK0]; p.jk[1] = ints[I_JK1]; p.jk[2] = ints[I_JK2];
+    p.qshare = ints[I_QSHARE]; p.prop_overused = ints[I_PROP_OVERUSED];
+    p.dyn = ints[I_DYN]; p.pipe = ints[I_PIPE];
+    p.max_rounds = ints[I_MAX_ROUNDS]; p.bucket = ints[I_BUCKET];
+    p.gang = ints[I_GANG]; p.narrow = ints[I_NARROW];
+    p.narrow_gate = ints[I_NARROW_GATE];
+    p.MT = pow2_at_least(p.T);
+    p.MJ = pow2_at_least(p.J);
+    p.MN = pow2_at_least(p.N);
+    return p;
+}
+
+size_t smem_bytes(const Params& p) {
+    const int m = std::max(p.MT, std::max(p.MJ, p.MN));
+    return (size_t)std::min(m, SMEM_KEYS) * sizeof(uint64_t);
+}
+
+}  // namespace
+
+// Workspace bytes for these sizes (ints as kb_batched_allocate takes
+// them). Returns a cudaError_t (0).
+extern "C" int kb_batched_workspace(const int* ints, int n_ints,
+                                    long long* bytes) {
+    if (n_ints != N_INTS) return (int)cudaErrorInvalidValue;
+    uint64_t ptrs[N_PTRS] = {0};
+    const Params p = make_params(ptrs, ints);
+    *bytes = (long long)layout(p, nullptr, nullptr);
+    return 0;
+}
+
+// Launch the cycle. ptrs: N_PTRS device addresses (the last the
+// workspace, the one before it N_PHASES zeroed uint64 for the phase
+// times); ints: N_INTS sizes and options; info (host, 3 ints): grid,
+// threads and dynamic shared bytes of the launch. Returns the
+// cudaError_t of the setup and the launch.
+extern "C" int kb_batched_allocate(const unsigned long long* ptrs,
+                                   int n_ptrs, const int* ints, int n_ints,
+                                   int* info, void* stream) {
+    if (n_ptrs != N_PTRS || n_ints != N_INTS)
+        return (int)cudaErrorInvalidValue;
+    const Params p = make_params((const uint64_t*)ptrs, ints);
+    if (p.T >= (1 << 20) || p.J >= (1 << 24) || p.njk > 3)
+        return (int)cudaErrorInvalidValue;
+    Work w;
+    layout(p, (char*)ptrs[P_WS], &w);
+    const size_t smem = smem_bytes(p);
+    cudaError_t err = cudaFuncSetAttribute(
+        batched_allocate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+        return (int)err;
+    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                      dev)) != cudaSuccess)
+        return (int)err;
+    if (!coop) return (int)cudaErrorNotSupported;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, batched_allocate_kernel, NT, smem)) != cudaSuccess)
+        return (int)err;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    const int grid = sms * per_sm;
+    info[0] = grid;
+    info[1] = NT;
+    info[2] = (int)smem;
+    Params pc = p;
+    Work wc = w;
+    void* args[] = {&pc, &wc};
+    err = cudaLaunchCooperativeKernel((const void*)batched_allocate_kernel,
+                                      dim3(grid), dim3(NT), args, smem,
+                                      (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}

@@ -33,7 +33,8 @@ SKIP, ALLOC, ALLOC_OB, PIPELINE, FAIL = 0, 1, 2, 3, 4
 def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
                              allocatable_cm: torch.Tensor,
                              dyn_weights: torch.Tensor) -> torch.Tensor:
-    """nodeorder's allocation-dependent terms over all nodes, [N] float32.
+    """nodeorder's allocation-dependent terms over all nodes, [N] float32
+    (or [..., N] for a batch of requests ``t_nz`` [..., 2]).
 
     Mirrors plugins/nodeorder.py least_requested_score /
     balanced_resource_score (upstream k8s-1.13 arithmetic). The Go integer
@@ -45,18 +46,19 @@ def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
     f32 = torch.float32
     dev = nz_req.device
     ten = torch.tensor(10.0, dtype=f32, device=dev)
-    req = nz_req + t_nz[None, :]                        # [N,2]
+    req = nz_req + t_nz[..., None, :]                   # [..., N, 2]
     cap = allocatable_cm                                # [N,2]
-    d = torch.arange(1, 11, dtype=f32, device=dev)      # [10]
-    ge = (cap - req)[None] * ten >= d[:, None, None] * cap[None]
+    d = torch.arange(1, 11, dtype=f32, device=dev).view(
+        (10,) + (1,) * req.dim())
+    ge = (cap - req)[None] * ten >= d * cap
     zero = torch.zeros((), dtype=f32, device=dev)
     one = torch.ones((), dtype=f32, device=dev)
     dim = torch.where((cap > 0) & (req <= cap), ge.sum(dim=0).to(f32), zero)
-    least = torch.floor((dim[:, 0] + dim[:, 1]) / 2.0)
+    least = torch.floor((dim[..., 0] + dim[..., 1]) / 2.0)
     frac = torch.where(cap > 0, req / torch.where(cap > 0, cap, one), one)
-    diff = torch.abs(frac[:, 0] - frac[:, 1])
-    balanced = torch.where((frac[:, 0] >= 1.0) | (frac[:, 1] >= 1.0), zero,
-                           torch.trunc(ten - diff * ten))
+    diff = torch.abs(frac[..., 0] - frac[..., 1])
+    balanced = torch.where((frac[..., 0] >= 1.0) | (frac[..., 1] >= 1.0),
+                           zero, torch.trunc(ten - diff * ten))
     return least * dyn_weights[0] + balanced * dyn_weights[1]
 
 

@@ -4,15 +4,16 @@ engine's packed host block so it costs no extra device->host copy.
 Field layout and engine ids match the reference package's frame word for
 word (kubebatch_tpu/kernels/telemetry.py), so the two host blocks compare
 directly. The CUDA fused kernel writes the same frame in its epilogue
-(csrc/fused_allocate.cu); :func:`decision_frame` is the plain PyTorch
-version the plain fused engine uses.
+(csrc/fused_allocate.cu), and so does the batched round kernel
+(csrc/batched_allocate.cu); :func:`decision_frame` is the plain PyTorch
+version the plain engines use.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["TELEM_WIDTH", "WAVE_SLOTS", "FIELDS", "ENGINE_NAMES",
-           "ENGINE_FUSED", "decision_frame"]
+           "ENGINE_BATCHED", "ENGINE_FUSED", "decision_frame"]
 
 #: frame width in int32 words
 TELEM_WIDTH = 20
@@ -30,6 +31,8 @@ F_CENSUS = 5        # valid tasks presented
 F_WAVE_BOUND0 = 6   # .. F_WAVE_BOUND0+WAVE_SLOTS-1: bound per wave slot
 F_NARROW = 12       # narrow score dtype engaged for this dispatch (0/1)
 F_NARROW_GATE = 13  # shape wanted narrow but the exactness gate refused
+F_RETRIES = 14      # stranded-gang epilogue passes (batched)
+F_STRANDED = 15     # gangs the epilogue finally retired (batched)
 
 #: decode order — index i of the frame is FIELDS[i]
 FIELDS = ("engine", "waves", "bound", "failed", "pending", "census",
@@ -53,7 +56,8 @@ _SKIP, _ALLOC, _ALLOC_OB, _PIPELINE, _FAIL = 0, 1, 2, 3, 4
 def decision_frame(engine: int, task_state: torch.Tensor,
                    task_seq: torch.Tensor, task_valid: torch.Tensor,
                    waves, stride: int, *, narrow: bool = False,
-                   narrow_gate: bool = False) -> torch.Tensor:
+                   narrow_gate: bool = False, retries=0,
+                   stranded=0) -> torch.Tensor:
     """The [TELEM_WIDTH] int32 frame for a solve's decision arrays, on
     their device. ``stride`` maps task_seq to a wave slot (seq // stride,
     clipped); untouched tasks hold int32 max in task_seq and weigh 0."""
@@ -77,4 +81,6 @@ def decision_frame(engine: int, task_state: torch.Tensor,
     tail = torch.zeros(TELEM_WIDTH - 6 - WAVE_SLOTS, dtype=i32, device=dev)
     tail[F_NARROW - 6 - WAVE_SLOTS] = 1 if narrow else 0
     tail[F_NARROW_GATE - 6 - WAVE_SLOTS] = 1 if narrow_gate else 0
+    tail[F_RETRIES - 6 - WAVE_SLOTS] = int(retries)
+    tail[F_STRANDED - 6 - WAVE_SLOTS] = int(stranded)
     return torch.cat([head, wave_bound, tail])

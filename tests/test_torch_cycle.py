@@ -203,11 +203,14 @@ def test_unsupported_snapshot_on_the_card_raises():
 
 
 def test_auto_refuses_the_batched_regime():
+    """At >= 512 pending tasks auto no longer refuses: it runs the batched
+    round engine, as the reference's auto does, and binds exactly what
+    the reference's batched cycle binds."""
     spec = TSpec(n_nodes=8, n_groups=130, pods_per_group=4,
                  pod_cpu_millis=100, pod_mem_bytes=GiB)
-    t = Side(True, spec)
-    ssn = TOpen(t.cache, t_tiers())
-    with pytest.raises(NotImplementedError, match="batched"):
-        TAllocate(mode="auto").execute(ssn)
-    assert not t.binder.calls
-    TClose(ssn)
+    j, t = Side(False, spec), Side(True, spec)
+    j.cycle("batched")
+    t.cycle("auto")
+    assert t_allocate_mod.last_cycle_engine == "batched"
+    assert t.binder.calls, "scenario must bind"
+    _assert_same(j, t)

@@ -48,6 +48,9 @@ def test_port_imports_without_jax_or_reference_package():
     assert res["leaked"] == []
     mods = set(res["imported"])
     for must in ("kubebatch_tpu_torch.kernels.fused",
+                 "kubebatch_tpu_torch.kernels.batched",
+                 "kubebatch_tpu_torch.kernels.xla_order",
+                 "kubebatch_tpu_torch.actions.allocate_batched",
                  "kubebatch_tpu_torch.kernels.solver",
                  "kubebatch_tpu_torch.actions.allocate",
                  "kubebatch_tpu_torch.cache.cache",
