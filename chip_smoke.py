@@ -15,10 +15,22 @@ packed result equals the plain version's word for word (the plain batched
 engine runs on CPU copies of the kernel's inputs); on cfg2 the fused
 cycle must also bind exactly what the host oracle binds. The fused
 kernel, no longer the cold path, stays held against its plain version on
-a cfg5 cold solve. Last it times the kernels at the main path's shapes,
+a cfg5 cold solve. It then times the kernels at the main path's shapes,
 with beside each its roofline bound and, for the fused solve, the
 node-state re-read at the memory rate and two floors of the one-block
 design measured with csrc/chain_probe.cu.
+
+The shipped policy's four actions (reclaim, allocate, backfill, preempt)
+then run on a fresh cfg5 cache: a cold cycle (no victim work), and two
+skewed churn cycles (256 pods into queue 0, then queue 3) in which
+reclaim's prefetch launches the victim-analysis kernel
+(csrc/victims.cu) once each; every launch is held against its plain
+version. At that state the wave kernel runs on 256-lane chunks for each
+filter kind and the visit kernel on 8 lanes (the shapes a contended cfg5
+cycle dispatches), checked and timed. Last, a saturated cfg4 (2,000
+nodes, running fill 0.95) runs one four-action cycle in which preempt
+evicts and pipelines through the victim kernels; a fixed sample of its
+launches is held against the plain versions.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
@@ -29,6 +41,7 @@ directory); it imports nothing of jax or the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -69,6 +82,16 @@ NODE_STATE_BYTES = 61
 #: is one instruction and the lanes issue half that rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 33.5e12
+#: float32 operations per victim row of one lane's analysis, counted from
+#: kernels/csrc/victims.cu: the drf tier (the scan's ~2 combines of 3
+#: adds, excl, cum, the job's allocation minus it, share3's 3 divisions
+#: and 2 maxima, the 1e-6 test: 24), the proportion tier (scan 6, excl,
+#: before, after 9, le_eps 3 x 4, guard 3: 30), the victim totals (3)
+OPS_PER_ROW_DRF = 24
+OPS_PER_ROW_PROP = 30
+OPS_PER_ROW_TOTALS = 3
+#: the four actions of the shipped policy (conf.CONFIG_ACTIONS[4], [5])
+SHIPPED_ACTIONS = ("reclaim", "allocate", "backfill", "preempt")
 
 
 def log(msg: str) -> None:
@@ -133,6 +156,129 @@ def batched_bounds(kw, out, stats, pipe: bool) -> dict:
     b_ms, b_by = bound(nbytes, ops)
     return {"rounds_run": rounds, "rows": stats["rows"], "bytes": nbytes,
             "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def victim_read_names(kw, visit: bool) -> tuple:
+    """The tensor arguments a victim dispatch reads under its
+    configuration (csrc/victims.cu): the drf arrays only when a tier
+    holds drf, the proportion arrays only when one holds proportion,
+    the room arrays only with room_check, and the node-choice arrays
+    (ranks, the score inputs) only for a visit. The [S, N] rows are
+    counted apart."""
+    tiers = kw["tiers"]
+    names = ["p_res", "p_sig", "p_job", "p_queue", "node_ok", "v_job",
+             "v_res", "v_critical", "v_live", "node_rows", "node_off",
+             "job_queue", "min_av", "ready_cnt"]
+    if any("drf" in t for t in tiers):
+        names += ["p_resreq", "perm_nj", "nj_head", "j_alloc",
+                  "cluster_total"]
+    if any("proportion" in t for t in tiers):
+        names += ["perm_nq", "nq_head", "q_deserved", "q_alloc",
+                  "q_prop_ok"]
+    if kw["room_check"]:
+        names += ["n_tasks", "max_task_num"]
+    if visit:
+        names += ["visited", "host_rank", "v_node"]
+        if kw["score_nodes"] and kw["dyn_enabled"]:
+            names += ["nz_req", "allocatable_cm", "dyn_weights", "p_nz"]
+    return tuple(names)
+
+
+def victim_bounds(kw, out, visit: bool) -> dict:
+    """A victim dispatch's roofline: the arrays its configuration reads
+    (victim_read_names) read once, one [S, N] predicate row per distinct
+    signature of its lanes (and for a scoring visit the lane's score
+    row), and the output written once, over the memory rate; against the
+    rows' float32 operations per lane (the tiers the dispatch runs) and,
+    for a visit, the node scores, over the float32 rate."""
+    lanes = kw["p_job"].shape[0]
+    n_pad = kw["node_ok"].shape[0]
+    v_pad = kw["v_node"].shape[0]
+    tiers = kw["tiers"]
+    nbytes = sum(kw[k].numel() * kw[k].element_size()
+                 for k in victim_read_names(kw, visit))
+    n_sigs = len(set(kw["p_sig"].tolist()))
+    nbytes += n_sigs * n_pad * kw["sig_pred"].element_size()
+    if visit and kw["score_nodes"]:
+        nbytes += n_pad * kw["sig_scores"].element_size()
+    nbytes += out.numel() * out.element_size()
+    per_row = OPS_PER_ROW_TOTALS
+    if any("drf" in t for t in tiers):
+        per_row += OPS_PER_ROW_DRF
+    if any("proportion" in t for t in tiers):
+        per_row += OPS_PER_ROW_PROP
+    ops = lanes * v_pad * per_row
+    if visit and kw["score_nodes"] and kw["dyn_enabled"]:
+        ops += n_pad * (OPS_PER_NODE_SCORE + 1)
+    b_ms, b_by = bound(nbytes, ops)
+    return {"lanes": lanes, "v_pad": v_pad, "n_pad": n_pad,
+            "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def split_config(kw):
+    """(tensor arguments, static configuration) of a recorded victim
+    kernel call."""
+    names = ("tiers", "veto_critical", "filter_kind", "dyn_enabled",
+             "score_nodes", "room_check")
+    return ({k: v for k, v in kw.items() if k not in names},
+            {k: kw[k] for k in names})
+
+
+def check_victim_call(kw, got, visit: bool) -> float:
+    """Hold one recorded victim kernel call against its plain version on
+    CPU copies of its inputs; returns the max abs error (0)."""
+    from kubebatch_tpu_torch.kernels import victims
+
+    tensors, config = split_config(kw)
+    plain = victims.visit_plain if visit else victims.wave_plain
+    want = plain(**on_cpu(tensors), **config)
+    got = got.cpu()
+    assert_bitwise([want], [got], "victim_visit" if visit
+                   else "victim_wave")
+    return max_abs_err([want], [got])
+
+
+def run_cycle(cache, tiers, names=SHIPPED_ACTIONS):
+    """One scheduling cycle through the registered actions: host ms per
+    phase and action, and the session's task statuses before close."""
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.framework.registry import get_action
+
+    t0 = time.perf_counter()
+    snap = cache.snapshot()
+    t1 = time.perf_counter()
+    ssn = OpenSession(cache, tiers, snapshot=snap)
+    ms = {"snapshot": (t1 - t0) * 1e3,
+          "open": (time.perf_counter() - t1) * 1e3}
+    before_preempt = None
+    for name in names:
+        if name == "preempt":
+            before_preempt = {t.key: t.status.name
+                              for j in ssn.jobs.values()
+                              for t in j.tasks.values()}
+        t = time.perf_counter()
+        get_action(name).execute(ssn)
+        ms[name] = (time.perf_counter() - t) * 1e3
+    statuses = {t.key: t.status.name for j in ssn.jobs.values()
+                for t in j.tasks.values()}
+    t = time.perf_counter()
+    CloseSession(ssn)
+    ms["close"] = (time.perf_counter() - t) * 1e3
+    cache.drain(timeout=60.0)
+    ms["wall"] = (time.perf_counter() - t0) * 1e3
+    return ms, statuses, before_preempt
+
+
+class CountingEvictor:
+    """Evicts by marking the pod deleting; counts the calls."""
+
+    def __init__(self):
+        self.evicted = []
+
+    def evict(self, pod):
+        self.evicted.append(pod.name)
+        pod.deletion_timestamp = 1.0
 
 
 def probe_ms(n_pad: int, words: int, iters: int) -> float:
@@ -351,6 +497,279 @@ def batched_placed(packed, t_pad: int) -> int:
     return int(((state >= 1) & (state <= 3)).sum())
 
 
+def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
+    """The shipped four-action policy on ``dev``: (a) ``spec5`` cold +
+    two skewed churn cycles of ``churn`` pods, (b) the victim kernels at
+    full width at that state, (c) one cycle of ``spec4``. Returns the
+    victim kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from kubebatch_tpu_torch import metrics
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.api import TaskStatus
+    from kubebatch_tpu_torch.cache import NullBinder, SchedulerCache
+    from kubebatch_tpu_torch.conf import CONFIG_ACTIONS, shipped_tiers
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.kernels import _build, telemetry, victims
+    from kubebatch_tpu_torch.objects import PodPhase
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    if tuple(CONFIG_ACTIONS[5]) != SHIPPED_ACTIONS or \
+            tuple(CONFIG_ACTIONS[4]) != SHIPPED_ACTIONS:
+        raise AssertionError("cfg4/cfg5 no longer run the shipped actions")
+    names = ("batched_allocate", "fused_allocate", "victim_wave",
+             "victim_visit")
+
+    # ---- (a) the shipped policy at cfg5: cold, then skewed churn ---------
+    t0 = time.perf_counter()
+    sim = build_cluster(spec5)
+    evictor = CountingEvictor()
+    cache = SchedulerCache(device=dev, binder=NullBinder(),
+                           evictor=evictor)
+    sim.populate(cache)
+    n_cold = len(sim.pods)
+    log(f"(a) cfg5, shipped actions {', '.join(SHIPPED_ACTIONS)}: "
+        f"populated in {time.perf_counter() - t0:.1f} s")
+
+    def kubelet_tick():
+        for pod in sim.pods:
+            if pod.node_name and pod.phase == PodPhase.PENDING:
+                pod.phase = PodPhase.RUNNING
+                cache.update_pod(pod, pod)
+
+    cycles = []
+    dem0 = metrics.engine_demotions_total()
+    with Recorder(victims, "victim_wave") as wrec:
+        for arrival in (None, 0, 3):
+            if arrival is not None:
+                kubelet_tick()
+                if sim.churn_tick(cache, churn,
+                                  arrival_queue=arrival) != churn:
+                    raise AssertionError(f"churn did not recycle {churn} "
+                                         f"pods")
+            b0 = binding_count(cache)
+            ev0 = len(evictor.evicted)
+            rb0 = metrics.blocking_readbacks()
+            n_rec = len(wrec.calls)
+            _build.reset_launch_counts()
+            telemetry.victim_frames.clear()
+            ms, _, _ = run_cycle(cache, shipped_tiers())
+            launches = {n: _build.launch_count(n) for n in names}
+            cycles.append({
+                "arrival_queue": arrival, "ms": ms, "launches": launches,
+                "engine": allocate_mod.last_cycle_engine,
+                "syncs": metrics.blocking_readbacks() - rb0,
+                "binds": binding_count(cache) - b0,
+                "evictions": len(evictor.evicted) - ev0,
+                "waves": [victims.last_launch.copy()]
+                if len(wrec.calls) > n_rec else [],
+                "frames": [{f: int(v) for f, v in zip(
+                    telemetry.FIELDS, frame) if v}
+                    for frame in telemetry.victim_frames]})
+    for k, c in enumerate(cycles):
+        label = ("cold" if k == 0 else
+                 f"churn {churn} into queue {c['arrival_queue']}")
+        log(f"(a) cycle {k} ({label}): engine {c['engine']}, binds "
+            f"{c['binds']}, evictions {c['evictions']}, launches "
+            f"{json.dumps(c['launches'])}, counted syncs {c['syncs']}, "
+            f"victim launch {json.dumps(c['waves'])}, frames "
+            f"{json.dumps(c['frames'])}, ms "
+            + json.dumps({p: round(v, 3) for p, v in c["ms"].items()}))
+    cold, churned = cycles[0], cycles[1:]
+    if cold["engine"] != "batched" or cold["binds"] != n_cold:
+        raise AssertionError(f"cold cycle: engine {cold['engine']}, "
+                             f"{cold['binds']} binds")
+    if cold["launches"]["victim_wave"] or cold["launches"]["victim_visit"]:
+        raise AssertionError("the cold cycle launched a victim kernel")
+    for c in churned:
+        if c["launches"]["victim_wave"] != 1 or \
+                c["launches"]["victim_visit"] != 0:
+            raise AssertionError(f"churn cycle launches {c['launches']}, "
+                                 f"expected one victim_wave (reclaim's "
+                                 f"prefetch)")
+        if c["binds"] != churn:
+            raise AssertionError(f"churn cycle bound {c['binds']}, not "
+                                 f"{churn}")
+        if [f.get("engine") for f in c["frames"]] != [
+                telemetry.ENGINE_VICTIM_WAVE]:
+            raise AssertionError(f"churn cycle frames {c['frames']}")
+    for c in cycles:
+        if c["syncs"] != sum(c["launches"].values()):
+            raise AssertionError(f"{c['syncs']} counted syncs for "
+                                 f"{c['launches']}: not one per dispatch")
+    if metrics.engine_demotions_total() != dem0:
+        raise AssertionError("an engine demotion on the shipped path")
+    bad = gang_all_or_nothing(cache)
+    if bad:
+        raise AssertionError(f"{bad} PodGroups partially placed")
+    wave_err = 0.0
+    for kw, got in wrec.calls:
+        wave_err = max(wave_err, check_victim_call(kw, got, visit=False))
+    main_kw, main_out = wrec.calls[-1]
+    main_t, main_cfg = split_config(main_kw)
+    log(f"(a) {len(wrec.calls)} victim_wave launches bitwise equal to the "
+        f"plain version on CPU copies of their inputs")
+    wave_main_ms = cuda_ms(lambda: victims.victim_wave(**main_kw), reps=20)
+    wave_main_plain_ms = cuda_ms(
+        lambda: victims.wave_plain(**main_kw), reps=3)
+    wb = victim_bounds(main_kw, main_out, visit=False)
+
+    # ---- (b) full width at that state -----------------------------------
+    kubelet_tick()
+    sim.churn_tick(cache, churn, arrival_queue=0)
+    ssn = OpenSession(cache, shipped_tiers())
+    pending = [t for j in ssn.jobs.values()
+               for t in j.task_status_index.get(TaskStatus.PENDING,
+                                                {}).values()]
+    t0 = time.perf_counter()
+    pre = victims.build_victim_solver(ssn, pending, "preemptable_fns",
+                                      "preemptable_disabled", True)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rcl = victims.build_victim_solver(ssn, pending, "reclaimable_fns",
+                                      "reclaimable_disabled", False)
+    width = min(256, len(pending))
+    chunk = pending[:width]
+    full = {}
+    for solver, kinds in ((pre, ("inter_queue", "intra_job")),
+                          (rcl, ("other_queue",))):
+        kw = solver.kernel_args(chunk, width)
+        for fk in kinds:
+            cfg = solver.config(fk)
+            out = victims.victim_wave(**kw, **cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            err = check_victim_call({**kw, **cfg}, out, visit=False)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            full[fk] = {
+                "lanes": width, "ms": cuda_ms(
+                    lambda: victims.victim_wave(**kw, **cfg), reps=5),
+                "plain_ms": cuda_ms(
+                    lambda: victims.wave_plain(**kw, **cfg), reps=2),
+                "plain_cpu_ms": cpu_ms, "max_abs_err": err,
+                "launch": victims.last_launch.copy(),
+                **victim_bounds({**kw, **cfg}, out, visit=False)}
+            wave_err = max(wave_err, err)
+    visit_err, visit_calls = 0.0, []
+    visited = np.zeros(pre.state.n_pad, bool)
+    for t in chunk[:8]:
+        kw = pre.kernel_args([t], 1, visited=visited)
+        cfg = pre.config("inter_queue")
+        out = victims.victim_visit(**kw, **cfg)
+        torch.cuda.synchronize()
+        visit_err = max(visit_err, check_victim_call({**kw, **cfg}, out,
+                                                     visit=True))
+        visit_calls.append((kw, cfg, out))
+    kw, cfg, out = visit_calls[0]
+    visit_ms = cuda_ms(lambda: victims.victim_visit(**kw, **cfg), reps=20)
+    visit_plain_ms = cuda_ms(lambda: victims.visit_plain(**kw, **cfg),
+                             reps=3)
+    vb = victim_bounds({**kw, **cfg}, out, visit=True)
+    CloseSession(ssn)
+    cache.stop()
+    log(f"(b) cfg5 churn state: VictimState + solver build {build_ms:.1f} "
+        f"ms (preempt's), V_pad {len(pre.state.v_node)}, "
+        f"live rows {pre.state.victims.live}, N_pad {pre.state.n_pad}")
+    for fk, r in full.items():
+        log(f"(b) victim_wave {fk}, {r['lanes']} lanes: {r['ms']:.3f} ms (CUDA "
+            f"events, 5 launches), plain {r['plain_ms']:.3f} ms on the card, "
+            f"plain {r['plain_cpu_ms']:.0f} ms on CPU copies (bitwise "
+            f"equal), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"launch {json.dumps(r['launch'])}")
+    log(f"(b) victim_visit, 8 lanes bitwise equal to plain; one visit "
+        f"{visit_ms:.4f} ms (CUDA events, 20 launches), plain "
+        f"{visit_plain_ms:.3f} ms on the card, bound {vb['bound_ms']:.6f} "
+        f"ms ({vb['bound_by']})")
+
+    # ---- (c) saturated cfg4: preemption under contention ----------------
+    t0 = time.perf_counter()
+    sim4 = build_cluster(spec4)
+    evictor4 = CountingEvictor()
+    cache4 = SchedulerCache(device=dev, binder=NullBinder(),
+                            evictor=evictor4)
+    sim4.populate(cache4)
+    log(f"(c) saturated cfg4: {len(cache4.nodes)} nodes, {len(sim4.pods)} "
+        f"pods populated in {time.perf_counter() - t0:.1f} s")
+    rb0 = metrics.blocking_readbacks()
+    with Recorder(victims, "victim_wave") as crec, \
+            Recorder(victims, "victim_visit") as vrec:
+        _build.reset_launch_counts()
+        ms4, statuses4, before4 = run_cycle(cache4, shipped_tiers())
+        launches4 = {n: _build.launch_count(n) for n in names}
+    syncs4 = metrics.blocking_readbacks() - rb0
+    full4 = sum(1 for kw, _ in crec.calls if kw["p_job"].shape[0] >= 8)
+    single4 = sum(1 for kw, _ in crec.calls if kw["p_job"].shape[0] == 1)
+    preemptors = [k for k, st in before4.items() if st == "PENDING"]
+    piped = sum(1 for k in preemptors if statuses4[k] == "PIPELINED")
+    left = sum(1 for k in preemptors if statuses4[k] == "PENDING")
+    evictions4 = len(evictor4.evicted)
+    log(f"(c) cycle: engine {allocate_mod.last_cycle_engine}, launches "
+        f"{json.dumps(launches4)} ({full4} full waves of >= 8 lanes, "
+        f"{single4} single-lane refreshes), counted syncs {syncs4}, "
+        f"{len(preemptors)} preemptors: {piped} pipelined, {left} left "
+        f"pending; {evictions4} evictions; ms "
+        + json.dumps({p: round(v, 3) for p, v in ms4.items()}))
+    if evictions4 == 0 or piped == 0:
+        raise AssertionError("the saturated cfg4 cycle did not preempt")
+    if piped + left != len(preemptors):
+        raise AssertionError("a preemptor ended neither pipelined nor "
+                             "pending")
+    if syncs4 != sum(launches4.values()):
+        raise AssertionError("cfg4: not one counted sync per dispatch")
+    bad = gang_all_or_nothing(cache4)
+    if bad:
+        raise AssertionError(f"cfg4: {bad} PodGroups partially placed")
+    calls = crec.calls
+    n = len(calls)
+    sample = sorted(set(range(min(64, n))) | set(range(0, n, 16))
+                    | set(range(max(0, n - 64), n)))
+    t0 = time.perf_counter()
+    for i in sample:
+        kw, got = calls[i]
+        wave_err = max(wave_err, check_victim_call(kw, got, visit=False))
+    for kw, got in vrec.calls:
+        visit_err = max(visit_err, check_victim_call(kw, got, visit=True))
+    log(f"(c) {len(sample)} of {n} victim_wave launches (the first 64, "
+        f"every 16th, the last 64) and all {len(vrec.calls)} victim_visit "
+        f"launches bitwise equal to plain on CPU copies "
+        f"({time.perf_counter() - t0:.1f} s)")
+    refresh_kw = next((kw for kw, _ in calls
+                       if kw["p_job"].shape[0] == 1), None)
+    refresh_ms = (cuda_ms(lambda: victims.victim_wave(**refresh_kw),
+                          reps=20) if refresh_kw is not None else None)
+    cache4.stop()
+
+    return [
+        {"name": "victim_wave", "route": "cuda",
+         "source": "kubebatch_tpu_torch/kernels/csrc/victims.cu",
+         "replaces": "kubebatch_tpu/kernels/victims.py:401",
+         "launches": sum(c["launches"]["victim_wave"] for c in cycles),
+         "max_abs_err": wave_err, "ms": wave_main_ms,
+         "plain_ms": wave_main_plain_ms, "plain_device": "cuda",
+         "bound_ms": wb["bound_ms"], "bound_by": wb["bound_by"],
+         "library_ms": None, "lanes": wb["lanes"], "rows": wb["v_pad"],
+         "nodes": wb["n_pad"], "filter_kind": main_cfg["filter_kind"],
+         "full_width": full,
+         "cfg4_launches": launches4["victim_wave"],
+         "cfg4_full_waves": full4, "cfg4_refreshes": single4,
+         "cfg4_refresh_ms": refresh_ms,
+         "cfg4_checked": len(sample)},
+        {"name": "victim_visit", "route": "cuda",
+         "source": "kubebatch_tpu_torch/kernels/csrc/victims.cu",
+         "replaces": "kubebatch_tpu/kernels/victims.py:324",
+         "launches": sum(c["launches"]["victim_visit"] for c in cycles),
+         "max_abs_err": visit_err, "ms": visit_ms,
+         "plain_ms": visit_plain_ms, "plain_device": "cuda",
+         "bound_ms": vb["bound_ms"], "bound_by": vb["bound_by"],
+         "library_ms": None, "lanes": 1, "rows": vb["v_pad"],
+         "nodes": vb["n_pad"], "checked_lanes": len(visit_calls),
+         "cfg4_launches": launches4["victim_visit"],
+         "note": "the shipped policy dispatches waves (the host chooses "
+                 "nodes from the cached lanes), so the per-visit kernel "
+                 "runs only for a solver built with wave=False"},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -377,7 +796,7 @@ def main() -> int:
     from kubebatch_tpu_torch.kernels.solver import (dynamic_node_score,
                                                     dynamic_node_score_plain)
     from kubebatch_tpu_torch.objects import PodPhase
-    from kubebatch_tpu_torch.sim import baseline_cluster
+    from kubebatch_tpu_torch.sim import BASELINE_SPECS, baseline_cluster
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -678,8 +1097,12 @@ def main() -> int:
         f"arithmetic (node_score.cuh) runs inside every batched_allocate "
         f"and fused_allocate launch; the standalone kernel is timed at "
         f"N={n_pad}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
     cache.stop()
+
+    kernels += victim_phases(
+        dev, BASELINE_SPECS[5],
+        dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
 """Scheduling actions (ref: pkg/scheduler/actions).
 
-Importing this package registers the built-in actions this package has:
-allocate. Reclaim, backfill and preempt are later slices of the port.
+Importing this package registers the four built-in actions of the shipped
+policy: reclaim, allocate, backfill and preempt.
 """
-from . import allocate
+from . import allocate, backfill, preempt, reclaim
 
-__all__ = ["allocate"]
+__all__ = ["allocate", "backfill", "preempt", "reclaim"]

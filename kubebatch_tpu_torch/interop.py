@@ -8,11 +8,12 @@ port's solve takes, keyed by its argument names. ``engine`` names the
 solve: ``"fused"`` (``kernels.fused.fused_allocate``) or ``"batched"``
 (``kernels.batched.batched_allocate``; its arrays are the reference's
 packed batched inputs unpacked, including task_pair, pair_sig and
-pair_nz).
+pair_nz). :func:`victim_inputs_from_numpy` does the same for the victim
+kernels (kernels/victims.py) from the reference solver's host arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,3 +67,45 @@ def device_state_from_numpy(arrays: Mapping[str, np.ndarray],
         n: n for n in batched.NODE_ARGS}
     return {arg: _tensor(mod, arg, arrays[attr], dev)
             for attr, arg in names.items()}
+
+
+def victim_inputs_from_numpy(static: Sequence[np.ndarray],
+                             mutable: Sequence[np.ndarray],
+                             sig: Sequence[np.ndarray],
+                             lanes: Sequence[np.ndarray],
+                             device: DeviceLike,
+                             visited: Optional[np.ndarray] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """Every argument of ``kernels.victims.victim_wave`` (and, with
+    ``visited``, of ``victim_visit``) as tensors on ``device``, from a
+    victim solver's ``host_static_arrays()`` (18 arrays),
+    ``host_mutable_arrays()`` (6), ``host_sig_arrays()`` (2; a bfloat16
+    score matrix upcasts exactly to float32) and the six lane arrays
+    (p_res, p_resreq, p_nz, p_sig, p_job, p_queue; a single visit's
+    scalars become one lane). The per-node row order the kernels read is
+    derived from v_node and v_live here."""
+    from .kernels import victims
+
+    dev = resolve_device(device)
+    arrays = dict(zip(victims.STATIC_ARGS, static))
+    arrays.update(zip(victims.MUTABLE_ARGS, mutable))
+    arrays.update(zip(victims.SIG_ARGS, sig))
+    widths = {"p_res": 3, "p_resreq": 3, "p_nz": 2}
+    for name, arr in zip(victims.LANE_ARGS, lanes):
+        arr = np.asarray(arr)
+        arrays[name] = arr.reshape(-1, widths[name]) if name in widths \
+            else arr.reshape(-1)
+    n_pad = np.asarray(arrays["node_ok"]).shape[0]
+    arrays.update(zip(victims.ORDER_ARGS, victims.node_row_order(
+        np.asarray(arrays["v_node"], np.int32),
+        np.asarray(arrays["v_live"], bool), n_pad)))
+    if visited is not None:
+        arrays["visited"] = visited
+    out = {}
+    for name, arr in arrays.items():
+        dt = victims.arg_dtype(name)
+        a = np.asarray(arr)
+        if dt == torch.float32:
+            a = a.astype(np.float32)
+        out[name] = torch.tensor(a, dtype=dt, device=dev)
+    return out

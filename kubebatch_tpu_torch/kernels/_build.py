@@ -47,6 +47,10 @@ EXPORTS: Dict[str, Dict[str, str]] = {
         "kb_batched_workspace": "pip",
         "kb_batched_allocate": "pipipp",
     },
+    "victims.cu": {
+        "kb_victims_workspace": "ii",
+        "kb_victims": "ppp",
+    },
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
     },

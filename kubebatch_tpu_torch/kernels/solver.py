@@ -62,6 +62,30 @@ def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
     return least * dyn_weights[0] + balanced * dyn_weights[1]
 
 
+def dynamic_node_score_np(nz_req: np.ndarray, t_nz: np.ndarray,
+                          allocatable_cm: np.ndarray,
+                          dyn_weights: np.ndarray) -> np.ndarray:
+    """:func:`dynamic_node_score_plain` in numpy float32, for the victim
+    chooser's host-side fresh-score recompute (kernels/victims.py). Every
+    scalar is pinned to float32, so numpy's arithmetic matches the
+    kernels' float32 arithmetic bit for bit."""
+    f32 = np.float32
+    ten = f32(10.0)
+    req = nz_req + t_nz[None, :]                      # [N,2]
+    cap = allocatable_cm                              # [N,2]
+    d = np.arange(1.0, 11.0, dtype=f32)               # [10]
+    ge = ((cap - req)[None] * ten >= d[:, None, None] * cap[None])
+    dim = np.where((cap > 0) & (req <= cap),
+                   ge.sum(axis=0).astype(f32), f32(0.0))   # [N,2]
+    least = np.floor((dim[:, 0] + dim[:, 1]) / f32(2.0))
+    frac = np.where(cap > 0, req / np.where(cap > 0, cap, f32(1.0)),
+                    f32(1.0))
+    diff = np.abs(frac[:, 0] - frac[:, 1])
+    balanced = np.where((frac[:, 0] >= 1.0) | (frac[:, 1] >= 1.0),
+                        f32(0.0), np.trunc(ten - diff * ten))
+    return least * dyn_weights[0] + balanced * dyn_weights[1]
+
+
 def dynamic_node_score(nz_req: torch.Tensor, t_nz: torch.Tensor,
                        allocatable_cm: torch.Tensor,
                        dyn_weights: torch.Tensor) -> torch.Tensor:

@@ -6,14 +6,21 @@ word (kubebatch_tpu/kernels/telemetry.py), so the two host blocks compare
 directly. The CUDA fused kernel writes the same frame in its epilogue
 (csrc/fused_allocate.cu), and so does the batched round kernel
 (csrc/batched_allocate.cu); :func:`decision_frame` is the plain PyTorch
-version the plain engines use.
+version the plain engines use. The victim kernels' results are bool
+bitmaps, so their frames are assembled on the host from the same single
+readback (:func:`host_frame`) and kept in :data:`victim_frames`.
 """
 from __future__ import annotations
 
+from collections import deque
+
+import numpy as np
 import torch
 
 __all__ = ["TELEM_WIDTH", "WAVE_SLOTS", "FIELDS", "ENGINE_NAMES",
-           "ENGINE_BATCHED", "ENGINE_FUSED", "decision_frame"]
+           "ENGINE_BATCHED", "ENGINE_FUSED", "ENGINE_VICTIM_WAVE",
+           "ENGINE_VICTIM_VISIT", "decision_frame", "host_frame",
+           "victim_frames"]
 
 #: frame width in int32 words
 TELEM_WIDTH = 20
@@ -45,9 +52,15 @@ FIELDS = ("engine", "waves", "bound", "failed", "pending", "census",
 ENGINE_VISIT = 1
 ENGINE_BATCHED = 2
 ENGINE_FUSED = 3
+ENGINE_VICTIM_WAVE = 7
+ENGINE_VICTIM_VISIT = 8
 
 ENGINE_NAMES = {ENGINE_VISIT: "visit", ENGINE_BATCHED: "batched",
-                ENGINE_FUSED: "fused"}
+                ENGINE_FUSED: "fused", ENGINE_VICTIM_WAVE: "victim_wave",
+                ENGINE_VICTIM_VISIT: "victim_visit"}
+
+#: the frames of the latest victim dispatches, oldest first (bounded)
+victim_frames: deque = deque(maxlen=65536)
 
 # decision codes (solver.py/fused.py agree on these)
 _SKIP, _ALLOC, _ALLOC_OB, _PIPELINE, _FAIL = 0, 1, 2, 3, 4
@@ -84,3 +97,17 @@ def decision_frame(engine: int, task_state: torch.Tensor,
     tail[F_RETRIES - 6 - WAVE_SLOTS] = int(retries)
     tail[F_STRANDED - 6 - WAVE_SLOTS] = int(stranded)
     return torch.cat([head, wave_bound, tail])
+
+
+def host_frame(engine: int, **fields) -> np.ndarray:
+    """Numpy frame for engines whose telemetry is assembled host-side
+    from the already-read-back packed block (the victim kernels: their
+    result block is a bool bitmap, so the frame is derived from the
+    same single readback instead of widening the transfer 4x).
+    Unknown field names are a programming error."""
+    out = np.zeros(TELEM_WIDTH, np.int32)
+    out[F_ENGINE] = engine
+    index = {name: i for i, name in enumerate(FIELDS)}
+    for name, val in fields.items():
+        out[index[name]] = int(val)
+    return out

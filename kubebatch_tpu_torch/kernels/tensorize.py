@@ -27,12 +27,19 @@ from ..api.resource import RESOURCE_DIM, VEC_EPS, VEC_SCALE
 
 __all__ = ["NodeState", "TaskBatch", "pad_to_bucket", "sticky_bucket",
            "VEC_EPS", "batch_clone_tasks", "batch_set_attr",
-           "NONZERO_MILLI_CPU", "NONZERO_MEM_MIB"]
+           "NONZERO_MILLI_CPU", "NONZERO_MEM_MIB", "nz_request_vec"]
 
 #: upstream DefaultNonZeroRequest (priorityutil.GetNonzeroRequests) in
 #: device units: 100m CPU, 200MB memory (= 200 MiB exactly)
 NONZERO_MILLI_CPU = 100.0
 NONZERO_MEM_MIB = 200.0
+
+
+def nz_request_vec(resreq_vec: np.ndarray) -> np.ndarray:
+    """[cpu_milli, mem_MiB] with upstream NonZero defaults applied."""
+    cpu = resreq_vec[0] if resreq_vec[0] != 0 else NONZERO_MILLI_CPU
+    mem = resreq_vec[1] if resreq_vec[1] != 0 else NONZERO_MEM_MIB
+    return np.array([cpu, mem], np.float32)
 
 
 def pack_node_raw(nodes_seq) -> np.ndarray:

@@ -1,16 +1,24 @@
-"""Process-lifetime counters the allocate cycle touches.
+"""Process-lifetime counters the scheduling actions touch.
 
 Plain integers (no Prometheus exporter in this package yet): consumers
-read a counter before and after a window and diff. Two are counted: the
-blocking device->host copies (``device.to_host``, one per fused solve)
-and engine demotions (a requested engine that could not run and handed
-the cycle to another). The remaining functions are the hooks the
-framework and the gang plugin call; with no exporter they record nothing.
+read a counter before and after a window and diff. Counted: the
+blocking device->host copies (``device.to_host``, one per solve or victim
+dispatch), engine demotions (a requested engine that could not run and
+handed the cycle to another), the preemption victims and attempts, and
+backfill-over-reserved's reclaims, double binds and lost reservations.
+The remaining functions are the hooks the framework and the gang plugin
+call; with no exporter they record nothing.
 """
 from __future__ import annotations
 
 _blocking_readbacks = 0
 _engine_demotions = 0
+_preemption_victims = 0
+_preemption_attempts = 0
+_backfill_reclaims = 0
+_backfill_tenants_evicted = 0
+_backfill_double_binds = 0
+_lost_reservations = 0
 
 
 def count_blocking_readback(n: int = 1) -> None:
@@ -58,3 +66,61 @@ def update_unschedule_job_count(count: int) -> None:
 
 def register_job_retries(job_id: str) -> None:
     """A gang that stayed unready this cycle (gang plugin)."""
+
+
+def update_preemption_victims_count(count: int) -> None:
+    """The victim count of the last node a preemptor visited (a gauge)."""
+    global _preemption_victims
+    _preemption_victims = count
+
+
+def preemption_victims() -> int:
+    return _preemption_victims
+
+
+def register_preemption_attempts() -> None:
+    """One eviction walk on a validating node (preempt)."""
+    global _preemption_attempts
+    _preemption_attempts += 1
+
+
+def preemption_attempts_total() -> int:
+    return _preemption_attempts
+
+
+def count_backfill_reclaim(tenants_evicted: int) -> None:
+    """Record one gang promoted Ready by reclaiming its lent capacity
+    (``tenants_evicted`` backfill tasks evicted in the statement)."""
+    global _backfill_reclaims, _backfill_tenants_evicted
+    _backfill_reclaims += 1
+    _backfill_tenants_evicted += tenants_evicted
+
+
+def backfill_reclaims_total() -> int:
+    return _backfill_reclaims
+
+
+def backfill_tenants_evicted_total() -> int:
+    return _backfill_tenants_evicted
+
+
+def count_backfill_double_bind() -> None:
+    """A task reached dispatch in a state other than Allocated, or a
+    promotion target was no longer over-backfill (normally never)."""
+    global _backfill_double_binds
+    _backfill_double_binds += 1
+
+
+def backfill_double_binds_total() -> int:
+    return _backfill_double_binds
+
+
+def count_lost_reservation(n: int = 1) -> None:
+    """An over-backfill placement survived the end-of-action release
+    sweep (normally never)."""
+    global _lost_reservations
+    _lost_reservations += n
+
+
+def lost_reservations_total() -> int:
+    return _lost_reservations

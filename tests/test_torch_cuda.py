@@ -339,3 +339,270 @@ def test_batched_allocate_kernel_matches_plain_on_fixtures(make_cluster,
                                   **statics)
     _assert_bitwise(want, [g.cpu() for g in got], "batched_allocate")
     assert statics["gang_enabled"] == (tiers is None)
+
+
+# ---------------------------------------------------------------------
+# the victim kernels (kernels/csrc/victims.cu)
+# ---------------------------------------------------------------------
+
+class World:
+    """Fixture builders bound to one package's objects module (the
+    reference's tests/fixtures.py, for either package; the CPU parity
+    tests build the same worlds in the reference's objects too)."""
+
+    def __init__(self, mod):
+        self.m = mod
+
+    def rl(self, cpu_milli=0.0, mem_bytes=0.0, gpu_milli=0.0, pods=0.0):
+        return self.m.resource_list(cpu=cpu_milli, memory=mem_bytes,
+                                    gpu=gpu_milli, pods=pods)
+
+    def node(self, name, alloc):
+        return self.m.Node(name=name, allocatable=dict(alloc),
+                           capacity=dict(alloc))
+
+    def pod(self, ns, name, node_name, running, req, group="",
+            priority=None, backfill=False, **kw):
+        m = self.m
+        ann = {}
+        if group:
+            ann[m.GROUP_NAME_ANNOTATION] = group
+        if backfill:
+            ann[m.BACKFILL_ANNOTATION] = "true"
+        return m.Pod(uid=f"{ns}-{name}", name=name, namespace=ns,
+                     node_name=node_name,
+                     phase=m.PodPhase.RUNNING if running
+                     else m.PodPhase.PENDING,
+                     containers=[m.Container(requests=dict(req))],
+                     annotations=ann, priority=priority, **kw)
+
+    def group(self, ns, name, min_member, queue=""):
+        return self.m.PodGroup(name=name, namespace=ns,
+                               min_member=min_member, queue=queue)
+
+    def queue(self, name, weight=1):
+        return self.m.Queue(name=name, weight=weight)
+
+
+def contended_build(seed, n_nodes=24, n_fill=60, n_gangs=18):
+    """The reference tests' contended world (tests/test_victims.py
+    ``_contended_build``): running fill across 3 weighted queues and many
+    pending gangs wanting preemption/reclaim."""
+    rng = np.random.default_rng(seed)
+    caps = [(int(rng.integers(4, 9)) * 1000, int(rng.integers(8, 17)) * GiB)
+            for _ in range(n_nodes)]
+    fills = [(f"fill-{i:03d}", int(rng.integers(0, n_nodes)),
+              int(rng.integers(1, 4)) * 500, int(rng.integers(1, 4)) * GiB,
+              int(rng.integers(0, 3)), int(rng.integers(1, 10)))
+             for i in range(n_fill)]
+    gangs = []
+    for g in range(n_gangs):
+        size = int(rng.integers(1, 4))
+        gangs.append((f"gang-{g:02d}", size, max(1, size - 1),
+                      int(rng.integers(1, 4)) * 500,
+                      int(rng.integers(1, 4)) * GiB,
+                      int(rng.integers(0, 3)), int(rng.integers(50, 200))))
+
+    def build(cache, w):
+        for q in range(3):
+            cache.add_queue(w.queue(f"q{q}", weight=q + 1))
+        for i, (cpu, mem) in enumerate(caps):
+            cache.add_node(w.node(f"n{i:02d}", w.rl(cpu, mem, pods=12)))
+        for name, node, cpu, mem, q, pri in fills:
+            cache.add_pod_group(w.group("ns", name, 1, queue=f"q{q}"))
+            cache.add_pod(w.pod("ns", f"{name}-0", f"n{node:02d}", True,
+                                w.rl(cpu, mem), group=name, priority=pri))
+        for name, size, minav, cpu, mem, q, pri in gangs:
+            cache.add_pod_group(w.group("ns", name, minav, queue=f"q{q}"))
+            for i in range(size):
+                cache.add_pod(w.pod("ns", f"{name}-{i}", "", False,
+                                    w.rl(cpu, mem), group=name,
+                                    priority=pri))
+
+    return build
+
+
+def random_problem(seed, n_pad=64, n_real=50, v_pad=512, n_jobs=40,
+                   n_queues=3, s_pad=8, lanes=16, guard_heavy=False):
+    """A seeded victim problem in the reference's layout: rows in node
+    slots, jobs and queues with random state, orderings built the way
+    VictimState builds them."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    v_node = np.sort(rng.integers(0, n_real, v_pad)).astype(np.int32)
+    v_node[-v_pad // 8:] = 0                      # dead tail rows
+    v_job = rng.integers(-1, n_jobs, v_pad).astype(np.int32)
+    v_res = (rng.integers(1, 9, (v_pad, 3)) * np.array(
+        [250.0, 512.0, 125.0]) * rng.choice([1.0, 1.0, 0.999], (v_pad, 3))
+             ).astype(f32)
+    v_res[rng.random(v_pad) < 0.5, 2] = 0.0
+    v_crit = rng.random(v_pad) < 0.1
+    v_live = (rng.random(v_pad) < 0.85) & (v_job >= 0)
+    v_live[-v_pad // 8:] = False
+    j_pad = 64
+    job_queue = np.full(j_pad, -1, np.int32)
+    job_queue[:n_jobs] = rng.integers(-1, n_queues, n_jobs)
+    ready_cnt = np.zeros(j_pad, np.int32)
+    ready_cnt[:n_jobs] = rng.integers(0, 6, n_jobs)
+    min_av = np.zeros(j_pad, np.int32)
+    min_av[:n_jobs] = rng.integers(1, 5, n_jobs)
+    j_alloc = np.zeros((j_pad, 3), f32)
+    j_alloc[:n_jobs] = (rng.uniform(0, 8000, (n_jobs, 3))
+                        * [1, 2, 0]).astype(f32)
+    q_pad = 4
+    scale = 0.02 if guard_heavy else 1.0
+    q_alloc = (rng.uniform(2000, 60000, (q_pad, 3)) * [1, 2, 0.1]
+               * scale).astype(f32)
+    q_deserved = (q_alloc * rng.uniform(0.3, 1.1, (q_pad, 3))).astype(f32)
+    q_prop_ok = rng.random(q_pad) < 0.9
+    cluster_total = np.asarray([200000.0, 400000.0,
+                                rng.choice([0.0, 20000.0])], f32)
+    nj_key = (v_node.astype(np.int64) << 32) + v_job.astype(np.int64) \
+        + (1 << 31)
+    perm_nj = np.argsort(nj_key, kind="stable").astype(np.int32)
+    njs = nj_key[perm_nj]
+    nj_head = np.ones(v_pad, bool)
+    nj_head[1:] = njs[1:] != njs[:-1]
+    vq = np.where(v_job >= 0, job_queue[np.maximum(v_job, 0)], -1)
+    nq_key = (v_node.astype(np.int64) << 32) + vq.astype(np.int64) \
+        + (1 << 31)
+    perm_nq = np.argsort(nq_key, kind="stable").astype(np.int32)
+    nqs = nq_key[perm_nq]
+    nq_head = np.ones(v_pad, bool)
+    nq_head[1:] = nqs[1:] != nqs[:-1]
+    node_ok = np.zeros(n_pad, bool)
+    node_ok[:n_real] = rng.random(n_real) < 0.9
+    max_task_num = np.zeros(n_pad, np.int32)
+    max_task_num[:n_real] = rng.integers(2, 20, n_real)
+    n_tasks = np.zeros(n_pad, np.int32)
+    n_tasks[:n_real] = rng.integers(0, 20, n_real)
+    cap = np.zeros((n_pad, 2), f32)
+    cap[:n_real] = rng.uniform(4000, 16000, (n_real, 2))
+    nz_req = (cap * rng.uniform(0, 1.05, (n_pad, 2))).astype(f32)
+    host_rank = np.full(n_pad, np.iinfo(np.int32).max, np.int32)
+    host_rank[:n_real] = rng.permutation(n_real)
+    dyn_w = np.asarray([1.0, 1.0], f32)
+    sig_scores = rng.integers(0, 3, (s_pad, n_pad)).astype(f32)
+    sig_pred = rng.random((s_pad, n_pad)) < 0.8
+    static = (node_ok, max_task_num, cap, host_rank, v_node, v_job, v_res,
+              v_crit, perm_nj, nj_head, perm_nq, nq_head, min_av,
+              job_queue, q_deserved, q_prop_ok, cluster_total, dyn_w)
+    mutable = (n_tasks, nz_req, v_live, ready_cnt, j_alloc, q_alloc)
+    sig = (sig_scores, sig_pred)
+    p_res = (rng.integers(1, 12, (lanes, 3)) * [250.0, 512.0, 0.0]
+             ).astype(f32)
+    p_resreq = (p_res * rng.choice([1.0, 0.5], (lanes, 1))).astype(f32)
+    p_nz = np.maximum(p_resreq[:, :2], [100.0, 200.0]).astype(f32)
+    p_sig = rng.integers(0, s_pad, lanes).astype(np.int32)
+    p_job = rng.integers(0, n_jobs, lanes).astype(np.int32)
+    p_queue = np.where(job_queue[p_job] >= 0, job_queue[p_job],
+                       0).astype(np.int32)
+    # the last two lanes are pads, as a wave's tail is
+    p_res[-2:] = 0.0
+    p_resreq[-2:] = 0.0
+    p_nz[-2:] = 0.0
+    p_sig[-2:] = 0
+    p_job[-2:] = -1
+    p_queue[-2:] = -1
+    lanes_t = (p_res, p_resreq, p_nz, p_sig, p_job, p_queue)
+    return static, mutable, sig, lanes_t
+
+
+
+PREEMPT_TIERS = (("gang", "conformance"), ("drf",))
+RECLAIM_TIERS = (("gang", "conformance"), ("proportion",))
+
+#: (filter_kind, tiers, veto_critical, dyn_enabled, score_nodes,
+#: room_check, guard_heavy)
+VICTIM_CASES = [
+    ("inter_queue", PREEMPT_TIERS, True, True, True, True, False),
+    ("intra_job", PREEMPT_TIERS, True, True, True, True, False),
+    ("other_queue", RECLAIM_TIERS, True, False, False, True, False),
+    ("other_queue", RECLAIM_TIERS, False, False, False, False, True),
+]
+
+
+def _victim_tensors(problem, device, visited=None):
+    from kubebatch_tpu_torch.interop import victim_inputs_from_numpy
+
+    static, mutable, sig, lanes = problem
+    return victim_inputs_from_numpy(static, mutable, sig, lanes, device,
+                                    visited=visited)
+
+
+@pytest.mark.parametrize("case", VICTIM_CASES,
+                         ids=[f"{c[0]}-{k}" for k, c in
+                              enumerate(VICTIM_CASES)])
+def test_victim_kernels_match_plain(case):
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import victims
+
+    fk, tiers, veto, dyn, score, room, guard_heavy = case
+    cfg = dict(tiers=tiers, veto_critical=veto, filter_kind=fk,
+               dyn_enabled=dyn, score_nodes=score, room_check=room)
+    problem = random_problem(VICTIM_CASES.index(case), lanes=40,
+                             guard_heavy=guard_heavy)
+    kw = _victim_tensors(problem, "cuda")
+    _build.reset_launch_counts()
+    got = victims.victim_wave(**kw, **cfg)
+    torch.cuda.synchronize()
+    assert _build.launch_count("victim_wave") == 1
+    want = victims.wave_plain(**_victim_tensors(problem, "cpu"), **cfg)
+    _assert_bitwise([want], [got.cpu()], f"victim_wave {fk}")
+    n_pad = problem[0][0].shape[0]
+    rng = np.random.default_rng(1)
+    for i in range(6):
+        visited = rng.random(n_pad) < 0.3
+        if i == 3:
+            visited[:] = True                    # not found
+        one = tuple(tuple(a[i:i + 1] for a in problem[3]))
+        prob = problem[:3] + (one,)
+        got = victims.victim_visit(**_victim_tensors(prob, "cuda", visited),
+                                   **cfg)
+        torch.cuda.synchronize()
+        want = victims.visit_plain(**_victim_tensors(prob, "cpu", visited),
+                                   **cfg)
+        _assert_bitwise([want], [got.cpu()], f"victim_visit {fk} lane {i}")
+    assert _build.launch_count("victim_visit") == 6
+
+
+@pytest.mark.parametrize("seed", [3, 17])
+def test_contended_victim_cycle_on_the_card_decides_as_the_cpu(seed):
+    """reclaim + allocate + backfill + preempt on a contended world: a
+    CUDA cache (the victim kernels launch) decides exactly as a CPU
+    cache (their plain versions)."""
+    _need_cuda()
+    from kubebatch_tpu_torch import objects
+    from kubebatch_tpu_torch.framework.registry import get_action
+
+    results = []
+    for device in ("cpu", "cuda"):
+        evicted = []
+
+        class Rec:
+            def bind(self, pod, hostname):
+                pod.node_name = hostname
+
+            def evict(self, pod):
+                evicted.append(pod.name)
+                pod.deletion_timestamp = 1.0
+
+        cache = SchedulerCache(binder=Rec(), evictor=Rec(),
+                               async_writeback=False, device=device)
+        contended_build(seed)(cache, World(objects))
+        _build.reset_launch_counts()
+        ssn = OpenSession(cache, shipped_tiers())
+        for name in ("reclaim", "allocate", "backfill", "preempt"):
+            act = get_action(name)
+            if name == "allocate":
+                act = AllocateAction(mode="host")
+            act.execute(ssn)
+        statuses = {t.key: (t.status.name, t.node_name)
+                    for j in ssn.jobs.values() for t in j.tasks.values()}
+        CloseSession(ssn)
+        launches = (_build.launch_count("victim_wave")
+                    + _build.launch_count("victim_visit"))
+        results.append((statuses, sorted(evicted), launches))
+    assert results[0][:2] == results[1][:2]
+    assert results[0][1], "the contended world must evict"
+    assert results[0][2] == 0 and results[1][2] > 0

@@ -55,8 +55,26 @@ def test_port_imports_without_jax_or_reference_package():
                  "kubebatch_tpu_torch.actions.allocate",
                  "kubebatch_tpu_torch.cache.cache",
                  "kubebatch_tpu_torch.interop",
-                 "kubebatch_tpu_torch.sim.cluster"):
+                 "kubebatch_tpu_torch.sim.cluster",
+                 "kubebatch_tpu_torch.kernels.victims",
+                 "kubebatch_tpu_torch.actions.preempt",
+                 "kubebatch_tpu_torch.actions.reclaim",
+                 "kubebatch_tpu_torch.actions.backfill"):
         assert must in mods
+
+
+def test_no_environment_variable_steers_the_port():
+    """Devices, engines and decisions are arguments, never environment
+    variables: the only read of the environment is the CUDA toolkit's
+    location for the kernel build."""
+    readers = []
+    for path in sorted((REPO / "kubebatch_tpu_torch").rglob("*.py")) + [
+            REPO / "chip_smoke.py"]:
+        for k, line in enumerate(path.read_text().splitlines(), 1):
+            if "environ" in line or "getenv" in line:
+                readers.append((path.relative_to(REPO).as_posix(), line))
+    assert all(p == "kubebatch_tpu_torch/kernels/_build.py"
+               and "CUDA_HOME" in line for p, line in readers), readers
 
 
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
