@@ -30,7 +30,19 @@ filter kind and the visit kernel on 8 lanes (the shapes a contended cfg5
 cycle dispatches), checked and timed. Last, a saturated cfg4 (2,000
 nodes, running fill 0.95) runs one four-action cycle in which preempt
 evicts and pipelines through the victim kernels; a fixed sample of its
-launches is held against the plain versions.
+launches is held against the plain versions. Phases (a)-(c) run on
+incremental caches, the default (the allocate-only cfg5 cycles above
+stay snapshot-primary).
+
+Phase (d) is the steady cycle the way kube-batch runs it every period:
+an incremental cfg5 cache (the event fold: folded snapshots, dirty node
+rows refreshed on the card by csrc/scatter_rows.cu, the persistent
+victim segment store) and a snapshot-primary twin fed the same events, a
+cold cycle and eight skewed churn-256 cycles through the four shipped
+actions. Every cycle the folded snapshot passes the audit, both caches
+decide alike, every scatter equals its plain version and leaves the
+DeviceSession equal to a fresh build, and every victim_wave launch
+equals its plain version; per-phase host ms of both caches are printed.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
@@ -529,8 +541,9 @@ def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
                            evictor=evictor)
     sim.populate(cache)
     n_cold = len(sim.pods)
-    log(f"(a) cfg5, shipped actions {', '.join(SHIPPED_ACTIONS)}: "
-        f"populated in {time.perf_counter() - t0:.1f} s")
+    log(f"(a) cfg5, shipped actions {', '.join(SHIPPED_ACTIONS)}, "
+        f"incremental cache (the default): populated in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     def kubelet_tick():
         for pod in sim.pods:
@@ -688,8 +701,9 @@ def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
     cache4 = SchedulerCache(device=dev, binder=NullBinder(),
                             evictor=evictor4)
     sim4.populate(cache4)
-    log(f"(c) saturated cfg4: {len(cache4.nodes)} nodes, {len(sim4.pods)} "
-        f"pods populated in {time.perf_counter() - t0:.1f} s")
+    log(f"(c) saturated cfg4, incremental cache (the default): "
+        f"{len(cache4.nodes)} nodes, {len(sim4.pods)} pods populated in "
+        f"{time.perf_counter() - t0:.1f} s")
     rb0 = metrics.blocking_readbacks()
     with Recorder(victims, "victim_wave") as crec, \
             Recorder(victims, "victim_visit") as vrec:
@@ -768,6 +782,317 @@ def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
                  "nodes from the cached lanes), so the per-visit kernel "
                  "runs only for a solver built with wave=False"},
     ]
+
+
+#: bytes the dirty-row scatter moves per row (csrc/scatter_rows.cu): the
+#: 61 bytes of node values and the 4-byte row index read, the 61 bytes of
+#: values written
+SCATTER_READ_BYTES_PER_ROW = 65
+SCATTER_WRITE_BYTES_PER_ROW = 61
+FOLD_PHASES = ("snapshot", "audit", "open", "reclaim", "reclaim_victim_state",
+               "allocate", "backfill", "preempt", "preempt_victim_state",
+               "close", "wall")
+
+
+class FoldSide:
+    """One cfg5 cache of phase (d) with its own sim, binder and evictor."""
+
+    def __init__(self, label, spec, dev, incremental: bool):
+        from kubebatch_tpu_torch.cache import SchedulerCache
+        from kubebatch_tpu_torch.sim import build_cluster
+
+        self.label = label
+        self.sim = build_cluster(spec)
+        self.binder = RecordingBinder()
+        self.evictor = CountingEvictor()
+        self.cache = SchedulerCache(device=dev, binder=self.binder,
+                                    evictor=self.evictor,
+                                    incremental_snapshot=incremental)
+        self.sim.populate(self.cache)
+
+    def kubelet_tick(self):
+        from kubebatch_tpu_torch.objects import PodPhase
+
+        for pod in self.sim.pods:
+            if pod.node_name and pod.phase == PodPhase.PENDING:
+                pod.phase = PodPhase.RUNNING
+                self.cache.update_pod(pod, pod)
+
+
+def fold_phase(dev, spec5, churn: int = 256, n_churn: int = 8) -> dict:
+    """(d) the steady folded cfg5 cycle: an incremental CUDA cache and a
+    snapshot-primary twin, fed the same events (a cold cycle, then
+    ``n_churn`` churn cycles of ``churn`` pods alternating between queue
+    0 and queue 3), through the four registered shipped actions. Every
+    cycle: the folded snapshot passes the audit, both caches bind, evict
+    and pipeline alike and end with the same PodGroup phases, every
+    dirty-row scatter equals its plain version on CPU copies bitwise and
+    leaves the DeviceSession equal to a fresh build of the same nodes,
+    and every victim_wave launch equals its plain version. Returns the
+    scatter_rows entry of the kernels line."""
+    import torch
+
+    from kubebatch_tpu_torch import metrics
+    from kubebatch_tpu_torch.conf import shipped_tiers
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.framework.registry import get_action
+    from kubebatch_tpu_torch.kernels import _build, solver, victims
+
+    t0 = time.perf_counter()
+    inc = FoldSide("incremental", spec5, dev, incremental=True)
+    prim = FoldSide("snapshot-primary", spec5, dev, incremental=False)
+    log(f"(d) cfg5 folded steady cycle: incremental and snapshot-primary "
+        f"CUDA caches populated in {time.perf_counter() - t0:.1f} s")
+
+    # ---- instrumentation: the checks run inline and their host time is
+    #      kept out of the phase times -----------------------------------
+    check = {"ms": 0.0, "scatters": 0, "refreshes": 0, "err": 0.0,
+             "full_builds": 0, "vs_ms": 0.0, "vs_refreshed": [],
+             "side": None, "rows": []}
+    scatter_calls = []
+    inner_scatter = solver.scatter_rows
+    inner_update = solver.DeviceSession.update_rows
+    inner_init = solver.DeviceSession.__init__
+    inner_vs = victims.VictimState.__init__
+
+    def rec_scatter(dst, block):
+        t = time.perf_counter()
+        before = tuple(a.clone() for a in dst)
+        check["ms"] += (time.perf_counter() - t) * 1e3
+        inner_scatter(dst, block)
+        t = time.perf_counter()
+        scatter_calls.append((before, block, tuple(a.clone() for a in dst)))
+        check["rows"].append((check["side"], int(block.shape[0])))
+        check["ms"] += (time.perf_counter() - t) * 1e3
+
+    def checked_update(self, nodes, names):
+        ok = inner_update(self, nodes, names)
+        if ok and any(n in self.state.index for n in names):
+            t = time.perf_counter()
+            check["in_check"] = True
+            fresh = solver.DeviceSession(nodes, min_bucket=self.n_padded,
+                                         device=self.device)
+            check["in_check"] = False
+            for a, b in zip(self.arrays, fresh.arrays):
+                if not torch.equal(a, b):
+                    raise AssertionError("a refreshed DeviceSession differs "
+                                         "from a fresh build of its nodes")
+            check["refreshes"] += 1
+            check["ms"] += (time.perf_counter() - t) * 1e3
+        return ok
+
+    def counted_init(self, *a, **k):
+        if not check.get("in_check"):
+            check["full_builds"] += 1
+        inner_init(self, *a, **k)
+
+    def timed_vs(self, *a, **k):
+        t = time.perf_counter()
+        inner_vs(self, *a, **k)
+        check["vs_ms"] += (time.perf_counter() - t) * 1e3
+        check["vs_refreshed"].append(self.refreshed)
+
+    def verify_scatters():
+        t = time.perf_counter()
+        for before, block, after in scatter_calls:
+            want = tuple(b.cpu() for b in before)
+            solver.scatter_rows_plain(want, block.cpu())
+            got = tuple(a.cpu() for a in after)
+            assert_bitwise(want, got, "scatter_rows")
+            check["err"] = max(check["err"], max_abs_err(want, got))
+        check["scatters"] += len(scatter_calls)
+        last = scatter_calls[-1] if scatter_calls else None
+        scatter_calls.clear()
+        check["ms"] += (time.perf_counter() - t) * 1e3
+        return last
+
+    def run(side):
+        """One cycle of ``side``: host ms per phase (check time taken
+        out), the session's pipelined tasks, its binds and evictions."""
+        cache = side.cache
+        check["side"] = side.label
+        inner_snapshot = cache.snapshot
+        snap_ms = {}
+
+        def timed_snapshot():
+            t = time.perf_counter()
+            out = inner_snapshot()
+            snap_ms["ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        cache.snapshot = timed_snapshot
+        b0, e0 = len(side.binder.calls), len(side.evictor.evicted)
+        builds0 = check["full_builds"]
+        ms = {}
+        t0 = time.perf_counter()
+        snap, diffs = cache.audited_snapshot()
+        t1 = time.perf_counter()
+        del cache.snapshot
+        if diffs:
+            raise AssertionError(f"{side.label}: audited snapshot differs "
+                                 f"from the full clone: {diffs[:4]}")
+        ms["snapshot"] = snap_ms["ms"]
+        ms["audit"] = (t1 - t0) * 1e3 - snap_ms["ms"]
+        ssn = OpenSession(cache, shipped_tiers(), snapshot=snap)
+        ms["open"] = (time.perf_counter() - t1) * 1e3
+        for name in SHIPPED_ACTIONS:
+            c0, v0 = check["ms"], check["vs_ms"]
+            t = time.perf_counter()
+            get_action(name).execute(ssn)
+            ms[name] = ((time.perf_counter() - t) * 1e3
+                        - (check["ms"] - c0))
+            if name in ("reclaim", "preempt"):
+                ms[f"{name}_victim_state"] = check["vs_ms"] - v0
+        pipelined = sorted(t.key for j in ssn.jobs.values()
+                           for t in j.tasks.values()
+                           if t.status.name == "PIPELINED")
+        t = time.perf_counter()
+        CloseSession(ssn)
+        cache.drain(timeout=60.0)
+        ms["close"] = (time.perf_counter() - t) * 1e3
+        ms["wall"] = sum(ms[p] for p in SHIPPED_ACTIONS) + ms["snapshot"] \
+            + ms["open"] + ms["close"]
+        binds = dict(side.binder.calls[b0:])
+        return {"ms": ms, "pipelined": pipelined, "binds": binds,
+                "evictions": sorted(side.evictor.evicted[e0:]),
+                "full_builds": check["full_builds"] - builds0,
+                "phases": {g.name: g.status.phase.name
+                           for g in side.sim.groups}}
+
+    folded0 = metrics.events_folded_total()
+    demoted0 = metrics.fold_demotions_total()
+    solver.scatter_rows = rec_scatter
+    solver.DeviceSession.update_rows = checked_update
+    solver.DeviceSession.__init__ = counted_init
+    victims.VictimState.__init__ = timed_vs
+    rows_by_cycle, table, wave_err, n_waves = [], [], 0.0, 0
+    last_scatter = None
+    try:
+        with Recorder(victims, "victim_wave") as wrec:
+            _build.reset_launch_counts()
+            for k in range(n_churn + 1):
+                arrival = None if k == 0 else (0 if k % 2 else 3)
+                for side in (inc, prim):
+                    if arrival is not None:
+                        side.kubelet_tick()
+                        if side.sim.churn_tick(side.cache, churn,
+                                               arrival_queue=arrival) \
+                                != churn:
+                            raise AssertionError("churn did not recycle "
+                                                 f"{churn} pods")
+                check["rows"] = []
+                check["vs_refreshed"] = []
+                r_inc = run(inc)
+                vs_inc = list(check["vs_refreshed"])
+                rows_inc = [r for s, r in check["rows"]]
+                last_scatter = verify_scatters() or last_scatter
+                r_prim = run(prim)
+                verify_scatters()
+                for what in ("binds", "evictions", "pipelined", "phases"):
+                    if r_inc[what] != r_prim[what]:
+                        raise AssertionError(
+                            f"(d) cycle {k}: the incremental and the "
+                            f"snapshot-primary caches differ in {what}")
+                if k and r_inc["full_builds"]:
+                    raise AssertionError(
+                        f"(d) cycle {k}: the incremental cache built "
+                        f"{r_inc['full_builds']} DeviceSession(s) from "
+                        f"scratch with the node set unchanged")
+                if k and not rows_inc:
+                    raise AssertionError(f"(d) cycle {k}: no dirty-row "
+                                         f"scatter on the incremental cache")
+                for kw, got in wrec.calls:
+                    wave_err = max(wave_err,
+                                   check_victim_call(kw, got, visit=False))
+                n_waves += len(wrec.calls)
+                wrec.calls.clear()
+                table.append((k, arrival, r_inc, r_prim))
+                rows_by_cycle.append(rows_inc)
+                label = ("cold" if k == 0 else
+                         f"churn {churn} into queue {arrival}")
+                log(f"(d) cycle {k} ({label}): binds {len(r_inc['binds'])}, "
+                    f"evictions {len(r_inc['evictions'])}, pipelined "
+                    f"{len(r_inc['pipelined'])}; same in both caches; "
+                    f"incremental: scatter rows {rows_inc}, full "
+                    f"DeviceSession builds {r_inc['full_builds']}, "
+                    f"VictimState (nodes, jobs) refreshed {vs_inc}")
+                for r, side in ((r_inc, inc), (r_prim, prim)):
+                    log(f"(d) cycle {k} {side.label} ms "
+                        + json.dumps({p: round(r['ms'][p], 3)
+                                      for p in FOLD_PHASES
+                                      if p in r["ms"]}))
+            launches = _build.launch_count("scatter_rows")
+            wave_launches = _build.launch_count("victim_wave")
+    finally:
+        solver.scatter_rows = inner_scatter
+        solver.DeviceSession.update_rows = inner_update
+        solver.DeviceSession.__init__ = inner_init
+        victims.VictimState.__init__ = inner_vs
+    demoted = metrics.fold_demotions_total()
+    if demoted != demoted0:
+        raise AssertionError(f"(d) fold demotions {demoted}")
+    folded = {kd: v - folded0.get(kd, 0)
+              for kd, v in metrics.events_folded_total().items()
+              if v != folded0.get(kd, 0)}
+    log(f"(d) {check['scatters']} scatter_rows launches bitwise equal to "
+        f"plain on CPU copies; {check['refreshes']} refreshed "
+        f"DeviceSessions equal to fresh builds; {n_waves} victim_wave "
+        f"launches bitwise equal to plain; audits clean; fold demotions "
+        f"{json.dumps(demoted)}; events folded "
+        f"{json.dumps(folded)}; checks took {check['ms']:.0f} ms (kept out "
+        f"of the phase times)")
+    for side_k, side in ((2, inc), (3, prim)):
+        med = {p: sorted(r[side_k]["ms"][p] for r in table[1:])[
+            len(table[1:]) // 2] for p in FOLD_PHASES}
+        log(f"(d) {side.label}, median of {len(table) - 1} churn cycles, "
+            f"ms " + json.dumps({p: round(v, 3) for p, v in med.items()}))
+    inc.cache.stop()
+    prim.cache.stop()
+
+    # ---- the scatter kernel at the steady cycle's shape ----------------
+    before, block, _ = last_scatter
+    k = int(block.shape[0])
+    dst = tuple(b.clone() for b in before)
+    event_ms = cuda_ms(lambda: solver.scatter_rows(dst, block), reps=50)
+    prof_ms = profiled_ms(lambda: solver.scatter_rows(dst, block),
+                          "scatter_rows_kernel", reps=50)
+    ms = prof_ms if prof_ms is not None else event_ms
+    plain_ms = cuda_ms(lambda: solver.scatter_rows_plain(dst, block),
+                       reps=50)
+    idx = block[:, 0].long()
+    f = block[:, 1:14].contiguous().view(torch.float32)
+    srcs = (f[:, 0:3].contiguous(), f[:, 3:6].contiguous(),
+            f[:, 6:9].contiguous(), f[:, 9:11].contiguous(),
+            f[:, 11:13].contiguous(), block[:, 14].contiguous(),
+            block[:, 15].contiguous(), block[:, 16] != 0)
+
+    def index_copies():
+        for d, src in zip(dst, srcs):
+            d.index_copy_(0, idx, src)
+
+    library_ms = cuda_ms(index_copies, reps=50)
+    host_block = block.cpu().numpy()
+    h2d_ms = cuda_ms(lambda: torch.from_numpy(host_block).to(dev), reps=50)
+    b_ms, b_by = bound(k * (SCATTER_READ_BYTES_PER_ROW
+                            + SCATTER_WRITE_BYTES_PER_ROW), 0)
+    log(f"(d) scatter_rows at the steady cycle's last refresh ({k} rows, "
+        f"N_pad {before[0].shape[0]}): {prof_ms} ms device time "
+        f"(profiler), {event_ms:.4f} ms per launch back to back (CUDA "
+        f"events, 50 launches), plain {plain_ms:.4f} ms on the card, eight "
+        f"index_copy_ "
+        f"{library_ms:.4f} ms, the block's host-to-device copy "
+        f"{h2d_ms:.4f} ms; bound {b_ms:.7f} ms ({b_by})")
+    return {"name": "scatter_rows", "route": "cuda",
+            "source": "kubebatch_tpu_torch/kernels/csrc/scatter_rows.cu",
+            "replaces": "kubebatch_tpu/kernels/solver.py:231",
+            "launches": launches, "max_abs_err": check["err"], "ms": ms,
+            "plain_ms": plain_ms, "plain_device": "cuda",
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library": "eight torch.Tensor.index_copy_", "h2d_ms": h2d_ms,
+            "event_ms_50_reps": event_ms, "profiler_ms": prof_ms,
+            "rows": k, "nodes": int(before[0].shape[0]),
+            "rows_per_cycle_incremental": rows_by_cycle,
+            "fold_victim_wave_launches": wave_launches}
 
 
 def main() -> int:
@@ -866,8 +1191,8 @@ def main() -> int:
     cache = SchedulerCache(device="cuda", binder=NullBinder(),
                            incremental_snapshot=False)
     sim.populate(cache)
-    log(f"cfg5: {len(cache.nodes)} nodes, {len(sim.pods)} pods, "
-        f"{len(cache.queues)} queues populated in "
+    log(f"cfg5, snapshot-primary cache: {len(cache.nodes)} nodes, "
+        f"{len(sim.pods)} pods, {len(cache.queues)} queues populated in "
         f"{time.perf_counter() - t0:.1f} s")
 
     def drive(mode):
@@ -1102,6 +1427,7 @@ def main() -> int:
     kernels += victim_phases(
         dev, BASELINE_SPECS[5],
         dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95))
+    kernels.append(fold_phase(dev, BASELINE_SPECS[5]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

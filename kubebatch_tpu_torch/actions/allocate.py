@@ -179,6 +179,7 @@ class AllocateAction(Action):
                     delta = node.idle.clone()
                     delta.fit_delta(task.resreq)
                     job.nodes_fit_delta[node.name] = delta
+                    ssn.touched_jobs.add(job.uid)
                 if task.init_resreq.less_equal(node.releasing):
                     ssn.pipeline(task, node.name)
                     assigned = True

@@ -58,6 +58,7 @@ def release_reserved_resources(ssn: Session, job: JobInfo) -> None:
     for task in list(job.tasks.values()):
         if task.status in (TaskStatus.ALLOCATED,
                            TaskStatus.ALLOCATED_OVER_BACKFILL):
+            ssn.touched_jobs.add(job.uid)
             ssn.touched_nodes.add(task.node_name)
             job.update_task_status(task, TaskStatus.PENDING)
             node = ssn.nodes.get(task.node_name)

@@ -463,6 +463,7 @@ def _replay_ordered(ssn: Session, inputs: CycleInputs,
                 # kernel here)
                 job = ssn.jobs.get(task.job)
                 if job is not None:
+                    ssn.touched_jobs.add(job.uid)
                     job.nodes_fit_delta = {}
                     for node in ssn.nodes.values():
                         delta = node.idle.clone()
@@ -498,12 +499,14 @@ def _replay_bulk(ssn: Session, inputs: CycleInputs,
     placed_sel = placed_sel[np.argsort(task_seq[placed_sel], kind="stable")]
     fail_sel = np.nonzero(state == FAIL)[0]
 
-    # this path inlines the Session mutators, so it records the touched
-    # nodes itself (kernels/solver.ensure_device_snapshot reads them)
+    # incremental-snapshot bookkeeping: this path inlines the Session
+    # mutators, so it records the touched entities itself
     names = device.state.names
     placed_list = placed_sel.tolist()
     placed_nodes_l = task_node[placed_sel].tolist()
+    ssn.touched_jobs.update(tasks[i].job for i in placed_list)
     ssn.touched_nodes.update(names[n] for n in placed_nodes_l)
+    ssn.touched_jobs.update(tasks[i].job for i in fail_sel.tolist())
 
     # --- per-job dispatch barrier, vectorized (gang semantics) ----------
     # The ordered path only checks readiness inside ssn.allocate, so the

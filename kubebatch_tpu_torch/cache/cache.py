@@ -10,10 +10,15 @@ ref: pkg/scheduler/cache/cache.go + event_handlers.go + util.go.
   retry queue; ``drain()`` pumps it (``sync_task`` re-fetches ground truth
   and replays the cache update, ref event_handlers.go:88-106) and is the
   deterministic barrier for tests and benchmarks.
-- ``snapshot()`` deep-clones into an immutable-by-convention ClusterInfo
-  every cycle (ref cache.go:515-583): the snapshot-primary mode. The
-  incremental event fold of the reference package is not part of this
-  package yet, so ``incremental_snapshot=True`` is refused.
+- Every event handler folds its event into the EventFold layer
+  (cache/eventfold.py): per-entity dirty marks for the O(churn) snapshot
+  patch, dirty rows for the persistent device arrays, and victim-segment
+  marks, counted per kind. ``snapshot()`` (the default,
+  ``incremental_snapshot=True``) patches the previous session's adopted
+  clones at the dirty keys; its output is deep-equal to ``snapshot_full()``,
+  the from-scratch clone of cache truth (ref cache.go:515-583), which
+  ``audited_snapshot()`` checks. ``incremental_snapshot=False`` is the
+  snapshot-primary mode: a full clone every cycle.
 - ``device`` names where the cycle's device arrays live
   (``device_session``); it defaults to the CUDA card and raises at
   construction when that is asked for and absent.
@@ -33,6 +38,7 @@ from ..device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from ..objects import (Node, Pod, PodDisruptionBudget, PodGroup,
                        PodGroupPhase, PodPhase, PriorityClass, Queue,
                        UNSCHEDULABLE_CONDITION, is_backfill_pod)
+from .eventfold import EventFold
 from .interface import (Binder, EventRecorder, Evictor, ListRecorder,
                         NullBinder, NullEvictor, NullStatusUpdater,
                         NullVolumeBinder, StatusUpdater, VolumeBinder)
@@ -117,12 +123,8 @@ class SchedulerCache:
                  recorder: Optional[EventRecorder] = None,
                  pod_lister: Optional[Callable[[str, str], Optional[Pod]]] = None,
                  async_writeback: bool = True,
-                 incremental_snapshot: bool = False,
+                 incremental_snapshot: bool = True,
                  device: DeviceLike = DEFAULT_DEVICE):
-        if incremental_snapshot:
-            raise NotImplementedError(
-                "incremental_snapshot=True needs the event fold, which this "
-                "package does not have yet (ROADMAP: event fold)")
         self.device = resolve_device(device)
         self._lock = threading.RLock()
         self.scheduler_name = scheduler_name
@@ -150,13 +152,37 @@ class SchedulerCache:
         self.err_tasks = RetryQueue()
         self.deleted_jobs = RetryQueue()
 
+        #: the event fold (cache/eventfold.py): invariant — snapshot()
+        #: output is deep-equal to a from-scratch clone of cache truth
+        self.fold = EventFold(incremental_snapshot)
+        #: bumped by cluster-wide invalidations; a session snapshot handed
+        #: out under an older epoch is refused at adoption
+        self._snap_epoch = 0
+        self._handout_epoch = 0
         #: bumped on node shape changes; a TermsCache built by a session
         #: whose snapshot predates the change is refused persistence
         self._shape_epoch = 0
         self._handout_shape_epoch = 0
+        #: persistent device-side node arrays (kernels/solver.DeviceSession)
+        self._dev_state = None
+        #: persistent per-node victim segments (kernels/victims.py
+        #: SegmentStore) — same dirty/refresh discipline, in the fold
+        self.victim_segments = None
         #: persistent static-term encoder state (kernels/encode.TermsCache);
         #: invalidated whenever node labels/taints/shape change
         self.terms_cache = None
+        #: cross-cycle plugin state. Contract: entries keyed by job uid are
+        #: valid only while the owning job's clone is reused by the folded
+        #: snapshot — plugins rebuild entries for ssn.refreshed_jobs at open
+        #: and rebuild everything when refreshed_jobs is None (full
+        #: snapshot). Mutations a session makes to scratch entries stay
+        #: consistent because every session mutator marks its job touched,
+        #: and touched jobs are refreshed next cycle (adopt_snapshot folds
+        #: touched into dirty).
+        self.plugin_scratch: Dict[str, object] = {}
+        #: the device-row active set consumed for the CURRENT cycle
+        #: (EventFold.take_active_rows via device_session)
+        self.last_active_rows: set = set()
         #: per-cache sticky shape holds (kernels/tensorize.sticky_bucket)
         self.pad_sticky: Dict[str, list] = {}
         #: maintained sum of node allocatable over the cluster
@@ -222,9 +248,32 @@ class SchedulerCache:
             time.sleep(min(min(waits, default=0.001), 0.01))
         return False
 
-    def _mark_node_shape(self) -> None:
-        """A node's static profile or the node set changed: static-term
-        encodings and the allocatable total are stale."""
+    # ------------------------------------------------------------------
+    # event-fold bookkeeping (cache/eventfold.py owns the state)
+    # ------------------------------------------------------------------
+    @property
+    def _incremental(self) -> bool:
+        return self.fold.enabled
+
+    @property
+    def _vic_refresh(self) -> set:
+        return self.fold.vic_refresh
+
+    @property
+    def _vicjob_refresh(self) -> set:
+        return self.fold.vicjob_refresh
+
+    def _mark_job(self, uid: str) -> None:
+        self.fold.mark_job(uid)
+
+    def _mark_node(self, name: str) -> None:
+        self.fold.mark_node(name)
+
+    def _mark_node_shape(self, name: str) -> None:
+        """A node's static profile (labels/taints/unschedulable/allocatable)
+        or the node set changed: static-term encodings and the
+        allocatable total are stale too."""
+        self.fold.mark_node(name, cap=True)
         self.terms_cache = None
         self._shape_epoch += 1
         self._alloc_total = None
@@ -237,6 +286,19 @@ class SchedulerCache:
             if self._shape_epoch == self._handout_shape_epoch \
                     and self.terms_cache is None:
                 self.terms_cache = tc
+
+    def _invalidate_snapshot(self) -> None:
+        """Cluster-wide inputs changed (queue set, priority classes):
+        per-entity dirty tracking can't scope the effect — fall back to a
+        full clone next cycle. The epoch bump also voids adoption of any
+        session snapshot handed out BEFORE the change (its clones carry
+        pre-change priorities/inclusion)."""
+        self.fold.invalidate()
+        self.fold.record("invalidate")
+        self._dev_state = None
+        self.terms_cache = None
+        self.victim_segments = None
+        self._snap_epoch += 1
 
     # ------------------------------------------------------------------
     # pod/task ingestion (ref: event_handlers.go:37-247)
@@ -265,6 +327,7 @@ class SchedulerCache:
     def _add_task(self, ti: TaskInfo) -> None:
         job = self._get_or_create_job(ti)
         job.add_task_info(ti)
+        self._mark_job(job.uid)
         if ti.node_name:
             if ti.node_name not in self.nodes:
                 # placeholder until the node event arrives
@@ -272,9 +335,14 @@ class SchedulerCache:
                 self._node_order_epoch += 1
             if not _is_terminated(ti.status):
                 self.nodes[ti.node_name].add_task(ti)
+            self._mark_node(ti.node_name)
 
     def _delete_task(self, ti: TaskInfo) -> None:
         errs = []
+        if ti.job:
+            self._mark_job(ti.job)
+        if ti.node_name:
+            self._mark_node(ti.node_name)
         if ti.job:
             job = self.jobs.get(ti.job)
             if job is not None:
@@ -300,6 +368,7 @@ class SchedulerCache:
             return
         with self._lock:
             self._add_task(TaskInfo(pod))
+            self.fold.record("pod.add")
 
     def update_pod(self, old: Pod, new: Pod) -> None:
         """Delete + re-add (ref: event_handlers.go:108-122). Relevance is
@@ -309,10 +378,12 @@ class SchedulerCache:
                 self._delete_pod_locked(old)
             if self._pod_relevant(new):
                 self._add_task(TaskInfo(new))
+            self.fold.record("pod.update")
 
     def delete_pod(self, pod: Pod) -> None:
         with self._lock:
             self._delete_pod_locked(pod)
+            self.fold.record("pod.delete")
 
     def _delete_pod_locked(self, pod: Pod) -> None:
         """ref: event_handlers.go:151-171 — prefer the cache's own task (it
@@ -336,7 +407,8 @@ class SchedulerCache:
             else:
                 self.nodes[node.name] = NodeInfo(node)
                 self._node_order_epoch += 1
-            self._mark_node_shape()
+            self._mark_node_shape(node.name)
+            self.fold.record("node.add")
 
     def update_node(self, old: Node, new: Node) -> None:
         with self._lock:
@@ -347,7 +419,8 @@ class SchedulerCache:
                     or old.labels != new.labels
                     or old.unschedulable != new.unschedulable):
                 ni.set_node(new)
-                self._mark_node_shape()
+                self._mark_node_shape(new.name)
+            self.fold.record("node.update")
 
     def delete_node(self, node: Node) -> None:
         with self._lock:
@@ -355,7 +428,8 @@ class SchedulerCache:
                 raise KeyError(f"node <{node.name}> does not exist")
             del self.nodes[node.name]
             self._node_order_epoch += 1
-            self._mark_node_shape()
+            self._mark_node_shape(node.name)
+            self.fold.record("node.delete")
 
     # ------------------------------------------------------------------
     # PodGroup / PDB / Queue / PriorityClass (ref: event_handlers.go:358-769)
@@ -363,10 +437,12 @@ class SchedulerCache:
     def add_pod_group(self, pg: PodGroup) -> None:
         with self._lock:
             self._set_pod_group(pg)
+            self.fold.record("podgroup.add")
 
     def update_pod_group(self, old: PodGroup, new: PodGroup) -> None:
         with self._lock:
             self._set_pod_group(new)
+            self.fold.record("podgroup.update")
 
     def delete_pod_group(self, pg: PodGroup) -> None:
         with self._lock:
@@ -375,6 +451,8 @@ class SchedulerCache:
             if job is None:
                 raise KeyError(f"can not find job {job_id}")
             job.unset_pod_group()
+            self._mark_job(job_id)
+            self.fold.record("podgroup.delete")
             self.deleted_jobs.add_rate_limited(job)
 
     def _set_pod_group(self, pg: PodGroup) -> None:
@@ -382,6 +460,7 @@ class SchedulerCache:
         if job_id not in self.jobs:
             self.jobs[job_id] = JobInfo(job_id)
         self.jobs[job_id].set_pod_group(pg)
+        self._mark_job(job_id)
         if not pg.queue:
             self.jobs[job_id].queue = self.default_queue
 
@@ -401,6 +480,7 @@ class SchedulerCache:
             if job is None:
                 raise KeyError(f"can not find job {job_id}")
             job.unset_pdb()
+            self._mark_job(job_id)
             self.deleted_jobs.add_rate_limited(job)
 
     def _set_pdb(self, pdb: PodDisruptionBudget) -> None:
@@ -412,22 +492,28 @@ class SchedulerCache:
         if job_id not in self.jobs:
             self.jobs[job_id] = JobInfo(job_id)
         self.jobs[job_id].set_pdb(pdb)
+        self._mark_job(job_id)
         self.jobs[job_id].queue = self.default_queue
 
     def add_queue(self, queue: Queue) -> None:
         with self._lock:
             qi = QueueInfo(queue)
             self.queues[qi.uid] = qi
+            # queue membership gates which jobs a snapshot includes — the
+            # per-entity fold can't scope it
+            self._invalidate_snapshot()
 
     def update_queue(self, old: Queue, new: Queue) -> None:
         with self._lock:
             self.queues.pop(old.name, None)
             qi = QueueInfo(new)
             self.queues[qi.uid] = qi
+            self._invalidate_snapshot()
 
     def delete_queue(self, queue: Queue) -> None:
         with self._lock:
             self.queues.pop(queue.name, None)
+            self._invalidate_snapshot()
 
     def add_priority_class(self, pc: PriorityClass) -> None:
         with self._lock:
@@ -448,12 +534,16 @@ class SchedulerCache:
             self.default_priority_class = pc
             self.default_priority = pc.value
         self.priority_classes[pc.name] = pc
+        # job.priority is stamped from priority classes at snapshot time
+        # for EVERY job (cache.go:561-576) — scope is cluster-wide
+        self._invalidate_snapshot()
 
     def _delete_priority_class(self, pc: PriorityClass) -> None:
         if pc.global_default:
             self.default_priority_class = None
             self.default_priority = 0
         self.priority_classes.pop(pc.name, None)
+        self._invalidate_snapshot()
 
     # ------------------------------------------------------------------
     # decisions out (ref: cache.go:349-442)
@@ -490,6 +580,9 @@ class SchedulerCache:
             job.update_task_status(task, TaskStatus.BINDING)
             task.node_name = hostname
             node.add_task(task)
+            self._mark_job(job.uid)
+            self._mark_node(hostname)
+            self.fold.record("bind")
             pod = task.pod
         self._submit(lambda: self._bind_one(task, pod, hostname))
 
@@ -598,6 +691,7 @@ class SchedulerCache:
                     if resolved[k][1].pod.priority is not None:
                         job.priority = resolved[k][1].priority
                         break
+                self._mark_job(job.uid)
 
             for t in twins:
                 if not t.is_backfill and is_backfill_pod(t.pod):
@@ -622,8 +716,10 @@ class SchedulerCache:
                         1 for k in idxs if twins[k].pod.has_pod_affinity())
                 node._own_tasks()
                 node.tasks.update((twins[k].key, clones[k]) for k in idxs)
+                self._mark_node(hostname)
 
             submits.extend((t, t.pod, h) for t, h in zip(twins, hostnames))
+            self.fold.record("bind", n=len(submits))
         self._submit_binds(submits)
 
     def _submit_binds(self, submits: List[tuple]) -> None:
@@ -677,6 +773,9 @@ class SchedulerCache:
                                f"{task.node_name}, host does not exist")
             job.update_task_status(task, TaskStatus.RELEASING)
             node.update_task(task)
+            self._mark_job(job.uid)
+            self._mark_node(task.node_name)
+            self.fold.record("evict")
             pod = task.pod
             pg = job.pod_group
 
@@ -717,6 +816,7 @@ class SchedulerCache:
                 new_pod: Optional[Pod] = old_task.pod
             else:
                 new_pod = self.pod_lister(old_task.namespace, old_task.name)
+            self.fold.record("resync")
             self._delete_task(old_task)
             if new_pod is not None:
                 self._add_task(TaskInfo(new_pod))
@@ -726,6 +826,10 @@ class SchedulerCache:
             with self._lock:
                 if job_terminated(job):
                     self.jobs.pop(job.uid, None)
+                    # the folded snapshot patches deletions only at dirty
+                    # keys — an unmarked pop would leave a ghost job in
+                    # every later snapshot's copied base
+                    self._mark_job(job.uid)
                     self.deleted_jobs.forget(job)
                 else:
                     self.deleted_jobs.add_rate_limited(job)
@@ -734,25 +838,110 @@ class SchedulerCache:
     # snapshot (ref: cache.go:515-583)
     # ------------------------------------------------------------------
     def snapshot(self) -> ClusterInfo:
-        """From-scratch deep clone of cache truth for one session."""
+        """The session's cluster view. Folded (the default): entity clones
+        from the previous session are reused when neither the cache
+        (event-fold dirty marks) nor that session (touched sets, folded in
+        at adopt_snapshot) invalidated them — deep-equal to
+        snapshot_full() by construction, checked by audited_snapshot().
+        Snapshot-primary, or with no adopted base: a full clone."""
         with self._lock:
+            self._handout_epoch = self._snap_epoch
             self._handout_shape_epoch = self._shape_epoch
+            fold = self.fold
+            fold.migrate_marks(self.victim_segments is not None)
+            alloc_total = self._allocatable_total_locked()
+            if not fold.enabled or fold.base is None:
+                snap = self.snapshot_full()
+                if fold.enabled:
+                    # the full clone IS current truth for every entity
+                    fold.dirty_jobs.clear()
+                    fold.dirty_nodes.clear()
+                return snap
+            return self._snapshot_folded_locked(alloc_total)
+
+    def _snapshot_folded_locked(self, alloc_total) -> ClusterInfo:
+        """O(events) assembly: dict copies of the adopted base patched
+        only at event-dirtied keys. Soundness: every way an entity can
+        appear, vanish, or change folds a dirty mark (cache handlers via
+        EventFold, session touched sets folded at adoption,
+        validate-dropped jobs), and cluster-wide inputs (queues, priority
+        classes) invalidate the base, which forces the full path."""
+        base, dirty_jobs, dirty_nodes = self.fold.take_base()
+        base_jobs, base_nodes = base
+        snap = ClusterInfo()
+        snap.allocatable_total = alloc_total
+        snap.node_order_epoch = self._node_order_epoch
+        snap.refreshed_jobs = set()
+        nodes_map = dict(base_nodes)
+        for name in dirty_nodes:
+            ni = self.nodes.get(name)
+            if ni is None:
+                nodes_map.pop(name, None)
+            else:
+                nodes_map[name] = ni.clone()
+        snap.nodes = nodes_map
+        for uid, q in self.queues.items():
+            snap.queues[uid] = q.clone()
+        jobs_map = dict(base_jobs)
+        excluded = self.fold.excluded_uids
+        for uid in dirty_jobs:
+            job = self.jobs.get(uid)
+            if job is None:
+                jobs_map.pop(uid, None)
+                excluded.discard(uid)
+                continue
+            if self._job_excluded(job, snap.queues):
+                jobs_map.pop(uid, None)
+                excluded.add(uid)
+                continue
+            excluded.discard(uid)
+            self._stamp_priority(job)
+            jobs_map[uid] = job.clone()
+            snap.refreshed_jobs.add(uid)
+        snap.jobs = jobs_map
+        snap.jobs_excluded = len(excluded)
+        return snap
+
+    def snapshot_full(self) -> ClusterInfo:
+        """From-scratch deep clone of cache truth (the reference's
+        snapshot semantics, cache.go:515-583): the snapshot-primary
+        cycle's input and the oracle the folded snapshot is audited
+        against."""
+        with self._lock:
             snap = ClusterInfo()
             snap.allocatable_total = self._allocatable_total_locked()
             snap.node_order_epoch = self._node_order_epoch
-            excluded = 0
-            for node in self.nodes.values():
+            excluded = self.fold.excluded_uids = set()
+            for name, node in self.nodes.items():
                 snap.nodes[node.name] = node.clone()
             for uid, q in self.queues.items():
                 snap.queues[uid] = q.clone()
             for uid, job in self.jobs.items():
                 if self._job_excluded(job, snap.queues):
-                    excluded += 1
+                    excluded.add(uid)
                     continue
                 self._stamp_priority(job)
                 snap.jobs[uid] = job.clone()
-            snap.jobs_excluded = excluded
+            snap.jobs_excluded = len(excluded)
             return snap
+
+    def audited_snapshot(self) -> Tuple[ClusterInfo, List[str]]:
+        """The audit: build the from-scratch oracle AND the folded
+        snapshot under ONE lock hold (no events can land between them)
+        and deep-compare. Returns ``(snapshot, diffs)`` — on divergence
+        the fold layer DEMOTES itself to snapshot-primary (counted in
+        metrics.fold_demotions_total) and the returned snapshot is the
+        full clone, so the calling cycle proceeds on sound state."""
+        from ..debug import snapshot_diff
+
+        with self._lock:
+            full = self.snapshot_full()
+            snap = self.snapshot()
+            diffs = snapshot_diff(snap, full)
+            if diffs:
+                self.fold.demote("audit")
+                snap = full
+        return snap, diffs
 
     @staticmethod
     def _job_excluded(job: JobInfo, queues: Dict[str, QueueInfo]) -> bool:
@@ -780,12 +969,56 @@ class SchedulerCache:
             if pc is not None:
                 job.priority = pc.value
 
+    def adopt_snapshot(self, ssn) -> None:
+        """Session close hands its entity clones back as the next cycle's
+        snapshot base, with its DeviceSession and victim SegmentStore.
+        Entities the session mutated (touched sets) may diverge from
+        cache truth — fold them into the dirty sets so the next snapshot
+        re-clones them; everything else is verbatim the state a fresh
+        clone would produce (clones share pod/pod_group/pdb objects with
+        cache truth, so status write-back at close is visible on both
+        sides)."""
+        if not self.fold.enabled:
+            return
+        with self._lock:
+            if self._snap_epoch != self._handout_epoch:
+                # a cluster-wide invalidation landed mid-session: the
+                # session's clones predate it — full clone next cycle
+                return
+            self.fold.adopt(ssn)
+            if ssn.device_snapshot is not None:
+                self._dev_state = ssn.device_snapshot
+            if ssn._victim_store is not None:
+                self.victim_segments = ssn._victim_store
+
     def device_session(self, ssn):
-        """A fresh DeviceSession for this cycle's nodes on the cache's
-        device."""
+        """A DeviceSession for this cycle on the cache's device: the
+        previous cycle's arrays with dirty/touched node rows re-packed
+        from the session's host truth (one scatter, kernels/solver.py
+        ``update_rows``), or a fresh build when the node set changed, the
+        fold is off, or nothing was adopted. The refresh set includes
+        nodes the CURRENT session already touched (reclaim's evictions
+        run before allocate).
+
+        The refresh rows come from ``EventFold.take_active_rows``, the ONE
+        consuming read of the cycle's device-row set."""
         from ..kernels.solver import DeviceSession
 
-        return DeviceSession(ssn.nodes, device=self.device)
+        with self._lock:
+            ds = self._dev_state
+            self._dev_state = None   # consumed; re-adopted at close
+            active = self.fold.take_active_rows()
+            self.last_active_rows = active
+            if not self.fold.enabled or ds is None:
+                # the fresh build reflects the session snapshot — marks up
+                # to THAT point are satisfied (the consuming read above
+                # drained them); later marks (dev_dirty) survive to the
+                # next snapshot
+                return DeviceSession(ssn.nodes, device=self.device)
+        refresh = active | ssn.touched_nodes
+        if not ds.update_rows(ssn.nodes, refresh):
+            return DeviceSession(ssn.nodes, device=self.device)
+        return ds
 
     # ------------------------------------------------------------------
     # status write-back (ref: cache.go:615-658)

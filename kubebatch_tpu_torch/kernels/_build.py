@@ -51,6 +51,9 @@ EXPORTS: Dict[str, Dict[str, str]] = {
         "kb_victims_workspace": "ii",
         "kb_victims": "ppp",
     },
+    "scatter_rows.cu": {
+        "kb_scatter_rows": "pii" + "p" * 9,
+    },
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
     },

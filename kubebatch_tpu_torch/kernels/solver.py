@@ -17,15 +17,16 @@ off that node.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..api import NodeInfo
+from ..api.resource import VEC_SCALE
 from ..device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from . import _build
-from .tensorize import NodeState
+from .tensorize import NodeState, accumulate_nz, pack_node_raw
 
 SKIP, ALLOC, ALLOC_OB, PIPELINE, FAIL = 0, 1, 2, 3, 4
 
@@ -119,13 +120,125 @@ def dynamic_node_score(nz_req: torch.Tensor, t_nz: torch.Tensor,
 
 
 def ensure_device_snapshot(ssn) -> "DeviceSession":
-    """The session's DeviceSession. Built on first use by the cache (on
-    the cache's device); rebuilt from host truth when this session has
-    already touched node rows since (an earlier action's host-side
-    mutations would make those rows stale)."""
-    if ssn.device_snapshot is None or ssn.touched_nodes:
-        ssn.device_snapshot = ssn.cache.device_session(ssn)
-    return ssn.device_snapshot
+    """The session's shared DeviceSession, with every node row the
+    CURRENT session has touched re-packed from host truth on each call.
+
+    Actions run in sequence against one session; the first device
+    consumer builds the snapshot (``cache.device_session`` folds the
+    event-dirty AND already-touched rows into a reused DeviceSession),
+    but a LATER action must not consume rows an earlier action's
+    host-side mutations made stale — reclaim's evictions land on host
+    NodeInfo between the victim build and allocate's solve, and
+    backfill's host-only placements can re-touch nodes a previous sync
+    already covered. Re-packing the full touched set is idempotent (host
+    truth is authoritative after each action's replay) and O(touched)."""
+    device = ssn.device_snapshot
+    if device is None:
+        device = ssn.cache.device_session(ssn)
+        ssn.device_snapshot = device
+        return device
+    touched = ssn.touched_nodes
+    if touched and not device.update_rows(ssn.nodes, touched):
+        # node set changed: rebuild
+        device = DeviceSession(ssn.nodes, device=device.device)
+        ssn.device_snapshot = device
+    return device
+
+
+#: words of one packed scatter row: the destination row, then 16 value
+#: words (csrc/scatter_rows.cu)
+SCATTER_WORDS = 17
+
+
+def pack_scatter_rows(idx: np.ndarray, idle: np.ndarray,
+                      releasing: np.ndarray, backfilled: np.ndarray,
+                      allocatable_cm: np.ndarray, nz_req: np.ndarray,
+                      n_tasks: np.ndarray, max_task_num: np.ndarray,
+                      node_ok: np.ndarray, n_pad: int) -> np.ndarray:
+    """The k dirty rows as one int32 [k, 17] block (the layout
+    :func:`scatter_rows` takes): the destination row, the float32 values
+    as their bit patterns, the int32 counts and node_ok as 0/1. One block
+    means one host-to-device copy for all eight arrays."""
+    idx = np.asarray(idx, np.int32)
+    k = idx.shape[0]
+    if k and (idx.min() < 0 or idx.max() >= n_pad):
+        raise ValueError(f"scatter rows outside [0, {n_pad})")
+    floats = np.concatenate(
+        [np.asarray(a, np.float32).reshape(k, -1)
+         for a in (idle, releasing, backfilled, allocatable_cm, nz_req)],
+        axis=1)
+    if floats.shape[1] != 13:
+        raise ValueError(f"scatter rows: {floats.shape[1]} float words per "
+                         f"row, expected 13")
+    block = np.empty((k, SCATTER_WORDS), np.int32)
+    block[:, 0] = idx
+    block[:, 1:14] = floats.view(np.int32)
+    block[:, 14] = np.asarray(n_tasks, np.int32)
+    block[:, 15] = np.asarray(max_task_num, np.int32)
+    block[:, 16] = np.asarray(node_ok, bool)
+    return block
+
+
+def scatter_rows_plain(dst, block: torch.Tensor) -> None:
+    """The dirty-row scatter as eight ``index_copy_`` calls, in place:
+    ``dst`` is (idle, releasing, backfilled, allocatable_cm, nz_req,
+    n_tasks, max_task_num, node_ok), ``block`` the int32 [k, 17] rows of
+    :func:`pack_scatter_rows` on the arrays' device."""
+    idle, releasing, backfilled, alloc_cm, nz_req, n_tasks, max_tn, ok = dst
+    idx = block[:, 0].long()
+    f = block[:, 1:14].contiguous().view(torch.float32)
+    idle.index_copy_(0, idx, f[:, 0:3])
+    releasing.index_copy_(0, idx, f[:, 3:6])
+    backfilled.index_copy_(0, idx, f[:, 6:9])
+    alloc_cm.index_copy_(0, idx, f[:, 9:11])
+    nz_req.index_copy_(0, idx, f[:, 11:13])
+    n_tasks.index_copy_(0, idx, block[:, 14])
+    max_tn.index_copy_(0, idx, block[:, 15])
+    ok.index_copy_(0, idx, block[:, 16] != 0)
+
+
+#: (name, dtype, trailing shape) of the eight scatter destinations
+_SCATTER_DST = (("idle", torch.float32, (3,)),
+                ("releasing", torch.float32, (3,)),
+                ("backfilled", torch.float32, (3,)),
+                ("allocatable_cm", torch.float32, (2,)),
+                ("nz_req", torch.float32, (2,)),
+                ("n_tasks", torch.int32, ()),
+                ("max_task_num", torch.int32, ()),
+                ("node_ok", torch.bool, ()))
+
+
+def scatter_rows(dst, block: torch.Tensor) -> None:
+    """The dirty-row scatter on the tensors' device, in place: the CUDA
+    kernel (csrc/scatter_rows.cu) for CUDA tensors, the plain version
+    for CPU tensors."""
+    devs = {t.device.type for t in dst} | {block.device.type}
+    if devs == {"cpu"}:
+        scatter_rows_plain(dst, block)
+        return
+    if devs != {"cuda"}:
+        raise ValueError(f"scatter_rows: mixed devices {devs}")
+    n_pad = dst[0].shape[0]
+    for t, (name, dtype, tail) in zip(dst, _SCATTER_DST):
+        if t.dtype != dtype or tuple(t.shape) != (n_pad,) + tail \
+                or not t.is_contiguous():
+            raise ValueError(f"scatter_rows: {name} must be a contiguous "
+                             f"{dtype} {(n_pad,) + tail}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if block.dtype != torch.int32 or block.dim() != 2 \
+            or block.shape[1] != SCATTER_WORDS or not block.is_contiguous():
+        raise ValueError(f"scatter_rows: block must be a contiguous int32 "
+                         f"[k, {SCATTER_WORDS}], got {block.dtype} "
+                         f"{tuple(block.shape)}")
+    k = block.shape[0]
+    if k == 0:
+        return
+    lib = _build.library("scatter_rows.cu")
+    err = lib.kb_scatter_rows(
+        block.data_ptr(), k, n_pad, *(t.data_ptr() for t in dst),
+        torch.cuda.current_stream(block.device).cuda_stream)
+    _build.check_launch("scatter_rows", err)
+    _build.count_launch("scatter_rows")
 
 
 class DeviceSession:
@@ -160,6 +273,63 @@ class DeviceSession:
 
     def node_index(self, name: str) -> Optional[int]:
         return self.state.index.get(name)
+
+    @property
+    def arrays(self):
+        """The eight node arrays in scatter order (see _SCATTER_DST)."""
+        return (self.idle, self.releasing, self.backfilled,
+                self.allocatable_cm, self.nz_req, self.n_tasks,
+                self.max_task_num, self.node_ok)
+
+    def update_rows(self, nodes: Dict[str, NodeInfo], names) -> bool:
+        """Re-pack the given nodes' rows from host truth (numpy mirror and
+        device arrays both), reusing everything else from the previous
+        cycle — the steady-state complement of the full per-cycle build.
+        Returns False when the node set changed (caller rebuilds fresh).
+
+        Soundness: rows NOT in ``names`` were neither event-mutated
+        (cache dirty set) nor session-mutated (touched set folded in by
+        the caller) since they were last packed, so both mirrors still
+        hold their host-truth values."""
+        state = self.state
+        if len(nodes) != len(state.names) \
+                or any(n not in state.index for n in nodes):
+            return False
+        rows = sorted(state.index[n] for n in names if n in state.index)
+        if rows:
+            self._update_rows_inner(nodes, rows, state)
+        return True
+
+    def _update_rows_inner(self, nodes, rows, state) -> None:
+        k = len(rows)
+        dirty_nodes = [nodes[state.names[r]] for r in rows]
+        raw = pack_node_raw(dirty_nodes)
+        t_row: List[int] = []
+        t_tasks: List = []
+        for j, (r, ni) in enumerate(zip(rows, dirty_nodes)):
+            t_tasks.extend(ni.tasks.values())
+            t_row.extend([j] * len(ni.tasks))
+            state.max_task_num[r] = ni.allocatable.max_task_num
+            state.n_tasks[r] = len(ni.tasks)
+            state.schedulable[r] = not (bool(ni.node.unschedulable)
+                                        if ni.node else True)
+        nz = accumulate_nz(t_tasks, t_row, k)
+        raw *= VEC_SCALE
+        raw32 = raw.astype(np.float32)
+        idx = np.asarray(rows, np.int32)
+        state.idle[idx] = raw32[:, 0]
+        state.releasing[idx] = raw32[:, 1]
+        state.backfilled[idx] = raw32[:, 2]
+        state.allocatable[idx] = raw32[:, 3]
+        state.nz_requested[idx] = nz
+        # no padding of k (the reference pads to a pow2 high-water so XLA
+        # does not recompile; nothing here recompiles)
+        block = pack_scatter_rows(
+            idx, raw32[:, 0], raw32[:, 1], raw32[:, 2], raw32[:, 3, :2], nz,
+            state.n_tasks[idx], state.max_task_num[idx],
+            state.schedulable[idx] & state.valid[idx], state.n_padded)
+        scatter_rows(self.arrays,
+                     torch.from_numpy(block).to(self.device))
 
     def resync(self, nodes: Dict[str, NodeInfo]) -> None:
         """Rebuild device arrays from host truth (used if a host-side apply

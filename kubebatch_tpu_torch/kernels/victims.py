@@ -45,11 +45,12 @@ visit whose best candidate node was touched by a replayed eviction or
 pipeline pays a single-lane refresh. Every dispatch makes exactly one
 counted device->host copy (``device.to_host``).
 
-Only a non-incremental cache exists in this package (the event fold is
-ROADMAP A3), so every build lays the victim rows out afresh, exactly as
-the reference's fresh ``SegmentStore`` does: per-node slots of capacity
-``k + max(1, k >> 3)`` in node-index order, RUNNING tasks in insertion
-order, the row axis padded by the same rule.
+The victim rows live in the reference's ``SegmentStore`` layout: an
+incremental cache keeps the store across cycles (only nodes and jobs the
+event fold or the session dirtied are rebuilt; slots relocate and the
+spaces compact as in the reference), a snapshot-primary cache builds a
+fresh store per action. The kernels take any such layout: they order
+rows by (node, job) themselves.
 """
 from __future__ import annotations
 
@@ -624,46 +625,162 @@ def _build_segments(pairs) -> Dict[str, _NodeSegment]:
 
 
 class SegmentStore:
-    """The victim rows and the job index space of one build, laid out as
-    the reference's fresh store lays them: each node owns a slot
-    ``[off, off + cap)`` with ``cap = k + max(1, k >> 3)`` holding its
-    RUNNING tasks in insertion order (slack rows dead), slots in
-    node-index order; jobs get rows in session order, padded to a pow2
-    bucket of at least 4."""
+    """Cache-owned cross-cycle store of victim-row material, keyed by
+    node name; the cache migrates dirty marks into _vic_refresh /
+    _vicjob_refresh at snapshot time and folds session-touched entities
+    in at adoption, exactly like the DeviceSession discipline (cache.py).
+    A snapshot-primary cache gets a throwaway store per build, which is
+    the fresh layout.
 
-    def __init__(self, names: List[str], segs: Dict[str, _NodeSegment],
-                 node_index: Dict[str, int], job_rows: Dict[str, int]):
-        slots = []
-        used = 0
-        for name in names:
-            k = len(segs[name].run_tasks)
-            cap = k + max(1, k >> 3)
-            slots.append((name, used, k, cap))
-            used += cap
-        self.rows_used = used
-        # pow2 padding doubles the row axis right past each boundary;
-        # above 4096 pad to the next 4096 multiple instead
-        if used <= 4096:
-            v_pad = pad_to_bucket(max(1, used), 8)
-        else:
-            v_pad = -(-used // 4096) * 4096
-        self.v_node = np.zeros(v_pad, np.int32)
-        self.v_job = np.full(v_pad, -1, np.int32)
-        self.v_res = np.zeros((v_pad, RESOURCE_DIM), np.float32)
-        self.v_crit = np.zeros(v_pad, bool)
-        self.v_live = np.zeros(v_pad, bool)
-        self.row_tasks: List[Optional[TaskInfo]] = [None] * v_pad
-        jr_get = job_rows.get
-        for name, off, k, cap in slots:
-            seg = segs[name]
-            self.v_node[off:off + cap] = node_index[name]
-            if k:
-                self.v_res[off:off + k] = seg.run_res
-                self.v_crit[off:off + k] = seg.run_crit
-                self.v_job[off:off + k] = [jr_get(t.job, -1)
-                                           for t in seg.run_tasks]
-                self.v_live[off:off + k] = True
-                self.row_tasks[off:off + k] = seg.run_tasks
+    Beyond the per-node ``_NodeSegment``s (``nz_mat``/``cnt`` mirror
+    their whole-node aggregates in node-column order), the store
+    persists the ASSEMBLED index spaces so a steady-state VictimState
+    build is O(churn) instead of O(cluster):
+
+    - **row space**: parallel victim arrays (v_node/v_job/v_res/v_crit/
+      v_live + the aligned ``row_tasks`` list) where each node owns a
+      fixed slot ``[off, off+cap)``, ``cap = k + max(1, k >> 3)``,
+      holding its RUNNING tasks in insertion order (dead tail rows have
+      live=False, so within-node eviction order matches a fresh build).
+      Refreshing a node rewrites only its slot; a slot that outgrows its
+      capacity relocates to the tail, and the space compacts when dead
+      capacity dominates. Row position across nodes is NOT semantic:
+      the kernels order by (node, job) and consume masks per node.
+    - **job space**: a grow-only uid -> row assignment with parallel
+      ready_cnt/min_av/j_alloc/job_queue arrays refreshed only for dirty
+      jobs. Rows of jobs absent from the current session keep their
+      assignment (presence is the ``j_present`` mask, folded into the
+      session's effective v_live) so validate-dropped jobs can return;
+      the space compacts — rows densely reassigned and v_job remapped —
+      when the assignment outgrows the live set. Dirty marks for absent
+      jobs are carried in ``job_marks_pending`` until the job is seen
+      again.
+
+    ref: kubebatch_tpu/kernels/victims.py SegmentStore; every array here
+    equals the reference store's word for word on the same events.
+    """
+    __slots__ = ("segs", "col_names", "nz_mat", "cnt",
+                 "slot_of", "row_tasks", "v_node", "v_job", "v_res",
+                 "v_crit", "v_live", "rows_used", "dead_cap",
+                 "job_rows", "j_present", "ready_cnt",
+                 "min_av", "j_alloc", "job_queue", "q_ids",
+                 "present_uids", "job_marks_pending", "orphan_uids",
+                 "host_rank", "host_rank_epoch")
+
+    def __init__(self):
+        self.segs: Dict[str, _NodeSegment] = {}
+        self.col_names: Optional[List[str]] = None
+        self.nz_mat: Optional[np.ndarray] = None
+        self.cnt: Optional[np.ndarray] = None
+        # row space
+        self.slot_of: Dict[str, tuple] = {}
+        self.row_tasks: List[Optional[TaskInfo]] = []
+        self.v_node = np.zeros(0, np.int32)
+        self.v_job = np.zeros(0, np.int32)
+        self.v_res = np.zeros((0, RESOURCE_DIM), np.float32)
+        self.v_crit = np.zeros(0, bool)
+        self.v_live = np.zeros(0, bool)
+        self.rows_used = 0
+        self.dead_cap = 0
+        # job space
+        self.job_rows: Dict[str, int] = {}
+        self.host_rank: Optional[np.ndarray] = None
+        self.host_rank_epoch = None
+        self.j_present: Optional[np.ndarray] = None
+        self.ready_cnt: Optional[np.ndarray] = None
+        self.min_av: Optional[np.ndarray] = None
+        self.j_alloc: Optional[np.ndarray] = None
+        self.job_queue: Optional[np.ndarray] = None
+        self.q_ids: Optional[List[str]] = None
+        self.present_uids: set = set()
+        self.job_marks_pending: set = set()
+        #: job uids some stored row references as v_job=-1 (no assignment
+        #: existed at slot-write time). When such a uid finally gets a
+        #: row, its tasks' nodes are forced into the refresh set so the
+        #: stale -1 references repair — a job's return to the session
+        #: dirties no node by itself.
+        self.orphan_uids: set = set()
+
+    def _ensure_row_cap(self, need: int) -> None:
+        cap = len(self.v_node)
+        if need <= cap:
+            return
+        new = pad_to_bucket(max(need, cap + (cap >> 1)), 64)
+        grow = new - cap
+        self.v_node = np.concatenate([self.v_node,
+                                      np.zeros(grow, np.int32)])
+        self.v_job = np.concatenate([self.v_job,
+                                     np.full(grow, -1, np.int32)])
+        self.v_res = np.concatenate(
+            [self.v_res, np.zeros((grow, RESOURCE_DIM), np.float32)])
+        self.v_crit = np.concatenate([self.v_crit, np.zeros(grow, bool)])
+        self.v_live = np.concatenate([self.v_live, np.zeros(grow, bool)])
+        self.row_tasks.extend([None] * grow)
+
+    def _clear_rows(self) -> None:
+        self.slot_of = {}
+        self.rows_used = 0
+        self.dead_cap = 0
+        self.v_live[:] = False
+        tasks = self.row_tasks
+        for i in range(len(tasks)):
+            tasks[i] = None
+
+    def _ensure_job_cap(self, need: int) -> None:
+        if self.ready_cnt is None:
+            cap = pad_to_bucket(max(1, need), 4)
+            self.ready_cnt = np.zeros(cap, np.int32)
+            self.min_av = np.zeros(cap, np.int32)
+            self.j_alloc = np.zeros((cap, RESOURCE_DIM), np.float32)
+            self.job_queue = np.full(cap, -1, np.int32)
+            self.j_present = np.zeros(cap, bool)
+            return
+        cap = len(self.ready_cnt)
+        if need <= cap:
+            return
+        new = pad_to_bucket(max(need, cap * 2), 4)
+        grow = new - cap
+        self.ready_cnt = np.concatenate([self.ready_cnt,
+                                         np.zeros(grow, np.int32)])
+        self.min_av = np.concatenate([self.min_av,
+                                      np.zeros(grow, np.int32)])
+        self.j_alloc = np.concatenate(
+            [self.j_alloc, np.zeros((grow, RESOURCE_DIM), np.float32)])
+        self.job_queue = np.concatenate([self.job_queue,
+                                         np.full(grow, -1, np.int32)])
+        self.j_present = np.concatenate([self.j_present,
+                                         np.zeros(grow, bool)])
+
+
+def _segment_store(ssn):
+    """(SegmentStore, node-refresh, job-refresh) for this build.
+    Incremental caches persist the store with the same consume-at-
+    handout / re-adopt-under-epoch-check discipline as the
+    DeviceSession: the first build of a session takes the store OFF the
+    cache (a mid-session cluster-wide invalidation or a refused adoption
+    must not leave a stale store behind), later builds in the same
+    session reuse it via the session (refresh = the grown touched sets),
+    and cache.adopt_snapshot puts it back if the session's epoch still
+    matches. A snapshot-primary cache gets a throwaway store, i.e. a
+    plain fresh build."""
+    store = ssn._victim_store
+    if store is not None:
+        return store, set(ssn.touched_nodes), set(ssn.touched_jobs)
+    cache = ssn.cache
+    if not cache._incremental:
+        return SegmentStore(), set(), set()
+    with cache._lock:
+        store = cache.victim_segments
+        cache.victim_segments = None      # consumed; re-adopted at close
+        refresh = set(cache._vic_refresh)
+        cache._vic_refresh.clear()
+        job_refresh = set(cache._vicjob_refresh)
+        cache._vicjob_refresh.clear()
+    if store is None:
+        store = SegmentStore()
+    ssn._victim_store = store
+    return (store, refresh | ssn.touched_nodes,
+            job_refresh | ssn.touched_jobs)
 
 
 class _VictimRows:
@@ -712,64 +829,241 @@ class VictimState:
                  allocatable_cm: np.ndarray):
         self.node_index = node_index
         self.n_pad = n_pad
+        # mutable node mirrors + victim-row material, assembled from the
+        # cache's persistent SegmentStore: only nodes/jobs the cache
+        # dirtied or the session touched recompute from HOST truth, and
+        # the assembled row/job index spaces persist too
+        store, refresh, job_refresh = _segment_store(ssn)
+        segs = store.segs
         nodes_map = ssn.nodes
-        ordered = sorted(nodes_map.items(),
-                         key=lambda kv: node_index.get(kv[0], 0))
-        names = [name for name, _ in ordered if name in node_index]
-        if any(node_index.get(nm) != i for i, nm in enumerate(names)):
-            raise RuntimeError(
-                "segment column order diverged from the node index")
+        if (store.col_names is not None
+                and len(store.col_names) == len(nodes_map)
+                and all(n in nodes_map for n in store.col_names)):
+            # node set unchanged: the store's column order IS the index
+            # order
+            names = store.col_names
+        else:
+            ordered = sorted(nodes_map.items(),
+                             key=lambda kv: node_index.get(kv[0], 0))
+            names = [name for name, _ in ordered if name in node_index]
+        rows_reset = False
+        if (store.col_names != names or store.nz_mat is None
+                or store.nz_mat.shape[0] != n_pad
+                or len(segs) < len(names)):
+            # node set / order / padding changed: aggregates restart
+            store.col_names = names
+            store.nz_mat = np.zeros((n_pad, 2), np.float32)
+            store.cnt = np.zeros(n_pad, np.int32)
+            refresh = set(names)
+            rows_reset = True
+            # the fast path above relies on column order == node_index
+            # order; catch a divergence at reset time
+            if any(node_index.get(nm) != i
+                   for i, nm in enumerate(names)):
+                raise RuntimeError(
+                    "segment column order diverged from the node index")
+        nz_mat, cnt = store.nz_mat, store.cnt
 
-        # ---- job index space ------------------------------------------
+        # ---- job index space (persistent, grow-only) ------------------
         self.queue_ids = sorted(ssn.queues)
         self.q_index = {q: i for i, q in enumerate(self.queue_ids)}
         jobs_map = ssn.jobs
-        job_rows = {uid: i for i, uid in enumerate(jobs_map)}
-        cap = pad_to_bucket(max(1, len(jobs_map)), 4)
-        ready_cnt = np.zeros(cap, np.int32)
-        min_av = np.zeros(cap, np.int32)
-        j_alloc = np.zeros((cap, RESOURCE_DIM), np.float32)
-        job_queue = np.full(cap, -1, np.int32)
+        job_refresh |= store.job_marks_pending
+        update_all = False
+        if (store.ready_cnt is None or store.q_ids != self.queue_ids
+                or len(store.job_rows) > 2 * len(jobs_map) + 64):
+            # fresh store / queue-set change / assignment outgrew the
+            # live set: rebuild the job space densely and remap the row
+            # arrays' job references (job-row NUMBERS are not semantic —
+            # kernels only group by them)
+            old_rows = store.job_rows
+            old_cap = (len(store.ready_cnt)
+                       if store.ready_cnt is not None else 0)
+            store.job_rows = {uid: i for i, uid in enumerate(jobs_map)}
+            store.ready_cnt = None
+            store._ensure_job_cap(len(jobs_map))
+            store.q_ids = list(self.queue_ids)
+            store.present_uids = set()
+            store.job_marks_pending = set()
+            if old_cap and len(store.v_job):
+                remap = np.full(old_cap + 1, -1, np.int32)
+                for uid, r in old_rows.items():
+                    nr = store.job_rows.get(uid)
+                    if nr is not None:
+                        remap[r] = nr
+                vj = store.v_job
+                safe = np.where((vj >= 0) & (vj < old_cap), vj, old_cap)
+                store.v_job = remap[safe]
+            # exact orphan recompute: live rows whose job reference is
+            # now unknown (dropped assignments) need repair if the job
+            # ever returns — this also prunes uids that never will
+            vj = store.v_job
+            orphan_rows = np.flatnonzero(store.v_live[:len(vj)]
+                                         & (vj < 0))
+            store.orphan_uids = {
+                store.row_tasks[i].job for i in orphan_rows
+                if store.row_tasks[i] is not None}
+            update_all = True
+        job_rows = store.job_rows
         ready = _ready_statuses()
         drf = ssn.plugins.get("drf")
         q_get = self.q_index.get
-        for uid, job in jobs_map.items():
+
+        repair_nodes: set = set()
+
+        def _update_job(uid, job):
             r = job_rows[uid]
-            ready_cnt[r] = job.count(*ready)
-            min_av[r] = job.min_available
-            job_queue[r] = q_get(job.queue, -1)
+            store.ready_cnt[r] = job.count(*ready)
+            store.min_av[r] = job.min_available
+            store.job_queue[r] = q_get(job.queue, -1)
             attr = drf.job_opts.get(uid) if drf is not None else None
             if attr is not None:
-                j_alloc[r] = attr.allocated.to_vec()
+                store.j_alloc[r] = attr.allocated.to_vec()
+            else:
+                store.j_alloc[r] = 0.0
+            if uid in store.orphan_uids:
+                # stored rows reference this job as v_job=-1; refresh its
+                # tasks' nodes so the slots repair with the new row
+                store.orphan_uids.discard(uid)
+                for t in job.tasks.values():
+                    if t.node_name:
+                        repair_nodes.add(t.node_name)
+
+        cur = set(jobs_map)
+        if update_all:
+            for uid, job in jobs_map.items():
+                store.j_present[job_rows[uid]] = True
+                _update_job(uid, job)
+            n_jobs_refreshed = len(jobs_map)
+        else:
+            for uid in store.present_uids - cur:
+                store.j_present[job_rows[uid]] = False
+            updated = set()
+            for uid in cur - store.present_uids:
+                # new or returning job; values of a returning row are
+                # still valid unless a dirty mark is pending (handled
+                # by the job_refresh pass below)
+                r = job_rows.get(uid)
+                if r is None:
+                    r = len(job_rows)
+                    store._ensure_job_cap(r + 1)
+                    job_rows[uid] = r
+                    _update_job(uid, jobs_map[uid])
+                    updated.add(uid)
+                store.j_present[r] = True
+            for uid in job_refresh:
+                job = jobs_map.get(uid)
+                if job is not None and uid not in updated:
+                    if uid not in job_rows:
+                        r = len(job_rows)
+                        store._ensure_job_cap(r + 1)
+                        job_rows[uid] = r
+                        store.j_present[r] = True
+                    _update_job(uid, job)
+                    updated.add(uid)
+            # carry marks of stored-but-absent jobs until they return
+            store.job_marks_pending = {
+                u for u in job_refresh - updated if u in job_rows}
+            n_jobs_refreshed = len(updated)
+        store.present_uids = cur
         self.j_index = job_rows
         self.cluster_total = (drf.total_resource.to_vec() if drf is not None
                               else np.ones(RESOURCE_DIM, np.float32))
 
-        # ---- node segments and the row space --------------------------
-        segs = _build_segments([(n, nodes_map[n]) for n in names])
-        nz_mat = np.zeros((n_pad, 2), np.float32)
-        cnt = np.zeros(n_pad, np.int32)
-        for name in names:
+        # ---- segment refresh ------------------------------------------
+        refresh |= repair_nodes
+        if rows_reset:
+            stale_names = names           # already in node-index order
+        else:
+            stale_names = sorted(
+                (n for n in refresh if n in node_index and n in nodes_map),
+                key=node_index.get)
+        segs.update(_build_segments([(n, nodes_map[n])
+                                     for n in stale_names]))
+        for name in stale_names:
+            seg = segs[name]
             ni = node_index[name]
-            nz_mat[ni] = segs[name].nz
-            cnt[ni] = segs[name].n_tasks
-        store = SegmentStore(names, segs, node_index, job_rows)
+            nz_mat[ni] = seg.nz
+            cnt[ni] = seg.n_tasks
+        if len(segs) > len(names):
+            live_names = set(names)
+            for name in list(segs):
+                if name not in live_names:
+                    del segs[name]
+        #: (nodes, jobs) this build recomputed from host truth
+        self.refreshed = (len(stale_names), n_jobs_refreshed)
+
+        # ---- row space: per-node slots, refreshed slots rewritten -----
+        if rows_reset or store.dead_cap > max(64, store.rows_used // 3):
+            store._clear_rows()
+            row_stale = names
+        else:
+            row_stale = stale_names
+        jr_get = job_rows.get
+        tasks_l = store.row_tasks
+        for name in row_stale:
+            seg = segs[name]
+            run = seg.run_tasks
+            k = len(run)
+            slot = store.slot_of.get(name)
+            if slot is None or k > slot[1]:
+                if slot is not None:
+                    off0, cap0 = slot
+                    store.v_live[off0:off0 + cap0] = False
+                    for i in range(off0, off0 + cap0):
+                        tasks_l[i] = None
+                    store.dead_cap += cap0
+                # +12.5% slack (min 1); a node outgrowing it re-slots
+                cap = k + max(1, k >> 3)
+                off = store.rows_used
+                store._ensure_row_cap(off + cap)
+                tasks_l = store.row_tasks
+                store.rows_used = off + cap
+                store.slot_of[name] = (off, cap)
+            else:
+                off, cap = slot
+            ni = node_index[name]
+            store.v_node[off:off + cap] = ni
+            store.v_live[off:off + cap] = False
+            if k:
+                store.v_res[off:off + k] = seg.run_res
+                store.v_crit[off:off + k] = seg.run_crit
+                vjs = []
+                for t in run:
+                    jr = jr_get(t.job, -1)
+                    if jr < 0:
+                        store.orphan_uids.add(t.job)
+                    vjs.append(jr)
+                store.v_job[off:off + k] = vjs
+                store.v_live[off:off + k] = True
+                for i, t in enumerate(run):
+                    tasks_l[off + i] = t
+            for i in range(off + k, off + cap):
+                tasks_l[i] = None
 
         # ---- node mirrors ---------------------------------------------
-        self.nz_req = nz_mat
-        self.n_tasks = cnt
+        self.nz_req = nz_mat.copy()
+        self.n_tasks = cnt.copy()
         self.node_ok = node_ok
         self.max_task_num = max_task_num
         self.allocatable_cm = allocatable_cm
-        # host visit order (ssn.nodes dict order)
-        host_rank = np.full(n_pad, np.iinfo(np.int32).max, np.int32)
-        for pos, name in enumerate(nodes_map):
-            idx = node_index.get(name)
-            if idx is not None:
-                host_rank[idx] = pos
-        self.host_rank = host_rank
+        # host visit order (ssn.nodes dict order) — stable while the node
+        # set is; persisted on the store, keyed on the node-order epoch
+        order_epoch = ssn.node_order_epoch
+        if rows_reset or store.host_rank is None \
+                or len(store.host_rank) != n_pad \
+                or order_epoch is None \
+                or store.host_rank_epoch != order_epoch:
+            host_rank = np.full(n_pad, np.iinfo(np.int32).max, np.int32)
+            for pos, name in enumerate(nodes_map):
+                idx = node_index.get(name)
+                if idx is not None:
+                    host_rank[idx] = pos
+            store.host_rank = host_rank
+            store.host_rank_epoch = order_epoch
+        self.host_rank = store.host_rank
 
-        # ---- queue arrays ---------------------------------------------
+        # ---- queue arrays (small; rebuilt per build) ------------------
         q_pad = pad_to_bucket(max(1, len(self.queue_ids)), 4)
         self.q_alloc = np.zeros((q_pad, RESOURCE_DIM), np.float32)
         self.q_deserved = np.zeros((q_pad, RESOURCE_DIM), np.float32)
@@ -783,24 +1077,39 @@ class VictimState:
                     self.q_deserved[qi] = attr.deserved.to_vec()
                     self.q_prop_ok[qi] = True
 
-        # ---- rows ------------------------------------------------------
-        v_pad = len(store.v_node)
-        self.rows_used = store.rows_used
-        self.v_node = store.v_node
-        self.v_job = store.v_job
-        self.v_res = store.v_res
-        self.v_critical = store.v_crit
+        # ---- session views over the persistent spaces -----------------
+        # Rows: read-only aliases of the store's arrays (apply_* mutates
+        # only the per-session copies below); within-node insertion order
+        # is preserved by the slot discipline, so eviction order matches
+        # a fresh build. Effective liveness folds job presence: rows of
+        # session-absent jobs are dead this cycle.
+        used = store.rows_used
+        # pow2 padding doubles the row axis right past each boundary;
+        # above 4096 pad to the next 4096 multiple instead
+        if used <= 4096:
+            v_pad = pad_to_bucket(max(1, used), 8)
+        else:
+            v_pad = -(-used // 4096) * 4096
+        store._ensure_row_cap(v_pad)
+        self.rows_used = used
+        self.v_node = store.v_node[:v_pad]
+        self.v_job = store.v_job[:v_pad]
+        self.v_res = store.v_res[:v_pad]
+        self.v_critical = store.v_crit[:v_pad]
         vj = self.v_job
-        self.v_live = store.v_live & (vj >= 0)
+        live = store.v_live[:v_pad] & (vj >= 0)
+        np.logical_and(live, store.j_present[np.maximum(vj, 0)], out=live)
+        self.v_live = live
         #: the rows live at the build: only these can ever be victims in
         #: this action (the kernels' per-node row lists)
-        self.v_live0 = self.v_live.copy()
-        self.victims = _VictimRows(self, store.row_tasks,
-                                   int(self.v_live.sum()))
-        self.ready_cnt = ready_cnt
-        self.min_av = min_av
-        self.j_alloc = j_alloc
-        self.job_queue = job_queue
+        self.v_live0 = live.copy()
+        self.victims = _VictimRows(self, store.row_tasks[:v_pad],
+                                   int(live.sum()))
+        # per-session copies of the arrays apply_* mutates
+        self.ready_cnt = store.ready_cnt.copy()
+        self.min_av = store.min_av
+        self.j_alloc = store.j_alloc.copy()
+        self.job_queue = store.job_queue
 
         # orderings + segment heads (dead rows keep stale keys — they
         # contribute nothing: every kernel term masks on v_live/cand).

@@ -5,11 +5,14 @@ read a counter before and after a window and diff. Counted: the
 blocking device->host copies (``device.to_host``, one per solve or victim
 dispatch), engine demotions (a requested engine that could not run and
 handed the cycle to another), the preemption victims and attempts, and
-backfill-over-reserved's reclaims, double binds and lost reservations.
-The remaining functions are the hooks the framework and the gang plugin
+backfill-over-reserved's reclaims, double binds and lost reservations,
+and the event fold's folded events (per kind) and demotions (per
+reason). The remaining functions are the hooks the framework and the gang plugin
 call; with no exporter they record nothing.
 """
 from __future__ import annotations
+
+import threading
 
 _blocking_readbacks = 0
 _engine_demotions = 0
@@ -19,6 +22,10 @@ _backfill_reclaims = 0
 _backfill_tenants_evicted = 0
 _backfill_double_binds = 0
 _lost_reservations = 0
+#: the fold counters are hit from any thread that delivers cache events
+_fold_lock = threading.Lock()
+_events_folded: dict = {}
+_fold_demotions: dict = {}
 
 
 def count_blocking_readback(n: int = 1) -> None:
@@ -124,3 +131,29 @@ def count_lost_reservation(n: int = 1) -> None:
 
 def lost_reservations_total() -> int:
     return _lost_reservations
+
+
+def count_event_folded(kind: str, n: int = 1) -> None:
+    """Record n cache events of one kind folded into the incremental
+    snapshot state (cache/eventfold.py ``EventFold.record``)."""
+    with _fold_lock:
+        _events_folded[kind] = _events_folded.get(kind, 0) + n
+
+
+def events_folded_total() -> dict:
+    """Folded events per kind (a copy)."""
+    with _fold_lock:
+        return dict(_events_folded)
+
+
+def count_fold_demotion(reason: str) -> None:
+    """Record one demotion of the event fold to snapshot-primary
+    (``EventFold.demote``: "audit" on a snapshot divergence)."""
+    with _fold_lock:
+        _fold_demotions[reason] = _fold_demotions.get(reason, 0) + 1
+
+
+def fold_demotions_total() -> dict:
+    """Fold demotions per reason (a copy)."""
+    with _fold_lock:
+        return dict(_fold_demotions)

@@ -33,6 +33,24 @@ class QueueAttr:
         self.request = Resource.empty()
 
 
+class _QueueBase:
+    """Cross-cycle per-queue rollup: sums of the member jobs'
+    contributions (allocated / allocated+pending request) plus a member
+    count — the inputs the water-filling needs, maintained by deltas."""
+    __slots__ = ("alloc", "req", "njobs")
+
+    def __init__(self):
+        self.alloc = Resource.empty()
+        self.req = Resource.empty()
+        self.njobs = 0
+
+
+#: full-rebuild period for the delta-maintained rollups: reversing a
+#: contribution with float sub can leave ulp-scale residue; a periodic
+#: re-sum bounds it far below the 10m/10Mi decision epsilons
+_RESUM_PERIOD = 256
+
+
 class ProportionPlugin(Plugin):
     def __init__(self, arguments=None):
         self.arguments = arguments or {}
@@ -80,19 +98,66 @@ class ProportionPlugin(Plugin):
     def on_session_open(self, ssn: Session) -> None:
         self.total_resource.add(ssn.total_allocatable())
 
-        # queue attributes only for queues that have jobs; snapshot()
-        # already drops jobs whose queue is missing (ref:
-        # proportion.go:66-98)
-        for job in ssn.jobs.values():
-            attr = self.queue_opts.get(job.queue)
-            if attr is None:
-                queue = ssn.queues.get(job.queue)
-                if queue is None:
-                    continue
-                attr = self.queue_opts[job.queue] = QueueAttr(queue)
+        # Cross-cycle queue rollups by per-job contribution deltas
+        # (contract at cache.plugin_scratch): only refreshed/new/gone jobs
+        # touch the sums — O(churn), not O(jobs).
+        scratch = ssn.cache.plugin_scratch
+        state = scratch.get(NAME)
+        refreshed = ssn.refreshed_jobs
+        if (state is None or refreshed is None
+                or state["total"] != self.total_resource
+                or state["opens"] % _RESUM_PERIOD == 0):
+            contrib: Dict[str, tuple] = {}
+            bases: Dict[str, _QueueBase] = {}
+            gone = ()
+            rebuild = list(ssn.jobs.values())
+            opens = 1 if state is None else state["opens"] + 1
+        else:
+            contrib, bases = state["contrib"], state["bases"]
+            gone = [uid for uid in contrib if uid not in ssn.jobs]
+            rebuild = [job for uid, job in ssn.jobs.items()
+                       if uid in refreshed or uid not in contrib]
+            opens = state["opens"] + 1
+        for uid in gone:
+            qkey, alloc, req = contrib.pop(uid)
+            base = bases[qkey]
+            base.alloc.sub(alloc)
+            base.req.sub(req)
+            base.njobs -= 1
+        for job in rebuild:
+            old = contrib.pop(job.uid, None)
+            if old is not None:
+                base = bases[old[0]]
+                base.alloc.sub(old[1])
+                base.req.sub(old[2])
+                base.njobs -= 1
+            # snapshot() already drops jobs whose queue is missing, so
+            # every session job contributes (ref: proportion.go:66-98
+            # "queue attributes only for queues that have jobs")
             alloc, req = self._job_contribution(job)
-            attr.allocated.add(alloc)
-            attr.request.add(req)
+            base = bases.get(job.queue)
+            if base is None:
+                base = bases[job.queue] = _QueueBase()
+            base.alloc.add(alloc)
+            base.req.add(req)
+            base.njobs += 1
+            contrib[job.uid] = (job.queue, alloc, req)
+        scratch[NAME] = {"contrib": contrib, "bases": bases,
+                         "total": self.total_resource.clone(),
+                         "opens": opens}
+
+        # session-local working attrs over the rollups (the water-fill
+        # and the in-session event handlers mutate these, never the bases)
+        for qkey, base in bases.items():
+            if base.njobs <= 0:
+                continue
+            queue = ssn.queues.get(qkey)
+            if queue is None:
+                continue
+            attr = QueueAttr(queue)
+            attr.allocated = base.alloc.clone()
+            attr.request = base.req.clone()
+            self.queue_opts[qkey] = attr
 
         # weighted water-filling (ref: proportion.go:100-142, quirks intact)
         remaining = self.total_resource.clone()

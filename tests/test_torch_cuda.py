@@ -606,3 +606,101 @@ def test_contended_victim_cycle_on_the_card_decides_as_the_cpu(seed):
     assert results[0][:2] == results[1][:2]
     assert results[0][1], "the contended world must evict"
     assert results[0][2] == 0 and results[1][2] > 0
+
+
+@pytest.mark.parametrize("k,dups", [(1, 0), (300, 60), (512, 0)],
+                         ids=["one-row", "duplicates", "every-row"])
+def test_scatter_rows_kernel_matches_plain(k, dups):
+    """The dirty-row scatter (csrc/scatter_rows.cu) against its plain
+    version: one row, a few hundred with duplicate rows (identical
+    values), and every row of N_pad."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import solver
+
+    rng = np.random.default_rng(k)
+    n_pad = 512
+    base = [rng.uniform(0, 100, (n_pad, 3)).astype(np.float32)
+            for _ in range(3)]
+    base += [rng.uniform(0, 100, (n_pad, 2)).astype(np.float32)
+             for _ in range(2)]
+    base += [rng.integers(0, 110, n_pad).astype(np.int32)
+             for _ in range(2)]
+    base.append(rng.random(n_pad) < 0.5)
+    n_unique = k - dups
+    idx = rng.choice(n_pad, size=n_unique, replace=False).astype(np.int32)
+    rows = [rng.uniform(-5, 5, (n_unique, 3)).astype(np.float32)
+            for _ in range(3)]
+    rows += [rng.uniform(-5, 5, (n_unique, 2)).astype(np.float32)
+             for _ in range(2)]
+    rows += [rng.integers(0, 110, n_unique).astype(np.int32)
+             for _ in range(2)]
+    rows.append(rng.random(n_unique) < 0.5)
+    if dups:
+        rep = rng.integers(0, n_unique, dups)
+        idx = np.concatenate([idx, idx[rep]])
+        rows = [np.concatenate([r, r[rep]]) for r in rows]
+    block = solver.pack_scatter_rows(idx, *rows, n_pad=n_pad)
+    want = tuple(torch.from_numpy(a.copy()) for a in base)
+    solver.scatter_rows_plain(want, torch.from_numpy(block))
+    got = tuple(torch.from_numpy(a.copy()).cuda() for a in base)
+    n0 = _build.launch_count("scatter_rows")
+    solver.scatter_rows(got, torch.from_numpy(block).cuda())
+    torch.cuda.synchronize()
+    assert _build.launch_count("scatter_rows") == n0 + 1
+    _assert_bitwise(want, [g.cpu() for g in got], "scatter_rows")
+
+
+def test_folded_cycles_on_the_card_decide_as_the_cpu():
+    """Six folded four-action cycles (skewed churn on a reduced cfg5) on
+    an incremental CUDA cache decide exactly as on an incremental CPU
+    cache; the CUDA cache refreshes its DeviceSession rows through the
+    scatter kernel and never rebuilds it while the node set holds."""
+    _need_cuda()
+    import dataclasses
+
+    from kubebatch_tpu_torch.framework.registry import get_action
+
+    spec = dataclasses.replace(BASELINE_SPECS[5], n_nodes=128, n_groups=64)
+    results = []
+    for device in ("cpu", "cuda"):
+        binds, evicted = {}, []
+
+        class Rec:
+            def bind(self, pod, hostname):
+                binds[pod.name] = hostname
+                pod.node_name = hostname
+
+            def evict(self, pod):
+                evicted.append(pod.name)
+                pod.deletion_timestamp = 1.0
+
+        sim = build_cluster(spec)
+        cache = SchedulerCache(binder=Rec(), evictor=Rec(),
+                               async_writeback=False, device=device)
+        assert cache._incremental
+        sim.populate(cache)
+        per_cycle = []
+        for k in range(6):
+            if k:
+                for pod in sim.pods:
+                    if pod.node_name and pod.phase == PodPhase.PENDING:
+                        pod.phase = PodPhase.RUNNING
+                        cache.update_pod(pod, pod)
+                sim.churn_tick(cache, 64, arrival_queue=0 if k % 2 else 3)
+            _build.reset_launch_counts()
+            adopted = cache._dev_state
+            ssn = OpenSession(cache, shipped_tiers())
+            for name in ("reclaim", "allocate", "backfill", "preempt"):
+                get_action(name).execute(ssn)
+            statuses = {t.key: (t.status.name, t.node_name)
+                        for j in ssn.jobs.values() for t in j.tasks.values()}
+            reused = ssn.device_snapshot is adopted and adopted is not None
+            CloseSession(ssn)
+            per_cycle.append((statuses, dict(binds), sorted(evicted),
+                              _build.launch_count("scatter_rows"), reused))
+        results.append(per_cycle)
+    for k, (c, g) in enumerate(zip(*results)):
+        assert c[:3] == g[:3], f"cycle {k}"
+        assert c[3] == 0
+        if k:
+            assert g[3] >= 1 and g[4], f"cycle {k}: no row refresh"

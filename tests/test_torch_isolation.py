@@ -93,11 +93,19 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
     assert DeviceSession({}, device="cpu").idle.device.type == "cpu"
 
 
-def test_incremental_snapshot_is_refused():
+def test_incremental_snapshot_is_the_default():
+    """The cache folds events by default, as the reference does;
+    ``incremental_snapshot=False`` is the snapshot-primary mode."""
     from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.objects import Node, Queue
 
-    with pytest.raises(NotImplementedError, match="event fold"):
-        SchedulerCache(device="cpu", incremental_snapshot=True)
+    for kw, folded in (({}, True), ({"incremental_snapshot": False}, False)):
+        cache = SchedulerCache(device="cpu", async_writeback=False, **kw)
+        assert cache.fold.enabled is folded
+        cache.add_queue(Queue(name="q"))
+        cache.add_node(Node(name="n0", allocatable={"cpu": "1"}))
+        assert cache.fold.dirty_nodes == ({"n0"} if folded else set())
+        assert cache.snapshot().refreshed_jobs is None   # first: full
 
 
 def test_chip_smoke_fails_without_a_card():
