@@ -44,6 +44,21 @@ decide alike, every scatter equals its plain version and leaves the
 DeviceSession equal to a fresh build, and every victim_wave launch
 equals its plain version; per-phase host ms of both caches are printed.
 
+Phase (e) is the predicate-rich configurations through the shipped
+policy on incremental caches: 5p (cfg5's shape with 16 zones,
+selectors, taints, required anti-affinity, zone affinity, preferred
+co-location and host ports) cold, then two skewed churn-256 cycles,
+then 3p cold and two churn cycles. A cold cycle's allocate runs the
+affinity branch of the batched kernel (one launch, one counted sync, no
+affinity host fallback), held bitwise against the plain engine with its [A,D] carry
+and port claims, the final state validated against the affinity and
+host-port predicates; a churn cycle's allocate runs the host loops, the
+reference's route for a fused request on an affinity snapshot (the
+reason from dynamic_features asserted), while reclaim's victim waves
+fold the affinity masks into the node choice, each launch bitwise equal
+to plain. The 5p cold launch is timed (events, profiler, the phase
+timers' affinity phases) beside its bound.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -94,6 +109,23 @@ NODE_STATE_BYTES = 61
 #: is one instruction and the lanes issue half that rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 33.5e12
+#: 32-bit integer and logical instructions/s: compute capability 9.0
+#: issues 64 of them per clock per SM against 128 float32 adds or
+#: multiplies (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput), half the float32 rate above
+PEAK_I32_PER_S = PEAK_F32_PER_S / 2
+#: 32-bit integer operations per task x node cell of the affinity and
+#: host-port predicates (batched_allocate.cu aff_cell) at the least: the
+#: cell's 24 32-bit inputs (need, anti, grp, present, sym on each half of
+#: the two pair words, ports and used on the port word's halves) folded
+#: to one by three-input logic operations (LOP3: 12), then the zero test
+OPS_PER_CELL_AFF = 13
+#: float32 operations per scoring task x node cell of the interpod score
+#: besides the count sums (batched_allocate.cu ip_counts and row_pass:
+#: own + sym, the min and max, c - cmin, 10 *, / span, floor, * weight,
+#: the add to the pair score); the sums add two per preferred term
+#: (multiply, add) and one per group bit
+OPS_PER_IP_CELL = 9
 #: float32 operations per victim row of one lane's analysis, counted from
 #: kernels/csrc/victims.cu: the drf tier (the scan's ~2 combines of 3
 #: adds, excl, cum, the job's allocation minus it, share3's 3 divisions
@@ -1095,6 +1127,397 @@ def fold_phase(dev, spec5, churn: int = 256, n_churn: int = 8) -> dict:
             "fold_victim_wave_launches": wave_launches}
 
 
+def validate_affinity(cache) -> dict:
+    """The final state of ``cache`` under the reference's predicate
+    semantics (tests/test_affinity_device.py _validate_final_state): every
+    required affinity has a companion in its domain (or the pod started
+    its group), no required anti-affinity sees a companion in its domain,
+    no host port is claimed twice on a node. Raises on a violation;
+    returns the counts checked."""
+    labels = {n.name: dict(n.node.labels) for n in cache.nodes.values()
+              if n.node}
+    placed = [(t.pod, t.node_name) for job in cache.jobs.values()
+              for t in job.tasks.values() if t.node_name]
+    by_selector = {}
+
+    def matching(term, anchor):
+        ns = tuple(sorted(term.namespaces)) or (anchor.namespace,)
+        key = (tuple(sorted(term.match_labels.items())), ns)
+        got = by_selector.get(key)
+        if got is None:
+            got = by_selector[key] = [
+                (o, on) for o, on in placed
+                if o.namespace in ns and term.selects(o)]
+        return got
+
+    def domain(node, topo):
+        return labels.get(node, {}).get(topo)
+
+    n_req = n_anti = 0
+    for pod, node in placed:
+        aff = pod.affinity
+        if aff is None:
+            continue
+        for term in aff.pod_affinity_required:
+            n_req += 1
+            dom = domain(node, term.topology_key)
+            members = [(o, on) for o, on in matching(term, pod)
+                       if o is not pod]
+            ok = any(dom is not None and domain(on, term.topology_key)
+                     == dom for _, on in members)
+            if not ok and (members or not term.selects(pod)):
+                raise AssertionError(f"{pod.name} on {node}: required "
+                                     f"affinity unsatisfied")
+        for term in aff.pod_anti_affinity_required:
+            n_anti += 1
+            dom = domain(node, term.topology_key)
+            if dom is None:
+                continue
+            for o, on in matching(term, pod):
+                if o is not pod and domain(on, term.topology_key) == dom:
+                    raise AssertionError(
+                        f"{pod.name} on {node}: anti-affinity violated by "
+                        f"{o.name} on {on}")
+    ports = set()
+    n_ports = 0
+    for pod, node in placed:
+        for port in pod.host_ports():
+            n_ports += 1
+            if (node, port) in ports:
+                raise AssertionError(f"port {port} claimed twice on {node}")
+            ports.add((node, port))
+    return {"placed": len(placed), "required": n_req, "anti": n_anti,
+            "ports": n_ports}
+
+
+def affinity_bounds(kw, aff, out, stats, pipe: bool) -> dict:
+    """The affinity solve's roofline: the batched solve's (batched_bounds,
+    its task rows those that take part in a round) plus the affinity
+    inputs and carry read once and written once, and per round the [A,D]
+    carry the views are built from, the per-node present, sym and used
+    words (40 B a node) and, for scoring rows, the two [A,N] score views;
+    against, besides the batched solve's operations, the predicates'
+    integer operations on every row-pass row and node (OPS_PER_CELL_AFF
+    over PEAK_I32_PER_S) and the interpod score's float operations on
+    the rows that can score (the preferred terms and group bits they
+    carry, counted by the plain engine) over PEAK_F32_PER_S.
+    ``reference_macs`` counts, for the same rows, the multiply-adds of
+    the reference's dense products (three [.,A] x [A,N] boolean
+    products, the port product and, with the interpod score, two more
+    [.,A] x [A,N]): what that formulation would do, not the bound."""
+    base = batched_bounds(kw, out[:5], stats, pipe)
+    n_pad = kw["idle"].shape[0]
+    n_pairs, d_cap = aff["aff_grp_cnt0"].shape
+    pt = aff["task_ports"].shape[1] if "task_ports" in aff else 0
+    ip = "aff_ip_weight" in aff
+    rounds, rows = stats["rounds"], stats["rows"]
+    ip_rows, ip_terms = stats.get("ip_rows", 0), stats.get("ip_terms", 0)
+    nbytes = base["bytes"]
+    nbytes += sum(t.numel() * t.element_size() for t in aff.values())
+    nbytes += sum(t.numel() * t.element_size() for t in out[5].values()
+                  if t is not None)
+    nbytes += rounds * (n_pairs * d_cap * 4 * (3 if ip else 2)
+                        + n_pad * 40)
+    if ip_rows:
+        nbytes += rounds * n_pairs * n_pad * 8
+    int_ops = rows * n_pad * OPS_PER_CELL_AFF
+    ip_ops = (ip_terms + ip_rows * OPS_PER_IP_CELL) * n_pad
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ((base["ops"] + ip_ops) / PEAK_F32_PER_S
+             + int_ops / PEAK_I32_PER_S) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    macs = rows * n_pad * (3 * n_pairs + pt + (2 * n_pairs if ip else 0))
+    return {"rounds_run": rounds, "rows": rows, "ip_rows": ip_rows,
+            "bytes": nbytes, "ops": base["ops"] + ip_ops + int_ops,
+            "int_ops": int_ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "reference_macs": macs, "bound_ms": b_ms, "bound_by": b_by,
+            "pairs": n_pairs, "ports": pt, "ip": ip}
+
+
+def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
+    """(e) the predicate-rich configurations through the shipped policy
+    on incremental caches: 5p (cfg5's shape with 16 zones, selectors,
+    taints, both affinity kinds, preferred scores, host ports) cold, then
+    two skewed churn cycles of ``churn`` pods, then 3p cold and two churn
+    cycles. The
+    cold cycles' allocate runs the batched kernel with the affinity
+    carry (one launch, one counted sync, no affinity host fallback),
+    checked bitwise against the plain engine on CPU copies, the final
+    state validated and gangs all-or-nothing; a churn cycle's allocate
+    takes the host loops (the reference's route: its fused engine refuses
+    an affinity snapshot), with the ``dynamic_features`` reason asserted,
+    while reclaim launches victim_wave with the affinity masks folded
+    into the node choice, each launch bitwise equal to plain. Returns the
+    kernels-line entry of the affinity solve, timed at 5p cold."""
+    import torch
+
+    from kubebatch_tpu_torch import metrics
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.actions import allocate_batched
+    from kubebatch_tpu_torch.cache import NullBinder, SchedulerCache
+    from kubebatch_tpu_torch.conf import shipped_tiers
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.framework.registry import get_action
+    from kubebatch_tpu_torch.kernels import _build
+    from kubebatch_tpu_torch.kernels import batched as batched_mod
+    from kubebatch_tpu_torch.kernels import victims
+    from kubebatch_tpu_torch.objects import PodPhase
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    names = ("batched_allocate", "fused_allocate", "victim_wave",
+             "victim_visit", "scatter_rows")
+
+    def config_cycles(label, spec):
+        t0 = time.perf_counter()
+        sim = build_cluster(spec)
+        evictor = CountingEvictor()
+        cache = SchedulerCache(device=dev, binder=NullBinder(),
+                               evictor=evictor)
+        sim.populate(cache)
+        log(f"(e) {label}, shipped actions, incremental cache: "
+            f"{len(cache.nodes)} nodes, {len(sim.pods)} pods populated in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cycles = []
+        with Recorder(batched_mod, "batched_allocate") as brec, \
+                Recorder(victims, "victim_wave") as wrec:
+            _build.reset_launch_counts()
+            for k in range(3):                 # cold, then two churn cycles
+                if k:
+                    for pod in sim.pods:
+                        if pod.node_name and pod.phase == PodPhase.PENDING:
+                            pod.phase = PodPhase.RUNNING
+                            cache.update_pod(pod, pod)
+                    queue = 0 if k % 2 else spec.n_queues - 1
+                    if sim.churn_tick(cache, churn,
+                                      arrival_queue=queue) != churn:
+                        raise AssertionError(f"churn did not recycle "
+                                             f"{churn} pods")
+                b0 = binding_count(cache)
+                ev0 = len(evictor.evicted)
+                dem0 = metrics.engine_demotions_total()
+                aff0 = metrics.affinity_host_fallback_total()
+                n_w = len(wrec.calls)
+                t0 = time.perf_counter()
+                snap = cache.snapshot()
+                ssn = OpenSession(cache, shipped_tiers(), snapshot=snap)
+                ms = {"snapshot+open": (time.perf_counter() - t0) * 1e3}
+                syncs = {}
+                for name in SHIPPED_ACTIONS:
+                    rb = metrics.blocking_readbacks()
+                    t = time.perf_counter()
+                    get_action(name).execute(ssn)
+                    ms[name] = (time.perf_counter() - t) * 1e3
+                    syncs[name] = metrics.blocking_readbacks() - rb
+                t = time.perf_counter()
+                CloseSession(ssn)
+                cache.drain(timeout=60.0)
+                ms["close"] = (time.perf_counter() - t) * 1e3
+                ms["wall"] = (time.perf_counter() - t0) * 1e3
+                engine = allocate_mod.last_cycle_engine
+                c = {"cycle": k, "engine": engine, "ms": ms,
+                     "syncs": syncs,
+                     "reason": (allocate_mod.last_host_reason
+                                if engine == "host-visit" else None),
+                     "affinity": (allocate_batched.last_solve.get(
+                         "affinity") if engine == "batched" else None),
+                     "binds": binding_count(cache) - b0,
+                     "evictions": len(evictor.evicted) - ev0,
+                     "demotions": metrics.engine_demotions_total() - dem0,
+                     "aff_fallbacks":
+                         metrics.affinity_host_fallback_total() - aff0,
+                     "waves": len(wrec.calls) - n_w,
+                     "kernel_ms": (allocate_batched.last_phases.get(
+                         "kernel") if engine == "batched" else None)}
+                if k == 0:
+                    c["phase_ns"] = batched_mod.last_launch["phase_ns"]
+                    if len(brec.calls) == 1:
+                        # the churn cycles refresh the DeviceSession's
+                        # arrays in place: keep copies of the solve's
+                        brec.calls[0] = copy_call(*brec.calls[0])
+                cycles.append(c)
+                log(f"(e) {label} cycle {k} "
+                    f"({'cold' if k == 0 else f'churn {churn}'}): engine "
+                    f"{engine}, binds {c['binds']}, evictions "
+                    f"{c['evictions']}, victim waves {c['waves']}, counted "
+                    f"syncs {json.dumps(syncs)}, demotions "
+                    f"{c['demotions']}, affinity host fallbacks "
+                    f"{c['aff_fallbacks']}, host ms "
+                    + json.dumps({p: round(v, 3) for p, v in ms.items()}))
+            launches = {n: _build.launch_count(n) for n in names}
+        log(f"(e) {label}: launches {json.dumps(launches)}")
+        cold = cycles[0]
+        if cold["engine"] != "batched" or not cold["affinity"]:
+            raise AssertionError(f"{label} cold: engine {cold['engine']}, "
+                                 f"affinity {cold['affinity']}")
+        if cold["aff_fallbacks"] or cold["demotions"]:
+            raise AssertionError(f"{label} cold: a fallback or demotion")
+        if cold["syncs"]["allocate"] != 1 or len(brec.calls) != 1 \
+                or launches["batched_allocate"] != 1:
+            raise AssertionError(f"{label} cold: {len(brec.calls)} batched "
+                                 f"solves, {cold['syncs']['allocate']} "
+                                 f"syncs, expected one each")
+        for c in cycles[1:]:
+            if c["engine"] != "host-visit" or not str(
+                    c["reason"]).startswith("dynamic_features"):
+                raise AssertionError(f"{label} churn cycle {c['cycle']}: "
+                                     f"engine {c['engine']}, reason "
+                                     f"{c['reason']!r}")
+            if c["demotions"] != 1 or c["aff_fallbacks"]:
+                raise AssertionError(f"{label} churn cycle {c['cycle']}: "
+                                     f"{c['demotions']} demotions, "
+                                     f"{c['aff_fallbacks']} fallbacks")
+            if c["syncs"]["reclaim"] < 1 or c["waves"] < 1:
+                raise AssertionError(f"{label} churn cycle {c['cycle']}: "
+                                     f"reclaim launched no victim wave")
+        bad = gang_all_or_nothing(cache)
+        if bad:
+            raise AssertionError(f"{label}: {bad} PodGroups partially "
+                                 f"placed")
+        t0 = time.perf_counter()
+        counts = validate_affinity(cache)
+        log(f"(e) {label}: final state valid under the affinity and "
+            f"host-port predicates ({json.dumps(counts)}, "
+            f"{time.perf_counter() - t0:.1f} s)")
+        wave_err = 0.0
+        for wkw, got in wrec.calls:
+            wave_err = max(wave_err, check_victim_call(wkw, got,
+                                                       visit=False))
+        log(f"(e) {label}: {len(wrec.calls)} victim_wave launches (affinity "
+            f"masks folded in) bitwise equal to plain on CPU copies")
+        bkw, bgot = brec.calls[0]
+        aff = bkw["aff"]
+        kw = {k: v for k, v in bkw.items() if k != "aff"}
+        stats = {}
+        t0 = time.perf_counter()
+        want = batched_allocate_plain_aff(kw, aff, stats)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = [g.cpu() for g in bgot[:5]]
+        assert_bitwise(want[:5], got, f"batched_allocate {label} cold")
+        err = max_abs_err(want[:5], got)
+        for name, w in want[5].items():
+            g = bgot[5][name]
+            if (w is None) != (g is None):
+                raise AssertionError(f"{label}: carry {name} missing")
+            if w is not None:
+                assert_bitwise([w], [g.cpu()], f"{label} carry {name}")
+                err = max(err, max_abs_err([w], [g.cpu()]))
+        t_pad = kw["task_valid"].shape[0]
+        expected = ready_allocs(want[0], on_cpu(kw), t_pad)
+        if cold["binds"] != expected:
+            raise AssertionError(f"{label} cold: {cold['binds']} binds, the "
+                                 f"plain version dispatches {expected}")
+        carried = ", ".join(k for k, v in want[5].items() if v is not None)
+        log(f"(e) {label} cold: packed result, node carry and affinity "
+            f"carry ({carried}) bitwise equal to plain on CPU copies "
+            f"({plain_ms:.0f} ms on the host CPU); binds {cold['binds']} == "
+            f"the plain result's allocations of gangs at quorum "
+            f"({batched_placed(want[0], t_pad)} placed: killed gangs keep "
+            f"their placements undispatched, as in the reference)")
+        cache.stop()
+        return {"cycles": cycles, "launches": launches, "kw": kw,
+                "aff": aff, "out": bgot, "stats": stats, "err": err,
+                "wave_err": wave_err, "plain_ms": plain_ms,
+                "n_waves": len(wrec.calls)}
+
+    r5 = config_cycles("5p", spec5p)
+    kw, aff = r5["kw"], r5["aff"]
+    statics = {k: kw[k] for k in ("job_keys", "queue_keys", "prop_overused",
+                                  "dyn_enabled", "pipe_enabled",
+                                  "max_rounds", "compact_bucket",
+                                  "gang_enabled", "narrow", "narrow_gate")}
+    tensors = {k: v for k, v in kw.items() if k not in statics}
+
+    def launch():
+        return batched_mod.batched_allocate(**tensors, **statics, aff=aff)
+
+    event_ms = cuda_ms(launch, reps=3)
+    prof_ms = profiled_ms(launch, "batched_allocate_kernel", reps=2)
+    ab = affinity_bounds(kw, aff, r5["out"], r5["stats"],
+                         bool(kw["pipe_enabled"]))
+    phase_ms = {k: v / 1e6 for k, v in zip(
+        batched_mod.PHASES, r5["cycles"][0]["phase_ns"].cpu().tolist())}
+    aff_ms = sum(phase_ms[k] for k in batched_mod.AFF_PHASES)
+    total_ms = sum(phase_ms.values())
+    cold_ms = r5["cycles"][0]["kernel_ms"]
+    log(f"(e) batched_allocate 5p cold (affinity: A={ab['pairs']} pairs, "
+        f"PT={ab['ports']} ports, interpod score {ab['ip']}; T "
+        f"{kw['task_valid'].shape[0]}, N {kw['idle'].shape[0]}): "
+        f"{r5['stats']['rounds']} rounds, kernel {cold_ms:.3f} ms (events, "
+        f"main path), {event_ms:.3f} ms per launch (events, 3 launches), "
+        f"{prof_ms} ms device time (profiler); plain {r5['plain_ms']:.0f} "
+        f"ms on the host CPU; roofline bound {ab['bound_ms']:.6f} ms "
+        f"({ab['bound_by']}; {ab['rows']} row-pass rows, {ab['ip_rows']} of "
+        f"them scoring; {ab['bytes']} B: {ab['bytes_ms']:.6f} ms; "
+        f"{ab['ops']:.4g} operations, {ab['int_ops']:.4g} of them the "
+        f"predicates' integer ones: {ab['ops_ms']:.6f} ms); the "
+        f"reference's dense products would take {ab['reference_macs']:.4g}"
+        f" multiply-adds on the same rows")
+    log(f"(e) batched_allocate 5p cold, main-path launch, device ms per "
+        f"phase (sum {total_ms:.3f}; affinity phases {aff_ms:.3f}, "
+        f"{aff_ms / total_ms:.4f} of it; the predicates and the score also "
+        f"run inside rank_and_rows and retry_rows): "
+        + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
+    r3 = config_cycles("3p", spec3p)
+    return {
+        "name": "batched_allocate (affinity)", "route": "cuda",
+        "source": "kubebatch_tpu_torch/kernels/csrc/batched_allocate.cu",
+        "replaces": "kubebatch_tpu/kernels/batched.py:200",
+        "launches": r5["launches"]["batched_allocate"],
+        "max_abs_err": max(r5["err"], r3["err"]), "ms": cold_ms,
+        "plain_ms": r5["plain_ms"], "plain_device": "cpu",
+        "bound_ms": ab["bound_ms"], "bound_by": ab["bound_by"],
+        "library_ms": None, "pairs": ab["pairs"], "ports": ab["ports"],
+        "interpod_score": ab["ip"], "rounds": r5["stats"]["rounds"],
+        "rows": ab["rows"], "ip_rows": ab["ip_rows"],
+        "bound_bytes_ms": ab["bytes_ms"], "bound_ops_ms": ab["ops_ms"],
+        "reference_macs": ab["reference_macs"],
+        "t_pad": kw["task_valid"].shape[0], "n_pad": kw["idle"].shape[0],
+        "event_ms_3_reps": event_ms, "profiler_ms": prof_ms,
+        "phase_ms": phase_ms, "affinity_phase_ms": aff_ms,
+        "victim_wave_launches": r5["launches"]["victim_wave"],
+        "victim_wave_max_abs_err": max(r5["wave_err"], r3["wave_err"]),
+        "churn_cycles": len(r5["cycles"]) - 1,
+        "churn_host_ms": [c["ms"] for c in r5["cycles"][1:]],
+        "cfg3p_launches": r3["launches"]["batched_allocate"]}
+
+
+def ready_allocs(packed, kw, t_pad: int) -> int:
+    """ALLOC decisions of jobs whose placements reach their quorum: what
+    a cold cycle's replay dispatches (binds)."""
+    import numpy as np
+
+    state = packed[:t_pad].numpy()
+    job = kw["task_job"].numpy()
+    valid = kw["task_valid"].numpy() & (job >= 0)
+    placed = valid & (state >= 1) & (state <= 3)
+    n_jobs = kw["job_valid"].shape[0]
+    cnt = np.bincount(job[placed], minlength=n_jobs)
+    ready = cnt + kw["init_allocated"].numpy() \
+        >= kw["order_min_available"].numpy()
+    return int((valid & (state == 1) & ready[np.maximum(job, 0)]).sum())
+
+
+def copy_call(kw, out):
+    """Copies of a recorded solve's tensors (arguments and results)."""
+    def cp(v):
+        if isinstance(v, dict):
+            return {k: cp(x) for k, x in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(cp(x) for x in v)
+        return v.clone() if hasattr(v, "clone") else v
+    return cp(kw), cp(out)
+
+
+def batched_allocate_plain_aff(kw, aff, stats):
+    """The plain batched engine on CPU copies of a recorded affinity
+    solve's arguments."""
+    from kubebatch_tpu_torch.kernels.batched import batched_allocate_plain
+
+    return batched_allocate_plain(**on_cpu(kw), aff=on_cpu(aff),
+                                  stats=stats)
+
+
 def main() -> int:
     import torch
 
@@ -1140,7 +1563,6 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     _build.library("fused_allocate.cu")     # loads every library now
-
     # ---- 2. kernels vs plain versions on small and edge inputs ----------
     args = score_edge_inputs(5000, seed=0)
     assert_bitwise([dynamic_node_score_plain(*args)],
@@ -1428,6 +1850,8 @@ def main() -> int:
         dev, BASELINE_SPECS[5],
         dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95))
     kernels.append(fold_phase(dev, BASELINE_SPECS[5]))
+    kernels.append(affinity_phase(dev, BASELINE_SPECS["5p"],
+                                  BASELINE_SPECS["3p"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

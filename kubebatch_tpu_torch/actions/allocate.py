@@ -7,8 +7,11 @@ Solver modes (constructor arg):
   engine instead of batched when it sees more than one device and a
   large node axis; this package has no sharded engine (ROADMAP queue A,
   multi-device), so it picks "batched" on any number of visible cards.
-  At or above AUTO_HIER_MIN_NODES the reference runs its two-level
-  engine, not in this package yet: auto raises NotImplementedError there.
+  At or above AUTO_HIER_MIN_NODES the reference picks its two-level
+  engine ("hier"), not in this package yet: such a cycle raises
+  NotImplementedError, unless it carries the affinity vocabulary, which
+  the reference demotes to the batched engine (counted) and so does this
+  package.
 - "fused": the whole cycle as ONE device solve (kernels/fused.py) —
   queue/job/task selection and fairness state live in the solve, bit-exact
   vs the host heap algorithm; the host replays the decisions through
@@ -18,11 +21,24 @@ Solver modes (constructor arg):
   many placements per round, every round on the device; the same replay.
   Exact in capacity, predicates and gang semantics, round-granular in
   ordering (its docstring states the contract).
-- For "fused" and "batched" alike, a snapshot the solve cannot express
-  (custom order plugins, inter-pod affinity, host ports, a real volume
-  binder) needs an engine this package does not have yet: on a CUDA cache
-  the cycle raises NotImplementedError; on a CPU cache it runs the host
-  path, counted in metrics.engine_demotions_total.
+- "batched" carries inter-pod affinity and host ports (the vocabulary of
+  kernels/affinity.py) in its rounds; "fused" has no affinity carry.
+- A cycle outside every engine's vocabulary takes the reference's own
+  route (its allocate.py:345-361): the requested engine refuses without
+  consuming state, the demotion is counted (engine_demotions_total,
+  fused -> visit or batched -> visit), and the strict
+  terms.device_supported gate decides. Where it fails — an affinity or
+  host-port snapshot past the fused engine or past the batched
+  vocabulary's caps, a volume binder, custom predicate/order plugins —
+  the reference runs its host loops and so does this package, on any
+  cache ("host-visit"; the reason in last_host_reason). Where it holds
+  with custom order, overused or ready plugins, the reference runs its
+  per-visit device scan (ROADMAP B8), not ported: a CUDA cache raises
+  NotImplementedError, a CPU cache runs the host loops, which that scan
+  reproduces.
+- Only two requests raise on a CUDA cache: that per-visit scan (B8) and
+  an affinity-free cycle at AUTO_HIER_MIN_NODES or more nodes in auto
+  (the two-level engine, B10).
 - "host": the reference-literal per-pair loops — the semantic oracle.
 
 ref: pkg/scheduler/actions/allocate/allocate.go. Control flow is preserved
@@ -54,6 +70,11 @@ MODES = ("auto", "fused", "batched", "host")
 #: engines shows here
 last_cycle_engine: str = ""
 
+#: why the last "host-visit" cycle was outside every engine (the strict
+#: device_supported gate's reason; "dynamic_features: ..." for inter-pod
+#: affinity and host ports)
+last_host_reason: str = ""
+
 
 class AllocateAction(Action):
     def __init__(self, mode: Optional[str] = None):
@@ -72,42 +93,41 @@ class AllocateAction(Action):
         thresholds. No sharded engine here: "batched" on any number of
         visible cards."""
         if len(ssn.nodes) >= AUTO_HIER_MIN_NODES:
-            raise NotImplementedError(
-                f"auto allocate at {len(ssn.nodes)} nodes needs the "
-                f"two-level engine, not ported yet (ROADMAP queue A, "
-                f"scale and streaming)")
+            return "hier"
         pending = sum(
             len(j.task_status_index.get(TaskStatus.PENDING, {}))
             for j in ssn.jobs.values())
         return "batched" if pending >= AUTO_BATCHED_MIN else "fused"
 
     def execute(self, ssn: Session) -> None:
-        global last_cycle_engine
+        global last_cycle_engine, last_host_reason
         mode = self._auto_mode(ssn) if self.mode == "auto" else self.mode
-        if mode in ("fused", "batched"):
+        reason = "mode='host'"
+        if mode in ("fused", "batched", "hier"):
             from .cycle_inputs import cycle_supported
             if mode == "fused":
                 from .allocate_fused import execute_fused as run
             else:
-                from .allocate_batched import execute_batched as run
-            # the engine returns False (without consuming state) when the
-            # snapshot carries features the solve can't model
-            if cycle_supported(ssn) and run(ssn):
-                last_cycle_engine = mode
+                from .allocate_batched import execute_batched
+
+                def run(ssn):
+                    return execute_batched(ssn, hier=(mode == "hier"))
+            # the engine returns the engine that ran, or False (without
+            # consuming state) when the snapshot carries features the
+            # solve can't model
+            ran = cycle_supported(ssn) and run(ssn)
+            if ran:
+                last_cycle_engine = ran if isinstance(ran, str) else mode
                 return
-            if ssn.cache.device.type == "cuda":
-                raise NotImplementedError(
-                    f"this cycle is outside the {mode} solve's vocabulary "
-                    "(custom order/overused/ready plugins, inter-pod "
-                    "affinity, host ports or a volume binder); its device "
-                    "engines are not ported yet (ROADMAP queue A, A7 "
-                    "affinity vocabulary; queue B, B8 per-visit mode). Use "
-                    "mode='host' to run the host algorithm")
-            count_engine_demotion(mode, "host")
+            reason = outside_the_engines(ssn, mode)
+            count_engine_demotion(mode, "visit")
         self._execute_queued(ssn)
         last_cycle_engine = "host-visit"
+        last_host_reason = reason
 
     def _execute_queued(self, ssn: Session) -> None:
+        """The reference's queue / job / task loops over the host
+        callbacks (allocate.go), the route of every host-visit cycle."""
         queues = PriorityQueue(ssn.queue_order_fn)
         jobs_map: Dict[str, PriorityQueue] = {}
         for job in ssn.jobs.values():
@@ -190,6 +210,39 @@ class AllocateAction(Action):
             if ssn.job_ready(job):
                 jobs.push(job)
                 break
+
+
+def outside_the_engines(ssn: Session, mode: str) -> str:
+    """The route of a cycle the requested engine refused (or whose
+    custom order / overused / ready plugins no whole-cycle engine
+    expresses), as the reference takes it (its allocate.py:190-210 and
+    :345-361): the strict ``terms.device_supported`` gate over the
+    pending tasks decides. Where it fails, the reference runs its host
+    loops, and so does this package: returns why (the gate's reason:
+    ``dynamic_features: ...`` for inter-pod affinity and host ports).
+    Where it holds, the reference runs its per-visit device scan
+    (kernels/solver.py _allocate_scan, ROADMAP B8), not ported: a CUDA
+    cache raises NotImplementedError; a CPU cache runs the host loops,
+    which that scan reproduces."""
+    from ..kernels.terms import unsupported_reason
+
+    pending = [t for job in ssn.jobs.values()
+               if ssn.queues.get(job.queue) is not None
+               for t in job.task_status_index.get(TaskStatus.PENDING,
+                                                  {}).values()
+               if not t.resreq.is_empty()]
+    reason = unsupported_reason(ssn, pending)
+    if reason is not None:
+        return reason
+    if ssn.cache.device.type == "cuda":
+        raise NotImplementedError(
+            f"this cycle is outside the {mode} solve's vocabulary "
+            "(custom job/queue order, overused or ready plugins) but "
+            "inside the device terms': the reference runs its "
+            "per-visit device scan here (kernels/solver.py "
+            "_allocate_scan), not ported yet (ROADMAP queue B, B8). "
+            "Use mode='host' to run the host algorithm")
+    return "per-visit scan (B8) on a CPU cache: the host loops"
 
 
 def new() -> AllocateAction:

@@ -5,8 +5,9 @@ copy back -> replay the decisions through the Session.
 Same tensorization and replay as the fused path (actions/cycle_inputs.py)
 — only the device algorithm differs: kernels/batched.py places many tasks
 per round instead of one per loop iteration (see its docstring for the
-faithfulness contract). The reference package's two-level, active-set and
-sharded branches are not in this package (ROADMAP queue A, scale and
+faithfulness contract), with the inter-pod affinity / host-port
+vocabulary in its rounds. The reference package's two-level, active-set
+and sharded branches are not in this package (ROADMAP queue A, scale and
 multi-device).
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict
 
 from ..framework import Session
 from ..kernels.batched import solve_batched
+from ..metrics import count_engine_demotion
 from .cycle_inputs import (EMPTY_CYCLE, build_cycle_inputs, cycle_supported,
                            replay_decisions)
 
@@ -27,21 +29,40 @@ batched_supported = cycle_supported
 #: allocate_fused.last_phases
 last_phases: Dict[str, float] = {}
 
-#: rounds and telemetry frame of the last batched solve
+#: rounds, telemetry frame and whether the affinity vocabulary rode the
+#: last batched solve
 last_solve: Dict[str, object] = {}
 
 
-def execute_batched(ssn: Session) -> bool:
-    """Run the whole allocate action as one batched solve. Returns False —
-    without consuming any state — when the snapshot has features the
-    solve can't express (the caller decides what happens then)."""
+def execute_batched(ssn: Session, hier: bool = False):
+    """Run the whole allocate action as one batched solve. Returns the
+    engine that ran ("batched", truthy), or False — without consuming any
+    state — when the snapshot has features the solve can't express (the
+    caller decides what happens then). Inter-pod affinity and host ports
+    ride the solve (kernels/affinity.py); a vocabulary past its caps
+    refuses, counted in metrics.affinity_host_fallback_total.
+
+    ``hier``: the cycle asked for the reference's two-level engine (auto
+    at AUTO_HIER_MIN_NODES nodes or more). Like the reference, an
+    affinity cycle demotes to this engine (counted in
+    engine_demotions_total); an affinity-free one needs the two-level
+    engine, not ported: NotImplementedError."""
     t0 = time.perf_counter()
-    inputs = build_cycle_inputs(ssn)
+    inputs = build_cycle_inputs(ssn, allow_affinity=True)
     t1 = time.perf_counter()
     if inputs is EMPTY_CYCLE:
-        return True
+        return "hier" if hier else "batched"
     if inputs is None:
         return False
+    if hier:
+        if inputs.affinity is None:
+            raise NotImplementedError(
+                f"auto allocate at {len(ssn.nodes)} nodes needs the "
+                "two-level engine, not ported yet (ROADMAP queue A, A8; "
+                "queue B, B10)")
+        # the two-level engine has no affinity carry: the reference
+        # demotes the cycle to the flat batched engine
+        count_engine_demotion("hier", "batched")
     phases: Dict[str, float] = {}
     task_state, task_node, task_seq, rounds, telem = solve_batched(
         inputs, phases=phases)
@@ -52,5 +73,6 @@ def execute_batched(ssn: Session) -> bool:
     last_phases.update(tensorize=(t1 - t0) * 1e3, **phases,
                        replay=(t5 - t4) * 1e3)
     last_solve.clear()
-    last_solve.update(rounds=rounds, telemetry=telem.tolist())
-    return True
+    last_solve.update(rounds=rounds, telemetry=telem.tolist(),
+                      affinity=inputs.affinity is not None)
+    return "batched"

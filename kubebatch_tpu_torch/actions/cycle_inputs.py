@@ -4,9 +4,10 @@ Builds every array the fused allocate solve (kernels/fused.py) and the
 batched round engine (kernels/batched.py) consume from an open Session:
 queue / job / task index spaces, fairness seeds (proportion deserved +
 allocated, DRF allocated + cluster total), order-key specs, and the
-sig-indexed static predicate/score terms.  Returns None when the session
-carries plugins/features outside the device vocabulary (inter-pod
-affinity and host ports included) — callers fall back to the host path.
+sig-indexed static predicate/score terms, and for the batched engine the
+inter-pod affinity / host-port vocabulary (kernels/affinity.py).  Returns
+None when the session carries plugins/features outside the device
+vocabulary — callers fall back.
 """
 from __future__ import annotations
 
@@ -179,6 +180,10 @@ class CycleInputs:
     #: False when no node carries releasing resources at cycle start —
     #: lets the batched engine skip all pipeline-fit work
     pipe_enabled: bool = True
+    #: inter-pod affinity / host-port vocabulary (kernels/affinity.py
+    #: AffinityInputs); None when the snapshot has none (or build_cycle_inputs
+    #: was told not to encode them — only the batched engine reads them)
+    affinity: Optional[object] = None
     # lazy cache for pair_terms(): (max_pairs budget, result)
     _pair_terms: Optional[tuple] = None
 
@@ -241,11 +246,20 @@ class CycleInputs:
         return result
 
 
-def build_cycle_inputs(ssn: Session) -> Optional[CycleInputs]:
+def build_cycle_inputs(ssn: Session,
+                       allow_affinity: bool = False) -> Optional[CycleInputs]:
     """Tensorize the session for a whole-cycle solve, EMPTY_CYCLE when
     nothing is pending, or None when some registered callback / snapshot
-    feature (inter-pod affinity, host ports) can't run on device (callers
-    then fall back without having paid the device upload)."""
+    feature can't run on device (callers then fall back without having
+    paid the device upload).
+
+    ``allow_affinity``: encode inter-pod affinity / host ports into the
+    batched engine's vocabulary (kernels/affinity.py) instead of refusing
+    them; the fused engine passes False — its one-placement solve has no
+    affinity carry. A vocabulary past the raw collection window or, after
+    compaction, past the caps refuses (None), counted in
+    metrics.affinity_host_fallback_total as the reference counts it
+    (reference actions/cycle_inputs.py:344-437)."""
     # ---- queues ----------------------------------------------------------
     queue_ids = sorted(ssn.queues)          # uid order = order fallback
     q_index = {q: i for i, q in enumerate(queue_ids)}
@@ -278,8 +292,19 @@ def build_cycle_inputs(ssn: Session) -> Optional[CycleInputs]:
         return EMPTY_CYCLE
     # cheap feature gates BEFORE tensorizing/uploading the cluster — a
     # fallback cycle must not pay the device transfer
-    if not device_supported(ssn, tasks):
+    if not device_supported(ssn, tasks, allow_affinity=allow_affinity):
         return None
+    aff_wanted = False
+    if allow_affinity:
+        from ..kernels.affinity import (affinity_features_present,
+                                        affinity_within_vocabulary)
+        from ..metrics import count_affinity_host_fallback
+        if affinity_features_present(ssn, tasks):
+            if not affinity_within_vocabulary(ssn, tasks):
+                # raw vocabulary past even the compaction window
+                count_affinity_host_fallback("allocate-raw-window")
+                return None
+            aff_wanted = True
     device = ensure_device_snapshot(ssn)
     terms = solver_terms(ssn, device, tasks, assume_supported=True)
     if terms is None:
@@ -289,6 +314,18 @@ def build_cycle_inputs(ssn: Session) -> Optional[CycleInputs]:
     t_bucket = sticky_bucket("cycle_tasks", len(tasks), 8, store=pad_store)
     batch = TaskBatch.from_tasks(tasks, min_bucket=t_bucket)
     t_pad = batch.t_padded
+
+    # ---- inter-pod affinity / host ports (batched engine only) -----------
+    aff_inputs = None
+    if aff_wanted:
+        from ..kernels.affinity import build_affinity_inputs
+        from ..metrics import count_affinity_host_fallback
+        aff_inputs = build_affinity_inputs(ssn, tasks, device, t_pad)
+        if aff_inputs is None:
+            # inside the raw window but over MAX_PAIRS / MAX_PORTS after
+            # compaction (the device snapshot was built: it is cached)
+            count_affinity_host_fallback("allocate-compact-cap")
+            return None
 
     # ---- job arrays ------------------------------------------------------
     gang = gang_enabled(ssn)
@@ -380,7 +417,8 @@ def build_cycle_inputs(ssn: Session) -> Optional[CycleInputs]:
         prop_overused=prop_overused,
         # the DeviceSession's numpy mirror holds every node's releasing
         # vector in lock-step with host truth
-        pipe_enabled=bool(np.any(device.state.releasing > 0.0)))
+        pipe_enabled=bool(np.any(device.state.releasing > 0.0)),
+        affinity=aff_inputs)
 
 
 def _segment_lists(cols: np.ndarray):
@@ -664,10 +702,11 @@ def _replay_bulk(ssn: Session, inputs: CycleInputs,
         backfill_l = [t.is_backfill for t in placed_tasks]
         has_backfill = True in backfill_l
         # the per-pod affinity walk runs only when a placed pod CAN carry
-        # a term (with the predicates AND nodeorder plugins disabled such
-        # pods reach the solve), screened by the per-job counters
+        # a term: inputs.affinity is None alone does not prove that (with
+        # the predicates AND nodeorder plugins disabled such pods reach
+        # the solve), so screen with the per-job counters too
         aff_l = None
-        if any(
+        if inputs.affinity is not None or any(
                 inputs.jobs[int(ji)].affinity_tasks
                 for ji in np.unique(p_jobs_idx).tolist()):
             aff_l = [t.pod.has_pod_affinity() for t in placed_tasks]

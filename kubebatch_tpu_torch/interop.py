@@ -9,7 +9,9 @@ solve: ``"fused"`` (``kernels.fused.fused_allocate``) or ``"batched"``
 (``kernels.batched.batched_allocate``; its arrays are the reference's
 packed batched inputs unpacked, including task_pair, pair_sig and
 pair_nz). :func:`victim_inputs_from_numpy` does the same for the victim
-kernels (kernels/victims.py) from the reference solver's host arrays.
+kernels (kernels/victims.py) from the reference solver's host arrays,
+and the ``affinity_*`` helpers carry the affinity vocabulary
+(kernels/affinity.py) and the round engine's affinity arrays.
 """
 from __future__ import annotations
 
@@ -67,6 +69,49 @@ def device_state_from_numpy(arrays: Mapping[str, np.ndarray],
         n: n for n in batched.NODE_ARGS}
     return {arg: _tensor(mod, arg, arrays[attr], dev)
             for attr, arg in names.items()}
+
+
+def affinity_from_numpy(arrays: Mapping[str, np.ndarray],
+                        device: DeviceLike) -> Dict[str, torch.Tensor]:
+    """The ``aff`` argument of ``kernels.batched.batched_allocate`` from
+    the reference's packed batched arrays (its names: node_dom, task_grp,
+    ..., aff_grp_cnt0, ..., and task_ports / port_base / aff_ip_weight
+    when present), as tensors on ``device``."""
+    dev = resolve_device(device)
+    names = batched.AFF_ARGS + tuple(
+        n for n in batched.PORT_ARGS + (batched.IP_ARG,) if n in arrays)
+    return {n: _tensor(batched, n, arrays[n], dev) for n in names}
+
+
+def affinity_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                              device: DeviceLike) -> Dict[str, torch.Tensor]:
+    """The affinity members of the round engine's RoundState and
+    CycleArrays (the reference's names: aff_grp_cnt, aff_anti_cnt,
+    aff_pref_w, aff_grp_total, port_claim; node_dom, task_grp, ...,
+    task_ports, port_base, ip_weight) that ``arrays`` holds, as tensors
+    on ``device`` with the port's dtypes."""
+    dev = resolve_device(device)
+    dtypes = {"aff_grp_cnt": torch.float32, "aff_anti_cnt": torch.float32,
+              "aff_pref_w": torch.float32, "aff_grp_total": torch.float32,
+              "port_claim": torch.bool, "ip_weight": torch.float32}
+    out = {}
+    for name, arr in arrays.items():
+        if arr is None:
+            continue
+        dt = dtypes.get(name) or batched.arg_dtype(name)
+        out[name] = torch.tensor(np.asarray(arr), dtype=dt, device=dev)
+    return out
+
+
+def affinity_inputs_from_numpy(fields: Mapping[str, object]):
+    """A ``kernels.affinity.AffinityInputs`` from the reference's
+    AffinityInputs fields (``WIRE_FIELDS`` arrays, ``ip_weight``,
+    ``ip_enabled``): numpy, the host encoder's form."""
+    from .kernels.affinity import WIRE_FIELDS, AffinityInputs
+
+    kw = {n: np.array(fields[n]) for n in WIRE_FIELDS}
+    return AffinityInputs(ip_weight=float(fields["ip_weight"]),
+                          ip_enabled=bool(fields["ip_enabled"]), **kw)
 
 
 def victim_inputs_from_numpy(static: Sequence[np.ndarray],

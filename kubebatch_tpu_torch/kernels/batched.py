@@ -40,12 +40,23 @@ plain version for CPU tensors; it never falls back from one to the other.
 Both return ``(packed, idle, releasing, n_tasks, nz_req)``: packed is the
 reference's int32 ``[3*T + 1 + TELEM_WIDTH]`` (task_state, task_node,
 task_seq, the round count, the telemetry frame) and the rest is the final
-node carry. Inter-pod affinity and host ports (the reference's ``_aff_*``
-branch) are not ported.
+node carry.
+
+Inter-pod affinity and host ports (kernels/affinity.py) ride the rounds
+when the cycle carries them (the ``aff`` argument): a [P,D] per-(pair,
+domain) carry of group members, anti carriers and preferred weights, the
+cluster-wide group totals and a per-node port-claim matrix. Each round
+adds the affinity predicates to eligibility (with the wait rule for
+positive terms a same-cycle placement can still satisfy), adds the
+interpod score to the argmax of the tasks it scores (they leave the
+shared waterfall), serializes phase-1 acceptances per (pair, domain) and
+per node for ports, keeps involved tasks out of the retry, and commits
+the carry; the stranded-gang rollback subtracts it. With ``aff`` the
+result gains a sixth element, the final affinity carry.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,10 +93,24 @@ CYCLE_ARGS = ("resreq", "init_resreq", "task_nz", "task_job", "task_rank",
               "job_create_rank", "job_valid", "q_deserved", "q_create_rank",
               "q_alloc0", "j_alloc0", "cluster_total", "dyn_weights")
 
-_BOOL_ARGS = {"node_ok", "task_valid", "sig_pred", "job_valid"}
+#: the affinity arguments (the reference's packed-layout names), in the
+#: order the kernel takes them; the port pair and the interpod weight are
+#: present only when the cycle has ports / an interpod score
+AFF_ARGS = ("node_dom", "task_grp", "task_req_aff", "task_req_anti",
+            "task_self_ok", "task_carry_w", "task_pref_w", "aff_grp_cnt0",
+            "aff_anti_cnt0", "aff_pref_w0", "aff_grp_total0")
+PORT_ARGS = ("task_ports", "port_base")
+IP_ARG = "aff_ip_weight"
+#: names of the final affinity carry (the sixth result)
+AFF_OUT = ("aff_grp_cnt", "aff_anti_cnt", "aff_pref_w", "aff_grp_total",
+           "port_claim")
+
+_BOOL_ARGS = {"node_ok", "task_valid", "sig_pred", "job_valid", "task_grp",
+              "task_req_aff", "task_req_anti", "task_self_ok", "task_ports",
+              "port_base"}
 _I32_ARGS = {"n_tasks", "max_task_num", "task_job", "task_rank", "task_sig",
              "task_pair", "pair_sig", "order_min_available", "init_allocated",
-             "job_queue", "job_create_rank", "q_create_rank"}
+             "job_queue", "job_create_rank", "q_create_rank", "node_dom"}
 
 
 def arg_dtype(name: str) -> torch.dtype:
@@ -107,6 +132,12 @@ class RoundState(NamedTuple):
     task_state: torch.Tensor   # [T] SKIP while pending
     task_node: torch.Tensor    # [T]
     task_seq: torch.Tensor     # [T] round * T_pad + in-round rank
+    # --- inter-pod affinity / host-port carry; None without the features
+    aff_grp_cnt: Optional[torch.Tensor] = None    # [P,D] group members
+    aff_anti_cnt: Optional[torch.Tensor] = None   # [P,D] req-anti carriers
+    aff_pref_w: Optional[torch.Tensor] = None     # [P,D] preferred weight
+    aff_grp_total: Optional[torch.Tensor] = None  # [P] cluster-wide members
+    port_claim: Optional[torch.Tensor] = None     # [N,PT] bool (this cycle)
 
 
 class CycleArrays(NamedTuple):
@@ -136,11 +167,26 @@ class CycleArrays(NamedTuple):
     q_create_rank: torch.Tensor    # [Q]
     cluster_total: torch.Tensor    # [R]
     dyn_weights: torch.Tensor      # [2]
+    # --- static affinity / port vocabulary; None without the features ---
+    node_dom: Optional[torch.Tensor] = None       # [P,N] int32, -1 = none
+    task_grp: Optional[torch.Tensor] = None       # [T,P] bool
+    task_req_aff: Optional[torch.Tensor] = None   # [T,P] bool
+    task_req_anti: Optional[torch.Tensor] = None  # [T,P] bool
+    task_self_ok: Optional[torch.Tensor] = None   # [T,P] bool
+    task_carry_w: Optional[torch.Tensor] = None   # [T,P] f32
+    task_pref_w: Optional[torch.Tensor] = None    # [T,P] f32
+    task_ports: Optional[torch.Tensor] = None     # [T,PT] bool
+    port_base: Optional[torch.Tensor] = None      # [N,PT] bool
+    ip_weight: Optional[torch.Tensor] = None      # [] f32 (pod_aff weight)
 
 
 #: task-axis fields of CycleArrays (gathered for the compact continuation)
 _TASK_FIELDS = ("resreq", "init_resreq", "task_nz", "task_job", "task_rank",
                 "task_sig", "task_pair", "task_valid")
+#: affinity task-axis fields, gathered only when the cycle carries them
+_AFF_TASK_FIELDS = ("task_grp", "task_req_aff", "task_req_anti",
+                    "task_self_ok", "task_carry_w", "task_pref_w",
+                    "task_ports")
 
 
 def _f32(x) -> torch.Tensor:
@@ -212,23 +258,34 @@ def resource_eligibility(idle, releasing, n_tasks, a: CycleArrays,
     return a.sig_pred[a.task_sig[rows].long()] & base[None, :] & fit
 
 
-def _row_pass(idle, releasing, n_tasks, a, pipe_enabled, eps, sc, mask):
+def _row_pass(idle, releasing, n_tasks, a, pipe_enabled, eps, sc, mask,
+              aff=None):
     """For every task with ``mask``: any eligible node, and the masked
-    argmax of its pair's scores over the eligible nodes (lowest index on
-    ties; node 0 when none is eligible). In chunks of task rows; the
-    kernel does one task row per warp."""
+    argmax of its score row over the eligible nodes (lowest index on
+    ties; node 0 when none is eligible). The score row is its pair's;
+    with ``aff`` (an :class:`_AffRound`) eligibility also takes the
+    affinity predicates and, with an interpod score, the row adds its
+    term. Returns (any_elig, best, ip_scored). In chunks of task rows;
+    the kernel does one task row per warp."""
     t_pad = mask.shape[0]
     any_elig = torch.zeros(t_pad, dtype=torch.bool)
     best = torch.zeros(t_pad, dtype=torch.int32)
+    scored = torch.zeros(t_pad, dtype=torch.bool)
     rows_all = torch.nonzero(mask).flatten()
     for c in range(0, rows_all.shape[0], _ROW_CHUNK):
         rows = rows_all[c:c + _ROW_CHUNK]
         elig = resource_eligibility(idle, releasing, n_tasks, a,
                                     pipe_enabled, eps, rows)
+        sc_rows = sc[a.task_pair[rows].long()]
+        if aff is not None:
+            elig = elig & aff.ok_rows(rows)
+            if aff.ip:
+                term, scored[rows] = aff.ip_rows(rows)
+                sc_rows = sc_rows + term
         any_elig[rows] = elig.any(dim=1)
-        masked = torch.where(elig, sc[a.task_pair[rows].long()], -torch.inf)
+        masked = torch.where(elig, sc_rows, -torch.inf)
         best[rows] = masked.argmax(dim=1).to(torch.int32)
-    return any_elig, best
+    return any_elig, best, scored
 
 
 def _cell_elig(idle, releasing, n_tasks, a, pipe_enabled, eps, node):
@@ -240,6 +297,255 @@ def _cell_elig(idle, releasing, n_tasks, a, pipe_enabled, eps, node):
     if pipe_enabled:
         fit = fit | (a.init_resreq <= releasing[n] + eps).all(dim=-1)
     return a.sig_pred[a.task_sig.long(), n] & base & fit
+
+
+# ---- inter-pod affinity / host ports (vocabulary: kernels/affinity.py) ----
+
+def _f(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def _aff_gather(state: RoundState, a: CycleArrays):
+    """Per-(pair, node) views of the domain-count carry: the domain
+    validity mask, the clipped domain, group-member and anti-carrier
+    counts (reference ``_aff_gather``)."""
+    d_cap = state.aff_grp_cnt.shape[1]
+    has_dom = a.node_dom >= 0
+    domc = a.node_dom.clamp(0, d_cap - 1).long()
+    gcnt = torch.gather(state.aff_grp_cnt, 1, domc)
+    acnt = torch.gather(state.aff_anti_cnt, 1, domc)
+    return has_dom, domc, gcnt, acnt
+
+
+class _AffRound:
+    """The affinity predicates and the interpod score of one round,
+    against the round-start carry (reference ``_aff_eligibility`` and
+    ``_ip_score``), evaluated for chunks of task rows. The reference's
+    [T,P] x [P,N] boolean products count ones and compare with 0.5;
+    here they are float products of 0/1 values too, exact in any order.
+    The score's products and sums are of integer-valued floats far below
+    2**24, so they are exact in any order as well."""
+
+    def __init__(self, state: RoundState, a: CycleArrays):
+        self.a = a
+        has_dom, domc, gcnt, acnt = _aff_gather(state, a)
+        present = has_dom & (gcnt > 0)                       # [P,N]
+        boot = (state.aff_grp_total <= 0)[None, :] & a.task_self_ok
+        self.need = _f(a.task_req_aff & ~boot)               # [T,P]
+        self.not_present = _f(~present)
+        self.present = _f(present)
+        self.sym = _f(has_dom & (acnt > 0))
+        self.used = None
+        if a.task_ports is not None:
+            self.used = _f(a.port_base | state.port_claim).T   # [PT,N]
+        # positive terms unsatisfiable anywhere whose group has other
+        # still-pending members: the task waits instead of failing
+        pending_members = ((a.task_valid & (state.task_state == SKIP))
+                           [:, None] & a.task_grp)           # [T,P]
+        grp_pending = pending_members.to(torch.int32).sum(dim=0)
+        others_pending = (grp_pending[None, :] - _f(pending_members)) > 0.5
+        pair_unsat = ~present.any(dim=1)                     # [P]
+        self.could_wait = (a.task_req_aff & ~boot & others_pending
+                           & pair_unsat[None, :]).any(dim=1)  # [T]
+        self.ip = a.ip_weight is not None
+        if self.ip:
+            prefw = torch.gather(state.aff_pref_w, 1, domc)
+            zero = _f32(0.0)
+            self.gview = torch.where(has_dom, gcnt, zero)
+            self.pview = torch.where(has_dom, prefw, zero)
+
+    def ok_rows(self, rows) -> torch.Tensor:
+        """[len(rows), N]: the affinity and host-port predicates."""
+        a = self.a
+        ok = ((self.need[rows] @ self.not_present) < 0.5) \
+            & ((_f(a.task_req_anti[rows]) @ self.present) < 0.5) \
+            & ((_f(a.task_grp[rows]) @ self.sym) < 0.5)
+        if self.used is not None:
+            ok = ok & ((_f(a.task_ports[rows]) @ self.used) < 0.5)
+        return ok
+
+    def ip_rows(self, rows):
+        """([len(rows), N] interpod term, [len(rows)] scored): own
+        preferred terms weigh the group's domain counts, the symmetric
+        half the carried preferred weights; normalised over the real
+        nodes as the host does (floor(10 * (c - cmin) / (cmax - cmin))
+        times the pod_aff weight)."""
+        a = self.a
+        counts = a.task_pref_w[rows] @ self.gview \
+            + _f(a.task_grp[rows]) @ self.pview
+        valid = a.node_ok[None, :]
+        cmin = torch.where(valid, counts, torch.inf).amin(dim=1,
+                                                         keepdim=True)
+        cmax = torch.where(valid, counts, -torch.inf).amax(dim=1,
+                                                          keepdim=True)
+        span = cmax - cmin
+        pos = span > 0
+        term = torch.where(pos, torch.floor(
+            10.0 * (counts - cmin) / torch.where(pos, span, _f32(1.0))),
+            _f32(0.0)) * a.ip_weight
+        return torch.where(valid, term, _f32(0.0)), (term != 0.0).any(dim=1)
+
+    def cell_ok(self, node) -> torch.Tensor:
+        """[T]: the predicates of each task at one node each."""
+        a = self.a
+        n = node.long()
+        ok = ~((self.need > 0) & (self.not_present[:, n].T > 0)).any(dim=1) \
+            & ~(a.task_req_anti & (self.present[:, n].T > 0)).any(dim=1) \
+            & ~(a.task_grp & (self.sym[:, n].T > 0)).any(dim=1)
+        if self.used is not None:
+            ok = ok & ~(a.task_ports & (self.used[:, n].T > 0)).any(dim=1)
+        return ok
+
+
+def _ip_stats(stats: dict, state: RoundState, a: CycleArrays, *masks):
+    """Counts the row passes' rows that can carry an interpod term (a
+    preferred term of their own, or a group bit of a pair with carried
+    preferred weight: the kernel scores only those) in ``ip_rows``, and
+    their preferred terms and group bits in ``ip_terms`` (a preferred
+    term weighs twice: multiply and add)."""
+    pref_any = (state.aff_pref_w != 0).any(dim=1)                # [P]
+    pref = a.task_pref_w != 0
+    grp = a.task_grp & pref_any[None, :]
+    can = pref.any(dim=1) | grp.any(dim=1)
+    terms = 2 * pref.sum(dim=1) + a.task_grp.sum(dim=1)
+    for m in masks:
+        rows = m & can
+        stats["ip_rows"] = stats.get("ip_rows", 0) + int(rows.sum())
+        stats["ip_terms"] = stats.get("ip_terms", 0) + int(terms[rows].sum())
+
+
+def _aff_serialize(state: RoundState, a: CycleArrays, accept, proposal,
+                   global_rank):
+    """In-round hazard removal (reference ``_aff_serialize``): the
+    accepted subset whose co-placement is sequentially legal. Per
+    (pair, domain) an accepted anti carrier keeps alone if it ranks
+    first, else the plain members keep; per bootstrapping pair the
+    best-ranked bootstrapper fixes the domain; per node one port
+    claimant."""
+    d_cap = state.aff_grp_cnt.shape[1]
+    p_cnt = a.node_dom.shape[0]
+    imax = torch.tensor(_IMAX, dtype=torch.int32)
+    rank = global_rank[None, :]                              # [1,T]
+    dom_prop = a.node_dom[:, proposal.long()]                # [P,T]
+    has = dom_prop >= 0
+    seg = torch.where(has, dom_prop, torch.tensor(d_cap, dtype=torch.int32))
+    flat = (torch.arange(p_cnt)[:, None] * (d_cap + 1) + seg).flatten()
+    carrier = a.task_req_anti.T
+    member = a.task_grp.T
+    req = a.task_req_aff.T
+    acc_car = accept[None, :] & carrier & has
+    acc_mem = accept[None, :] & member & ~carrier & has
+
+    def seg_min(mask):
+        out = torch.full((p_cnt * (d_cap + 1),), _IMAX, dtype=torch.int32)
+        out.scatter_reduce_(0, flat, torch.where(mask, rank, imax).flatten(),
+                            "amin")
+        return out[flat].view(seg.shape)
+
+    cmin_t = seg_min(acc_car)
+    mmin_t = seg_min(acc_mem)
+    has_car = cmin_t < _IMAX
+    keep_car = (rank == cmin_t) & (cmin_t < mmin_t)
+    keep_mem = ~has_car | (mmin_t < cmin_t)
+    keep = torch.where(carrier, keep_car,
+                       torch.where(member, keep_mem, torch.ones_like(has)))
+    acc_req = accept[None, :] & req
+    bmin = torch.where(acc_req, rank, imax).amin(dim=1, keepdim=True)
+    bdom = torch.where(acc_req & (rank == bmin), seg,
+                       torch.tensor(-1, dtype=torch.int32)).amax(
+        dim=1, keepdim=True)
+    boot_active = (state.aff_grp_total <= 0)[:, None]
+    keep_boot = torch.where(boot_active & req,
+                            (rank == bmin) | ((seg == bdom) & (bdom < d_cap)),
+                            torch.ones_like(has))
+    keep = (keep & keep_boot).all(dim=0)
+    if a.task_ports is not None:
+        n_pad = a.node_ok.shape[0]
+        claim = accept & a.task_ports.any(dim=1)
+        node_seg = torch.where(claim, proposal,
+                               torch.tensor(n_pad, dtype=torch.int32)).long()
+        pmin = torch.full((n_pad + 1,), _IMAX, dtype=torch.int32)
+        pmin.scatter_reduce_(0, node_seg, torch.where(claim, global_rank,
+                                                      imax), "amin")
+        keep = keep & (~a.task_ports.any(dim=1)
+                       | (global_rank == pmin[node_seg]))
+    return accept & keep
+
+
+def _aff_involved(state: RoundState, a: CycleArrays) -> torch.Tensor:
+    """[T] tasks kept out of the same-round retry (reference
+    ``_aff_involved``): anti carriers, members of pairs with a carrier
+    (pending or placed), bootstrap-reliant tasks and port claimers."""
+    pair_has_carrier = ((a.task_req_anti & a.task_valid[:, None]).any(dim=0)
+                        | (state.aff_anti_cnt > 0).any(dim=1))
+    boot_active = state.aff_grp_total <= 0
+    inv = (a.task_req_anti.any(dim=1)
+           | (a.task_grp & pair_has_carrier[None, :]).any(dim=1)
+           | (a.task_req_aff & boot_active[None, :]).any(dim=1))
+    if a.task_ports is not None:
+        inv = inv | a.task_ports.any(dim=1)
+    return inv
+
+
+def _aff_delta(a: CycleArrays, mask, nodes, d_cap: int):
+    """Per-(pair, domain) sums of this round's placements (or reversals)
+    of the tasks ``mask`` at their ``nodes`` (reference ``_aff_delta``).
+    The values are integer-valued floats far below 2**24 (counts and
+    k8s's integer weights), so every order of addition is exact."""
+    p_cnt = a.node_dom.shape[0]
+    dom = a.node_dom[:, nodes.long()]                        # [P,T]
+    seg = torch.where(mask[None, :] & (dom >= 0), dom,
+                      torch.tensor(d_cap, dtype=torch.int32))
+    flat = (torch.arange(p_cnt)[:, None] * (d_cap + 1) + seg).flatten()
+    mf = _f(mask)[:, None]
+
+    def scat(vals):                                          # [T,P]
+        out = torch.zeros(p_cnt * (d_cap + 1), dtype=torch.float32)
+        out.index_add_(0, flat, vals.T.flatten())
+        return out.view(p_cnt, d_cap + 1)[:, :d_cap]
+
+    grp = _f(a.task_grp) * mf
+    return (scat(grp), scat(_f(a.task_req_anti) * mf),
+            scat(a.task_carry_w * mf), grp.sum(dim=0))
+
+
+def _port_bits(a: CycleArrays, mask, nodes) -> torch.Tensor:
+    """[N,PT]: the OR of the ports of tasks ``mask`` at their nodes."""
+    n_pad = a.node_ok.shape[0]
+    idx = torch.where(mask, nodes, torch.tensor(n_pad - 1,
+                                                dtype=torch.int32)).long()
+    bits = torch.zeros(a.port_base.shape, dtype=torch.int32)
+    bits.index_add_(0, idx, (a.task_ports & mask[:, None]).to(torch.int32))
+    return bits > 0
+
+
+def _aff_commit(state: RoundState, a: CycleArrays, accept, proposal):
+    d_cap = state.aff_grp_cnt.shape[1]
+    d_grp, d_anti, d_pref, d_total = _aff_delta(a, accept, proposal, d_cap)
+    upd = dict(aff_grp_cnt=state.aff_grp_cnt + d_grp,
+               aff_anti_cnt=state.aff_anti_cnt + d_anti,
+               aff_pref_w=state.aff_pref_w + d_pref,
+               aff_grp_total=state.aff_grp_total + d_total)
+    if a.task_ports is not None:
+        upd["port_claim"] = state.port_claim | _port_bits(a, accept,
+                                                          proposal)
+    return upd
+
+
+def _aff_rollback(state: RoundState, a: CycleArrays, revert):
+    """Exact inverse of _aff_commit for the stranded-gang rollback; port
+    claims are exclusive among the cycle's placements, so clearing the
+    reverted tasks' bits is exact."""
+    d_cap = state.aff_grp_cnt.shape[1]
+    nodes = state.task_node.clamp(min=0)
+    d_grp, d_anti, d_pref, d_total = _aff_delta(a, revert, nodes, d_cap)
+    upd = dict(aff_grp_cnt=state.aff_grp_cnt - d_grp,
+               aff_anti_cnt=state.aff_anti_cnt - d_anti,
+               aff_pref_w=state.aff_pref_w - d_pref,
+               aff_grp_total=state.aff_grp_total - d_total)
+    if a.task_ports is not None:
+        upd["port_claim"] = state.port_claim & ~_port_bits(a, revert, nodes)
+    return upd
 
 
 def _pair_scores(state, a, dyn_enabled):
@@ -350,9 +656,15 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
 
     # ---- 2. exact eligibility + 3. the masked argmax (one row pass) -------
     sc = _pair_scores(state, a, dyn_enabled)                  # [P,N]
-    any_elig, fb = _row_pass(state.idle, state.releasing, state.n_tasks, a,
-                             pipe_enabled, eps, sc, participating)
+    aff = _AffRound(state, a) if a.node_dom is not None else None
+    any_elig, fb, ip_scored = _row_pass(
+        state.idle, state.releasing, state.n_tasks, a, pipe_enabled, eps, sc,
+        participating, aff)
     fail_now = participating & ~any_elig
+    if aff is not None:
+        # a positive-affinity task whose group a same-cycle placement can
+        # still populate waits (stays SKIP) instead of killing its job
+        fail_now = fail_now & ~aff.could_wait
     fail_rank = torch.full((j_pad,), _IMAX, dtype=i32).scatter_reduce_(
         0, tj0, torch.where(fail_now, global_rank,
                             torch.tensor(_IMAX, dtype=i32)), "amin")
@@ -395,6 +707,11 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
     p_water = ord_sh[slot.clamp(max=n_pad - 1)].to(i32)
     water_elig = _cell_elig(state.idle, state.releasing, state.n_tasks, a,
                             pipe_enabled, eps, p_water) & slot_ok
+    if aff is not None:
+        water_elig = water_elig & aff.cell_ok(p_water)
+        if aff.ip:
+            # interpod-scored tasks leave the shared waterfall
+            water_elig = water_elig & ~ip_scored
     proposal1 = torch.where(water_elig, p_water, fb)
 
     # ---- 4. acceptance (two phases) ---------------------------------------
@@ -441,7 +758,10 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
         return accept, ob, prop_alloc
 
     def commit_node(accept, is_alloc, is_pipe, proposal, idle_c, rel_c,
-                    ntasks_c, nz_c):
+                    ntasks_c, nz_c, fold_nz):
+        # fold_nz: XLA folds phase 1's ``nz + segment_sum`` into the
+        # scatter (adds onto the carry in turn) but not the retry's
+        # (sums first, then adds)
         node_seg = torch.where(accept, proposal, torch.tensor(0, dtype=i32))
         zero = _f32(0.0)
         idle_n = idle_c - _segsum(
@@ -449,31 +769,40 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
         rel_n = rel_c - _segsum(
             torch.where(is_pipe[:, None], a.resreq, zero), node_seg, n_pad)
         ntasks_n = ntasks_c + _segsum(accept.to(i32), node_seg, n_pad)
-        nz_n = _add_segsum(nz_c, torch.where(accept[:, None], a.task_nz,
-                                             zero), node_seg)
+        nz_vals = torch.where(accept[:, None], a.task_nz, zero)
+        nz_n = (_add_segsum(nz_c, nz_vals, node_seg) if fold_nz
+                else nz_c + _segsum(nz_vals, node_seg, n_pad))
         return idle_n, rel_n, ntasks_n, nz_n
 
     accept1, ob1, prop_alloc1 = accept_phase(
         proposal1, part2, state.idle, state.releasing, state.n_tasks)
+    if aff is not None:
+        # remove in-round affinity / port races before capacity commits
+        accept1 = _aff_serialize(state, a, accept1, proposal1, global_rank)
     idle_c, rel_c, ntasks_c, nz_c = commit_node(
         accept1, prop_alloc1 & accept1, ~prop_alloc1 & accept1, proposal1,
-        state.idle, state.releasing, state.n_tasks, state.nz_req)
+        state.idle, state.releasing, state.n_tasks, state.nz_req, True)
 
     # retry phase: rejected tasks re-propose their argmax against the
     # mid-round carry (the scores stay the round's)
     retry = part2 & ~accept1
-    any_r, fb_r = _row_pass(idle_c, rel_c, ntasks_c, a, pipe_enabled, eps,
-                            sc, retry)
+    if aff is not None:
+        # affinity-involved tasks sit the retry out
+        retry = retry & ~_aff_involved(state, a)
+    any_r, fb_r, _ = _row_pass(idle_c, rel_c, ntasks_c, a, pipe_enabled,
+                               eps, sc, retry, aff)
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + 1
         stats["rows"] = (stats.get("rows", 0) + int(participating.sum())
                          + int(retry.sum()))
+        if aff is not None and aff.ip:
+            _ip_stats(stats, state, a, participating, retry)
     retry = retry & any_r
     accept_r, ob_r, prop_alloc_r = accept_phase(fb_r, retry, idle_c, rel_c,
                                                 ntasks_c)
     idle_c, rel_c, ntasks_c, nz_c = commit_node(
         accept_r, prop_alloc_r & accept_r, ~prop_alloc_r & accept_r, fb_r,
-        idle_c, rel_c, ntasks_c, nz_c)
+        idle_c, rel_c, ntasks_c, nz_c, False)
     accept = accept1 | accept_r
     ob = torch.where(accept_r, ob_r, ob1)
     proposal = torch.where(accept_r, fb_r, proposal1)
@@ -498,14 +827,16 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
                     torch.where(is_alloc & ob, ALLOC_OB,
                                 torch.where(is_alloc, ALLOC, SKIP))))
     changed = accept | fail_first
-    new_state = RoundState(
+    aff_upd = (_aff_commit(state, a, accept, proposal) if aff is not None
+               else {})
+    new_state = state._replace(
         idle=idle_c, releasing=rel_c, n_tasks=ntasks_c, nz_req=nz_c,
         q_allocated=new_q_alloc, j_allocated=new_j_alloc,
         alloc_cnt=new_alloc_cnt, job_alive=state.job_alive & ~job_killed,
         task_state=torch.where(changed, decision.to(i32), state.task_state),
         task_node=torch.where(accept, proposal, state.task_node),
         task_seq=torch.where(changed, round_idx * seq_stride + global_rank,
-                             state.task_seq))
+                             state.task_seq), **aff_upd)
     return new_state, bool(changed.any())
 
 
@@ -568,12 +899,14 @@ def _rollback_stranded(state: RoundState, a: CycleArrays,
     else:
         alive = state.job_alive & ~stranded
         clear = revert
+    aff_upd = (_aff_rollback(state, a, revert) if a.node_dom is not None
+               else {})
     return state._replace(
         idle=idle, releasing=rel, n_tasks=ntasks, nz_req=nz,
         q_allocated=q_alloc, j_allocated=j_alloc, alloc_cnt=alloc_cnt,
         job_alive=alive,
         task_state=torch.where(clear, torch.tensor(SKIP, dtype=i32),
-                               state.task_state)), stranded
+                               state.task_state), **aff_upd), stranded
 
 
 def _rounds_loop(state, a, start_round, max_rounds, seq_stride, opts,
@@ -620,8 +953,9 @@ def _run_rounds(state: RoundState, a: CycleArrays, opts, max_rounds: int,
             idx[:nz_idx.shape[0]] = nz_idx
             valid_k = idx < t_pad
             idx_c = idx.clamp(max=t_pad - 1)
-            ca = a._replace(**{f: getattr(a, f)[idx_c]
-                               for f in _TASK_FIELDS})
+            fields = _TASK_FIELDS + tuple(
+                f for f in _AFF_TASK_FIELDS if getattr(a, f) is not None)
+            ca = a._replace(**{f: getattr(a, f)[idx_c] for f in fields})
             ca = ca._replace(task_valid=ca.task_valid & valid_k)
             cs = state._replace(task_state=state.task_state[idx_c],
                                 task_node=state.task_node[idx_c],
@@ -659,21 +993,46 @@ def batched_allocate_plain(
         prop_overused: bool = True, dyn_enabled: bool = False,
         pipe_enabled: bool = True, max_rounds: int = 64,
         compact_bucket: int = 0, gang_enabled: bool = True,
-        narrow: bool = False, narrow_gate: bool = False, stats=None):
+        narrow: bool = False, narrow_gate: bool = False, stats=None,
+        aff=None):
     """The batched allocate cycle in plain PyTorch on CPU tensors (the
     reference's ``_batched_packed``). ``narrow`` and ``narrow_gate`` set
     only the telemetry words; scores are read at float32. ``stats`` (a
     dict), when given, receives the rounds run and the task rows of their
-    row passes (the work a bound counts)."""
+    row passes (the work a bound counts), with an interpod score also
+    the rows that can score and their terms (``_ip_stats``). ``aff``: the affinity arrays
+    (a dict keyed by AFF_ARGS, plus PORT_ARGS with ports and IP_ARG with
+    an interpod score), or None; with it the result gains the final
+    affinity carry (a dict keyed by AFF_OUT; port_claim None without
+    ports)."""
     args = locals()
+    aff = _check_aff(aff)
     for name in NODE_ARGS + CYCLE_ARGS:
         if args[name].device.type != "cpu":
             raise ValueError("batched_allocate_plain runs on CPU tensors "
                              "(its segment sums are index_add_'s "
                              "sequential order on the CPU); copy the "
                              "inputs to the CPU")
+    for name, t in (aff or {}).items():
+        if t.device.type != "cpu":
+            raise ValueError(f"batched_allocate_plain: {name} is not on "
+                             f"the CPU")
     t_pad = task_valid.shape[0]
     i32 = torch.int32
+    carry = {}
+    fields = {f: args[f] for f in CycleArrays._fields if f in args}
+    if aff is not None:
+        carry = dict(aff_grp_cnt=aff["aff_grp_cnt0"].clone(),
+                     aff_anti_cnt=aff["aff_anti_cnt0"].clone(),
+                     aff_pref_w=aff["aff_pref_w0"].clone(),
+                     aff_grp_total=aff["aff_grp_total0"].clone())
+        fields.update({k: aff[k] for k in AFF_ARGS[:7]})
+        if "port_base" in aff:
+            carry["port_claim"] = torch.zeros_like(aff["port_base"])
+            fields.update(task_ports=aff["task_ports"],
+                          port_base=aff["port_base"])
+        if IP_ARG in aff:
+            fields["ip_weight"] = aff[IP_ARG].reshape(())
     state = RoundState(
         idle=idle.clone(), releasing=releasing.clone(),
         n_tasks=n_tasks.clone(), nz_req=nz_req.clone(),
@@ -681,8 +1040,8 @@ def batched_allocate_plain(
         alloc_cnt=init_allocated.clone(), job_alive=job_valid.clone(),
         task_state=torch.full((t_pad,), SKIP, dtype=i32),
         task_node=torch.full((t_pad,), -1, dtype=i32),
-        task_seq=torch.full((t_pad,), _IMAX, dtype=i32))
-    a = CycleArrays(**{f: args[f] for f in CycleArrays._fields})
+        task_seq=torch.full((t_pad,), _IMAX, dtype=i32), **carry)
+    a = CycleArrays(**fields)
     opts = (tuple(job_keys), tuple(queue_keys), bool(prop_overused),
             bool(dyn_enabled), bool(pipe_enabled))
     final, rounds, retries, stranded = _run_rounds(
@@ -694,7 +1053,29 @@ def batched_allocate_plain(
                            retries=retries, stranded=stranded)
     packed = torch.cat([final.task_state, final.task_node, final.task_seq,
                         torch.tensor([rounds], dtype=i32), frame])
-    return packed, final.idle, final.releasing, final.n_tasks, final.nz_req
+    out = (packed, final.idle, final.releasing, final.n_tasks, final.nz_req)
+    if aff is None:
+        return out
+    return out + ({k: getattr(final, k) for k in AFF_OUT},)
+
+
+def _check_aff(aff):
+    """``aff`` with its names and dtypes checked (None passes through)."""
+    if aff is None:
+        return None
+    names = set(aff)
+    missing = [n for n in AFF_ARGS if n not in names]
+    ports = [n for n in PORT_ARGS if n in names]
+    extra = names - set(AFF_ARGS) - set(PORT_ARGS) - {IP_ARG}
+    if missing or extra or len(ports) == 1:
+        raise ValueError(f"batched_allocate: affinity arrays missing "
+                         f"{missing}, unknown {sorted(extra)}, or only one "
+                         f"of {PORT_ARGS}")
+    for name, t in aff.items():
+        if t.dtype != arg_dtype(name):
+            raise ValueError(f"batched_allocate: {name} must be "
+                             f"{arg_dtype(name)}, got {t.dtype}")
+    return dict(aff)
 
 
 def unpack_result(packed, t_pad: int):
@@ -717,6 +1098,7 @@ def batched_allocate(*args, **kwargs):
     if missing:
         raise TypeError(f"batched_allocate: missing arguments {missing}")
     devs = {bound[n].device.type for n in names}
+    devs |= {t.device.type for t in (statics.get("aff") or {}).values()}
     if devs == {"cpu"}:
         return batched_allocate_plain(*(bound[n] for n in names), **statics)
     if devs != {"cuda"}:
@@ -730,7 +1112,11 @@ PHASES = ("setup", "order_jobs", "engage", "window", "pair_scores",
           "rank_and_rows", "fail", "part2", "waterfall", "propose",
           "fit", "accept_commit", "retry_views", "retry_rows",
           "retry_mask", "retry_fit", "retry_accept_commit", "compact",
-          "epilogue")
+          "epilogue", "aff_views", "aff_serialize", "aff_commit")
+
+#: the affinity phases of PHASES (their share is the affinity work beside
+#: the predicates and the score inside the row passes)
+AFF_PHASES = ("aff_views", "aff_serialize", "aff_commit")
 
 #: grid, threads, dynamic shared bytes and workspace bytes of the last
 #: kernel launch, and its per-phase device ns (``phase_ns``: an int64
@@ -744,7 +1130,7 @@ def _batched_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
                            dyn_enabled=False, pipe_enabled=True,
                            max_rounds=64, compact_bucket=0,
                            gang_enabled=True, narrow=False,
-                           narrow_gate=False):
+                           narrow_gate=False, aff=None):
     import ctypes
 
     for name, t in a.items():
@@ -780,6 +1166,39 @@ def _batched_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
         if tuple(a[name].shape) != shape:
             raise ValueError(f"batched_allocate: {name} must have shape "
                              f"{shape}, got {tuple(a[name].shape)}")
+    aff = _check_aff(aff)
+    aff_out = None
+    aff_ptrs = [0] * 19
+    aff_ints = [0, 0, 0, 0, 0]
+    if aff is not None:
+        aff = {k: v.contiguous() for k, v in aff.items()}
+        n_pairs, d_cap = aff["aff_grp_cnt0"].shape
+        pt = aff["task_ports"].shape[1] if "task_ports" in aff else 0
+        ashapes = {"node_dom": (n_pairs, n), "aff_grp_total0": (n_pairs,),
+                   "aff_anti_cnt0": (n_pairs, d_cap),
+                   "aff_pref_w0": (n_pairs, d_cap)}
+        ashapes.update({k: (t, n_pairs) for k in AFF_ARGS[1:7]})
+        if pt:
+            ashapes.update(task_ports=(t, pt), port_base=(n, pt))
+        if IP_ARG in aff:
+            ashapes[IP_ARG] = ()
+        for name, shape in ashapes.items():
+            if tuple(aff[name].shape) != shape:
+                raise ValueError(f"batched_allocate: {name} must have shape "
+                                 f"{shape}, got {tuple(aff[name].shape)}")
+        if not 1 <= n_pairs <= 128 or pt > 64:
+            raise ValueError(f"batched_allocate: {n_pairs} affinity pairs "
+                             f"and {pt} ports exceed the kernel's 128 / 64")
+        aff_out = {k: torch.empty_like(aff[k + "0"]) for k in AFF_OUT[:4]}
+        aff_out["port_claim"] = (torch.empty_like(aff["port_base"]) if pt
+                                 else None)
+        aff_ptrs = [aff[k].data_ptr() for k in AFF_ARGS] + [
+            aff["task_ports"].data_ptr() if pt else 0,
+            aff["port_base"].data_ptr() if pt else 0,
+            aff[IP_ARG].data_ptr() if IP_ARG in aff else 0] + [
+            aff_out[k].data_ptr() for k in AFF_OUT[:4]] + [
+            aff_out["port_claim"].data_ptr() if pt else 0]
+        aff_ints = [1, n_pairs, d_cap, pt, int(IP_ARG in aff)]
     c = {k: v.contiguous() for k, v in a.items()}
     # node carries live in the outputs (the JAX kernel returns new arrays)
     idle = c["idle"].clone()
@@ -795,7 +1214,7 @@ def _batched_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
         int(K_PROP_SHARE in queue_keys), int(bool(prop_overused)),
         int(bool(dyn_enabled)), int(bool(pipe_enabled)), int(max_rounds),
         int(compact_bucket), int(bool(gang_enabled)), int(bool(narrow)),
-        int(bool(narrow_gate))], dtype=np.int32)
+        int(bool(narrow_gate)), *aff_ints], dtype=np.int32)
     lib = _build.library("batched_allocate.cu")
     ws_bytes = ctypes.c_longlong(0)
     _build.check_launch("batched_allocate", lib.kb_batched_workspace(
@@ -814,7 +1233,7 @@ def _batched_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
             "q_deserved", "q_create_rank", "q_alloc0", "j_alloc0",
             "cluster_total", "dyn_weights")),
         eps.data_ptr(), packed.data_ptr(), phase_ns.data_ptr(),
-        ws.data_ptr()], dtype=np.uint64)
+        *aff_ptrs, ws.data_ptr()], dtype=np.uint64)
     info = np.zeros(3, dtype=np.int32)
     err = lib.kb_batched_allocate(
         ptrs.ctypes.data, ptrs.shape[0], ints.ctypes.data, ints.shape[0],
@@ -824,7 +1243,9 @@ def _batched_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
     last_launch.update(grid=int(info[0]), threads=int(info[1]),
                        smem_bytes=int(info[2]), workspace_bytes=ws.numel(),
                        phase_ns=phase_ns)
-    return packed, idle, releasing, n_tasks, nz
+    if aff_out is None:
+        return packed, idle, releasing, n_tasks, nz
+    return packed, idle, releasing, n_tasks, nz, aff_out
 
 
 #: per-cycle arrays shipped as packed buffers (kernels/pack.py), in the
@@ -836,6 +1257,19 @@ _PACK_I32 = ("task_job", "task_rank", "task_sig", "task_pair",
              "order_min_available", "job_queue", "job_create_rank",
              "q_create_rank", "init_allocated", "pair_sig")
 _PACK_BOOL = ("task_valid", "job_valid", "sig_pred")
+#: affinity extensions, joined when the cycle carries the features
+_AFF_F32 = ("task_carry_w", "task_pref_w", "aff_grp_cnt0", "aff_anti_cnt0",
+            "aff_pref_w0", "aff_grp_total0")
+_AFF_I32 = ("node_dom",)
+_AFF_BOOL = ("task_grp", "task_req_aff", "task_req_anti", "task_self_ok")
+
+
+def _integral(x: np.ndarray) -> bool:
+    """Integer-valued and inside float32's exact-integer range: the CUDA
+    kernel keeps the affinity carry as int32 (order-free atomics)."""
+    x = np.asarray(x, np.float64)
+    return bool(np.array_equal(x, np.round(x))
+                and (x.size == 0 or np.abs(x).max() < 2.0 ** 24))
 
 
 def prepare_batched(inputs, max_rounds: int = 0, compact_bucket=None):
@@ -843,7 +1277,8 @@ def prepare_batched(inputs, max_rounds: int = 0, compact_bucket=None):
     (actions/cycle_inputs.py): args maps every batched_allocate argument
     to a tensor on the DeviceSession's device (the per-cycle arrays
     uploaded as three packed buffers), statics holds the keyword options,
-    sized as the reference's prepare_batched sizes them.
+    sized as the reference's prepare_batched sizes them, and ``aff``, the
+    affinity arrays, when the cycle carries the vocabulary.
     ``compact_bucket``: None sizes the post-round-0 compaction
     automatically; 0 forces the full-width loop."""
     from .narrow import narrow_enabled
@@ -858,13 +1293,41 @@ def prepare_batched(inputs, max_rounds: int = 0, compact_bucket=None):
     task_pair, pair_sig, pair_nz, _ = inputs.pair_terms()
     extra = {"task_pair": task_pair, "pair_sig": pair_sig,
              "pair_nz": pair_nz}
+    f32_names, i32_names, bool_names = _PACK_F32, _PACK_I32, _PACK_BOOL
+    aff = inputs.affinity
+    aff_names = ()
+    if aff is not None:
+        extra.update(
+            task_carry_w=aff.task_carry_w, task_pref_w=aff.task_pref_w,
+            aff_grp_cnt0=aff.grp_cnt0, aff_anti_cnt0=aff.anti_cnt0,
+            aff_pref_w0=aff.pref_w0, aff_grp_total0=aff.grp_total0,
+            node_dom=aff.node_dom, task_grp=aff.task_grp,
+            task_req_aff=aff.task_req_aff, task_req_anti=aff.task_req_anti,
+            task_self_ok=aff.task_self_ok)
+        f32_names = f32_names + _AFF_F32
+        i32_names = i32_names + _AFF_I32
+        bool_names = bool_names + _AFF_BOOL
+        aff_names = AFF_ARGS
+        if np.any(aff.task_ports):
+            extra.update(task_ports=aff.task_ports, port_base=aff.port_base)
+            bool_names = bool_names + PORT_ARGS
+            aff_names = aff_names + PORT_ARGS
+        if aff.ip_enabled:
+            extra[IP_ARG] = np.float32(aff.ip_weight)
+            f32_names = f32_names + (IP_ARG,)
+            aff_names = aff_names + (IP_ARG,)
+        bad = [n for n in _AFF_F32 if not _integral(extra[n])]
+        if bad:
+            raise ValueError(f"affinity arrays {bad} are not integer-valued "
+                             f"(k8s affinity weights are integers)")
     bufs = pack_inputs(lambda nm: extra[nm] if nm in extra
                        else getattr(inputs, nm),
-                       _PACK_F32, _PACK_I32, _PACK_BOOL)
+                       f32_names, i32_names, bool_names)
     dev = device.device
     args = {k: getattr(device, k) for k in NODE_ARGS}
     for buf, lay in zip(bufs[0::2], bufs[1::2]):
         args.update(unpack(torch.from_numpy(buf).to(dev), lay))
+    aff_args = {k: args.pop(k) for k in aff_names}
     if compact_bucket is None:
         # compaction pays off once the [T,N] passes dwarf the stragglers
         compact = max(256, t_pad // 8) if t_pad >= 2048 else 0
@@ -873,7 +1336,9 @@ def prepare_batched(inputs, max_rounds: int = 0, compact_bucket=None):
     n_pad = int(device.node_ok.shape[0])
     narrow = narrow_enabled(
         n_pad, t_pad, static_scores=inputs.sig_scores,
-        dyn_weights=(inputs.dyn_weights if inputs.dyn_enabled else None))
+        dyn_weights=(inputs.dyn_weights if inputs.dyn_enabled else None),
+        ip_weight=(aff.ip_weight
+                   if aff is not None and aff.ip_enabled else 0.0))
     statics = dict(
         job_keys=inputs.job_keys, queue_keys=inputs.queue_keys,
         prop_overused=inputs.prop_overused,
@@ -883,6 +1348,8 @@ def prepare_batched(inputs, max_rounds: int = 0, compact_bucket=None):
         # telemetry: the shape thresholds alone wanted the narrow store
         # but the score/weight scale refused it
         narrow_gate=(not narrow and narrow_enabled(n_pad, t_pad)))
+    if aff is not None:
+        statics["aff"] = aff_args
     return args, statics
 
 
@@ -908,8 +1375,8 @@ def solve_batched(inputs, max_rounds: int = 0, compact_bucket=None,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-    packed, idle, releasing, n_tasks, nz = batched_allocate(**args,
-                                                            **statics)
+    packed, idle, releasing, n_tasks, nz = batched_allocate(
+        **args, **statics)[:5]
     if on_card:
         end.record()
     t2 = time.perf_counter()

@@ -3,8 +3,10 @@
 //
 // Replaces kubebatch_tpu/kernels/batched.py:1184 _batched_packed, with
 // :436 _round, :885 _stranded_jobs, :916 _rollback_stranded and :1009
-// batched_allocate inside it (no inter-pod affinity / host-port branch),
-// kubebatch_tpu/kernels/solver.py:67 dynamic_node_score for the [P,N]
+// batched_allocate inside it, their inter-pod affinity / host-port branch
+// (:200-432 _aff_gather, _aff_eligibility, _aff_serialize, _aff_involved,
+// _aff_delta, _aff_commit, _aff_rollback, _ip_score; see "Affinity"
+// below), kubebatch_tpu/kernels/solver.py:67 dynamic_node_score for the [P,N]
 // pair scores (node_score.cuh) and kubebatch_tpu/kernels/telemetry.py:95
 // decision_frame as the epilogue. The plain PyTorch version is
 // kubebatch_tpu_torch/kernels/batched.py batched_allocate_plain; every
@@ -45,6 +47,38 @@
 //    every thread reads after the barrier.
 // Making the block-0 chain shorter (a counting sort per round, fewer
 // barriers) is later work.
+//
+// Affinity (when the cycle carries kernels/affinity.py's vocabulary; A
+// affinity pairs <= 128, PT ports <= 64, D domain slots):
+//  - a task's rows of task_grp / task_req_aff / task_req_anti /
+//    task_self_ok (and which task_pref_w / task_carry_w entries are
+//    nonzero) are packed once, in setup, into two 64-bit words each, its
+//    task_ports row and each node's port_base row into one;
+//  - the carry is kept as int32 ([A,D] members, anti carriers, preferred
+//    weights; [A] totals) and a [N] port-claim word: its values are
+//    integer-valued floats far below 2**24 (counts and k8s's integer
+//    weights; prepare_batched checks the inputs), so integer atomics
+//    commit and roll back exactly and in any order, and the float carry
+//    the host reads back is the reference's bit for bit;
+//  - each round starts with a grid phase that turns the carry into
+//    per-node words: present (pairs whose group has a member in the
+//    node's domain), sym (pairs with an anti carrier there) and the used
+//    ports, plus [A]-wide flags (bootstrapping, satisfied somewhere,
+//    has a carrier, pending members). The reference's three boolean
+//    [T,A] x [A,N] products and the port product count ones and compare
+//    with 0.5: "any bit of need & ~present, anti & present, grp & sym,
+//    ports & used" is the same predicate, tested per cell in the row pass;
+//  - the interpod score (tasks that can score: a nonzero preferred term,
+//    or membership of a pair with carried preferred weight) is a second
+//    pass over the row's nodes: own + sym counts (integer-valued, exact in
+//    any order), their min / max over the real nodes, then the
+//    reference's floor(10 * (c - cmin) / span) * weight in its float
+//    order; such tasks leave the shared waterfall;
+//  - phase-1 serialization is integer work in block 0: atomicMin of
+//    ranks into an [A, D+1] workspace per (pair, domain) and into [N+1]
+//    per node for port claimants, the bootstrap domain by atomicMax;
+//    then each accepted task keeps or drops. Integer atomics are exact
+//    and order-free; float atomics stay out.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -80,13 +114,19 @@ enum {
     P_RESREQ, P_INIT, P_TNZ, P_TJOB, P_TRANK, P_TSIG, P_TPAIR, P_TVALID,
     P_SIG_SCORES, P_SIG_PRED, P_PAIR_SIG, P_PAIR_NZ, P_OMIN, P_INIT_ALLOC,
     P_JQUEUE, P_JPRIO, P_JCRANK, P_JVALID, P_QDES, P_QCRANK, P_QALLOC0,
-    P_JALLOC0, P_CTOTAL, P_DYNW, P_EPS, P_OUT, P_PHASE, P_WS, N_PTRS
+    P_JALLOC0, P_CTOTAL, P_DYNW, P_EPS, P_OUT, P_PHASE,
+    // affinity (null without the vocabulary; ports / weight null without
+    // ports / an interpod score)
+    P_NODE_DOM, P_TGRP, P_TREQ_AFF, P_TREQ_ANTI, P_TSELF_OK, P_TCARRY_W,
+    P_TPREF_W, P_GCNT0, P_ACNT0, P_PREFW0, P_GTOT0, P_TPORTS, P_PORT_BASE,
+    P_IPW, P_GCNT_OUT, P_ACNT_OUT, P_PREFW_OUT, P_GTOT_OUT, P_PCLAIM_OUT,
+    P_WS, N_PTRS
 };
 // int slots
 enum {
     I_N, I_T, I_J, I_Q, I_P, I_NJK, I_JK0, I_JK1, I_JK2, I_QSHARE,
     I_PROP_OVERUSED, I_DYN, I_PIPE, I_MAX_ROUNDS, I_BUCKET, I_GANG,
-    I_NARROW, I_NARROW_GATE, N_INTS
+    I_NARROW, I_NARROW_GATE, I_AFF, I_A, I_D, I_PT, I_IP, N_INTS
 };
 
 struct Params {
@@ -108,6 +148,19 @@ struct Params {
     int N, T, J, Q, P, njk, jk[3], qshare, prop_overused, dyn, pipe,
         max_rounds, bucket, gang, narrow, narrow_gate;
     int MT, MJ, MN;                        // sort sizes (powers of two)
+    // affinity: aff on/off, A pairs, D domain slots, PT ports (0: none),
+    // ip (an interpod score)
+    int aff, A, D, PT, ip;
+    const int32_t* node_dom;               // [A,N]
+    const uint8_t* tgrp; const uint8_t* treq; const uint8_t* tanti;
+    const uint8_t* tself;                  // [T,A] bool
+    const float* tcarry; const float* tpref;   // [T,A]
+    const float* gcnt0; const float* acnt0; const float* prefw0;  // [A,D]
+    const float* gtot0;                    // [A]
+    const uint8_t* tports; const uint8_t* pbase;  // [T,PT], [N,PT]
+    const float* ipw;                      // [] pod_aff weight
+    float* gcnt_out; float* acnt_out; float* prefw_out; float* gtot_out;
+    uint8_t* pclaim_out;                   // [N,PT]
 };
 
 // scratch, carved from one workspace (layout() below)
@@ -142,7 +195,29 @@ struct Work {
     float* tscr;                           // tiled-cumsum level scratch
     uint64_t* gkeys;                       // sort keys past SMEM_KEYS
     int32_t* iscal; float* fscal;
+    // affinity: the int32 carry, packed task / node words, per-round
+    // views and flags, the serialization minima, the score's per-row
+    // normalisation
+    int32_t* gcnt; int32_t* acnt; int32_t* prefw; int32_t* gtot;
+    uint64_t* pclaim;                      // [N]
+    uint64_t* mgrp; uint64_t* mreq; uint64_t* manti; uint64_t* mself;
+    uint64_t* mpref; uint64_t* mcarry;     // [T*2]
+    uint64_t* mports;                      // [T]
+    uint64_t* pbase;                       // [N]
+    uint64_t* present; uint64_t* symv;     // [N*2]
+    uint64_t* used;                        // [N]
+    float* gview; float* pview;            // [A*N]
+    uint64_t* fl;                          // [F_N*2] pair flag words
+    int32_t* gpend;                        // [A] pending members
+    int32_t* cmin; int32_t* mmin;          // [A*(D+1)]
+    int32_t* bmin; int32_t* bdom;          // [A]
+    int32_t* pmin;                         // [N+1]
+    float* ip_cmin; float* ip_span;        // [T]
+    uint8_t* ip_scored;                    // [T]
 };
+
+// pair flag words (two 64-bit words each)
+enum { F_BOOT, F_SAT, F_CARRIER, F_PREF, F_N };
 
 enum { S_PROGRESS, S_MAJ, S_CNT, S_ANY_STRANDED, S_STRANDED, S_TCUR,
        S_NSCAL };
@@ -153,7 +228,8 @@ enum { S_PROGRESS, S_MAJ, S_CNT, S_ANY_STRANDED, S_STRANDED, S_TCUR,
 enum { PH_SETUP, PH_ORDER, PH_ENGAGE, PH_WINDOW, PH_SCORES, PH_ROWS1,
        PH_FAIL, PH_PART2, PH_WATERFALL, PH_PROPOSE, PH_FIT1, PH_ACCEPT1,
        PH_VIEWS2, PH_ROWS2, PH_RETRY, PH_FIT2, PH_ACCEPT2, PH_COMPACT,
-       PH_EPILOGUE, N_PHASES };
+       PH_EPILOGUE, PH_AFF_VIEWS, PH_AFF_SERIALIZE, PH_AFF_COMMIT,
+       N_PHASES };
 
 inline size_t align_up(size_t x) {
     return (x + 255) & ~size_t(255);
@@ -242,6 +318,34 @@ inline size_t layout(const Params& p, char* base, Work* w) {
                               * 8);
     x.iscal = (int32_t*)take(S_NSCAL * 4);
     x.fscal = (float*)take(8 * 4);
+    // affinity (zero-sized without the vocabulary)
+    const size_t A = p.aff ? p.A : 0, D = p.aff ? p.D : 0;
+    const size_t TA = p.aff ? T : 0, NA = p.aff ? N : 0;
+    x.gcnt = (int32_t*)take(A * D * 4);
+    x.acnt = (int32_t*)take(A * D * 4);
+    x.prefw = (int32_t*)take(A * D * 4);
+    x.gtot = (int32_t*)take(A * 4);
+    x.pclaim = (uint64_t*)take(NA * 8);
+    uint64_t** tw[] = {&x.mgrp, &x.mreq, &x.manti, &x.mself, &x.mpref,
+                       &x.mcarry};
+    for (uint64_t** f : tw) *f = (uint64_t*)take(TA * 2 * 8);
+    x.mports = (uint64_t*)take(TA * 8);
+    x.pbase = (uint64_t*)take(NA * 8);
+    x.present = (uint64_t*)take(NA * 2 * 8);
+    x.symv = (uint64_t*)take(NA * 2 * 8);
+    x.used = (uint64_t*)take(NA * 8);
+    x.gview = (float*)take((p.aff && p.ip ? A * N : 0) * 4);
+    x.pview = (float*)take((p.aff && p.ip ? A * N : 0) * 4);
+    x.fl = (uint64_t*)take(F_N * 2 * 8);
+    x.gpend = (int32_t*)take(A * 4);
+    x.cmin = (int32_t*)take(A * (D + 1) * 4);
+    x.mmin = (int32_t*)take(A * (D + 1) * 4);
+    x.bmin = (int32_t*)take(A * 4);
+    x.bdom = (int32_t*)take(A * 4);
+    x.pmin = (int32_t*)take((NA + 1) * 4);
+    x.ip_cmin = (float*)take(TA * 4);
+    x.ip_span = (float*)take(TA * 4);
+    x.ip_scored = (uint8_t*)take(TA);
     if (w) *w = x;
     return off;
 }
@@ -298,6 +402,44 @@ __device__ __forceinline__ int lower_bound_u64(const uint64_t* a, int n,
     }
     return lo;
 }
+
+// ---- affinity bit words -----------------------------------------------------
+
+__device__ __forceinline__ bool has_bit(const uint64_t* w, int p) {
+    return (w[p >> 6] >> (p & 63)) & 1ull;
+}
+
+__device__ __forceinline__ void set_bit(uint64_t* w, int p) {
+    w[p >> 6] |= 1ull << (p & 63);
+}
+
+// OR of a 64-bit value across the (converged) warp
+__device__ __forceinline__ uint64_t warp_or64(uint64_t v) {
+    const unsigned lo = __reduce_or_sync(FULL, (unsigned)v);
+    const unsigned hi = __reduce_or_sync(FULL, (unsigned)(v >> 32));
+    return ((uint64_t)hi << 32) | lo;
+}
+
+// Call f(p) for every set bit p of the two words m.
+template <class F>
+__device__ __forceinline__ void for_bits(const uint64_t* m, F f) {
+#pragma unroll
+    for (int wi = 0; wi < 2; ++wi) {
+        uint64_t b = m[wi];
+        while (b) {
+            const int i = __ffsll((long long)b) - 1;
+            b &= b - 1;
+            f(wi * 64 + i);
+        }
+    }
+}
+
+// one task's affinity words for a round (boot folded into need)
+struct AffRow {
+    uint64_t grp[2], req[2], anti[2], need[2], pref[2];
+    uint64_t ports;
+    bool maybe_scored;
+};
 
 // ---- block-level building blocks (block 0) ---------------------------------
 
@@ -494,11 +636,15 @@ struct Cycle {
     }
 
     // grid, one warp per task row with mask[k]: any eligible node and the
-    // lowest-index argmax of the pair's scores over the eligible nodes
-    // (node 0 when none is)
+    // lowest-index argmax of the row's scores over the eligible nodes
+    // (node 0 when none is). With affinity the cell also takes the
+    // affinity predicates, and a task that can score adds the interpod
+    // term; ``first`` (the round's first pass) normalises that term and
+    // keeps (cmin, span, scored) for the retry and the waterfall.
     __device__ void row_pass(const uint8_t* mask, uint8_t* any_out,
-                             int32_t* best_out) {
+                             int32_t* best_out, bool first) {
         const int tc = tcur();
+        const float ipw = p.ip ? p.ipw[0] : 0.0f;
         for (int k = gwarp; k < tc; k += nwarps) {
             if (!mask[k]) continue;
             const int t = w.tmap[k];
@@ -506,15 +652,55 @@ struct Cycle {
             const float init[3] = {p.init[t * 3], p.init[t * 3 + 1],
                                    p.init[t * 3 + 2]};
             const float* scp = w.sc + (size_t)p.tpair[t] * p.N;
-            bool any = false;
+            AffRow ar;
+            if (p.aff) ar = aff_row(t);
+            const bool scoring = p.aff && ar.maybe_scored;
+            float cmin = 0.0f, span = 0.0f;
+            if (scoring && first) {
+                // min / max of the counts over the real nodes
+                float lo = INFINITY, hi = -INFINITY;
+                for (int n = lane; n < p.N; n += 32) {
+                    if (!p.node_ok[n]) continue;
+                    const float c = ip_counts(t, ar, n);
+                    lo = fminf(lo, c);
+                    hi = fmaxf(hi, c);
+                }
+                for (int o = 16; o > 0; o >>= 1) {
+                    lo = fminf(lo, __shfl_xor_sync(FULL, lo, o));
+                    hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, o));
+                }
+                cmin = lo;
+                span = hi - lo;
+                if (lane == 0) {
+                    w.ip_cmin[k] = cmin;
+                    w.ip_span[k] = span;
+                }
+            } else if (scoring) {
+                cmin = w.ip_cmin[k];
+                span = w.ip_span[k];
+            }
+            bool any = false, scored = false;
             float bv = -INFINITY;
             int bi = IMAX;
             for (int n = lane; n < p.N; n += 32) {
+                float tm = 0.0f;
+                if (scoring) {
+                    // reference _ip_score, in its float order
+                    const float c = ip_counts(t, ar, n);
+                    tm = span > 0.0f ? floorf((10.0f * (c - cmin)) / span)
+                                     : 0.0f;
+                    tm = tm * ipw;
+                    scored = scored || tm != 0.0f;
+                }
                 if (!cell(sig, init, n)) continue;
-                const float v = scp[n];
+                if (p.aff && !aff_cell(ar, n)) continue;
+                float v = scp[n];
+                if (scoring && p.node_ok[n]) v = v + tm;
                 if (!any || v > bv) { bv = v; bi = n; }
                 any = true;
             }
+            if (first && p.aff)
+                scored = __any_sync(FULL, scored);
             for (int o = 16; o > 0; o >>= 1) {
                 const float ov = __shfl_xor_sync(FULL, bv, o);
                 const int oi = __shfl_xor_sync(FULL, bi, o);
@@ -528,8 +714,350 @@ struct Cycle {
             if (lane == 0) {
                 any_out[k] = any;
                 best_out[k] = any ? bi : 0;
+                if (first && p.aff) w.ip_scored[k] = scored;
             }
         }
+    }
+
+    // ---- affinity (kernels/batched.py _aff_* and _ip_score) ------------
+
+    // grid, once: pack the task and node words, the int32 carry
+    __device__ void aff_setup() {
+        const int A = p.A, T = p.T, N = p.N;
+        for (int t = gtid; t < T; t += gsize) {
+            uint64_t g[2] = {0, 0}, r[2] = {0, 0}, a[2] = {0, 0},
+                     sf[2] = {0, 0}, pf[2] = {0, 0}, cw[2] = {0, 0};
+            for (int q = 0; q < A; ++q) {
+                const size_t i = (size_t)t * A + q;
+                if (p.tgrp[i]) set_bit(g, q);
+                if (p.treq[i]) set_bit(r, q);
+                if (p.tanti[i]) set_bit(a, q);
+                if (p.tself[i]) set_bit(sf, q);
+                if (p.tpref[i] != 0.0f) set_bit(pf, q);
+                if (p.tcarry[i] != 0.0f) set_bit(cw, q);
+            }
+            for (int wi = 0; wi < 2; ++wi) {
+                w.mgrp[t * 2 + wi] = g[wi];
+                w.mreq[t * 2 + wi] = r[wi];
+                w.manti[t * 2 + wi] = a[wi];
+                w.mself[t * 2 + wi] = sf[wi];
+                w.mpref[t * 2 + wi] = pf[wi];
+                w.mcarry[t * 2 + wi] = cw[wi];
+            }
+            uint64_t pt = 0;
+            for (int j = 0; j < p.PT; ++j)
+                if (p.tports[(size_t)t * p.PT + j]) pt |= 1ull << j;
+            w.mports[t] = pt;
+        }
+        for (int n = gtid; n < N; n += gsize) {
+            uint64_t pb = 0;
+            for (int j = 0; j < p.PT; ++j)
+                if (p.pbase[(size_t)n * p.PT + j]) pb |= 1ull << j;
+            w.pbase[n] = pb;
+            w.pclaim[n] = 0;
+        }
+        const size_t ad = (size_t)A * p.D;
+        for (size_t i = gtid; i < ad; i += gsize) {
+            w.gcnt[i] = (int32_t)p.gcnt0[i];
+            w.acnt[i] = (int32_t)p.acnt0[i];
+            w.prefw[i] = (int32_t)p.prefw0[i];
+        }
+        for (int q = gtid; q < A; q += gsize) w.gtot[q] = (int32_t)p.gtot0[q];
+    }
+
+    // block 0, before the views: the bootstrap flags from the totals; the
+    // other flags and the pending counts cleared for the views' atomics
+    __device__ void aff_flags() {
+        if (threadIdx.x == 0) {
+            uint64_t b[2] = {0, 0};
+            for (int q = 0; q < p.A; ++q)
+                if (w.gtot[q] <= 0) set_bit(b, q);
+            for (int f = 0; f < F_N; ++f)
+                for (int wi = 0; wi < 2; ++wi)
+                    w.fl[f * 2 + wi] = f == F_BOOT ? b[wi] : 0;
+        }
+        for (int q = threadIdx.x; q < p.A; q += blockDim.x) w.gpend[q] = 0;
+    }
+
+    // grid: the round-start views of the carry (reference _aff_gather):
+    // per-node present / sym / used words (and the score's [A,N] count
+    // views), the pair flags, pending members; the serialization minima
+    // reset for this round
+    __device__ void aff_views() {
+        const int A = p.A, N = p.N, D = p.D, tc = tcur();
+        uint64_t* fl = w.fl;
+        for (int base = gwarp * 32; base < N; base += nwarps * 32) {
+            const int n = base + lane;
+            uint64_t pr[2] = {0, 0};
+            if (n < N) {
+                uint64_t sy[2] = {0, 0};
+                for (int q = 0; q < A; ++q) {
+                    const int d = p.node_dom[(size_t)q * N + n];
+                    const bool hd = d >= 0;
+                    const int g = hd ? w.gcnt[(size_t)q * D + d] : 0;
+                    const int ac = hd ? w.acnt[(size_t)q * D + d] : 0;
+                    if (g > 0) set_bit(pr, q);
+                    if (ac > 0) set_bit(sy, q);
+                    if (p.ip) {
+                        w.gview[(size_t)q * N + n] = hd ? (float)g : 0.0f;
+                        w.pview[(size_t)q * N + n] =
+                            hd ? (float)w.prefw[(size_t)q * D + d] : 0.0f;
+                    }
+                }
+                for (int wi = 0; wi < 2; ++wi) {
+                    w.present[n * 2 + wi] = pr[wi];
+                    w.symv[n * 2 + wi] = sy[wi];
+                }
+                w.used[n] = w.pbase[n] | w.pclaim[n];
+            }
+            for (int wi = 0; wi < 2; ++wi) {
+                const uint64_t o = warp_or64(pr[wi]);
+                if (lane == 0 && o)
+                    atomicOr((unsigned long long*)&fl[F_SAT * 2 + wi], o);
+            }
+        }
+        // pairs with a placed anti carrier, pairs with carried weight
+        const size_t ad = (size_t)A * D;
+        for (size_t base = (size_t)gwarp * 32; base < ad;
+             base += (size_t)nwarps * 32) {
+            const size_t i = base + lane;
+            uint64_t c[2] = {0, 0}, f[2] = {0, 0};
+            if (i < ad) {
+                const int q = (int)(i / D);
+                if (w.acnt[i] > 0) set_bit(c, q);
+                if (w.prefw[i] != 0) set_bit(f, q);
+            }
+            for (int wi = 0; wi < 2; ++wi) {
+                const uint64_t oc = warp_or64(c[wi]), of = warp_or64(f[wi]);
+                if (lane == 0 && oc)
+                    atomicOr((unsigned long long*)&fl[F_CARRIER * 2 + wi], oc);
+                if (lane == 0 && of)
+                    atomicOr((unsigned long long*)&fl[F_PREF * 2 + wi], of);
+            }
+        }
+        // the view's tasks: anti carriers (valid) and pending members
+        for (int base = gwarp * 32; base < tc; base += nwarps * 32) {
+            const int k = base + lane;
+            uint64_t an[2] = {0, 0}, pm[2] = {0, 0};
+            if (k < tc && w.vvalid[k]) {
+                const int t = w.tmap[k];
+                an[0] = w.manti[t * 2];
+                an[1] = w.manti[t * 2 + 1];
+                if (p.out[t] == SKIP) {
+                    pm[0] = w.mgrp[t * 2];
+                    pm[1] = w.mgrp[t * 2 + 1];
+                }
+            }
+            uint64_t any_pm[2];
+            for (int wi = 0; wi < 2; ++wi) {
+                const uint64_t o = warp_or64(an[wi]);
+                if (lane == 0 && o)
+                    atomicOr((unsigned long long*)&fl[F_CARRIER * 2 + wi], o);
+                any_pm[wi] = warp_or64(pm[wi]);
+            }
+            for_bits(any_pm, [&](int q) {
+                const int cnt = __popc(__ballot_sync(FULL, has_bit(pm, q)));
+                if (lane == 0) atomicAdd(&w.gpend[q], cnt);
+            });
+        }
+        const size_t ad1 = (size_t)A * (D + 1);
+        for (size_t i = gtid; i < ad1; i += gsize) {
+            w.cmin[i] = IMAX;
+            w.mmin[i] = IMAX;
+        }
+        for (int q = gtid; q < A; q += gsize) {
+            w.bmin[q] = IMAX;
+            w.bdom[q] = -1;
+        }
+        for (int n = gtid; n <= N; n += gsize) w.pmin[n] = IMAX;
+    }
+
+    __device__ AffRow aff_row(int t) const {
+        AffRow r;
+        const uint64_t* boot = w.fl + F_BOOT * 2;
+        const uint64_t* pref_any = w.fl + F_PREF * 2;
+        bool ms = false;
+        for (int wi = 0; wi < 2; ++wi) {
+            r.grp[wi] = w.mgrp[t * 2 + wi];
+            r.req[wi] = w.mreq[t * 2 + wi];
+            r.anti[wi] = w.manti[t * 2 + wi];
+            r.pref[wi] = w.mpref[t * 2 + wi];
+            r.need[wi] = r.req[wi] & ~(boot[wi] & w.mself[t * 2 + wi]);
+            ms = ms || r.pref[wi] || (r.grp[wi] & pref_any[wi]);
+        }
+        r.ports = p.PT ? w.mports[t] : 0;
+        r.maybe_scored = p.ip && ms;
+        return r;
+    }
+
+    // the affinity and host-port predicates of one (task, node) cell
+    __device__ __forceinline__ bool aff_cell(const AffRow& r, int n) const {
+        const uint64_t* pr = w.present + (size_t)n * 2;
+        const uint64_t* sy = w.symv + (size_t)n * 2;
+        uint64_t bad = 0;
+#pragma unroll
+        for (int wi = 0; wi < 2; ++wi)
+            bad |= (r.need[wi] & ~pr[wi]) | (r.anti[wi] & pr[wi])
+                   | (r.grp[wi] & sy[wi]);
+        return !bad && !(r.ports & w.used[n]);
+    }
+
+    // own + sym interpod counts of task t at node n (integer-valued
+    // floats far below 2**24: exact in any order)
+    __device__ __forceinline__ float ip_counts(int t, const AffRow& r,
+                                               int n) const {
+        float own = 0.0f, sym = 0.0f;
+        for_bits(r.pref, [&](int q) {
+            own = own + p.tpref[(size_t)t * p.A + q]
+                        * w.gview[(size_t)q * p.N + n];
+        });
+        for_bits(r.grp, [&](int q) {
+            sym = sym + w.pview[(size_t)q * p.N + n];
+        });
+        return own + sym;
+    }
+
+    // a positive term unsatisfiable anywhere whose group has other
+    // pending members: the task waits (reference could_wait)
+    __device__ bool could_wait(int k, int t) const {
+        const AffRow r = aff_row(t);
+        const uint64_t* sat = w.fl + F_SAT * 2;
+        const bool pend = w.vvalid[k] && p.out[t] == SKIP;
+        uint64_t m[2] = {r.need[0] & ~sat[0], r.need[1] & ~sat[1]};
+        bool wait = false;
+        for_bits(m, [&](int q) {
+            const float mine = (pend && has_bit(r.grp, q)) ? 1.0f : 0.0f;
+            wait = wait || ((float)w.gpend[q] - mine) > 0.5f;
+        });
+        return wait;
+    }
+
+    // tasks kept out of the same-round retry (reference _aff_involved)
+    __device__ bool involved(int t) const {
+        const uint64_t* car = w.fl + F_CARRIER * 2;
+        const uint64_t* boot = w.fl + F_BOOT * 2;
+        bool inv = p.PT && w.mports[t];
+        for (int wi = 0; wi < 2; ++wi)
+            inv = inv || w.manti[t * 2 + wi]
+                  || (w.mgrp[t * 2 + wi] & car[wi])
+                  || (w.mreq[t * 2 + wi] & boot[wi]);
+        return inv;
+    }
+
+    // block 0: phase-1 acceptances whose co-placement is sequentially
+    // legal (reference _aff_serialize); integer atomics only
+    __device__ void aff_serialize() {
+        const int tc = tcur(), N = p.N, D = p.D;
+        const uint64_t* boot = w.fl + F_BOOT * 2;
+        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+            if (!w.acc1[k]) continue;
+            const int t = w.tmap[k], node = w.prop1[k], rank = w.grank[k];
+            uint64_t m[2];
+            for (int wi = 0; wi < 2; ++wi)
+                m[wi] = w.mgrp[t * 2 + wi] | w.manti[t * 2 + wi]
+                        | w.mreq[t * 2 + wi];
+            for_bits(m, [&](int q) {
+                const int d = p.node_dom[(size_t)q * N + node];
+                const bool car = has_bit(w.manti + t * 2, q);
+                if (d >= 0) {
+                    const size_t i = (size_t)q * (D + 1) + d;
+                    if (car) atomicMin(&w.cmin[i], rank);
+                    else if (has_bit(w.mgrp + t * 2, q))
+                        atomicMin(&w.mmin[i], rank);
+                }
+                if (has_bit(w.mreq + t * 2, q)) atomicMin(&w.bmin[q], rank);
+            });
+            if (p.PT && w.mports[t]) atomicMin(&w.pmin[node], rank);
+        }
+        __syncthreads();
+        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+            if (!w.acc1[k]) continue;
+            const int t = w.tmap[k], node = w.prop1[k], rank = w.grank[k];
+            for_bits(w.mreq + t * 2, [&](int q) {
+                if (rank == w.bmin[q]) {
+                    const int d = p.node_dom[(size_t)q * N + node];
+                    atomicMax(&w.bdom[q], d >= 0 ? d : D);
+                }
+            });
+        }
+        __syncthreads();
+        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+            if (!w.acc1[k]) continue;
+            const int t = w.tmap[k], node = w.prop1[k], rank = w.grank[k];
+            uint64_t m[2];
+            for (int wi = 0; wi < 2; ++wi)
+                m[wi] = w.mgrp[t * 2 + wi] | w.manti[t * 2 + wi]
+                        | w.mreq[t * 2 + wi];
+            bool keep = true;
+            for_bits(m, [&](int q) {
+                const int d = p.node_dom[(size_t)q * N + node];
+                const int seg = d >= 0 ? d : D;
+                const size_t i = (size_t)q * (D + 1) + seg;
+                const int cmin = w.cmin[i], mmin = w.mmin[i];
+                if (has_bit(w.manti + t * 2, q))
+                    keep = keep && rank == cmin && cmin < mmin;
+                else if (has_bit(w.mgrp + t * 2, q))
+                    keep = keep && (!(cmin < IMAX) || mmin < cmin);
+                if (has_bit(w.mreq + t * 2, q) && has_bit(boot, q)) {
+                    const int bd = w.bdom[q];
+                    keep = keep && (rank == w.bmin[q]
+                                    || (seg == bd && bd < D));
+                }
+            });
+            if (p.PT && w.mports[t]) keep = keep && rank == w.pmin[node];
+            w.acc1[k] = keep;
+        }
+        __syncthreads();
+    }
+
+    // block 0: add (sign 1) or subtract (-1) task t's placement at node
+    // into the carry (reference _aff_delta; exact integer atomics)
+    __device__ void aff_apply(int t, int node, int sign) {
+        const int N = p.N, D = p.D, A = p.A;
+        uint64_t m[2];
+        for (int wi = 0; wi < 2; ++wi)
+            m[wi] = w.mgrp[t * 2 + wi] | w.manti[t * 2 + wi]
+                    | w.mcarry[t * 2 + wi];
+        for_bits(m, [&](int q) {
+            const int d = p.node_dom[(size_t)q * N + node];
+            const bool g = has_bit(w.mgrp + t * 2, q);
+            if (g) atomicAdd(&w.gtot[q], sign);
+            if (d < 0) return;
+            const size_t i = (size_t)q * D + d;
+            if (g) atomicAdd(&w.gcnt[i], sign);
+            if (has_bit(w.manti + t * 2, q)) atomicAdd(&w.acnt[i], sign);
+            if (has_bit(w.mcarry + t * 2, q))
+                atomicAdd(&w.prefw[i],
+                          sign * (int32_t)p.tcarry[(size_t)t * A + q]);
+        });
+        if (p.PT && w.mports[t]) {
+            unsigned long long* c = (unsigned long long*)&w.pclaim[node];
+            if (sign > 0) atomicOr(c, w.mports[t]);
+            else atomicAnd(c, ~w.mports[t]);
+        }
+    }
+
+    // block 0: the round's accepted placements into the carry
+    __device__ void aff_commit() {
+        const int tc = tcur();
+        for (int k = threadIdx.x; k < tc; k += blockDim.x)
+            if (w.accept[k]) aff_apply(w.tmap[k], w.prop1[k], 1);
+        __syncthreads();
+    }
+
+    // grid, at the end: the float carry and the claim matrix
+    __device__ void aff_write_out() {
+        const size_t ad = (size_t)p.A * p.D;
+        for (size_t i = gtid; i < ad; i += gsize) {
+            p.gcnt_out[i] = (float)w.gcnt[i];
+            p.acnt_out[i] = (float)w.acnt[i];
+            p.prefw_out[i] = (float)w.prefw[i];
+        }
+        for (int q = gtid; q < p.A; q += gsize)
+            p.gtot_out[q] = (float)w.gtot[q];
+        const size_t npt = (size_t)p.N * p.PT;
+        for (size_t i = gtid; i < npt; i += gsize)
+            p.pclaim_out[i] = (w.pclaim[i / p.PT] >> (i % p.PT)) & 1ull;
     }
 
     // ---- per-segment sums in task-index order (block 0) ---------------
@@ -758,7 +1286,8 @@ struct Cycle {
     __device__ void fail_and_kill() {
         const int tc = tcur();
         for (int k = gtid; k < tc; k += gsize) {
-            const bool f = w.part[k] && !w.any_elig[k];
+            bool f = w.part[k] && !w.any_elig[k];
+            if (f && p.aff) f = !could_wait(k, w.tmap[k]);
             w.fail_now[k] = f;
             if (f) atomicMin(&w.fail_rank[max(p.tjob[w.tmap[k]], 0)],
                              w.grank[k]);
@@ -865,7 +1394,10 @@ struct Cycle {
             const int pw = w.ord_sh[min(slot, N - 1)];
             const float init[3] = {p.init[t * 3], p.init[t * 3 + 1],
                                    p.init[t * 3 + 2]};
-            const bool water = cell(p.tsig[t], init, pw) && slot_ok;
+            bool water = cell(p.tsig[t], init, pw) && slot_ok;
+            if (p.aff)
+                water = water && aff_cell(aff_row(t), pw)
+                        && !(p.ip && w.ip_scored[k]);
             w.prop1[k] = water ? pw : w.fb[k];
         }
     }
@@ -944,9 +1476,11 @@ struct Cycle {
     }
 
     // block 0: capacity commit of accepted proposals, per node in
-    // task-index order (idle/rel: sum then subtract; nz: onto the carry)
+    // task-index order (idle/rel: sum then subtract; nz: onto the carry
+    // with ``fold_nz`` — phase 1, whose ``nz + segment_sum`` XLA folds
+    // into the scatter — else summed, then added: the retry's)
     __device__ void commit_node(const uint8_t* acc, const int32_t* prop,
-                                const uint8_t* pa) {
+                                const uint8_t* pa, bool fold_nz) {
         uint64_t* keys = segment_keys([&](int k) {
             return acc[k] ? prop[k] : -1;
         });
@@ -956,7 +1490,8 @@ struct Cycle {
                                            (uint64_t)(n + 1) << 32);
             if (lo == hi) continue;
             float sa[3] = {0.0f, 0.0f, 0.0f}, sp[3] = {0.0f, 0.0f, 0.0f};
-            float z0 = p.nz[n * 2], z1 = p.nz[n * 2 + 1];
+            float z0 = fold_nz ? p.nz[n * 2] : 0.0f;
+            float z1 = fold_nz ? p.nz[n * 2 + 1] : 0.0f;
             for (int i = lo; i < hi; ++i) {
                 const int k = (int)(keys[i] & 0xffffffffu);
                 const int t = w.tmap[k];
@@ -974,8 +1509,8 @@ struct Cycle {
                 p.rel[n * 3 + r] = p.rel[n * 3 + r] - sp[r];
             }
             p.ntasks[n] += hi - lo;
-            p.nz[n * 2] = z0;
-            p.nz[n * 2 + 1] = z1;
+            p.nz[n * 2] = fold_nz ? z0 : p.nz[n * 2] + z0;
+            p.nz[n * 2 + 1] = fold_nz ? z1 : p.nz[n * 2 + 1] + z1;
         }
         __syncthreads();
     }
@@ -1053,7 +1588,10 @@ struct Cycle {
 
     // one round; returns progress (grid-uniform)
     __device__ bool run_round(int round_idx) {
-        if (b0) order_jobs();
+        if (b0) {
+            order_jobs();
+            if (p.aff) aff_flags();
+        }
         sync(PH_ORDER);
         engage();
         sync(PH_ENGAGE);
@@ -1069,8 +1607,12 @@ struct Cycle {
         node_views();
         pair_scores();
         sync(PH_SCORES);
+        if (p.aff) {
+            aff_views();
+            sync(PH_AFF_VIEWS);
+        }
         if (b0) rank_tasks();
-        row_pass(w.part, w.any_elig, w.fb);
+        row_pass(w.part, w.any_elig, w.fb, true);
         sync(PH_ROWS1);
         fail_and_kill();
         sync(PH_FAIL);
@@ -1084,19 +1626,30 @@ struct Cycle {
         sync(PH_FIT1);
         if (b0) {
             accept_phase(w.prop1, w.part2, w.pa1, w.acc1, w.ob1);
-            commit_node(w.acc1, w.prop1, w.pa1);
+            if (!p.aff) commit_node(w.acc1, w.prop1, w.pa1, true);
         }
         sync(PH_ACCEPT1);
+        if (p.aff) {
+            // remove in-round affinity / port races before the capacity
+            // commit
+            if (b0) {
+                aff_serialize();
+                commit_node(w.acc1, w.prop1, w.pa1, true);
+            }
+            sync(PH_AFF_SERIALIZE);
+        }
         // retry: rejected tasks re-propose their argmax against the
-        // mid-round carry (the round's scores)
+        // mid-round carry (the round's scores); affinity-involved tasks
+        // sit it out
         node_views();
         {
             const int tc = tcur();
             for (int k = gtid; k < tc; k += gsize)
-                w.mask[k] = w.part2[k] && !w.acc1[k];
+                w.mask[k] = w.part2[k] && !w.acc1[k]
+                            && !(p.aff && involved(w.tmap[k]));
         }
         sync(PH_VIEWS2);
-        row_pass(w.mask, w.any_elig, w.fbr);
+        row_pass(w.mask, w.any_elig, w.fbr, false);
         sync(PH_ROWS2);
         {
             const int tc = tcur();
@@ -1108,10 +1661,14 @@ struct Cycle {
         sync(PH_FIT2);
         if (b0) {
             accept_phase(w.fbr, w.retry, w.par, w.accr, w.obr);
-            commit_node(w.accr, w.fbr, w.par);
+            commit_node(w.accr, w.fbr, w.par, false);
             commit_round(round_idx);
         }
         sync(PH_ACCEPT2);
+        if (p.aff) {
+            if (b0) aff_commit();
+            sync(PH_AFF_COMMIT);
+        }
         return w.iscal[S_PROGRESS] != 0;
     }
 
@@ -1314,6 +1871,12 @@ struct Cycle {
                 w.q_alloc[q * 3 + r] = w.q_alloc[q * 3 + r] - s[r];
         }
         __syncthreads();
+        if (p.aff) {
+            // the carry's exact inverse (reference _aff_rollback)
+            for (int t = threadIdx.x; t < T; t += blockDim.x)
+                if (w.mask[t]) aff_apply(t, max(p.out[T + t], 0), -1);
+            __syncthreads();
+        }
         for (int t = threadIdx.x; t < T; t += blockDim.x) {
             const bool strand = w.stranded[max(p.tjob[t], 0)];
             const bool clear = w.mask[t]
@@ -1379,6 +1942,7 @@ struct Cycle {
             p.out[2 * p.T + t] = IMAX;
         }
         full_view();
+        if (p.aff) aff_setup();
         sync(PH_SETUP);
         int rounds;
         if (p.bucket <= 0 || p.bucket >= p.T) {
@@ -1414,6 +1978,7 @@ struct Cycle {
             stranded = w.iscal[S_STRANDED];
         }
         if (b0) frame(rounds, retries, stranded);
+        if (p.aff) aff_write_out();
     }
 };
 
@@ -1473,6 +2038,27 @@ Params make_params(const uint64_t* ptrs, const int* ints) {
     p.MT = pow2_at_least(p.T);
     p.MJ = pow2_at_least(p.J);
     p.MN = pow2_at_least(p.N);
+    p.aff = ints[I_AFF]; p.A = ints[I_A]; p.D = ints[I_D];
+    p.PT = ints[I_PT]; p.ip = ints[I_IP];
+    p.node_dom = (const int32_t*)ptrs[P_NODE_DOM];
+    p.tgrp = (const uint8_t*)ptrs[P_TGRP];
+    p.treq = (const uint8_t*)ptrs[P_TREQ_AFF];
+    p.tanti = (const uint8_t*)ptrs[P_TREQ_ANTI];
+    p.tself = (const uint8_t*)ptrs[P_TSELF_OK];
+    p.tcarry = (const float*)ptrs[P_TCARRY_W];
+    p.tpref = (const float*)ptrs[P_TPREF_W];
+    p.gcnt0 = (const float*)ptrs[P_GCNT0];
+    p.acnt0 = (const float*)ptrs[P_ACNT0];
+    p.prefw0 = (const float*)ptrs[P_PREFW0];
+    p.gtot0 = (const float*)ptrs[P_GTOT0];
+    p.tports = (const uint8_t*)ptrs[P_TPORTS];
+    p.pbase = (const uint8_t*)ptrs[P_PORT_BASE];
+    p.ipw = (const float*)ptrs[P_IPW];
+    p.gcnt_out = (float*)ptrs[P_GCNT_OUT];
+    p.acnt_out = (float*)ptrs[P_ACNT_OUT];
+    p.prefw_out = (float*)ptrs[P_PREFW_OUT];
+    p.gtot_out = (float*)ptrs[P_GTOT_OUT];
+    p.pclaim_out = (uint8_t*)ptrs[P_PCLAIM_OUT];
     return p;
 }
 
@@ -1494,9 +2080,10 @@ extern "C" int kb_batched_workspace(const int* ints, int n_ints,
     return 0;
 }
 
-// Launch the cycle. ptrs: N_PTRS device addresses (the last the
-// workspace, the one before it N_PHASES zeroed uint64 for the phase
-// times); ints: N_INTS sizes and options; info (host, 3 ints): grid,
+// Launch the cycle. ptrs: N_PTRS device addresses in the P_* order (the
+// last the workspace; P_PHASE N_PHASES zeroed uint64 for the phase
+// times; the affinity slots null without the vocabulary); ints: N_INTS
+// sizes and options; info (host, 3 ints): grid,
 // threads and dynamic shared bytes of the launch. Returns the
 // cudaError_t of the setup and the launch.
 extern "C" int kb_batched_allocate(const unsigned long long* ptrs,
@@ -1506,6 +2093,8 @@ extern "C" int kb_batched_allocate(const unsigned long long* ptrs,
         return (int)cudaErrorInvalidValue;
     const Params p = make_params((const uint64_t*)ptrs, ints);
     if (p.T >= (1 << 20) || p.J >= (1 << 24) || p.njk > 3)
+        return (int)cudaErrorInvalidValue;
+    if (p.aff && (p.A < 1 || p.A > 128 || p.D < 1 || p.PT < 0 || p.PT > 64))
         return (int)cudaErrorInvalidValue;
     Work w;
     layout(p, (char*)ptrs[P_WS], &w);

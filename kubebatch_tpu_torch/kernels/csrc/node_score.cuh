@@ -6,8 +6,9 @@
 // float32 operations are the plain version's, one for one and in the same
 // order (kubebatch_tpu_torch/kernels/solver.py dynamic_node_score_plain).
 // The sources are built with -fmad=false: a contracted
-// (cap - req) * 10 >= d * cap or 10 - diff * 10 rounds differently and
-// flips integer scores.
+// (cap - req) * 10 >= d * cap rounds differently and flips integer
+// scores. 10 - diff * 10 is one explicit fused multiply-add, as XLA:CPU's
+// compiled kernels evaluate it (its LLVM backend contracts the pair).
 #pragma once
 
 #include <math.h>
@@ -45,7 +46,7 @@ __device__ __forceinline__ float dynamic_node_score(
     const float frac1 = (cap_mem > 0.0f) ? req1 / cap_mem : 1.0f;
     const float diff = fabsf(frac0 - frac1);
     const float balanced = (frac0 >= 1.0f || frac1 >= 1.0f)
-        ? 0.0f : truncf(ten - diff * ten);
+        ? 0.0f : truncf(__fmaf_rn(-diff, ten, ten));
     return least * w_least + balanced * w_bal;
 }
 

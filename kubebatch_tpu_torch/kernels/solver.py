@@ -58,18 +58,24 @@ def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
     least = torch.floor((dim[..., 0] + dim[..., 1]) / 2.0)
     frac = torch.where(cap > 0, req / torch.where(cap > 0, cap, one), one)
     diff = torch.abs(frac[..., 0] - frac[..., 1])
+    # 10 - diff * 10 as one fused multiply-add, as XLA:CPU's compiled
+    # kernels evaluate it (its LLVM backend contracts the pair on an FMA
+    # target): the float64 product and difference are exact, so the one
+    # rounding to float32 is the FMA's
+    fused = (10.0 - diff.to(torch.float64) * 10.0).to(f32)
     balanced = torch.where((frac[..., 0] >= 1.0) | (frac[..., 1] >= 1.0),
-                           zero, torch.trunc(ten - diff * ten))
+                           zero, torch.trunc(fused))
     return least * dyn_weights[0] + balanced * dyn_weights[1]
 
 
 def dynamic_node_score_np(nz_req: np.ndarray, t_nz: np.ndarray,
                           allocatable_cm: np.ndarray,
                           dyn_weights: np.ndarray) -> np.ndarray:
-    """:func:`dynamic_node_score_plain` in numpy float32, for the victim
-    chooser's host-side fresh-score recompute (kernels/victims.py). Every
-    scalar is pinned to float32, so numpy's arithmetic matches the
-    kernels' float32 arithmetic bit for bit."""
+    """The node score in numpy float32, for the victim chooser's
+    host-side fresh-score recompute (kernels/victims.py), as the
+    reference's numpy recompute evaluates it: every scalar pinned to
+    float32 and, unlike the compiled kernels, 10 - diff * 10 as two
+    roundings."""
     f32 = np.float32
     ten = f32(10.0)
     req = nz_req + t_nz[None, :]                      # [N,2]

@@ -12,8 +12,9 @@ when every registered callback is expressible:
   node-affinity weights -> score matrix) and a dynamic part
   (least-requested + balanced-resource, computed in-kernel from the
   capacity carry; see DynamicScoreSpec);
-- inter-pod affinity and host ports depend on in-cycle assignments and
-  are outside the fused solve's vocabulary: the cycle takes the host path;
+- inter-pod affinity and host ports depend on in-cycle assignments:
+  outside the fused solve's vocabulary, carried by the batched engine
+  (kernels/affinity.py) and by the victim path's host-side masks;
 - anything else (a third-party plugin callback) returns None and the
   allocate action keeps the reference-literal host path for the cycle.
 """
@@ -65,11 +66,28 @@ def _active(ssn, fns: dict, disable_attr: str):
     return names
 
 
-def device_supported(ssn, pending: Sequence[TaskInfo]) -> bool:
+def device_supported(ssn, pending: Sequence[TaskInfo],
+                     allow_affinity: bool = False) -> bool:
     """Cheap pre-check (no tensorization, no device work): can this cycle's
     registered callbacks run on device at all? Lets the action skip
     DeviceSession construction — a full-cluster upload — on snapshots that
-    will take the host path anyway."""
+    will take the host path anyway.
+
+    ``allow_affinity``: the batched engine carries inter-pod affinity and
+    host ports in its round state (kernels/affinity.py) — build_cycle_inputs
+    passes True and the dynamic-feature check is skipped (the affinity
+    encoder still refuses past its own vocabulary caps). The victim
+    solvers also pass True and apply an exact host-side node mask and
+    interpod score at choice time (affinity.SessionAffinityMasks). The
+    fused and per-visit allocate paths keep the strict default."""
+    return unsupported_reason(ssn, pending, allow_affinity) is None
+
+
+def unsupported_reason(ssn, pending: Sequence[TaskInfo],
+                       allow_affinity: bool = False) -> Optional[str]:
+    """Why ``device_supported`` fails (None where it holds): "a volume
+    binder", "predicate or node-order plugins outside the device terms",
+    or "dynamic_features: ..." for inter-pod affinity and host ports."""
     from ..cache.interface import NullVolumeBinder
 
     # a real volume binder makes placement feasibility depend on per-node
@@ -77,17 +95,18 @@ def device_supported(ssn, pending: Sequence[TaskInfo]) -> bool:
     # try-next-node semantics
     if type(getattr(ssn.cache, "volume_binder", None)) \
             is not NullVolumeBinder:
-        return False
+        return "a volume binder"
     pred_plugins = _active(ssn, ssn.predicate_fns, "predicate_disabled")
     order_plugins = _active(ssn, ssn.node_order_fns, "node_order_disabled")
-    if any(p not in _DEVICE_PREDICATE_PLUGINS for p in pred_plugins):
-        return False
-    if any(p not in _DEVICE_NODE_ORDER_PLUGINS for p in order_plugins):
-        return False
-    if (pred_plugins or order_plugins) \
-            and dynamic_features(ssn, pending) is not None:
-        return False
-    return True
+    if any(p not in _DEVICE_PREDICATE_PLUGINS for p in pred_plugins) \
+            or any(p not in _DEVICE_NODE_ORDER_PLUGINS
+                   for p in order_plugins):
+        return "predicate or node-order plugins outside the device terms"
+    if not allow_affinity and (pred_plugins or order_plugins):
+        dyn = dynamic_features(ssn, pending)
+        if dyn is not None:
+            return f"dynamic_features: {dyn}"
+    return None
 
 
 def solver_terms(ssn, device, pending: Sequence[TaskInfo],

@@ -1293,6 +1293,12 @@ class VictimSolver:
         self.dispatches = 0
         self.dispatch_kinds = {"wave": 0, "prefetch": 0, "refresh": 0,
                                "visit": 0}
+        #: affinity / host-port node masks and interpod scores
+        #: (kernels/affinity.SessionAffinityMasks) over the DeviceSession
+        #: ``_aff_device``'s columns, set by build_victim_solver when the session
+        #: carries the features; None otherwise
+        self.aff_masks = None
+        self._aff_device = None
 
     @property
     def dyn_enabled(self) -> bool:
@@ -1399,6 +1405,14 @@ class VictimSolver:
     # ------------------------------------------------------------------
     def visit(self, task: TaskInfo, filter_kind: str,
               visited: np.ndarray) -> VisitResult:
+        if self.aff_masks is not None:
+            # fold the exact affinity / port node mask into the visited
+            # set: the analysis stays affinity-blind, the CHOICE skips the
+            # nodes the host predicate would reject (reference
+            # victims.py:1409-1416)
+            mask = self.aff_masks.node_mask(task, self._aff_device)
+            if mask is not None:
+                visited = visited | ~mask
         key = (filter_kind, task.uid)
         if self._wave_on and key in self._wave_cache:
             return self._choose(key, task, filter_kind, visited)
@@ -1494,6 +1508,14 @@ class VictimSolver:
                     score = entry["static_score"].astype(np.float32)
                     if self.dyn_enabled:
                         score = score + self._dyn_scores(entry["p_nz"])
+                    if self.aff_masks is not None \
+                            and self.aff_masks.with_scores:
+                        # nodeorder's interpod term from the current
+                        # assignments (reference victims.py:1518-1525)
+                        ip = self.aff_masks.score_norm(task,
+                                                       self._aff_device)
+                        if ip is not None:
+                            score = score + ip
                     order_rank = np.lexsort((st.host_rank, -score))
                 else:
                     order_rank = np.lexsort((st.host_rank,))
@@ -1617,11 +1639,14 @@ def build_action_solver(ssn, fns_attr: str, disabled_attr: str,
     in any job, or none materialized as a victim row), None when nothing
     is pending (the host loops then have nothing to do), or the solver.
 
-    A snapshot outside the analysis's vocabulary (an unknown tier plugin,
-    a volume binder, inter-pod affinity or host ports, no device terms)
-    raises NotImplementedError on a CUDA cache; on a CPU cache it returns
-    None, and the action runs its host loops, counted as an engine
-    demotion."""
+    Inter-pod affinity and host ports ride the analysis through exact
+    host-side node masks (kernels/affinity.SessionAffinityMasks). A
+    snapshot outside the analysis's vocabulary (an unknown tier plugin, a
+    volume binder, an affinity vocabulary past the masks' raw window —
+    counted in metrics.affinity_host_fallback_total, as the reference
+    counts it — or no device terms) raises NotImplementedError on a CUDA
+    cache; on a CPU cache it returns None, and the action runs its host
+    loops, counted as an engine demotion."""
     if not any(TaskStatus.RUNNING in j.task_status_index
                for j in ssn.jobs.values()):
         return SKIP_ACTION
@@ -1665,6 +1690,8 @@ def _build_victim_solver(ssn, pending, fns_attr, disabled_attr,
                          score_nodes):
     """(solver, None), or (None, why the snapshot is outside the
     vocabulary)."""
+    from .affinity import SessionAffinityMasks
+    from .encode import dynamic_features
     from .solver import ensure_device_snapshot
     from .terms import _active, device_supported, solver_terms
 
@@ -1682,15 +1709,36 @@ def _build_victim_solver(ssn, pending, fns_attr, disabled_attr,
     unknown = [n for n in ssn.victim_veto_fns if n not in KNOWN_TIER_PLUGINS]
     if unknown:
         return None, f"victim veto plugins {unknown}"
-    if not device_supported(ssn, pending):
-        return None, ("a volume binder, custom predicate/order plugins, or "
-                      "inter-pod affinity or host ports (ROADMAP A7, the "
-                      "affinity vocabulary)")
+    # affinity / host ports gate only the PREEMPTOR's node choice (no
+    # tier fn reads them): the analysis stays valid with an exact
+    # host-side node mask and interpod score at choice time (reference
+    # victims.py:1770-1830)
+    if not device_supported(ssn, pending, allow_affinity=True):
+        return None, ("a volume binder or predicate/node-order plugins "
+                      "outside the device terms")
+    pred_active = bool(_active(ssn, ssn.predicate_fns, "predicate_disabled"))
+    order_active = bool(_active(ssn, ssn.node_order_fns,
+                                "node_order_disabled"))
+    aff_masks = None
+    aff_scored = False
+    if (pred_active or order_active) \
+            and dynamic_features(ssn, pending) is not None:
+        # the actions build wave solvers, whose host-side chooser
+        # reproduces the interpod score exactly
+        aff_scored = bool(score_nodes and order_active)
+        if pred_active or aff_scored:
+            # with_predicates gates the mask half: a disabled predicates
+            # plugin must not have affinity / ports enforced
+            aff_masks = SessionAffinityMasks(
+                ssn, pending, with_scores=aff_scored,
+                with_predicates=pred_active)
+            if not aff_masks.supported:
+                return None, ("an affinity / host-port vocabulary past "
+                              "the victim masks' raw window")
     device = ensure_device_snapshot(ssn)
     terms = solver_terms(ssn, device, pending, assume_supported=True)
     if terms is None:
         return None, "no device terms for the session's plugins"
-    pred_active = bool(_active(ssn, ssn.predicate_fns, "predicate_disabled"))
     ns = device.state
     state = VictimState(
         ssn, node_index=ns.index, n_pad=ns.n_padded,
@@ -1702,4 +1750,11 @@ def _build_victim_solver(ssn, pending, fns_attr, disabled_attr,
         veto_critical="conformance" in ssn.victim_veto_fns,
         score_nodes=score_nodes, room_check=pred_active, pending=pending,
         device=getattr(ssn.cache, "device", DEFAULT_DEVICE))
+    if aff_masks is not None:
+        solver.aff_masks = aff_masks
+        solver._aff_device = device
+        if aff_scored:
+            # every node choice flows through the wave chooser, where the
+            # interpod term is reproduced
+            solver._wave_on = True
     return solver, None

@@ -4,10 +4,10 @@ Plain integers (no Prometheus exporter in this package yet): consumers
 read a counter before and after a window and diff. Counted: the
 blocking device->host copies (``device.to_host``, one per solve or victim
 dispatch), engine demotions (a requested engine that could not run and
-handed the cycle to another), the preemption victims and attempts, and
-backfill-over-reserved's reclaims, double binds and lost reservations,
-and the event fold's folded events (per kind) and demotions (per
-reason). The remaining functions are the hooks the framework and the gang plugin
+handed the cycle to another), affinity host fallbacks, the preemption
+victims and attempts, backfill-over-reserved's reclaims, double binds
+and lost reservations, and the event fold's folded events (per kind)
+and demotions (per reason). The remaining functions are the hooks the framework and the gang plugin
 call; with no exporter they record nothing.
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ _backfill_reclaims = 0
 _backfill_tenants_evicted = 0
 _backfill_double_binds = 0
 _lost_reservations = 0
+_affinity_host_fallbacks: dict = {}
 #: the fold counters are hit from any thread that delivers cache events
 _fold_lock = threading.Lock()
 _events_folded: dict = {}
@@ -49,6 +50,26 @@ def count_engine_demotion(from_engine: str, to_engine: str) -> None:
 
 def engine_demotions_total() -> int:
     return _engine_demotions
+
+
+def count_affinity_host_fallback(site: str) -> None:
+    """Record one action whose affinity/port features pushed it off the
+    device vocabulary onto the host path, per ``site`` as the reference's
+    label: "allocate-raw-window" (raw collection window exceeded),
+    "allocate-compact-cap" (over-cap vocabulary after compaction),
+    "victim-masks" (the victim solvers' mask refusal)."""
+    _affinity_host_fallbacks[site] = _affinity_host_fallbacks.get(site, 0) + 1
+
+
+def affinity_host_fallback_total() -> int:
+    """Process-lifetime affinity-fallback count over every site;
+    consumers diff across a window."""
+    return sum(_affinity_host_fallbacks.values())
+
+
+def affinity_host_fallbacks_by_site() -> dict:
+    """Process-lifetime affinity-fallback counts per site."""
+    return dict(_affinity_host_fallbacks)
 
 
 def count_backfill_over_placement(n: int = 1) -> None:

@@ -125,6 +125,21 @@ def _namespaces_match(term, pod: Pod, other: Pod) -> bool:
     return other.namespace == pod.namespace
 
 
+def _domain_nodes(ssn: Session, key: str) -> Dict[str, List[str]]:
+    """Node names per value of node label ``key``, in session order;
+    memoized on the session (its nodes' labels do not change)."""
+    memo = ssn.__dict__.setdefault("_kb_domain_nodes", {})
+    got = memo.get(key)
+    if got is None:
+        got = memo[key] = {}
+        for name, node in ssn.nodes.items():
+            if node.node is not None:
+                value = node.node.labels.get(key)
+                if value is not None:
+                    got.setdefault(value, []).append(name)
+    return got
+
+
 def interpod_affinity_counts(ssn: Session, task: TaskInfo) -> Dict[str, float]:
     """Weighted counts per node (upstream CalculateInterPodAffinityPriority
     before normalization; hostname-equivalent topology through node
@@ -152,10 +167,10 @@ def interpod_affinity_counts(ssn: Session, task: TaskInfo) -> Dict[str, float]:
         topo_val = anchor.node.labels.get(topology_key)
         if topo_val is None:
             return
-        for name, node in ssn.nodes.items():
-            if node.node is not None and \
-                    node.node.labels.get(topology_key) == topo_val:
-                counts[name] += weight
+        # every node of the anchor's domain, in session order (the same
+        # additions, in the same order per node, as a walk over all nodes)
+        for name in _domain_nodes(ssn, topology_key).get(topo_val, ()):
+            counts[name] += weight
 
     for t in existing:
         other = t.pod

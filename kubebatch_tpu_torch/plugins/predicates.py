@@ -10,7 +10,7 @@ podLister, predicates.go:47-91).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Set
 
 from ..api import NodeInfo, TaskInfo, allocated_status
 from ..framework import PredicateError, Plugin, Session
@@ -69,32 +69,6 @@ def _allocated_tasks(ssn: Session) -> List[TaskInfo]:
     return out
 
 
-def _term_matches_on_node(ssn: Session, term: PodAffinityTerm,
-                          node: NodeInfo, pod: Pod,
-                          candidates: List[TaskInfo]) -> bool:
-    """Does any existing (allocated or on-node) pod matching `term` sit in
-    `node`'s topology domain? Topology is resolved through node labels
-    (hostname by default). A node lacking the topology key belongs to NO
-    domain (upstream semantics) — None never matches."""
-    topo_val = _topology_value(ssn, node, term.topology_key)
-    if topo_val is None:
-        return False
-    for t in candidates:
-        other = t.pod
-        if term.namespaces and other.namespace not in term.namespaces:
-            continue
-        if not term.namespaces and other.namespace != pod.namespace:
-            continue
-        if not term.selects(other):
-            continue
-        other_node = ssn.nodes.get(t.node_name)
-        if other_node is None:
-            continue
-        if _topology_value(ssn, other_node, term.topology_key) == topo_val:
-            return True
-    return False
-
-
 def _topology_value(ssn: Session, node: NodeInfo, key: str) -> Optional[str]:
     if node.node is None:
         return None
@@ -139,51 +113,98 @@ def anti_affinity_candidates(tasks: List[TaskInfo]) -> List[TaskInfo]:
             and t.pod.affinity.pod_anti_affinity_required]
 
 
-def satisfies_pod_affinity(ssn: Session, task: TaskInfo, node: NodeInfo,
-                           candidates: List[TaskInfo],
-                           anti_candidates: Optional[List[TaskInfo]] = None
-                           ) -> bool:
-    # symmetry check applies to pods WITHOUT own affinity too
+def own_term_domains(ssn: Session, task: TaskInfo,
+                     candidates: List[TaskInfo]) -> dict:
+    """For each of ``task``'s required (anti-)affinity terms, the topology
+    values holding a candidate the term selects — and for a required
+    affinity term whether any candidate matches cluster-wide (the
+    bootstrap rule). Task-dependent only: callers compute it once per
+    (task, epoch) instead of scanning the candidates at every node."""
     aff = task.pod.affinity or Affinity()
-    for term in aff.pod_affinity_required:
-        if _term_matches_on_node(ssn, term, node, task.pod, candidates):
-            continue
-        # first-pod special case (upstream anySchedulable semantics): a pod
-        # matching its own affinity selector may start the group when
-        # nothing matches cluster-wide
-        if (not _cluster_has_match(ssn, term, task.pod, candidates)
-                and term.selects(task.pod)
-                and (not term.namespaces
-                     or task.pod.namespace in term.namespaces)):
-            continue
-        return False
-    for term in aff.pod_anti_affinity_required:
-        if _term_matches_on_node(ssn, term, node, task.pod, candidates):
-            return False
-    # symmetry: existing pods' required ANTI-affinity must not reject us
-    # (callers precompute the anti-affinity-carrying sublist per epoch)
-    if anti_candidates is None:
-        anti_candidates = anti_affinity_candidates(candidates)
-    topo_cache: Dict[str, Optional[str]] = {}
+
+    def values(term):
+        out = set()
+        for t in candidates:
+            other = t.pod
+            if term.namespaces and other.namespace not in term.namespaces:
+                continue
+            if not term.namespaces and other.namespace != task.pod.namespace:
+                continue
+            if not term.selects(other):
+                continue
+            other_node = ssn.nodes.get(t.node_name)
+            if other_node is None:
+                continue
+            value = _topology_value(ssn, other_node, term.topology_key)
+            if value is not None:
+                out.add(value)
+        return out
+
+    return {"req": [(values(term),
+                     _cluster_has_match(ssn, term, task.pod, candidates))
+                    for term in aff.pod_affinity_required],
+            "anti": [values(term) for term in aff.pod_anti_affinity_required]}
+
+
+def symmetry_domains(ssn: Session, task: TaskInfo,
+                     anti_candidates: List[TaskInfo]
+                     ) -> Dict[str, Set[str]]:
+    """The topology domains (key -> values) where an existing pod's
+    required anti term selects ``task``: the symmetry check rejects a node
+    whose value for one of those keys is among them. It depends on the
+    task, not the node, so callers compute it once per (task, epoch)
+    instead of scanning every carrier at every node."""
+    out: Dict[str, Set[str]] = {}
     for t in anti_candidates:
-        other_aff = t.pod.affinity
         other_node = ssn.nodes.get(t.node_name)
         if other_node is None:
             continue
-        for term in other_aff.pod_anti_affinity_required:
+        for term in t.pod.affinity.pod_anti_affinity_required:
             if term.namespaces and task.pod.namespace not in term.namespaces:
                 continue
             if not term.namespaces and task.pod.namespace != t.pod.namespace:
                 continue
             if not term.selects(task.pod):
                 continue
-            key = f"{t.node_name}/{term.topology_key}"
-            if key not in topo_cache:
-                topo_cache[key] = _topology_value(ssn, other_node,
-                                                  term.topology_key)
-            if (topo_cache[key] is not None and topo_cache[key]
-                    == _topology_value(ssn, node, term.topology_key)):
-                return False
+            value = _topology_value(ssn, other_node, term.topology_key)
+            if value is not None:
+                out.setdefault(term.topology_key, set()).add(value)
+    return out
+
+
+def satisfies_pod_affinity(ssn: Session, task: TaskInfo, node: NodeInfo,
+                           own: dict, sym_domains: Dict[str, Set[str]]
+                           ) -> bool:
+    """The inter-pod (anti-)affinity predicate of ``task`` at ``node``
+    (ref: predicates.go:47-104), from the domains its own required terms
+    reach (own_term_domains) and the domains where existing pods'
+    required anti terms reject it (symmetry_domains), both of one
+    candidate set. A node lacking a term's topology key belongs to no
+    domain (upstream semantics)."""
+    aff = task.pod.affinity or Affinity()
+    for term, (vals, has_match) in zip(aff.pod_affinity_required,
+                                       own["req"]):
+        value = _topology_value(ssn, node, term.topology_key)
+        if value is not None and value in vals:
+            continue
+        # first-pod special case (upstream anySchedulable semantics): a pod
+        # matching its own affinity selector may start the group when
+        # nothing matches cluster-wide
+        if (not has_match and term.selects(task.pod)
+                and (not term.namespaces
+                     or task.pod.namespace in term.namespaces)):
+            continue
+        return False
+    for term, vals in zip(aff.pod_anti_affinity_required, own["anti"]):
+        value = _topology_value(ssn, node, term.topology_key)
+        if value is not None and value in vals:
+            return False
+    # symmetry: existing pods' required ANTI-affinity must not reject us
+    # (it applies to pods without own affinity too)
+    for key, values in sym_domains.items():
+        value = _topology_value(ssn, node, key)
+        if value is not None and value in values:
+            return False
     return True
 
 
@@ -221,7 +242,16 @@ class PredicatesPlugin(Plugin):
                 # required anti-affinity — normally none, and scanning the
                 # full list per (task, node) call dominates whole actions
                 memo["anti"] = anti_affinity_candidates(memo["tasks"])
+                memo["sym"] = {}
             return memo["tasks"], memo["anti"]
+
+        def domains(task, candidates, anti_candidates):
+            got = memo["sym"].get(task.uid)
+            if got is None:
+                got = memo["sym"][task.uid] = (
+                    own_term_domains(ssn, task, candidates),
+                    symmetry_domains(ssn, task, anti_candidates))
+            return got
 
         def predicate(task: TaskInfo, node: NodeInfo) -> None:
             # pod count (ref: predicates.go:127)
@@ -247,8 +277,10 @@ class PredicatesPlugin(Plugin):
                     f"task <{task.namespace}/{task.name}> does not "
                     f"tolerate node <{node.name}> taints")
             candidates, anti_candidates = cached_candidates()
-            if not satisfies_pod_affinity(ssn, task, node, candidates,
-                                          anti_candidates):
+            # the domains the terms reach are the task's, not the node's:
+            # one scan of the candidates per (task, epoch)
+            own, sym = domains(task, candidates, anti_candidates)
+            if not satisfies_pod_affinity(ssn, task, node, own, sym):
                 raise PredicateError(
                     f"task <{task.namespace}/{task.name}> "
                     f"affinity/anti-affinity failed on node <{node.name}>")

@@ -43,7 +43,6 @@ from kubebatch_tpu_torch import metrics as t_metrics  # noqa: E402
 from kubebatch_tpu_torch.actions import allocate as t_allocate_mod  # noqa: E402
 from kubebatch_tpu_torch.actions import allocate_batched  # noqa: E402
 from kubebatch_tpu_torch.actions.allocate import AllocateAction as TAllocate  # noqa: E402
-from kubebatch_tpu_torch.conf import shipped_tiers as t_tiers  # noqa: E402
 from kubebatch_tpu_torch.framework import CloseSession as TClose  # noqa: E402
 from kubebatch_tpu_torch.framework import OpenSession as TOpen  # noqa: E402
 from kubebatch_tpu_torch.interop import (cycle_inputs_from_numpy,  # noqa: E402
@@ -53,7 +52,8 @@ from kubebatch_tpu_torch.kernels import xla_order  # noqa: E402
 from kubebatch_tpu_torch.sim import ClusterSpec as TSpec  # noqa: E402
 
 from .fixtures import build_group, build_node, build_pod, build_queue, rl  # noqa: E402
-from .test_torch_cycle import Side, _assert_same  # noqa: E402
+from .test_torch_cycle import (Side, _assert_same, b8_tiers,  # noqa: E402
+                              over_vocabulary_pod)
 
 GiB = 1024 ** 3
 STATIC_KEYS = ("job_keys", "queue_keys", "prop_overused", "dyn_enabled",
@@ -415,24 +415,38 @@ def test_auto_runs_batched_cycle_as_reference(config):
 
 
 def test_batched_unsupported_snapshot_falls_back_to_host_counted():
-    """Inter-pod affinity is outside the batched vocabulary here: on a
-    CPU cache the cycle runs the host path, counted as a demotion."""
+    """2p with one pod whose anti-affinity names more label selectors
+    than the vocabulary's caps: the batched engine refuses (counted as
+    an affinity host fallback), the cycle runs the host loops as the
+    reference does, counted as a demotion, and binds as the reference's
+    host cycle binds."""
+    from kubebatch_tpu import objects as j_objects
+    from kubebatch_tpu_torch import objects as t_objects
+    from kubebatch_tpu_torch.kernels.affinity import MAX_PAIRS
+
     j, t = Side(False, "2p"), Side(True, "2p")
+    over_vocabulary_pod(j.cache, j_objects, MAX_PAIRS + 1)
+    over_vocabulary_pod(t.cache, t_objects, MAX_PAIRS + 1)
     dem0 = t_metrics.engine_demotions_total()
+    aff0 = t_metrics.affinity_host_fallback_total()
     j.cycle("host")
     t.cycle("batched")
     assert t_metrics.engine_demotions_total() == dem0 + 1
+    assert t_metrics.affinity_host_fallback_total() == aff0 + 1
     assert t_allocate_mod.last_cycle_engine == "host-visit"
+    assert t_allocate_mod.last_host_reason.startswith("dynamic_features")
     assert t.binder.calls
     _assert_same(j, t)
 
 
 def test_batched_unsupported_snapshot_on_the_card_raises():
-    t = Side(True, "2p")
+    """Custom job order with device terms (the reference's per-visit
+    scan, ROADMAP B8) raises on a CUDA cache in batched mode too."""
+    t = Side(True, 2)
     t.cache.device = torch.device("cuda")
     dem0 = t_metrics.engine_demotions_total()
-    ssn = TOpen(t.cache, t_tiers())
-    with pytest.raises(NotImplementedError, match="A7 affinity"):
+    ssn = TOpen(t.cache, b8_tiers())
+    with pytest.raises(NotImplementedError, match="B8"):
         TAllocate(mode="batched").execute(ssn)
     TClose(ssn)
     assert t_metrics.engine_demotions_total() == dem0

@@ -704,3 +704,167 @@ def test_folded_cycles_on_the_card_decide_as_the_cpu():
         assert c[3] == 0
         if k:
             assert g[3] >= 1 and g[4], f"cycle {k}: no row refresh"
+
+
+# ---- the affinity vocabulary (B12) -----------------------------------------
+
+class AffWorld:
+    """Affinity scenario constructors bound to one package's objects module
+    (the CPU parity tests build the same worlds in the reference's
+    objects too)."""
+
+    def __init__(self, mod):
+        self.m = mod
+
+    def rl(self, cpu, mem, pods=110):
+        return self.m.resource_list(cpu=cpu, memory=mem, gpu=0.0, pods=pods)
+
+    def node(self, name, cpu=8000, mem=16 * GiB, labels=None):
+        alloc = self.rl(cpu, mem)
+        return self.m.Node(name=name, allocatable=dict(alloc),
+                           capacity=dict(alloc), labels=dict(labels or {}))
+
+    def pod(self, name, node="", req=(500, GiB), group="", labels=None,
+            affinity=None, ports=(), running=False, ns="e2e", priority=None):
+        m = self.m
+        ann = {m.GROUP_NAME_ANNOTATION: group} if group else {}
+        return m.Pod(uid=f"{ns}-{name}", name=name, namespace=ns,
+                     node_name=node,
+                     phase=m.PodPhase.RUNNING if running
+                     else m.PodPhase.PENDING,
+                     containers=[m.Container(
+                         requests=dict(self.rl(req[0], req[1], 0)),
+                         ports=list(ports))],
+                     annotations=ann, labels=dict(labels or {}),
+                     affinity=affinity, priority=priority)
+
+    def group(self, name, min_member, queue="default"):
+        return self.m.PodGroup(name=name, namespace="e2e",
+                               min_member=min_member, queue=queue)
+
+    def queue(self, name="default", weight=1):
+        return self.m.Queue(name=name, weight=weight)
+
+    def term(self, labels, topo="kubernetes.io/hostname"):
+        return self.m.PodAffinityTerm(match_labels=dict(labels),
+                                      topology_key=topo)
+
+    def anti(self, labels, topo="kubernetes.io/hostname"):
+        return self.m.Affinity(pod_anti_affinity_required=[
+            self.term(labels, topo)])
+
+    def aff(self, labels, topo="kubernetes.io/hostname"):
+        return self.m.Affinity(pod_affinity_required=[
+            self.term(labels, topo)])
+
+    def pref(self, weight, labels, topo="kubernetes.io/hostname"):
+        return self.m.Affinity(pod_affinity_preferred=[
+            (weight, self.term(labels, topo))])
+
+    def hostname_nodes(self, cache, n, cpu=8000, zone_of=None):
+        for i in range(n):
+            labels = {"kubernetes.io/hostname": f"n{i}"}
+            if zone_of:
+                labels["zone"] = zone_of(i)
+            cache.add_node(self.node(f"n{i}", cpu=cpu, labels=labels))
+
+
+def aff_rollback_build(cache, w):
+    """Anti-affine 3-gangs over 4 hostnames beside gangs with preferred
+    co-location and a host port: contended enough that partial gangs
+    strand and the epilogue subtracts their carry."""
+    w.hostname_nodes(cache, 4, cpu=2000, zone_of=lambda i: f"z{i % 2}")
+    for j in range(5):
+        cache.add_pod_group(w.group(f"g{j}", 3))
+        for p in range(3):
+            cache.add_pod(w.pod(
+                f"g{j}-{p}", req=(700, GiB), group=f"g{j}",
+                labels={"app": f"a{j % 2}"},
+                affinity=(w.anti({"app": f"a{j % 2}"}) if j % 2 == 0
+                          else w.pref(5, {"app": "a0"})),
+                ports=[9000 + j] if j == 3 else ()))
+
+
+def aff_compact_build(cache, w):
+    """1,200 pending tasks (T_pad 2,048) on 40 roomy nodes: round 0
+    places most of them and leaves a few hundred — the anti-affine jobs'
+    serialized replicas, port claimants — for the rounds on the compact
+    bucket. Every 12th job anti-affine, some with preferred terms or
+    host ports."""
+    rng = np.random.default_rng(7)
+    w.hostname_nodes(cache, 40, cpu=16000, zone_of=lambda i: f"z{i % 2}")
+    for j in range(60):
+        cache.add_pod_group(w.group(f"pg{j:03d}", 1))
+        for p in range(20):
+            affinity, ports = None, ()
+            if j % 12 == 0:
+                affinity = w.anti({"app": f"a{j % 4}"})
+            elif j % 7 == 1:
+                affinity = w.pref(3, {"app": f"a{(j + 1) % 4}"})
+            if j % 11 == 2:
+                ports = [7000 + p % 3]
+            cache.add_pod(w.pod(
+                f"j{j:03d}-p{p}", group=f"pg{j:03d}",
+                req=(int(rng.integers(1, 9)) * 100,
+                     int(rng.integers(1, 5)) * GiB // 32),
+                labels={"app": f"a{j % 4}"}, affinity=affinity,
+                ports=ports))
+
+
+T_AFF = AffWorld(__import__("kubebatch_tpu_torch.objects",
+                            fromlist=["objects"]))
+
+#: the affinity kernel's cases: predicate-rich cold cycles, the stranded
+#: rollback, the compact bucket
+AFF_CASES = ["2p", "3p", "5p", "rollback", "compact"]
+
+
+def _aff_cache(case, device):
+    cache = SchedulerCache(async_writeback=False, device=device)
+    if case in ("rollback", "compact"):
+        cache.add_queue(T_AFF.queue())
+        (aff_rollback_build if case == "rollback"
+         else aff_compact_build)(cache, T_AFF)
+    else:
+        build_cluster(BASELINE_SPECS[case]).populate(cache)
+    return cache
+
+
+def assert_affinity_kernel_matches_plain(args, statics):
+    """One launch of the batched kernel with affinity against the plain
+    engine on CPU copies: packed result, node carry and the affinity
+    carry, bit for bit."""
+    n0 = _build.launch_count("batched_allocate")
+    got = batched_allocate(**args, **statics)
+    torch.cuda.synchronize()
+    assert _build.launch_count("batched_allocate") == n0 + 1
+    cpu_statics = dict(statics, aff={k: v.cpu()
+                                     for k, v in statics["aff"].items()})
+    want = batched_allocate_plain(**{k: v.cpu() for k, v in args.items()},
+                                  **cpu_statics)
+    _assert_bitwise(want[:5], [g.cpu() for g in got[:5]], "batched_allocate")
+    for name, w in want[5].items():
+        g = got[5][name]
+        assert (w is None) == (g is None), name
+        if w is not None:
+            _assert_bitwise([w], [g.cpu()], name)
+    return want
+
+
+@pytest.mark.parametrize("case", AFF_CASES)
+def test_batched_affinity_kernel_matches_plain(case):
+    _need_cuda()
+    inputs = build_cycle_inputs(OpenSession(_aff_cache(case, "cuda"),
+                                            shipped_tiers()),
+                                allow_affinity=True)
+    assert inputs.affinity is not None
+    args, statics = prepare_batched(inputs)
+    want = assert_affinity_kernel_matches_plain(args, statics)
+    t_pad = inputs.task_valid.shape[0]
+    if case == "compact":
+        # (tests/test_torch_affinity.py shows the case takes the compact
+        # branch)
+        assert 0 < statics["compact_bucket"] < t_pad
+    if case == "rollback":
+        telem = want[0][3 * t_pad + 1:]
+        assert int(telem[14]) > 0 or int(telem[15]) > 0

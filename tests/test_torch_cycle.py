@@ -187,15 +187,67 @@ def test_unsupported_snapshot_falls_back_to_host_counted():
     _assert_same(j, t)
 
 
+class _FifoOrder:
+    """A custom job-order plugin (creation order): outside every
+    whole-cycle engine's key vocabulary, while the predicates and scores
+    stay device terms — the reference runs its per-visit device scan."""
+
+    def __init__(self, arguments=None):
+        self.arguments = arguments or {}
+
+    @property
+    def name(self):
+        return "fifo-order"
+
+    def on_session_open(self, ssn):
+        def job_order_fn(l, r):
+            return (l.creation_timestamp > r.creation_timestamp) \
+                - (l.creation_timestamp < r.creation_timestamp)
+        ssn.add_job_order_fn("fifo-order", job_order_fn)
+
+    def on_session_close(self, ssn):
+        pass
+
+
+def b8_tiers():
+    """The shipped tiers with the custom job-order plugin in front."""
+    from kubebatch_tpu_torch.conf import PluginOption
+    from kubebatch_tpu_torch.framework.registry import \
+        register_plugin_builder
+
+    register_plugin_builder("fifo-order", _FifoOrder)
+    tiers = t_tiers()
+    tiers[0].plugins.insert(0, PluginOption(name="fifo-order"))
+    return tiers
+
+
+def over_vocabulary_pod(cache, m, n_terms):
+    """A pending single-pod gang whose required anti-affinity names
+    ``n_terms`` distinct label selectors (past the vocabulary's caps)."""
+    cache.add_pod_group(m.PodGroup(name="many", namespace="ns",
+                                   min_member=1, queue="q1"))
+    cache.add_pod(m.Pod(
+        uid="ns-many-0", name="many-0", namespace="ns",
+        containers=[m.Container(requests=m.resource_list(
+            cpu=100, memory=GiB))],
+        annotations={m.GROUP_NAME_ANNOTATION: "many"},
+        affinity=m.Affinity(pod_anti_affinity_required=[
+            m.PodAffinityTerm(match_labels={f"k{i}": "v"})
+            for i in range(n_terms)])))
+
+
 def test_unsupported_snapshot_on_the_card_raises():
-    """On a CUDA cache the same cycle raises instead of moving the
-    allocate off the card. The cache only claims the card here: the
-    vocabulary check refuses the cycle before anything is uploaded."""
-    t = Side(True, "2p")
+    """A cycle outside the fused solve's vocabulary for which the
+    reference has a device route — a custom job-order plugin with device
+    predicates and scores, its per-visit scan (ROADMAP B8) — raises on a
+    CUDA cache instead of moving the allocate off the card. The cache
+    only claims the card here: the gate refuses the cycle before
+    anything is uploaded."""
+    t = Side(True, 2)
     t.cache.device = torch.device("cuda")
     dem0 = t_metrics.engine_demotions_total()
-    ssn = TOpen(t.cache, t_tiers())
-    with pytest.raises(NotImplementedError, match="affinity vocabulary"):
+    ssn = TOpen(t.cache, b8_tiers())
+    with pytest.raises(NotImplementedError, match="B8"):
         TAllocate(mode="fused").execute(ssn)
     TClose(ssn)
     assert t_metrics.engine_demotions_total() == dem0

@@ -59,7 +59,10 @@ def test_port_imports_without_jax_or_reference_package():
                  "kubebatch_tpu_torch.kernels.victims",
                  "kubebatch_tpu_torch.actions.preempt",
                  "kubebatch_tpu_torch.actions.reclaim",
-                 "kubebatch_tpu_torch.actions.backfill"):
+                 "kubebatch_tpu_torch.actions.backfill",
+                 "kubebatch_tpu_torch.kernels.affinity",
+                 "kubebatch_tpu_torch.kernels.terms",
+                 "kubebatch_tpu_torch.actions.cycle_inputs"):
         assert must in mods
 
 

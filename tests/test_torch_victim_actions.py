@@ -61,6 +61,7 @@ from kubebatch_tpu_torch.framework import CloseSession as TClose  # noqa: E402
 from kubebatch_tpu_torch.framework import OpenSession as TOpen  # noqa: E402
 from kubebatch_tpu_torch.kernels import _build  # noqa: E402
 from kubebatch_tpu_torch.kernels import victims as tv  # noqa: E402
+from kubebatch_tpu_torch.kernels.affinity import RAW_PAIR_LIMIT  # noqa: E402
 from kubebatch_tpu_torch.sim import BASELINE_SPECS as T_SPECS  # noqa: E402
 from kubebatch_tpu_torch.sim import ClusterSpec as TSpec  # noqa: E402
 from kubebatch_tpu_torch.sim import build_cluster as t_build  # noqa: E402
@@ -609,15 +610,19 @@ def test_preemption_two_cycles_binds_like_reference():
 
 
 # ---------------------------------------------------------------------
-# vocabulary: affinity on a CUDA cache raises, on a CPU cache demotes
+# vocabulary: an affinity snapshot the victim masks refuse raises on a
+# CUDA cache and demotes on a CPU cache
 # ---------------------------------------------------------------------
 
 def _affinity_world(cache, w):
+    """A preemptor whose anti-affinity names more label selectors than
+    the masks' raw collection window."""
     reclaim_cross_queue(cache, w)
     cache.add_pod_group(w.group("ns", "aff", 1, queue="qb"))
     pod = w.pod("ns", "aff-0", "", False, w.rl(1000, 2 * GiB), group="aff")
     pod.affinity = w.m.Affinity(pod_anti_affinity_required=[
-        w.m.PodAffinityTerm(match_labels={"app": "block"})])
+        w.m.PodAffinityTerm(match_labels={f"k{i}": "block"})
+        for i in range(RAW_PAIR_LIMIT + 1)])
     cache.add_pod(pod)
 
 
@@ -627,8 +632,10 @@ def test_affinity_snapshot_raises_on_cuda_and_demotes_on_cpu(action):
     side.cache.device = torch.device("cuda")     # a cache claiming the card
     ssn = side.open()
     act = make_actions((action,), True)[0]
-    with pytest.raises(NotImplementedError, match="A7"):
+    aff0 = t_metrics.affinity_host_fallback_total()
+    with pytest.raises(NotImplementedError, match="raw window"):
         act.execute(ssn)
+    assert t_metrics.affinity_host_fallback_total() == aff0 + 1
 
     dem0 = t_metrics.engine_demotions_total()
     got = run(_affinity_world, (action,), True)
