@@ -59,6 +59,25 @@ fold the affinity masks into the node choice, each launch bitwise equal
 to plain. The 5p cold launch is timed (events, profiler, the phase
 timers' affinity phases) beside its bound.
 
+Phase (f) is the scheduler loop, the port's entry point: a
+``runtime.Scheduler`` (the shipped conf, ``subcycle=True``) on an
+incremental cfg5 cache runs phase (a)'s three periods as guarded cycles
+(the same placements, no cycle failure, ladder level 0, host ms per
+action from the spans); a fault plan fails ``device.dispatch`` six
+times while churn piles up, the ladder falls to level 2 and stays there
+(over a CUDA cache the card's "fused" tier is its last: the host loops
+are a CPU cache's level 3 only), its cycle runs fused, capped and
+counted, and healthy cycles climb back to level
+0 through the subprocess CUDA probe (a 1 s cooldown); 64 latency-lane
+pods arrive through ``cache.add_pod`` and sub-cycles place them (one
+``allocate_scan`` launch and one counted sync a visit; the next full
+cycle re-places none). Then ``solver="jax"`` runs a cold cfg5 period,
+1,250 visits on csrc/allocate_scan.cu, whose decisions must equal a CPU
+cache's fed the same events, and a custom job order on cfg3 takes the
+fused -> visit route. Every ``allocate_scan`` launch is recorded and
+held bitwise against the plain scan on the card; the kernel is timed at
+one cfg5 gang beside its bound.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -541,11 +560,12 @@ def batched_placed(packed, t_pad: int) -> int:
     return int(((state >= 1) & (state <= 3)).sum())
 
 
-def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
+def victim_phases(dev, spec5, spec4, churn: int = 256):
     """The shipped four-action policy on ``dev``: (a) ``spec5`` cold +
     two skewed churn cycles of ``churn`` pods, (b) the victim kernels at
     full width at that state, (c) one cycle of ``spec4``. Returns the
-    victim kernels' entries of the kernels line."""
+    victim kernels' entries of the kernels line and (a)'s binds in
+    order."""
     import numpy as np
     import torch
 
@@ -569,8 +589,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
     t0 = time.perf_counter()
     sim = build_cluster(spec5)
     evictor = CountingEvictor()
-    cache = SchedulerCache(device=dev, binder=NullBinder(),
-                           evictor=evictor)
+    binder_a = RecordingBinder()
+    cache = SchedulerCache(device=dev, binder=binder_a, evictor=evictor)
     sim.populate(cache)
     n_cold = len(sim.pods)
     log(f"(a) cfg5, shipped actions {', '.join(SHIPPED_ACTIONS)}, "
@@ -612,6 +632,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
                 "frames": [{f: int(v) for f, v in zip(
                     telemetry.FIELDS, frame) if v}
                     for frame in telemetry.victim_frames]})
+    #: the three cycles' binds in order, for phase (f)'s scheduler loop
+    binds_a = list(binder_a.calls)
     for k, c in enumerate(cycles):
         label = ("cold" if k == 0 else
                  f"churn {churn} into queue {c['arrival_queue']}")
@@ -813,7 +835,7 @@ def victim_phases(dev, spec5, spec4, churn: int = 256) -> list:
          "note": "the shipped policy dispatches waves (the host chooses "
                  "nodes from the cached lanes), so the per-visit kernel "
                  "runs only for a solver built with wave=False"},
-    ]
+    ], binds_a
 
 
 #: bytes the dirty-row scatter moves per row (csrc/scatter_rows.cu): the
@@ -1518,6 +1540,502 @@ def batched_allocate_plain_aff(kw, aff, stats):
                                   stats=stats)
 
 
+#: float32 operations per (task row, node) cell of the per-visit scan
+#: (csrc/allocate_scan.cu): idle + backfilled, and + eps on it, on idle
+#: and on releasing (12 adds), the three fit tests (9 compares), the
+#: score add and the argmax compare; with the dynamic score its
+#: operations (node_score.cuh) and the weighted sum
+OPS_PER_CELL_SCAN = 23
+#: bytes of node state the scan reads once (idle, releasing, backfilled:
+#: 3 x f32; allocatable_cm, nz_req: 2 x f32; n_tasks, max_task_num: i32;
+#: node_ok) and of the carry it writes (idle, releasing: 3 x f32,
+#: n_tasks: i32, nz_req: 2 x f32), per node
+SCAN_READ_BYTES_PER_NODE = 61
+SCAN_WRITE_BYTES_PER_NODE = 36
+
+
+class ScanRecorder:
+    """Wraps kernels.solver.allocate_scan: keeps a copy of every launch's
+    inputs (taken before the launch) and results (the session's node
+    arrays are refreshed in place later), for the plain check after the
+    run."""
+
+    def __init__(self):
+        from kubebatch_tpu_torch.kernels import solver
+
+        self.mod = solver
+        self.inner = solver.allocate_scan
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        names = self.mod.SCAN_ARGS + ("dyn_enabled",)
+        if len(args) > len(names):
+            raise TypeError("allocate_scan: too many arguments")
+        bound = dict(zip(names, args))
+        bound.update(kw)
+        copy = {k: v.clone() if hasattr(v, "clone") else v
+                for k, v in bound.items()}
+        out = self.inner(**bound)
+        # the carry becomes the session's arrays, refreshed in place later
+        self.calls.append((copy, [o.clone() for o in out]))
+        return out
+
+    def __enter__(self):
+        self.mod.allocate_scan = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.allocate_scan = self.inner
+
+    def check(self, what: str) -> float:
+        """Every recorded launch bitwise against the plain scan on the
+        card, on the copies; drops the records. Returns the max abs
+        error (0)."""
+        from kubebatch_tpu_torch.kernels.solver import allocate_scan_plain
+
+        err = 0.0
+        for kw, got in self.calls:
+            want = allocate_scan_plain(**kw)
+            assert_bitwise(want, got, f"allocate_scan {what}")
+            err = max(err, max_abs_err(want, got))
+        n = len(self.calls)
+        self.calls = []
+        log(f"(f) {what}: {n} allocate_scan launches bitwise equal to the "
+            f"plain scan on the card")
+        return err
+
+
+def scan_bounds(kw, out) -> dict:
+    """One visit's roofline: the node state and the [T, N] rows read
+    once and the carry and packed block written once, over the memory
+    rate, against OPS_PER_CELL_SCAN (plus the dynamic score's) per
+    (task row, node) cell over the float32 rate."""
+    n = kw["idle"].shape[0]
+    t = kw["resreq"].shape[0]
+    nbytes = (n * (SCAN_READ_BYTES_PER_NODE + SCAN_WRITE_BYTES_PER_NODE)
+              + t * n * 5 + t * 36 + out[0].numel() * 4)
+    per_cell = OPS_PER_CELL_SCAN + (OPS_PER_NODE_SCORE + 1
+                                    if kw.get("dyn_enabled") else 0)
+    b_ms, b_by = bound(nbytes, t * n * per_cell)
+    return {"bytes": nbytes, "ops": t * n * per_cell, "bound_ms": b_ms,
+            "bound_by": b_by, "t_pad": t, "n_pad": n}
+
+
+class FifoOrder:
+    """A custom job-order plugin (creation order): no whole-cycle engine
+    expresses it, so allocate takes the per-visit route. The tests hold
+    the same plugin (tests/test_torch_cuda.py); this script imports
+    nothing of tests."""
+
+    def __init__(self, arguments=None):
+        self.arguments = arguments or {}
+
+    @property
+    def name(self):
+        return "fifo-order"
+
+    def on_session_open(self, ssn):
+        ssn.add_job_order_fn("fifo-order", lambda l, r: (
+            (l.creation_timestamp > r.creation_timestamp)
+            - (l.creation_timestamp < r.creation_timestamp)))
+
+    def on_session_close(self, ssn):
+        pass
+
+
+def action_ms(root) -> dict:
+    """Host ms per action of a finished cycle root (the action spans
+    under its session span)."""
+    sess = root.find("session") if root is not None else None
+    return {c.name: round(c.dur * 1e3, 3)
+            for c in (sess.children if sess else ()) if c.cat == "action"}
+
+
+def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
+    """(f) the scheduler loop on the card: a Scheduler on a cfg5
+    incremental cache (the shipped conf, subcycle=True) runs guarded
+    periods (cold batched, two skewed churn cycles fused: binds equal
+    phase (a)'s ``binds_a``), a fault plan walks the degradation ladder
+    down to level 2, where six failures leave it over the card, and the
+    healthy cycles climb back through the subprocess
+    CUDA probe, 64 latency-lane pods arrive through cache.add_pod and
+    are placed by sub-cycles; then a solver="jax" cold cfg5 period (every
+    visit one allocate_scan launch, decisions equal to a CPU cache's),
+    and a custom job order on cfg3 (fused -> visit). Every allocate_scan
+    launch is held bitwise against the plain scan on the card. Returns
+    the kernels-line entry of allocate_scan."""
+    import numpy as np
+    import torch
+
+    from kubebatch_tpu_torch import faults, metrics, obs
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.framework.registry import \
+        register_plugin_builder
+    from kubebatch_tpu_torch.kernels import _build, solver
+    from kubebatch_tpu_torch.objects import (GROUP_NAME_ANNOTATION,
+                                             Container, Pod, PodGroup,
+                                             PodPhase, resource_list)
+    from kubebatch_tpu_torch.runtime import Scheduler
+    from kubebatch_tpu_torch.runtime.subcycle import (LANE_ANNOTATION,
+                                                      LATENCY_LANE)
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    conf = open(os.path.join(HERE, "config", "kube-batch-conf.yaml")).read()
+    kernel_names = ("allocate_scan", "batched_allocate", "fused_allocate",
+                    "victim_wave", "scatter_rows")
+    faults.reset()
+    ladder = faults.LADDER
+    ladder.policy = faults.BackoffPolicy(cooldown=1.0)
+    paths = {}
+
+    def kubelet(sim, cache):
+        for pod in sim.pods:
+            if pod.node_name and pod.phase == PodPhase.PENDING:
+                pod.phase = PodPhase.RUNNING
+                cache.update_pod(pod, pod)
+
+    # ---- 1. guarded periods ---------------------------------------------
+    t0 = time.perf_counter()
+    sim = build_cluster(spec5)
+    binder = RecordingBinder()
+    cache = SchedulerCache(device=dev, binder=binder,
+                           evictor=CountingEvictor())
+    sim.populate(cache)
+    sched = Scheduler(cache, conf, subcycle=True)
+    probe_walls = []
+
+    def timed_probe():
+        t = time.perf_counter()
+        ok = sched._recovery_probe()
+        probe_walls.append((time.perf_counter() - t, ok))
+        return ok
+
+    ladder.probe = timed_probe
+    log(f"(f) cfg5, Scheduler(shipped conf, subcycle=True) on an "
+        f"incremental cache: populated in {time.perf_counter() - t0:.1f} s")
+    fail0 = metrics.cycle_failures_by_reason()
+    dem0 = metrics.engine_demotions_by_pair()
+    _build.reset_launch_counts()
+    periods = []
+    with ScanRecorder() as srec:
+        for arrival in (None, 0, 3):
+            if arrival is not None:
+                kubelet(sim, cache)
+                if sim.churn_tick(cache, churn,
+                                  arrival_queue=arrival) != churn:
+                    raise AssertionError("churn did not recycle")
+            t1 = time.perf_counter()
+            ok = sched.run_cycle()
+            cache.drain(timeout=60.0)
+            periods.append({"ok": ok, "engine": allocate_mod.last_cycle_engine,
+                            "wall_ms": (time.perf_counter() - t1) * 1e3,
+                            "actions_ms": action_ms(obs.last_cycle())})
+        paths["periods"] = {n: _build.launch_count(n) for n in kernel_names}
+        if srec.calls:
+            raise AssertionError("a shipped-policy period ran the visit scan")
+    if (paths["periods"]["batched_allocate"],
+            paths["periods"]["fused_allocate"]) != (1, 2):
+        raise AssertionError(f"period launches {paths['periods']}")
+    for k, p in enumerate(periods):
+        log(f"(f) period {k}: healthy {p['ok']}, engine {p['engine']}, "
+            f"wall {p['wall_ms']:.1f} ms, host ms per action (spans) "
+            f"{json.dumps(p['actions_ms'])}")
+    if [p["engine"] for p in periods] != ["batched", "fused", "fused"] \
+            or not all(p["ok"] for p in periods):
+        raise AssertionError(f"periods {periods}")
+    if metrics.cycle_failures_by_reason() != fail0 or ladder.level != 0:
+        raise AssertionError("a guarded period failed")
+    # both caches write back on their thread pools: the binder sees each
+    # cycle's binds in thread order, so the placements are compared
+    if sorted(binder.calls) != sorted(binds_a):
+        raise AssertionError("the scheduler's binds differ from phase (a)'s "
+                             "for the same events")
+    log(f"(f) the three periods bound {len(binder.calls)} pods, the same "
+        f"pods on the same nodes as phase (a); launches "
+        f"{json.dumps(paths['periods'])}")
+
+    # ---- 2. the degradation ladder --------------------------------------
+    # six failed cycles: two per level; over a CPU cache the last pair
+    # would reach level 3 (the host loops), over the card it stays at 2
+    faults.arm(faults.FaultPlan(counts={"device.dispatch": 6}))
+    ladder_trace = []
+    fail1 = metrics.cycle_failures_by_reason()
+    dem1 = metrics.engine_demotions_by_pair()
+    _build.reset_launch_counts()
+    t_ladder = time.perf_counter()
+    for _ in range(6):
+        kubelet(sim, cache)
+        sim.churn_tick(cache, churn)
+        ok = sched.run_cycle()
+        # a failed cycle's allocate raised before it ran an engine
+        ladder_trace.append((ok, ladder.level,
+                             allocate_mod.last_cycle_engine if ok else None))
+    if [(ok, lvl) for ok, lvl, _ in ladder_trace] != [
+            (False, 0), (False, 1), (False, 1), (False, 2), (False, 2),
+            (False, 2)]:
+        raise AssertionError(f"the ladder's walk over the card: "
+                             f"{ladder_trace}")
+    faults.disarm()
+    d0 = metrics.engine_demotions_by_pair()
+    ok = sched.run_cycle()
+    cache.drain(timeout=60.0)
+    at2 = (ok, ladder.level, allocate_mod.last_cycle_engine)
+    cap_moves = {f"{a}->{b}": v - d0.get((a, b), 0)
+                 for (a, b), v in metrics.engine_demotions_by_pair().items()
+                 if v != d0.get((a, b), 0)}
+    ladder_trace.append(at2)
+    if at2 != (True, 2, "fused"):
+        raise AssertionError(f"the level-2 cycle: {at2}")
+    deadline = time.perf_counter() + 120.0
+    while ladder.level > 0:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no re-promotion: {ladder_trace}")
+        ok = sched.run_cycle()
+        ladder_trace.append((ok, ladder.level,
+                             allocate_mod.last_cycle_engine))
+        if not ok:
+            raise AssertionError(f"a healthy cycle failed: {ladder_trace}")
+        time.sleep(0.25)
+    ladder_s = time.perf_counter() - t_ladder
+    paths["ladder"] = {n: _build.launch_count(n) for n in kernel_names}
+    fails = {k: v - fail1.get(k, 0)
+             for k, v in metrics.cycle_failures_by_reason().items()
+             if v != fail1.get(k, 0)}
+    dems = {f"{a}->{b}": v - dem1.get((a, b), 0)
+            for (a, b), v in metrics.engine_demotions_by_pair().items()
+            if v != dem1.get((a, b), 0)}
+    runs = []                       # the trace run-length encoded
+    for step in ladder_trace:
+        if runs and runs[-1][:3] == list(step):
+            runs[-1][3] += 1
+        else:
+            runs.append(list(step) + [1])
+    log(f"(f) ladder: (healthy, level, engine, cycles) "
+        f"{json.dumps(runs)}; cycle_failures_total moves "
+        f"{json.dumps(fails)}; engine_demotions_total moves {json.dumps(dems)}"
+        f", of them at cap_engine on the level-2 cycle "
+        f"{json.dumps(cap_moves)}; recovery probes (wall s, answer) "
+        f"{json.dumps([(round(w, 3), a) for w, a in probe_walls])}; "
+        f"{ladder_s:.1f} s down and back up")
+    if fails != {"exception": 6} or len(probe_walls) < 2 \
+            or not all(a for _, a in probe_walls):
+        raise AssertionError(f"ladder: failures {fails}, probes "
+                             f"{probe_walls}")
+    if cap_moves != {"batched->fused": 1}:
+        raise AssertionError(f"the level-2 cycle's cap moves {cap_moves}")
+
+    # ---- 3. the schedule-on-arrival sub-cycle ---------------------------
+    kubelet(sim, cache)
+    sched.run_cycle()
+    kubelet(sim, cache)
+    req = resource_list(cpu=500, memory=1 << 30)
+    lat_pods, lat_groups = [], []
+    for i in range(32):
+        lat_groups.append(PodGroup(name=f"lat-{i}", namespace="lat",
+                                   min_member=1, queue=f"q{i % 4 + 1}"))
+        lat_pods.append(Pod(uid=f"lat-{i}", name=f"lat-{i}", namespace="lat",
+                            containers=[Container(requests=dict(req))],
+                            annotations={GROUP_NAME_ANNOTATION: f"lat-{i}",
+                                         LANE_ANNOTATION: LATENCY_LANE}))
+    for g in range(4):
+        lat_groups.append(PodGroup(name=f"latg-{g}", namespace="lat",
+                                   min_member=8, queue=f"q{g + 1}"))
+        for p in range(8):
+            lat_pods.append(Pod(
+                uid=f"latg-{g}-{p}", name=f"latg-{g}-{p}", namespace="lat",
+                containers=[Container(requests=dict(req))],
+                annotations={GROUP_NAME_ANNOTATION: f"latg-{g}",
+                             LANE_ANNOTATION: LATENCY_LANE}))
+    for g in lat_groups:
+        cache.add_pod_group(g)
+    n_bind = len(binder.calls)
+    sub0 = metrics.subcycles_total()
+    arr0 = metrics.arrivals_observed_total()
+    rb0 = metrics.blocking_readbacks()
+    _build.reset_launch_counts()
+    with ScanRecorder() as srec:
+        t1 = time.perf_counter()
+        for pod in lat_pods:
+            cache.add_pod(pod)
+        sub_wall = time.perf_counter() - t1
+        paths["subcycle"] = {n: _build.launch_count(n) for n in kernel_names}
+        sub_syncs = metrics.blocking_readbacks() - rb0
+        sub_calls = list(srec.calls)
+        sub_err = srec.check("sub-cycle")
+    cache.drain(timeout=60.0)
+    lat_binds = [c for c in binder.calls[n_bind:] if c[0].startswith("lat")]
+    lat = sorted(metrics.arrival_latencies()[-(
+        metrics.arrivals_observed_total() - arr0):])
+    subs = metrics.subcycles_total() - sub0
+    log(f"(f) sub-cycle: 64 latency-lane arrivals (32 lone pods, 4 gangs of "
+        f"8), {subs} sub-cycles, {paths['subcycle']['allocate_scan']} "
+        f"allocate_scan launches, {sub_syncs} counted syncs, "
+        f"{len(lat_binds)} pods bound, {len(lat)} decisions; "
+        f"arrival -> decision ms p50 {1e3 * lat[len(lat) // 2]:.3f}, max "
+        f"{1e3 * lat[-1]:.3f}; {sub_wall * 1e3:.1f} ms for the 64 adds")
+    # one sub-cycle per arrival; one visit (one launch, one sync) per lone
+    # pod and per gang once its last member arrives (before that the
+    # gang plugin holds the job out of the session, as the reference's
+    # does), which decides that arrival
+    if subs != 64 or paths["subcycle"]["allocate_scan"] != 36 \
+            or sub_syncs != 36 or len(sub_calls) != 36:
+        raise AssertionError("the sub-cycles did not run one launch and one "
+                             "sync per visit")
+    if len(lat_binds) != 64 or len(lat) != 36:
+        raise AssertionError(f"{len(lat_binds)} latency pods bound, "
+                             f"{len(lat)} decisions observed")
+    n_bind = len(binder.calls)
+    kubelet(sim, cache)
+    if not sched.run_cycle():
+        raise AssertionError("the full cycle after the arrivals failed")
+    cache.drain(timeout=60.0)
+    again = [c for c in binder.calls[n_bind:] if c[0].startswith("lat")]
+    if again:
+        raise AssertionError(f"the next full cycle re-placed {len(again)} "
+                             f"latency pods")
+    log("(f) the next full cycle re-placed none of the latency pods")
+    cache.stop()
+
+    # ---- 4. solver="jax": a cold cfg5 period on the per-visit scan ------
+    def jax_period(device, spec, record: bool, tiers_conf=None,
+                   solver_mode="jax"):
+        sim = build_cluster(spec)
+        binder = RecordingBinder()
+        # write-back inline: the binder sees the binds in dispatch order
+        cache = SchedulerCache(device=device, binder=binder,
+                               async_writeback=False)
+        sim.populate(cache)
+        sched = Scheduler(cache, tiers_conf or conf, solver=solver_mode)
+        visits = []
+        inner = solver.DeviceSession.solve_job
+
+        def counted(dev_s, *a, **k):
+            visits.append(1)
+            return inner(dev_s, *a, **k)
+
+        solver.DeviceSession.solve_job = counted
+        rb0 = metrics.blocking_readbacks()
+        d0 = metrics.engine_demotions_by_pair()
+        _build.reset_launch_counts()
+        try:
+            t1 = time.perf_counter()
+            ok = sched.run_cycle()
+            wall = (time.perf_counter() - t1) * 1e3
+        finally:
+            solver.DeviceSession.solve_job = inner
+        launches = _build.launch_count("allocate_scan")
+        cache.drain(timeout=60.0)
+        states = sorted((f"{t.namespace}/{t.name}", t.status.name,
+                         t.node_name)
+                        for j in cache.jobs.values()
+                        for t in j.tasks.values())
+        dems = {f"{a}->{b}": v - d0.get((a, b), 0)
+                for (a, b), v in metrics.engine_demotions_by_pair().items()
+                if v != d0.get((a, b), 0)}
+        out = {"ok": ok, "engine": allocate_mod.last_cycle_engine,
+               "jobs": len(sim.groups),
+               "wall_ms": wall, "visits": len(visits), "launches": launches,
+               "syncs": metrics.blocking_readbacks() - rb0,
+               "binds": binder.calls, "states": states, "demotions": dems,
+               "actions_ms": action_ms(obs.last_cycle()),
+               "kernel_s": None}
+        cache.stop()
+        return out
+
+    k0 = metrics.solver_kernel_seconds()
+    h0 = metrics.host_phase_seconds().get("visit_rows", 0.0)
+    with ScanRecorder() as srec:
+        card = jax_period(dev, spec5, True)
+        jax_calls = srec.calls
+        srec.calls = []
+    card["kernel_s"] = metrics.solver_kernel_seconds() - k0
+    rows_s = metrics.host_phase_seconds().get("visit_rows", 0.0) - h0
+    paths["jax_cold"] = {"allocate_scan": card["launches"]}
+    log(f"(f) solver='jax' cold cfg5 period: healthy {card['ok']}, engine "
+        f"{card['engine']}, {card['visits']} visits, {card['launches']} "
+        f"allocate_scan launches, {card['syncs']} counted syncs, "
+        f"{len(card['binds'])} binds; wall {card['wall_ms']:.1f} ms, host ms "
+        f"per action {json.dumps(card['actions_ms'])}, of allocate "
+        f"{card['kernel_s'] * 1e3:.1f} ms in the visits' solve spans "
+        f"(uploads, launch, sync) and {rows_s * 1e3:.1f} ms building the "
+        f"[T, N] rows")
+    if not card["ok"] or card["engine"] != "jax-visit" \
+            or not (card["visits"] == card["launches"] == card["syncs"]
+                    == card["jobs"]):
+        raise AssertionError(f"jax period: {card['engine']}, visits "
+                             f"{card['visits']}, launches {card['launches']}"
+                             f", syncs {card['syncs']}")
+    srec = ScanRecorder()
+    srec.calls = jax_calls
+    jax_err = srec.check("jax cold cfg5")
+    main_kw, main_out = jax_calls[-1]
+    t0 = time.perf_counter()
+    cpu = jax_period("cpu", spec5, False)
+    log(f"(f) the same events on a CPU cache: {cpu['visits']} visits, "
+        f"{len(cpu['binds'])} binds in {(time.perf_counter() - t0):.1f} s")
+    if cpu["binds"] != card["binds"] or cpu["states"] != card["states"] \
+            or cpu["engine"] != card["engine"]:
+        first = next((k for k, (a, b) in enumerate(zip(
+            cpu["binds"], card["binds"])) if a != b), None)
+        raise AssertionError(
+            f"the card's jax period decides differently from the CPU "
+            f"cache's: engines {card['engine']} / {cpu['engine']}, binds "
+            f"{len(card['binds'])} / {len(cpu['binds'])}, first differing "
+            f"bind {first}")
+    log("(f) every task's status and node, and the bind order, equal the "
+        "CPU cache's")
+
+    # ---- 5. a custom job order on cfg3: fused -> visit ------------------
+    register_plugin_builder("fifo-order", FifoOrder)
+    fifo_conf = conf.replace("  - name: priority",
+                             "  - name: fifo-order\n  - name: priority", 1)
+    with ScanRecorder() as srec:
+        c3 = jax_period(dev, spec3, True, tiers_conf=fifo_conf,
+                        solver_mode="fused")
+        c3_err = srec.check("custom order cfg3")
+    paths["custom_order"] = {"allocate_scan": c3["launches"]}
+    log(f"(f) cfg3 with a custom job order, solver='fused': engine "
+        f"{c3['engine']}, demotions {json.dumps(c3['demotions'])}, "
+        f"{c3['visits']} visits, {c3['launches']} launches, {c3['syncs']} "
+        f"syncs, {len(c3['binds'])} binds, wall {c3['wall_ms']:.1f} ms")
+    if c3["engine"] != "fused-visit" or c3["demotions"] != {
+            "fused->visit": 1} or not (
+            c3["visits"] == c3["launches"] == c3["syncs"] > 0):
+        raise AssertionError(f"custom order cycle: {c3['engine']}, "
+                             f"{c3['demotions']}")
+    faults.reset()
+
+    # ---- timings at the main path's shape (T_pad 8, N_pad 8,192) --------
+    run_kw = {k: v for k, v in main_kw.items()}
+    event_ms = cuda_ms(lambda: solver.allocate_scan(**run_kw), reps=200)
+    prof_ms = profiled_ms(lambda: solver.allocate_scan(**run_kw),
+                          "allocate_scan_kernel", reps=50)
+    plain_ms = cuda_ms(lambda: solver.allocate_scan_plain(**run_kw), reps=5)
+    sb = scan_bounds(run_kw, main_out)
+    log(f"allocate_scan T_pad {sb['t_pad']}, N_pad {sb['n_pad']}: "
+        f"{event_ms:.4f} ms per launch back to back (events, 200 launches), "
+        f"{prof_ms} ms device time (profiler); plain {plain_ms:.3f} ms on "
+        f"the card; bound {sb['bound_ms']:.6f} ms ({sb['bound_by']}: "
+        f"{sb['bytes']} B, {sb['ops']} float32 operations)")
+    launches = sum(p["allocate_scan"] for p in paths.values())
+    return {"name": "allocate_scan", "route": "cuda",
+            "source": "kubebatch_tpu_torch/kernels/csrc/allocate_scan.cu",
+            "replaces": "kubebatch_tpu/kernels/solver.py:103",
+            "launches": launches, "launches_per_path": paths,
+            "max_abs_err": max(sub_err, jax_err, c3_err),
+            "ms": prof_ms if prof_ms is not None else event_ms,
+            "event_ms": event_ms, "profiler_ms": prof_ms,
+            "plain_ms": plain_ms, "plain_device": "cuda",
+            "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+            "library_ms": None, "library_call": "none",
+            "t_pad": sb["t_pad"], "n_pad": sb["n_pad"],
+            "jax_cold_wall_ms": card["wall_ms"],
+            "subcycle_arrival_ms_p50": 1e3 * lat[len(lat) // 2],
+            "subcycle_arrival_ms_max": 1e3 * lat[-1],
+            "probe_wall_s": [round(w, 3) for w, _ in probe_walls]}
+
+
 def main() -> int:
     import torch
 
@@ -1846,12 +2364,15 @@ def main() -> int:
         f"N={n_pad}")
     cache.stop()
 
-    kernels += victim_phases(
+    victim_entries, binds_a = victim_phases(
         dev, BASELINE_SPECS[5],
         dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95))
+    kernels += victim_entries
     kernels.append(fold_phase(dev, BASELINE_SPECS[5]))
     kernels.append(affinity_phase(dev, BASELINE_SPECS["5p"],
                                   BASELINE_SPECS["3p"]))
+    kernels.insert(3, scheduler_phase(dev, BASELINE_SPECS[5],
+                                      BASELINE_SPECS[3], binds_a))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

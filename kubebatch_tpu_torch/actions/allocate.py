@@ -1,6 +1,6 @@
 """allocate — the primary scheduling action.
 
-Solver modes (constructor arg):
+Solver modes (constructor arg; the scheduler loop's ``solver=``):
 - "auto" (default): the reference package's size-based choice on a node
   axis below AUTO_HIER_MIN_NODES — "fused" below AUTO_BATCHED_MIN pending
   tasks, "batched" at or above it. The reference runs its sharded round
@@ -20,26 +20,35 @@ Solver modes (constructor arg):
 - "batched": the round engine (kernels/batched.py) as ONE device solve —
   many placements per round, every round on the device; the same replay.
   Exact in capacity, predicates and gang semantics, round-granular in
-  ordering (its docstring states the contract).
-- "batched" carries inter-pod affinity and host ports (the vocabulary of
-  kernels/affinity.py) in its rounds; "fused" has no affinity carry.
-- A cycle outside every engine's vocabulary takes the reference's own
-  route (its allocate.py:345-361): the requested engine refuses without
-  consuming state, the demotion is counted (engine_demotions_total,
-  fused -> visit or batched -> visit), and the strict
-  terms.device_supported gate decides. Where it fails — an affinity or
-  host-port snapshot past the fused engine or past the batched
-  vocabulary's caps, a volume binder, custom predicate/order plugins —
-  the reference runs its host loops and so does this package, on any
-  cache ("host-visit"; the reason in last_host_reason). Where it holds
-  with custom order, overused or ready plugins, the reference runs its
-  per-visit device scan (ROADMAP B8), not ported: a CUDA cache raises
-  NotImplementedError, a CPU cache runs the host loops, which that scan
-  reproduces.
-- Only two requests raise on a CUDA cache: that per-visit scan (B8) and
-  an affinity-free cycle at AUTO_HIER_MIN_NODES or more nodes in auto
-  (the two-level engine, B10).
+  ordering (its docstring states the contract). It carries inter-pod
+  affinity and host ports (kernels/affinity.py); "fused" does not.
+- "jax": one device scan per job visit (kernels/solver.py
+  ``DeviceSession.solve_job``: one launch of csrc/allocate_scan.cu and
+  one counted copy back per visit) inside the reference's queue / job
+  loops — the route of every cycle whose plugins no whole-cycle engine
+  expresses.
 - "host": the reference-literal per-pair loops — the semantic oracle.
+- "rpc", "native", "sharded", "hier" and "activeset" as requests: not in
+  this package (NotImplementedError naming their ROADMAP items).
+
+Each cycle first asks the degradation ladder (faults.LADDER.cap_engine)
+for the engine its level allows, as the reference does; a capped engine
+is counted in engine_demotions_total. On a CUDA cache the cap never
+reaches the host loops (faults.CARD_MAX_LEVEL).
+
+A cycle outside the requested whole-cycle engine's vocabulary (custom
+job/queue order, overused or ready plugins; affinity or host ports for
+"fused"; the affinity vocabulary past the batched caps) takes the
+reference's route (its allocate.py:190-210 and :345-361): the engine
+refuses without consuming state, the demotion is counted (fused -> visit,
+batched -> visit), and the queue / job loops run with the strict
+terms.device_supported gate over the pending tasks deciding each cycle's
+visits. Where it holds, every visit is the per-visit device scan
+(``last_cycle_engine`` "<mode>-visit": "fused-visit", "batched-visit",
+"jax-visit"); where it fails (inter-pod affinity or host ports, a volume
+binder, predicate or order plugins outside the device terms), the host
+loops ("host-visit", the gate's reason in last_host_reason). Both on any
+cache.
 
 ref: pkg/scheduler/actions/allocate/allocate.go. Control flow is preserved
 exactly (queue PQ with one entry per job, overused queues dropped, one job
@@ -48,9 +57,13 @@ on first unassignable task, queue re-pushed after every visit).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-from ..api import TaskStatus
+from .. import obs
+from ..api import JobInfo, TaskInfo, TaskStatus
+from ..device import on_card
+from ..faults import LADDER as _LADDER
+from ..faults import check as _fault_check
 from ..framework import (Action, Session, VolumeAllocationError,
                          register_action)
 from ..metrics import count_engine_demotion
@@ -63,22 +76,56 @@ AUTO_BATCHED_MIN = 512
 #: ... and to its two-level engine at this many nodes
 AUTO_HIER_MIN_NODES = 16384
 
-MODES = ("auto", "fused", "batched", "host")
+MODES = ("auto", "fused", "batched", "jax", "host")
+
+#: modes of the reference this package does not have, with the ROADMAP
+#: items that bring them
+NOT_PORTED = {
+    "rpc": "the solver sidecar, ROADMAP queue A, A8",
+    "native": "the native packer, ROADMAP queue A, A7",
+    "sharded": "the sharded engines, ROADMAP queue A, A10; queue B, B14",
+    "hier": "the two-level engine, ROADMAP queue A, A3; queue B, B10",
+    "activeset": "the active-set engine, ROADMAP queue A, A3; queue B, "
+                 "B11",
+}
 
 #: engine that consumed the last allocate cycle in this process
-#: ("fused" / "batched" / "host-visit") — a fallback off the device
-#: engines shows here
+#: ("fused" / "batched" / "<mode>-visit" / "host-visit") — a fallback
+#: off the whole-cycle engines shows here
 last_cycle_engine: str = ""
 
-#: why the last "host-visit" cycle was outside every engine (the strict
-#: device_supported gate's reason; "dynamic_features: ..." for inter-pod
-#: affinity and host ports)
+#: why the last "host-visit" cycle ran the host loops ("mode='host'", or
+#: the strict device_supported gate's reason: "dynamic_features: ..."
+#: for inter-pod affinity and host ports)
 last_host_reason: str = ""
+
+
+def _effective_min_available(ssn: Session, job: JobInfo) -> int:
+    """The readiness threshold the scan enforces: with a job-ready fn
+    installed (gang), the job's MinAvailable; with none, the session
+    defaults to Ready (ref: session_plugins.go:167-186), threshold 0."""
+    for tier in ssn.tiers:
+        for plugin in tier.plugins:
+            if plugin.job_ready_disabled:
+                continue
+            if plugin.name in ssn.job_ready_fns:
+                return int(job.min_available)
+    return 0
+
+
+def _init_allocated(job: JobInfo) -> int:
+    """Initial ready-task count for the scan's in-kernel readiness."""
+    from ..api import ready_statuses
+    return job.count(*ready_statuses())
 
 
 class AllocateAction(Action):
     def __init__(self, mode: Optional[str] = None):
         mode = mode or "auto"
+        if mode in NOT_PORTED:
+            raise NotImplementedError(
+                f"allocate mode {mode!r} needs {NOT_PORTED[mode]}: not "
+                f"ported yet")
         if mode not in MODES:
             raise ValueError(f"allocate mode {mode!r} is not one of {MODES}")
         self.mode = mode
@@ -100,36 +147,50 @@ class AllocateAction(Action):
         return "batched" if pending >= AUTO_BATCHED_MIN else "fused"
 
     def execute(self, ssn: Session) -> None:
-        global last_cycle_engine, last_host_reason
+        global last_cycle_engine
         mode = self._auto_mode(ssn) if self.mode == "auto" else self.mode
-        reason = "mode='host'"
-        if mode in ("fused", "batched", "hier"):
+        # the degradation ladder's cap (faults.py): the one consult site,
+        # counted in engine_demotions_total when it caps; on a CUDA cache
+        # the cap stops at the card's last tier ("fused")
+        wanted = mode
+        mode = _LADDER.cap_engine(mode, on_card(ssn.cache))
+        if wanted == "hier" and mode == "batched" \
+                and len(ssn.nodes) >= AUTO_HIER_MIN_NODES:
+            # a demoted two-level cycle skips the flat batched engine
+            # (its [T, N] state at this node count is what the two-level
+            # split avoids) for the fused tier, as the reference does
+            count_engine_demotion("batched", "fused")
+            mode = "fused"
+        if mode in ("batched", "hier", "fused"):
+            from .allocate_batched import execute_batched
+            from .allocate_fused import execute_fused
             from .cycle_inputs import cycle_supported
-            if mode == "fused":
-                from .allocate_fused import execute_fused as run
+            # the engine that ran, or False without consuming state when
+            # the snapshot carries features the solve can't model
+            if not cycle_supported(ssn):
+                ran = False
+            elif mode == "fused":
+                ran = execute_fused(ssn) and "fused"
             else:
-                from .allocate_batched import execute_batched
-
-                def run(ssn):
-                    return execute_batched(ssn, hier=(mode == "hier"))
-            # the engine returns the engine that ran, or False (without
-            # consuming state) when the snapshot carries features the
-            # solve can't model
-            ran = cycle_supported(ssn) and run(ssn)
+                ran = execute_batched(ssn, hier=(mode == "hier"))
             if ran:
-                last_cycle_engine = ran if isinstance(ran, str) else mode
+                last_cycle_engine = ran
                 return
-            reason = outside_the_engines(ssn, mode)
             count_engine_demotion(mode, "visit")
-        self._execute_queued(ssn)
-        last_cycle_engine = "host-visit"
-        last_host_reason = reason
+            if mode == "hier":
+                mode = "batched"
+        self._execute_queued(ssn, mode)
 
-    def _execute_queued(self, ssn: Session) -> None:
-        """The reference's queue / job / task loops over the host
-        callbacks (allocate.go), the route of every host-visit cycle."""
+    def _execute_queued(self, ssn: Session, mode: str) -> None:
+        """The reference's queue / job / task loops (allocate.go), every
+        visit either the per-visit device scan or the host callbacks."""
+        global last_cycle_engine, last_host_reason
+        from ..kernels.solver import ensure_device_snapshot
+        from ..kernels.terms import solver_terms, unsupported_reason
+
         queues = PriorityQueue(ssn.queue_order_fn)
         jobs_map: Dict[str, PriorityQueue] = {}
+        pending_all: List[TaskInfo] = []
         for job in ssn.jobs.values():
             queue = ssn.queues.get(job.queue)
             if queue is None:
@@ -138,6 +199,28 @@ class AllocateAction(Action):
             queues.push(queue)
             jobs_map.setdefault(job.queue, PriorityQueue(ssn.job_order_fn))
             jobs_map[job.queue].push(job)
+            pending_all.extend(
+                t for t in job.task_status_index.get(TaskStatus.PENDING,
+                                                     {}).values()
+                if not t.resreq.is_empty())
+
+        # registered predicate / node-order callbacks run on the device
+        # when kernels/terms expresses them; the cheap gate first keeps a
+        # host cycle from paying the device snapshot
+        device = None
+        terms = None
+        reason = "mode='host'"
+        if mode in ("jax", "fused", "batched"):
+            reason = unsupported_reason(ssn, pending_all)
+            if reason is None:
+                device = ensure_device_snapshot(ssn)
+                terms = solver_terms(ssn, device, pending_all,
+                                     assume_supported=True)
+        if device is not None:
+            last_cycle_engine = f"{mode}-visit"
+        else:
+            last_cycle_engine = "host-visit"
+            last_host_reason = reason
 
         pending_tasks: Dict[str, PriorityQueue] = {}
         while not queues.empty():
@@ -158,9 +241,70 @@ class AllocateAction(Action):
                 pending_tasks[job.uid] = tasks
             tasks = pending_tasks[job.uid]
             if not tasks.empty():
-                self._visit_job_host(ssn, job, tasks, jobs)
+                if device is not None:
+                    self._visit_job_device(ssn, device, job, tasks, jobs,
+                                           terms)
+                else:
+                    self._visit_job_host(ssn, job, tasks, jobs)
             queues.push(queue)
 
+    # ------------------------------------------------------------------
+    # device path: one allocate scan per job visit
+    # ------------------------------------------------------------------
+    def _visit_job_device(self, ssn: Session, device, job: JobInfo,
+                          tasks: PriorityQueue, jobs: PriorityQueue,
+                          terms) -> None:
+        from ..kernels.solver import ALLOC, ALLOC_OB, FAIL, PIPELINE, SKIP
+        from ..kernels.tensorize import TaskBatch
+
+        # injection seam: before the dispatch AND before any session
+        # mutation, so a device fault fails the cycle without leaving
+        # half-applied decisions behind
+        _fault_check("device.dispatch")
+        ordered: List[TaskInfo] = []
+        while not tasks.empty():
+            ordered.append(tasks.pop())
+        with obs.span("visit_rows", cat="phase"):
+            batch = TaskBatch.from_tasks(ordered)
+            scores, pred = terms.matrices(batch)
+        decisions, _ = device.solve_job(
+            batch, _effective_min_available(ssn, job), _init_allocated(job),
+            scores=scores, pred_mask=pred, dyn=terms.dynamic)
+        try:
+            for task, dec in zip(ordered, decisions):
+                if dec.kind == ALLOC:
+                    ssn.allocate(task, dec.node_name, False)
+                elif dec.kind == ALLOC_OB:
+                    ssn.allocate(task, dec.node_name, True)
+                elif dec.kind == PIPELINE:
+                    ssn.pipeline(task, dec.node_name)
+                elif dec.kind == FAIL:
+                    self._record_fit_deltas(ssn, job, task)
+                    return  # job dropped (allocate.go:187-189)
+                elif dec.kind == SKIP:
+                    tasks.push(task)  # not processed; next visit
+            if ssn.job_ready(job):
+                jobs.push(job)
+        except Exception:
+            # the host apply diverged (e.g. a volume binder failure): the
+            # device carry no longer matches host truth; rebuild it
+            device.resync(ssn.nodes)
+            raise
+
+    def _record_fit_deltas(self, ssn: Session, job: JobInfo,
+                           task: TaskInfo) -> None:
+        """NodesFitDelta for the breaking task (ref: allocate.go:124-126 and
+        164-170: the map holds deltas of the last task that failed)."""
+        ssn.touched_jobs.add(job.uid)   # nodes_fit_delta isn't cloned
+        job.nodes_fit_delta = {}
+        for node in ssn.nodes.values():
+            delta = node.idle.clone()
+            delta.fit_delta(task.resreq)
+            job.nodes_fit_delta[node.name] = delta
+
+    # ------------------------------------------------------------------
+    # host path — the reference algorithm verbatim (the oracle)
+    # ------------------------------------------------------------------
     def _visit_job_host(self, ssn: Session, job, tasks: PriorityQueue,
                         jobs: PriorityQueue) -> None:
         """The reference algorithm verbatim (the oracle)."""
@@ -210,39 +354,6 @@ class AllocateAction(Action):
             if ssn.job_ready(job):
                 jobs.push(job)
                 break
-
-
-def outside_the_engines(ssn: Session, mode: str) -> str:
-    """The route of a cycle the requested engine refused (or whose
-    custom order / overused / ready plugins no whole-cycle engine
-    expresses), as the reference takes it (its allocate.py:190-210 and
-    :345-361): the strict ``terms.device_supported`` gate over the
-    pending tasks decides. Where it fails, the reference runs its host
-    loops, and so does this package: returns why (the gate's reason:
-    ``dynamic_features: ...`` for inter-pod affinity and host ports).
-    Where it holds, the reference runs its per-visit device scan
-    (kernels/solver.py _allocate_scan, ROADMAP B8), not ported: a CUDA
-    cache raises NotImplementedError; a CPU cache runs the host loops,
-    which that scan reproduces."""
-    from ..kernels.terms import unsupported_reason
-
-    pending = [t for job in ssn.jobs.values()
-               if ssn.queues.get(job.queue) is not None
-               for t in job.task_status_index.get(TaskStatus.PENDING,
-                                                  {}).values()
-               if not t.resreq.is_empty()]
-    reason = unsupported_reason(ssn, pending)
-    if reason is not None:
-        return reason
-    if ssn.cache.device.type == "cuda":
-        raise NotImplementedError(
-            f"this cycle is outside the {mode} solve's vocabulary "
-            "(custom job/queue order, overused or ready plugins) but "
-            "inside the device terms': the reference runs its "
-            "per-visit device scan here (kernels/solver.py "
-            "_allocate_scan), not ported yet (ROADMAP queue B, B8). "
-            "Use mode='host' to run the host algorithm")
-    return "per-visit scan (B8) on a CPU cache: the host loops"
 
 
 def new() -> AllocateAction:

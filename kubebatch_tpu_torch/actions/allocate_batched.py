@@ -15,6 +15,7 @@ from __future__ import annotations
 import time
 from typing import Dict
 
+from ..faults import check as _fault_check
 from ..framework import Session
 from ..kernels.batched import solve_batched
 from ..metrics import count_engine_demotion
@@ -54,6 +55,9 @@ def execute_batched(ssn: Session, hier: bool = False):
         return "hier" if hier else "batched"
     if inputs is None:
         return False
+    # injection seam: after the support gates (no state consumed yet),
+    # before the device dispatch and the replay
+    _fault_check("device.dispatch")
     if hier:
         if inputs.affinity is None:
             raise NotImplementedError(

@@ -4,7 +4,7 @@ through the Session.
 
 The replay (ssn.allocate / ssn.pipeline in the solve's assignment order)
 keeps host-side plugin state, event handlers, and the gang dispatch
-barrier identical to what the per-visit host path produces — the kernel
+barrier identical to what the per-visit paths produce — the kernel
 only *decides*, the Session still *applies*.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict
 import torch
 
 from ..device import to_host
+from ..faults import check as _fault_check
 from ..framework import Session
 from ..kernels.fused import fused_allocate, unpack_host_block
 from ..kernels.narrow import narrow_enabled
@@ -85,6 +86,8 @@ def execute_fused(ssn: Session) -> bool:
         return True
     if inputs is None:
         return False
+    # injection seam: after the support gates, before the dispatch
+    _fault_check("device.dispatch")
     device = inputs.device
     args, statics = prepare_fused(inputs)
     t2 = time.perf_counter()

@@ -25,6 +25,7 @@ ref: pkg/scheduler/cache/cache.go + event_handlers.go + util.go.
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import deque
@@ -35,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..api import (ClusterInfo, JobInfo, NodeInfo, QueueInfo, Resource,
                    TaskInfo, TaskStatus, allocated_status, job_terminated)
 from ..device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from ..faults import check as _fault_check
 from ..objects import (Node, Pod, PodDisruptionBudget, PodGroup,
                        PodGroupPhase, PodPhase, PriorityClass, Queue,
                        UNSCHEDULABLE_CONDITION, is_backfill_pod)
@@ -44,6 +46,8 @@ from .interface import (Binder, EventRecorder, Evictor, ListRecorder,
                         NullVolumeBinder, StatusUpdater, VolumeBinder)
 
 SHADOW_POD_GROUP_KEY = "kube-batch/shadow-pod-group"
+
+log = logging.getLogger("kubebatch.cache")
 
 #: retry backoff: base * 2^retries seconds, capped
 RETRY_BASE_DELAY = 0.005
@@ -168,6 +172,10 @@ class SchedulerCache:
         #: persistent per-node victim segments (kernels/victims.py
         #: SegmentStore) — same dirty/refresh discipline, in the fold
         self.victim_segments = None
+        #: observers fired (outside the lock) when a PENDING pod lands —
+        #: the schedule-on-arrival sub-cycle registers here
+        #: (runtime/subcycle.py); hooks must never raise
+        self.arrival_hooks: List[Callable[[Pod], None]] = []
         #: persistent static-term encoder state (kernels/encode.TermsCache);
         #: invalidated whenever node labels/taints/shape change
         self.terms_cache = None
@@ -369,16 +377,35 @@ class SchedulerCache:
         with self._lock:
             self._add_task(TaskInfo(pod))
             self.fold.record("pod.add")
+        self._fire_arrival_hooks(pod)
+
+    def _fire_arrival_hooks(self, pod: Pod) -> None:
+        """Notify arrival observers (the schedule-on-arrival sub-cycle)
+        of a freshly added PENDING pod — OUTSIDE the cache lock: a hook
+        opens a session, which re-enters the cache."""
+        if pod.phase != PodPhase.PENDING or not self.arrival_hooks:
+            return
+        for hook in list(self.arrival_hooks):
+            try:
+                hook(pod)
+            except Exception:   # an observer must never wedge ingestion
+                log.exception("pod arrival hook failed")
 
     def update_pod(self, old: Pod, new: Pod) -> None:
         """Delete + re-add (ref: event_handlers.go:108-122). Relevance is
-        per-side: a pod filtered at add time is treated as a fresh add."""
+        per-side: a pod filtered at add time is treated as a fresh add,
+        arrival hooks included, so a latency-lane pod that becomes
+        relevant through an update still gets its sub-cycle."""
         with self._lock:
-            if self._pod_relevant(old):
+            was_relevant = self._pod_relevant(old)
+            if was_relevant:
                 self._delete_pod_locked(old)
-            if self._pod_relevant(new):
+            now_relevant = self._pod_relevant(new)
+            if now_relevant:
                 self._add_task(TaskInfo(new))
             self.fold.record("pod.update")
+        if now_relevant and not was_relevant:
+            self._fire_arrival_hooks(new)
 
     def delete_pod(self, pod: Pod) -> None:
         with self._lock:
@@ -590,6 +617,9 @@ class SchedulerCache:
         """The API-side half of a bind: POST through the binder seam, resync
         the task on failure, emit the Scheduled event on success."""
         try:
+            # injection seam: a transient API-server write failure, healed
+            # by the rate-limited resync loop like a real one
+            _fault_check("cache.bind")
             self.binder.bind(pod, hostname)
         except Exception:
             self.resync_task(task)
@@ -751,6 +781,7 @@ class SchedulerCache:
         """One ``binder.bind_many`` call for the chunk; on failure every
         task of the chunk resyncs."""
         try:
+            _fault_check("cache.bind")    # injection seam, once per chunk
             self.binder.bind_many([(pod, hostname)
                                    for _, pod, hostname in chunk])
         except Exception:
@@ -781,6 +812,7 @@ class SchedulerCache:
 
         def do_evict(task=task, pod=pod):
             try:
+                _fault_check("cache.evict")    # injection seam
                 self.evictor.evict(pod)
             except Exception:
                 self.resync_task(task)
@@ -811,6 +843,9 @@ class SchedulerCache:
 
     def sync_task(self, old_task: TaskInfo) -> None:
         """Re-fetch ground truth and replay (ref: event_handlers.go:88-106)."""
+        # injection seam: a failed resync re-enqueues rate-limited
+        # (process_resync_tasks catches), like a failed GET would
+        _fault_check("cache.resync")
         with self._lock:
             if self.pod_lister is None:
                 new_pod: Optional[Pod] = old_task.pod

@@ -19,20 +19,22 @@ The from-scratch ``snapshot_full()`` clone is the audit view: built on
 demand (``cache.audited_snapshot`` asserts ``debug.snapshot_diff == 0``
 between the two) and by the snapshot-primary mode.
 
-Degradation rung: an audit divergence calls :meth:`EventFold.demote`,
-which flips the cache back to **snapshot-primary** (full clones every
-cycle) for the rest of the process instead of raising. Counted in
-``metrics.fold_demotions_total``.
+Degradation rung: an audit divergence, or a fired ``cache.fold``
+injection seam (faults.py) in :meth:`EventFold.record`, calls
+:meth:`EventFold.demote`, which flips the cache back to
+**snapshot-primary** (full clones every cycle) for the rest of the
+process instead of raising. Counted in ``metrics.fold_demotions_total``.
 
-ref: kubebatch_tpu/cache/eventfold.py, without the fault-injection seam
-in ``record`` and the pipelined in-flight window (neither the fault
-registry nor the pipelined loop is part of this package yet).
+ref: kubebatch_tpu/cache/eventfold.py, without the pipelined in-flight
+window (the pipelined loop is not part of this package yet).
 """
 from __future__ import annotations
 
 import logging
 from typing import Dict, Optional, Tuple
 
+from ..faults import armed as _faults_armed
+from ..faults import should_fail as _should_fail
 from ..metrics import count_event_folded, count_fold_demotion
 
 log = logging.getLogger("kubebatch.fold")
@@ -85,11 +87,17 @@ class EventFold:
     # cache lock)
     # ------------------------------------------------------------------
     def record(self, kind: str, n: int = 1) -> None:
-        """Count n folded events of one kind. No-op when the fold is
+        """Count n folded events of one kind and cross the ``cache.fold``
+        injection seam. A fired seam does NOT raise into the event
+        handler (the event was applied to truth before this call): it
+        demotes the fold to snapshot-primary. No-op when the fold is
         disabled/demoted: events_folded_total is the evidence the fold
         layer is ENGAGED."""
-        if self.enabled:
-            count_event_folded(kind, n)
+        if not self.enabled:
+            return
+        count_event_folded(kind, n)
+        if _faults_armed() and _should_fail("cache.fold"):
+            self.demote("fault")
 
     def mark_job(self, uid: str) -> None:
         if self.enabled:

@@ -36,6 +36,12 @@ def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def on_card(cache) -> bool:
+    """True when ``cache`` keeps its device arrays on a CUDA device."""
+    dev = getattr(cache, "device", None)
+    return dev is not None and torch.device(dev).type == "cuda"
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """The counted blocking device->host copy (for a CPU tensor a copy-free
     view, counted all the same so the accounting is device-independent)."""

@@ -10,8 +10,10 @@ solve: ``"fused"`` (``kernels.fused.fused_allocate``) or ``"batched"``
 packed batched inputs unpacked, including task_pair, pair_sig and
 pair_nz). :func:`victim_inputs_from_numpy` does the same for the victim
 kernels (kernels/victims.py) from the reference solver's host arrays,
-and the ``affinity_*`` helpers carry the affinity vocabulary
-(kernels/affinity.py) and the round engine's affinity arrays.
+the ``affinity_*`` helpers carry the affinity vocabulary
+(kernels/affinity.py) and the round engine's affinity arrays, and
+:func:`scan_inputs_from_numpy` the per-visit scan's arguments
+(``kernels.solver.allocate_scan``).
 """
 from __future__ import annotations
 
@@ -153,4 +155,27 @@ def victim_inputs_from_numpy(static: Sequence[np.ndarray],
         if dt == torch.float32:
             a = a.astype(np.float32)
         out[name] = torch.tensor(a, dtype=dt, device=dev)
+    return out
+
+
+def scan_inputs_from_numpy(arrays: Mapping[str, object],
+                           device: DeviceLike) -> Dict[str, object]:
+    """Every argument of ``kernels.solver.allocate_scan`` from numpy,
+    keyed by its names (``kernels.solver.SCAN_ARGS``: the node carry and
+    state, the task batch, the [T, N] score and predicate rows, the
+    readiness scalars and the nodeorder weights): tensors on ``device``
+    with the scan's dtypes, ``min_available`` / ``init_allocated`` as
+    Python ints."""
+    from .kernels import solver
+
+    dev = resolve_device(device)
+    out: Dict[str, object] = {}
+    for name in solver.SCAN_ARGS:
+        if name in ("min_available", "init_allocated"):
+            out[name] = int(np.asarray(arrays[name]))
+        else:
+            dt = torch.float32 if name == "dyn_weights" \
+                else solver.scan_arg_dtype(name)
+            out[name] = torch.tensor(np.asarray(arrays[name]), dtype=dt,
+                                     device=dev)
     return out

@@ -54,6 +54,9 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "scatter_rows.cu": {
         "kb_scatter_rows": "pii" + "p" * 9,
     },
+    "allocate_scan.cu": {
+        "kb_allocate_scan": "p" * 21 + "i" * 5 + "p",
+    },
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
     },

@@ -17,33 +17,31 @@ off that node.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..api import NodeInfo
-from ..api.resource import VEC_SCALE
-from ..device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from ..api.resource import VEC_EPS, VEC_SCALE
+from ..device import DEFAULT_DEVICE, DeviceLike, resolve_device, to_host
 from . import _build
-from .tensorize import NodeState, accumulate_nz, pack_node_raw
+from .telemetry import ENGINE_VISIT, TELEM_WIDTH, decision_frame
+from .tensorize import NodeState, TaskBatch, accumulate_nz, pack_node_raw
 
 SKIP, ALLOC, ALLOC_OB, PIPELINE, FAIL = 0, 1, 2, 3, 4
 
 
-def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
-                             allocatable_cm: torch.Tensor,
-                             dyn_weights: torch.Tensor) -> torch.Tensor:
-    """nodeorder's allocation-dependent terms over all nodes, [N] float32
-    (or [..., N] for a batch of requests ``t_nz`` [..., 2]).
+class Decision(NamedTuple):
+    kind: int
+    node_name: str
 
-    Mirrors plugins/nodeorder.py least_requested_score /
-    balanced_resource_score (upstream k8s-1.13 arithmetic). The Go integer
-    division ``((cap - req) * 10) // cap`` is evaluated as a threshold
-    count (how many d in 1..10 satisfy (cap-req)*10 >= d*cap), so float32
-    rounding can only bite when a product pair is within an ulp of equal.
-    dyn_weights: [least_requested_w, balanced_resource_w] float32.
-    """
+
+def _least_balanced(nz_req: torch.Tensor, t_nz: torch.Tensor,
+                    allocatable_cm: torch.Tensor):
+    """nodeorder's two allocation-dependent terms over all nodes, [N]
+    float32 each (or [..., N] for a batch of requests ``t_nz`` [..., 2]):
+    least-requested and balanced-resource, unweighted."""
     f32 = torch.float32
     dev = nz_req.device
     ten = torch.tensor(10.0, dtype=f32, device=dev)
@@ -65,7 +63,39 @@ def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
     fused = (10.0 - diff.to(torch.float64) * 10.0).to(f32)
     balanced = torch.where((frac[..., 0] >= 1.0) | (frac[..., 1] >= 1.0),
                            zero, torch.trunc(fused))
+    return least, balanced
+
+
+def dynamic_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
+                             allocatable_cm: torch.Tensor,
+                             dyn_weights: torch.Tensor) -> torch.Tensor:
+    """nodeorder's allocation-dependent terms over all nodes, [N] float32
+    (or [..., N] for a batch of requests ``t_nz`` [..., 2]).
+
+    Mirrors plugins/nodeorder.py least_requested_score /
+    balanced_resource_score (upstream k8s-1.13 arithmetic). The Go integer
+    division ``((cap - req) * 10) // cap`` is evaluated as a threshold
+    count (how many d in 1..10 satisfy (cap-req)*10 >= d*cap), so float32
+    rounding can only bite when a product pair is within an ulp of equal.
+    dyn_weights: [least_requested_w, balanced_resource_w] float32.
+    """
+    least, balanced = _least_balanced(nz_req, t_nz, allocatable_cm)
     return least * dyn_weights[0] + balanced * dyn_weights[1]
+
+
+def scan_node_score_plain(nz_req: torch.Tensor, t_nz: torch.Tensor,
+                          allocatable_cm: torch.Tensor,
+                          dyn_weights: torch.Tensor) -> torch.Tensor:
+    """The dynamic node score as the reference's compiled visit scan
+    evaluates it: the weighted sum is one fused multiply-add,
+    ``fma(balanced, w1, least * w0)`` (the whole-cycle engines' graphs
+    round both products; with integer weights the two agree). The
+    float64 product and sum are exact for these small integer-valued
+    terms, so the one rounding to float32 is the FMA's."""
+    least, balanced = _least_balanced(nz_req, t_nz, allocatable_cm)
+    lw = (least * dyn_weights[0]).to(torch.float64)
+    return (balanced.to(torch.float64) * dyn_weights[1].to(torch.float64)
+            + lw).to(torch.float32)
 
 
 def dynamic_node_score_np(nz_req: np.ndarray, t_nz: np.ndarray,
@@ -123,6 +153,170 @@ def dynamic_node_score(nz_req: torch.Tensor, t_nz: torch.Tensor,
     _build.check_launch("dynamic_node_score", err)
     _build.count_launch("dynamic_node_score")
     return out
+
+
+#: argument order of allocate_scan: the node carry and node state, then
+#: the job's task batch and its [T, N] rows, then the readiness scalars
+#: and the nodeorder weights
+SCAN_NODE_ARGS = ("idle", "releasing", "backfilled", "allocatable_cm",
+                  "nz_req", "max_task_num", "n_tasks", "node_ok")
+SCAN_TASK_ARGS = ("resreq", "init_resreq", "task_nz", "task_valid", "scores",
+                  "pred_mask")
+SCAN_ARGS = SCAN_NODE_ARGS + SCAN_TASK_ARGS + (
+    "min_available", "init_allocated", "dyn_weights")
+
+_SCAN_I32 = {"max_task_num", "n_tasks"}
+_SCAN_BOOL = {"node_ok", "task_valid", "pred_mask"}
+
+
+def scan_arg_dtype(name: str) -> torch.dtype:
+    """The dtype allocate_scan takes for tensor argument ``name``."""
+    return (torch.bool if name in _SCAN_BOOL
+            else torch.int32 if name in _SCAN_I32 else torch.float32)
+
+
+def allocate_scan_plain(idle, releasing, backfilled, allocatable_cm, nz_req,
+                        max_task_num, n_tasks, node_ok, resreq, init_resreq,
+                        task_nz, task_valid, scores, pred_mask,
+                        min_available: int, init_allocated: int,
+                        dyn_weights, dyn_enabled: bool = False):
+    """One job visit in plain PyTorch, on the inputs' device: the task
+    scan of the reference's ``_allocate_scan`` (kubebatch_tpu/kernels/
+    solver.py), one Python step per task row.
+
+    Each step masks the nodes (``node_ok``, a free task slot, the task's
+    predicate row, and a launch request that fits idle + backfilled or
+    releasing within VEC_EPS), adds the dynamic node score when
+    ``dyn_enabled``, takes the lowest-index argmax (-inf for masked nodes:
+    every node masked gives node 0 and FAIL), decides, and commits the
+    request to the winner: into idle for an allocation, releasing for a
+    pipeline; the winner's task count and nonzero sums grow for both. The
+    scan stops deciding once the job fails or crosses readiness
+    (``min_available``; ALLOC_OB does not count), but every row still
+    reports its argmax node, as the reference's scan does.
+
+    Returns ``(packed, idle, releasing, n_tasks, nz_req)``: packed is
+    int32 [2T + 1 + TELEM_WIDTH] — decisions, node indices, the
+    became-ready flag, the telemetry frame — and the carry is new
+    tensors (the inputs are not modified). Float orders are the
+    reference's compiled scan's: ``(idle + backfilled) + eps``,
+    ``score + dyn`` with dyn from :func:`scan_node_score_plain`, and ``nz_req + 0.0`` on every row the step does not
+    place on (a -0.0 sum becomes +0.0; idle and releasing keep their
+    -0.0 rows: ``x - 0.0`` is x)."""
+    dev = idle.device
+    f32, i32 = torch.float32, torch.int32
+    eps = torch.from_numpy(VEC_EPS).to(dev)
+    neg_inf = torch.tensor(float("-inf"), dtype=f32, device=dev)
+    idle = idle.clone()
+    rel = releasing.clone()
+    n_tasks = n_tasks.clone()
+    nz = nz_req + 0.0
+    n = idle.shape[0]
+    t_pad = resreq.shape[0]
+    index = torch.arange(n, device=dev)
+    decisions = torch.zeros(t_pad, dtype=i32, device=dev)
+    node_idx = torch.zeros(t_pad, dtype=i32, device=dev)
+    allocated = int(init_allocated)
+    done = False
+    for t in range(t_pad):
+        accessible = idle + backfilled
+        pred = node_ok & (n_tasks < max_task_num) & pred_mask[t]
+        req = init_resreq[t]
+        fit_alloc = (req <= accessible + eps).all(dim=-1)
+        fit_idle = (req <= idle + eps).all(dim=-1)
+        fit_pipe = (req <= rel + eps).all(dim=-1)
+        eligible = pred & (fit_alloc | fit_pipe)
+        score = scores[t]
+        if dyn_enabled:
+            score = score + scan_node_score_plain(
+                nz, task_nz[t], allocatable_cm, dyn_weights)
+        masked = torch.where(eligible, score, neg_inf)
+        best = int(torch.where(masked == masked.max(), index, n).min()) \
+            if n else 0
+        feasible = n > 0 and bool(eligible[best])
+        is_alloc = n > 0 and bool(fit_alloc[best])
+        over_backfill = is_alloc and not bool(fit_idle[best])
+        active = bool(task_valid[t]) and not done
+        do = active and feasible
+        decisions[t] = (SKIP if not active else FAIL if not feasible
+                        else PIPELINE if not is_alloc
+                        else ALLOC_OB if over_backfill else ALLOC)
+        node_idx[t] = best
+        if do:
+            if is_alloc:
+                idle[best] = idle[best] - resreq[t]
+            else:
+                rel[best] = rel[best] - resreq[t]
+            n_tasks[best] += 1
+            nz[best] = nz[best] + task_nz[t]
+            if not over_backfill:
+                allocated += 1
+        done = done or (active and not feasible) or (
+            do and allocated >= min_available)
+    ready = torch.tensor([int(allocated >= min_available)], dtype=i32,
+                         device=dev)
+    frame = decision_frame(ENGINE_VISIT, decisions, torch.zeros_like(
+        decisions), task_valid, waves=1, stride=1)
+    packed = torch.cat([decisions, node_idx, ready, frame])
+    return packed, idle, rel, n_tasks, nz
+
+
+def allocate_scan(idle, releasing, backfilled, allocatable_cm, nz_req,
+                  max_task_num, n_tasks, node_ok, resreq, init_resreq,
+                  task_nz, task_valid, scores, pred_mask,
+                  min_available: int, init_allocated: int, dyn_weights,
+                  dyn_enabled: bool = False):
+    """One job visit on the inputs' device: the CUDA kernel
+    (csrc/allocate_scan.cu) for CUDA tensors, :func:`allocate_scan_plain`
+    for CPU tensors. Same arguments and results; one launch per call."""
+    args = (idle, releasing, backfilled, allocatable_cm, nz_req,
+            max_task_num, n_tasks, node_ok, resreq, init_resreq, task_nz,
+            task_valid, scores, pred_mask)
+    devs = {a.device.type for a in args + (dyn_weights,)}
+    if devs == {"cpu"}:
+        return allocate_scan_plain(*args, min_available, init_allocated,
+                                   dyn_weights, dyn_enabled)
+    if devs != {"cuda"}:
+        raise ValueError(f"allocate_scan: mixed devices {devs}")
+    n = idle.shape[0]
+    t_pad = resreq.shape[0]
+    shapes = {"idle": (n, 3), "releasing": (n, 3), "backfilled": (n, 3),
+              "allocatable_cm": (n, 2), "nz_req": (n, 2),
+              "max_task_num": (n,), "n_tasks": (n,), "node_ok": (n,),
+              "resreq": (t_pad, 3), "init_resreq": (t_pad, 3),
+              "task_nz": (t_pad, 2), "task_valid": (t_pad,),
+              "scores": (t_pad, n), "pred_mask": (t_pad, n)}
+    named = dict(zip(SCAN_NODE_ARGS + SCAN_TASK_ARGS, args))
+    for name, t in named.items():
+        if t.dtype != scan_arg_dtype(name) or tuple(t.shape) != shapes[name]:
+            raise ValueError(
+                f"allocate_scan: {name} must be {scan_arg_dtype(name)} "
+                f"{shapes[name]}, got {t.dtype} {tuple(t.shape)}")
+    if dyn_weights.dtype != torch.float32 or tuple(dyn_weights.shape) != (2,):
+        raise ValueError("allocate_scan: dyn_weights must be float32 (2,)")
+    if n == 0 or t_pad == 0:
+        raise ValueError("allocate_scan: empty node or task axis")
+    c = {k: v.contiguous() for k, v in named.items()}
+    dev = idle.device
+    out_idle = torch.empty_like(c["idle"])
+    out_rel = torch.empty_like(c["releasing"])
+    out_nt = torch.empty_like(c["n_tasks"])
+    out_nz = torch.empty_like(c["nz_req"])
+    packed = torch.empty(2 * t_pad + 1 + TELEM_WIDTH, dtype=torch.int32,
+                         device=dev)
+    eps = torch.from_numpy(VEC_EPS).to(dev)
+    lib = _build.library("allocate_scan.cu")
+    err = lib.kb_allocate_scan(
+        *(c[k].data_ptr() for k in SCAN_NODE_ARGS + SCAN_TASK_ARGS),
+        dyn_weights.contiguous().data_ptr(), eps.data_ptr(),
+        out_idle.data_ptr(), out_rel.data_ptr(), out_nt.data_ptr(),
+        out_nz.data_ptr(), packed.data_ptr(),
+        n, t_pad, int(min_available), int(init_allocated),
+        int(bool(dyn_enabled)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("allocate_scan", err)
+    _build.count_launch("allocate_scan")
+    return packed, out_idle, out_rel, out_nt, out_nz
 
 
 def ensure_device_snapshot(ssn) -> "DeviceSession":
@@ -343,3 +537,57 @@ class DeviceSession:
         fresh = DeviceSession(nodes, min_bucket=self.n_padded,
                               device=self.device)
         self.__dict__.update(fresh.__dict__)
+
+    def solve_job(self, batch: TaskBatch, min_available: int,
+                  init_allocated: int,
+                  scores: Optional[np.ndarray] = None,
+                  pred_mask: Optional[np.ndarray] = None,
+                  dyn=None) -> Tuple[List[Decision], bool]:
+        """One job visit: the allocate scan over the job's pending tasks
+        (``batch``, in task order) with the session's node carry, through
+        :func:`allocate_scan` — one kernel launch on a CUDA session — and
+        ONE counted device->host copy of the packed block. Commits the
+        updated carry (idle, releasing, n_tasks, nz_req) to the session's
+        arrays. Returns per-real-task decisions and whether the job
+        crossed readiness. ``scores`` / ``pred_mask`` are the [T_pad, N]
+        static rows (``SolverTerms.matrices``); ``dyn`` a
+        terms.DynamicScoreSpec enabling the in-kernel nodeorder terms."""
+        from .. import obs
+
+        t_pad, n_pad = batch.t_padded, self.n_padded
+        if scores is None:
+            scores = np.zeros((t_pad, n_pad), np.float32)
+        if pred_mask is None:
+            pred_mask = np.ones((t_pad, n_pad), bool)
+        dyn_enabled = bool(dyn is not None and dyn.enabled)
+        weights = np.asarray(
+            [dyn.least_requested, dyn.balanced_resource] if dyn_enabled
+            else [0.0, 0.0], np.float32)
+
+        def up(a) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        with obs.span("allocate_scan", cat="kernel"):
+            packed, idle, releasing, n_tasks, nz_req = allocate_scan(
+                self.idle, self.releasing, self.backfilled,
+                self.allocatable_cm, self.nz_req, self.max_task_num,
+                self.n_tasks, self.node_ok, up(batch.resreq),
+                up(batch.init_resreq), up(batch.nz_req), up(batch.valid),
+                up(np.asarray(scores, np.float32)),
+                up(np.asarray(pred_mask, bool)), int(min_available),
+                int(init_allocated), up(weights), dyn_enabled=dyn_enabled)
+            with obs.span("readback", cat="readback"):
+                host = to_host(packed)      # the visit's ONE copy back
+        self.idle, self.releasing, self.n_tasks = idle, releasing, n_tasks
+        self.nz_req = nz_req
+        #: the last visit's telemetry frame (kernels/telemetry.py layout)
+        self.last_frame = host[2 * t_pad + 1:]
+        decisions = host[:t_pad]
+        node_idx = host[t_pad:2 * t_pad]
+        out: List[Decision] = []
+        for i in range(len(batch.tasks)):
+            kind = int(decisions[i])
+            name = (self.state.names[int(node_idx[i])]
+                    if kind in (ALLOC, ALLOC_OB, PIPELINE) else "")
+            out.append(Decision(kind, name))
+        return out, bool(host[2 * t_pad])

@@ -21,7 +21,7 @@ when every registered callback is expressible:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -50,6 +50,11 @@ class SolverTerms:
     """Everything the device solve needs for one cycle's policy terms."""
     static: StaticTerms
     dynamic: DynamicScoreSpec
+
+    def matrices(self, batch) -> Tuple[np.ndarray, np.ndarray]:
+        """[T_pad, N] static score / predicate rows for a task batch
+        (kernels/tensorize.TaskBatch), the per-visit scan's inputs."""
+        return self.static.task_rows(batch.tasks, batch.t_padded)
 
     def task_sig(self, tasks: Sequence[TaskInfo], t_pad: int) -> np.ndarray:
         return self.static.task_sig(tasks, t_pad)

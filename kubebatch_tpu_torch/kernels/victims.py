@@ -65,7 +65,6 @@ import torch
 from ..api import TaskInfo, TaskStatus, ready_statuses
 from ..api.resource import RESOURCE_DIM, VEC_EPS, VEC_SCALE
 from ..device import DEFAULT_DEVICE, DeviceLike, resolve_device, to_host
-from ..metrics import count_engine_demotion
 from . import _build
 from .solver import dynamic_node_score_np, dynamic_node_score_plain
 from .telemetry import (ENGINE_VICTIM_VISIT, ENGINE_VICTIM_WAVE, host_frame,
@@ -1644,9 +1643,10 @@ def build_action_solver(ssn, fns_attr: str, disabled_attr: str,
     snapshot outside the analysis's vocabulary (an unknown tier plugin, a
     volume binder, an affinity vocabulary past the masks' raw window —
     counted in metrics.affinity_host_fallback_total, as the reference
-    counts it — or no device terms) raises NotImplementedError on a CUDA
-    cache; on a CPU cache it returns None, and the action runs its host
-    loops, counted as an engine demotion."""
+    counts it — or no device terms) returns None on any cache, and the
+    action runs its host loops: the reference has no device route there
+    either (its build_action_solver returns None), and counts no engine
+    demotion."""
     if not any(TaskStatus.RUNNING in j.task_status_index
                for j in ssn.jobs.values()):
         return SKIP_ACTION
@@ -1656,18 +1656,9 @@ def build_action_solver(ssn, fns_attr: str, disabled_attr: str,
                                                       {}).values()]
     if not pending:
         return None
-    solver, reason = _build_victim_solver(ssn, pending, fns_attr,
-                                          disabled_attr, score_nodes)
+    solver, _ = _build_victim_solver(ssn, pending, fns_attr, disabled_attr,
+                                     score_nodes)
     if solver is None:
-        dev = getattr(ssn.cache, "device", torch.device("cpu"))
-        if dev.type == "cuda":
-            action = "preempt" if fns_attr.startswith("preempt") \
-                else "reclaim"
-            raise NotImplementedError(
-                f"this {action} action is outside the "
-                f"victim analysis's vocabulary ({reason}); the host loops "
-                "run only on a CPU cache. Use mode='host' to run them")
-        count_engine_demotion("victim", "host")
         return None
     if not solver.state.victims:
         # running tasks exist but none materialized as victim rows

@@ -7,15 +7,22 @@ dispatch), engine demotions (a requested engine that could not run and
 handed the cycle to another), affinity host fallbacks, the preemption
 victims and attempts, backfill-over-reserved's reclaims, double binds
 and lost reservations, and the event fold's folded events (per kind)
-and demotions (per reason). The remaining functions are the hooks the framework and the gang plugin
-call; with no exporter they record nothing.
+and demotions (per reason), and the scheduler loop's robustness and
+timing accounting: cycle failures per reason, injected faults per seam,
+the degradation ladder's level, lazy audits, schedule-on-arrival
+sub-cycles and their arrival -> decision latencies, and the host seconds
+the span tracer feeds per phase, action, kernel and session
+(obs/spans.py). The remaining functions are the hooks the framework and
+the gang plugin call; with no exporter they record nothing.
 """
 from __future__ import annotations
 
 import threading
+from collections import deque
 
 _blocking_readbacks = 0
 _engine_demotions = 0
+_engine_demotion_pairs: dict = {}
 _preemption_victims = 0
 _preemption_attempts = 0
 _backfill_reclaims = 0
@@ -46,10 +53,17 @@ def count_engine_demotion(from_engine: str, to_engine: str) -> None:
     the cycle to another (fused -> host on an unsupported snapshot)."""
     global _engine_demotions
     _engine_demotions += 1
+    key = (from_engine, to_engine)
+    _engine_demotion_pairs[key] = _engine_demotion_pairs.get(key, 0) + 1
 
 
 def engine_demotions_total() -> int:
     return _engine_demotions
+
+
+def engine_demotions_by_pair() -> dict:
+    """Process-lifetime demotions per (from, to) engine pair (a copy)."""
+    return dict(_engine_demotion_pairs)
 
 
 def count_affinity_host_fallback(site: str) -> None:
@@ -178,3 +192,160 @@ def fold_demotions_total() -> dict:
     """Fold demotions per reason (a copy)."""
     with _fold_lock:
         return dict(_fold_demotions)
+
+
+# ---------------------------------------------------------------------------
+# the scheduler loop: cycle failures, injected faults, the degradation
+# ladder, audits and sub-cycles. These are hit from the event-delivery
+# and write-back threads as well as the loop, so they take a lock.
+# ---------------------------------------------------------------------------
+
+_robust_lock = threading.Lock()
+_cycle_failures: dict = {}
+_fault_injected: dict = {}
+_degradation_level = 0
+_audit_cycles = 0
+_audit_failures = 0
+_subcycles = 0
+_arrivals_observed = 0
+#: the latest sub-cycle arrival -> decision latencies, seconds (bounded)
+_arrival_latencies: deque = deque(maxlen=65536)
+
+
+def count_cycle_failure(reason: str = "exception") -> None:
+    """Record one scheduling cycle that raised ("exception"), exceeded
+    its deadline budget ("deadline"), or one failed sub-cycle
+    ("subcycle"). The loop survives all of them."""
+    with _robust_lock:
+        _cycle_failures[reason] = _cycle_failures.get(reason, 0) + 1
+
+
+def cycle_failures_total() -> int:
+    with _robust_lock:
+        return sum(_cycle_failures.values())
+
+
+def cycle_failures_by_reason() -> dict:
+    with _robust_lock:
+        return dict(_cycle_failures)
+
+
+def count_fault_injected(seam: str) -> None:
+    """Record one injected fault at ``seam`` (faults.py, armed plans)."""
+    with _robust_lock:
+        _fault_injected[seam] = _fault_injected.get(seam, 0) + 1
+
+
+def fault_injected_total() -> dict:
+    """Injected faults per seam (a copy)."""
+    with _robust_lock:
+        return dict(_fault_injected)
+
+
+def set_degradation_level(level: int) -> None:
+    global _degradation_level
+    _degradation_level = level
+
+
+def degradation_level() -> int:
+    """The degradation ladder's level (0 = full engine)."""
+    return _degradation_level
+
+
+def count_audit_cycle(ok: bool) -> None:
+    """Record one lazy audit (folded snapshot vs a fresh full clone);
+    ``ok=False``: the two diverged and the fold demoted."""
+    global _audit_cycles, _audit_failures
+    with _robust_lock:
+        _audit_cycles += 1
+        if not ok:
+            _audit_failures += 1
+
+
+def audit_cycles_total() -> int:
+    with _robust_lock:
+        return _audit_cycles
+
+
+def audit_failures_total() -> int:
+    with _robust_lock:
+        return _audit_failures
+
+
+def count_subcycle() -> None:
+    """Record one schedule-on-arrival sub-cycle."""
+    global _subcycles
+    with _robust_lock:
+        _subcycles += 1
+
+
+def subcycles_total() -> int:
+    with _robust_lock:
+        return _subcycles
+
+
+def observe_arrival_latency(seconds: float) -> None:
+    """Record one latency-lane arrival -> decision duration."""
+    global _arrivals_observed
+    with _robust_lock:
+        _arrivals_observed += 1
+        _arrival_latencies.append(seconds)
+
+
+def arrivals_observed_total() -> int:
+    with _robust_lock:
+        return _arrivals_observed
+
+
+def arrival_latencies() -> list:
+    """The latest arrival -> decision latencies in seconds, oldest
+    first (a copy of a bounded window)."""
+    with _robust_lock:
+        return list(_arrival_latencies)
+
+
+# ---------------------------------------------------------------------------
+# host seconds per span category (the span tracer's metric views)
+# ---------------------------------------------------------------------------
+
+_host_phase_seconds: dict = {}
+_action_seconds: dict = {}
+_kernel_seconds: dict = {}
+_e2e_seconds = [0.0, 0]
+
+
+def update_host_phase(phase: str, seconds: float) -> None:
+    _host_phase_seconds[phase] = _host_phase_seconds.get(phase, 0.0) + seconds
+
+
+def host_phase_seconds() -> dict:
+    """Host seconds per phase span (a copy); consumers diff a window."""
+    return dict(_host_phase_seconds)
+
+
+def update_action_duration(action: str, seconds: float) -> None:
+    _action_seconds[action] = _action_seconds.get(action, 0.0) + seconds
+
+
+def action_seconds() -> dict:
+    """Host seconds per action span (a copy); consumers diff a window."""
+    return dict(_action_seconds)
+
+
+def update_solver_kernel_duration(kernel: str, seconds: float) -> None:
+    _kernel_seconds[kernel] = _kernel_seconds.get(kernel, 0.0) + seconds
+
+
+def solver_kernel_seconds() -> float:
+    """Host seconds over every kernel span, dispatch to readback."""
+    return sum(_kernel_seconds.values())
+
+
+def update_e2e_duration(seconds: float) -> None:
+    _e2e_seconds[0] += seconds
+    _e2e_seconds[1] += 1
+
+
+def e2e_seconds() -> tuple:
+    """(total seconds, sessions) over every session span."""
+    return tuple(_e2e_seconds)

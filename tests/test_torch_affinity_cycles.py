@@ -13,9 +13,10 @@ and ``affinity_host_fallback_total`` deltas. A saturated cluster has
 preempt and reclaim choose nodes through the affinity masks; a snapshot
 past the vocabulary's caps takes the counted host route.
 
-The host-visit gate (which cycles may run the host loops on a CUDA
-cache) and the two-level request at scale have their own tests; a CUDA
-cache is only claimed there (the gate refuses before any upload).
+The host-visit gate (which cycles run the host loops and which the
+per-visit scan, against the reference's routes) and the two-level
+request at scale have their own tests; a CUDA cache is only claimed
+there where the gate refuses before any upload.
 Tolerance 0 throughout.
 """
 from __future__ import annotations
@@ -199,32 +200,72 @@ def _gate_cache(affinity: bool, device: str):
     return cache
 
 
+def _j_gate_cache(affinity: bool):
+    """The reference's twin of _gate_cache."""
+    from kubebatch_tpu.cache import SchedulerCache as JCache
+
+    cache = JCache(async_writeback=False, incremental_snapshot=False)
+    w = AffWorld(j_objects)
+    cache.add_queue(w.queue())
+    if affinity:
+        aff_rollback_build(cache, w)
+    else:
+        w.hostname_nodes(cache, 4, cpu=2000)
+        cache.add_pod_group(w.group("g", 2))
+        for p in range(2):
+            cache.add_pod(w.pod(f"g-{p}", req=(500, GiB), group="g"))
+    return cache
+
+
+def _statuses(cache):
+    return {t.uid: (t.status.name, t.node_name)
+            for j in cache.jobs.values() for t in j.tasks.values()}
+
+
 @pytest.mark.parametrize("custom,affinity,device,mode,route", [
     (False, True, "cuda", "fused", "host"),     # fused refuses affinity
-    (True, False, "cuda", "fused", "raise"),    # B8 on the card
-    (True, False, "cuda", "batched", "raise"),
-    (True, False, "cpu", "fused", "host"),      # B8 on a CPU cache
+    (True, False, "cpu", "jax", "visit"),       # the per-visit scan, asked
+    (True, False, "cpu", "batched", "visit"),   # B8 behind batched's refusal
+    (True, False, "cpu", "fused", "visit"),     # B8 behind fused's refusal
     (True, True, "cuda", "batched", "host"),    # custom order + affinity
 ])
 def test_host_visit_gate(custom, affinity, device, mode, route):
-    """Host loops run on a CUDA cache exactly where the reference itself
-    has no device route: the strict device_supported gate fails. Where it
-    holds with custom order plugins (the reference's per-visit scan, B8)
-    the card raises."""
+    """The route of a cycle outside the requested engine, as the
+    reference takes it on the same cluster: where the strict
+    device_supported gate fails the host loops run, on any cache (a
+    cache claiming the card included: the gate refuses before any
+    upload); where it holds with custom order plugins every visit is
+    the per-visit scan (B8; on a CPU cache here, the card's run is in
+    tests/test_torch_cuda.py). Engines, demotion deltas and task
+    statuses equal the reference's."""
+    from kubebatch_tpu import metrics as j_metrics
+    from kubebatch_tpu.actions.allocate import AllocateAction as JAllocate
+    from kubebatch_tpu.conf import shipped_tiers as j_tiers
+    from kubebatch_tpu.framework import CloseSession as JClose
+    from kubebatch_tpu.framework import OpenSession as JOpen
+
+    from .test_torch_cycle import j_b8_tiers
+
+    jcache = _j_gate_cache(affinity)
+    jdem0 = j_metrics.engine_demotions_total()
+    ssn = JOpen(jcache, j_b8_tiers() if custom else j_tiers())
+    JAllocate(mode=mode).execute(ssn)
+    JClose(ssn)
+
     cache = _gate_cache(affinity, device)
     ssn = TOpen(cache, b8_tiers() if custom else t_tiers())
     dem0 = t_metrics.engine_demotions_total()
-    if route == "raise":
-        with pytest.raises(NotImplementedError, match="B8"):
-            TAllocate(mode=mode).execute(ssn)
-        assert t_metrics.engine_demotions_total() == dem0
-    else:
-        TAllocate(mode=mode).execute(ssn)
-        assert t_allocate_mod.last_cycle_engine == "host-visit"
-        assert t_metrics.engine_demotions_total() == dem0 + 1
+    TAllocate(mode=mode).execute(ssn)
+    want = "host-visit" if route == "host" else f"{mode}-visit"
+    assert t_allocate_mod.last_cycle_engine == \
+        j_allocate_mod.last_cycle_engine == want
+    assert t_metrics.engine_demotions_total() - dem0 \
+        == j_metrics.engine_demotions_total() - jdem0 == int(mode != "jax")
+    if route == "host":
         reason = t_allocate_mod.last_host_reason
         assert reason.startswith("dynamic_features") == affinity
     TClose(ssn)
+    assert _statuses(cache) == _statuses(jcache)
 
 
 @pytest.mark.parametrize("affinity", [False, True])

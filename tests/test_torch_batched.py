@@ -439,15 +439,31 @@ def test_batched_unsupported_snapshot_falls_back_to_host_counted():
     _assert_same(j, t)
 
 
-def test_batched_unsupported_snapshot_on_the_card_raises():
-    """Custom job order with device terms (the reference's per-visit
-    scan, ROADMAP B8) raises on a CUDA cache in batched mode too."""
-    t = Side(True, 2)
-    t.cache.device = torch.device("cuda")
-    dem0 = t_metrics.engine_demotions_total()
+def test_batched_custom_order_runs_the_visit_scan():
+    """Custom job order with device terms in batched mode: the batched
+    engine refuses, the demotion is counted on both sides, and the cycle
+    runs the per-visit scan (ROADMAP B8, "batched-visit") binding as the
+    reference's."""
+    from kubebatch_tpu import metrics as j_metrics
+    from kubebatch_tpu.actions import allocate as j_allocate_mod
+    from kubebatch_tpu.actions.allocate import AllocateAction as JAllocate
+    from kubebatch_tpu.framework import CloseSession as JClose
+    from kubebatch_tpu.framework import OpenSession as JOpen
+
+    from .test_torch_cycle import j_b8_tiers
+
+    j, t = Side(False, 2), Side(True, 2)
+    jdem0 = j_metrics.engine_demotions_total()
+    tdem0 = t_metrics.engine_demotions_total()
+    ssn = JOpen(j.cache, j_b8_tiers())
+    JAllocate(mode="batched").execute(ssn)
+    JClose(ssn)
     ssn = TOpen(t.cache, b8_tiers())
-    with pytest.raises(NotImplementedError, match="B8"):
-        TAllocate(mode="batched").execute(ssn)
+    TAllocate(mode="batched").execute(ssn)
     TClose(ssn)
-    assert t_metrics.engine_demotions_total() == dem0
-    assert not t.binder.calls
+    assert t_allocate_mod.last_cycle_engine == \
+        j_allocate_mod.last_cycle_engine == "batched-visit"
+    assert t_metrics.engine_demotions_total() - tdem0 \
+        == j_metrics.engine_demotions_total() - jdem0 == 1
+    assert t.binder.calls
+    _assert_same(j, t)

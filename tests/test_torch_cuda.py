@@ -868,3 +868,157 @@ def test_batched_affinity_kernel_matches_plain(case):
     if case == "rollback":
         telem = want[0][3 * t_pad + 1:]
         assert int(telem[14]) > 0 or int(telem[15]) > 0
+
+
+# ---------------------------------------------------------------------
+# the per-visit allocate scan (csrc/allocate_scan.cu)
+# ---------------------------------------------------------------------
+
+def _scan_inputs(seed: int, n: int, t: int, edge: bool = False):
+    """allocate_scan arguments on the card from a numpy seed: a partly
+    used cluster (the last tenth padding when n > 64) with releasing and
+    lendable capacity; ``edge`` adds -0.0 rows and ties, an all-masked
+    task row and an unfittable task."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    idle = np.stack([rng.uniform(0, 4000, n), rng.uniform(0, 8192, n),
+                     rng.uniform(0, 2000, n)], 1).astype(f32)
+    rel = (rng.uniform(0, 2000, (n, 3))
+           * (rng.random((n, 1)) < 0.3)).astype(f32)
+    back = (rng.uniform(0, 1000, (n, 3))
+            * (rng.random((n, 1)) < 0.3)).astype(f32)
+    cap = np.stack([rng.uniform(3200, 9600, n),
+                    rng.uniform(6554, 19661, n)], 1).astype(f32)
+    nz = (cap * rng.uniform(0, 1.1, (n, 2))).astype(f32)
+    ok = rng.random(n) < 0.9
+    if n > 64:
+        ok[-(n // 10):] = False
+    req = np.stack([rng.uniform(100, 2000, t), rng.uniform(100, 4000, t),
+                    np.zeros(t)], 1).astype(f32)
+    valid = np.arange(t) < max(1, t - int(rng.integers(0, 3)))
+    req[~valid] = 0.0
+    scores = rng.integers(0, 5, (t, n)).astype(f32)
+    pred = rng.random((t, n)) < 0.8
+    init = req.copy()
+    if edge:
+        idle[: n // 4, 2] = -0.0
+        nz[n // 4: n // 2] = -0.0
+        scores[:, ::2] = -0.0
+        scores[:, 1::2] = 0.0
+        pred[0] = False
+        if t > 2:
+            init[2, 0] = 1e9
+    kw = {"idle": idle, "releasing": rel, "backfilled": back,
+          "allocatable_cm": cap, "nz_req": nz,
+          "max_task_num": rng.integers(1, 6, n).astype(np.int32),
+          "n_tasks": rng.integers(0, 5, n).astype(np.int32),
+          "node_ok": ok, "resreq": req, "init_resreq": init,
+          "task_nz": req[:, :2].copy(), "task_valid": valid,
+          "scores": scores, "pred_mask": pred,
+          "dyn_weights": np.array([1.0, 1.0], f32)}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+           for k, v in kw.items()}
+    out["min_available"] = int(rng.integers(0, t + 2))
+    out["init_allocated"] = int(rng.integers(0, 3))
+    return out
+
+
+SCAN_CASES = [(8, 1, False), (64, 8, False), (1000, 33, False),
+              (1000, 8, True), (8192, 8, False), (8192, 8, True),
+              (5000, 64, False)]
+
+
+@pytest.mark.parametrize("n,t,edge", SCAN_CASES,
+                         ids=[f"N{n}-T{t}{'-edge' if e else ''}"
+                              for n, t, e in SCAN_CASES])
+@pytest.mark.parametrize("dyn", [False, True], ids=["static", "dyn"])
+def test_allocate_scan_kernel_matches_plain(n, t, edge, dyn):
+    """One launch per call; the packed block and the carry bitwise equal
+    to the plain scan on the same card tensors; the inputs untouched."""
+    from kubebatch_tpu_torch.kernels.solver import (allocate_scan,
+                                                    allocate_scan_plain)
+
+    _need_cuda()
+    for seed in range(3):
+        kw = _scan_inputs(100 * n + t + seed, n, t, edge)
+        before = {k: v.clone() for k, v in kw.items()
+                  if isinstance(v, torch.Tensor)}
+        n0 = _build.launch_count("allocate_scan")
+        got = allocate_scan(**kw, dyn_enabled=dyn)
+        torch.cuda.synchronize()
+        assert _build.launch_count("allocate_scan") == n0 + 1
+        for k, v in before.items():
+            assert torch.equal(kw[k], v), k
+        _assert_bitwise(allocate_scan_plain(**kw, dyn_enabled=dyn), got,
+                        "allocate_scan")
+
+
+class FifoOrder:
+    """A custom job-order plugin (creation order): outside every
+    whole-cycle engine's key vocabulary, while the predicates and scores
+    stay device terms, so allocate takes the per-visit scan. Duck-typed:
+    the parity tests register this same class with the reference's
+    registry too."""
+
+    def __init__(self, arguments=None):
+        self.arguments = arguments or {}
+
+    @property
+    def name(self):
+        return "fifo-order"
+
+    def on_session_open(self, ssn):
+        def job_order_fn(l, r):
+            return (l.creation_timestamp > r.creation_timestamp) \
+                - (l.creation_timestamp < r.creation_timestamp)
+        ssn.add_job_order_fn("fifo-order", job_order_fn)
+
+    def on_session_close(self, ssn):
+        pass
+
+
+def b8_tiers():
+    """The shipped tiers with the custom job-order plugin in front."""
+    from kubebatch_tpu_torch.framework.registry import \
+        register_plugin_builder
+
+    register_plugin_builder("fifo-order", FifoOrder)
+    tiers = shipped_tiers()
+    tiers[0].plugins.insert(0, PluginOption(name="fifo-order"))
+    return tiers
+
+
+@pytest.mark.parametrize("mode,custom", [("jax", False), ("fused", True),
+                                         ("batched", True)])
+@pytest.mark.parametrize("case", [(BASELINE_SPECS[2], None), (REDUCED5, None),
+                                  (FILLED, "releasing"),
+                                  (FILLED, "backfill")],
+                         ids=["cfg2", "reduced5", "pipelined",
+                              "over_backfill"])
+def test_visit_cycle_on_the_card_binds_what_the_cpu_binds(case, mode,
+                                                          custom):
+    """A whole per-visit cycle on the card — asked for, or behind a
+    whole-cycle engine refusing a custom job order — equals the CPU
+    cycle: the engine label, the binds in order, one kernel launch and
+    one counted copy back per visit."""
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+
+    _need_cuda()
+    out = {}
+    for device in ("cuda", "cpu"):
+        binder = _Binder()
+        cache = _cache(case, device, binder)
+        ssn = OpenSession(cache, b8_tiers() if custom else shipped_tiers())
+        rb0 = metrics.blocking_readbacks()
+        n0 = _build.launch_count("allocate_scan")
+        AllocateAction(mode=mode).execute(ssn)
+        launches = _build.launch_count("allocate_scan") - n0
+        syncs = metrics.blocking_readbacks() - rb0
+        CloseSession(ssn)
+        out[device] = (allocate_mod.last_cycle_engine, binder.calls, syncs)
+        if device == "cuda":
+            assert launches == syncs > 0
+        else:
+            assert launches == 0
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] == f"{mode}-visit"

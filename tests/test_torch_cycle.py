@@ -42,6 +42,8 @@ from kubebatch_tpu_torch.sim import BASELINE_SPECS as T_SPECS  # noqa: E402
 from kubebatch_tpu_torch.sim import ClusterSpec as TSpec  # noqa: E402
 from kubebatch_tpu_torch.sim import build_cluster as t_build  # noqa: E402
 
+from .test_torch_cuda import FifoOrder, b8_tiers  # noqa: E402,F401
+
 GiB = 1024 ** 3
 
 
@@ -187,40 +189,6 @@ def test_unsupported_snapshot_falls_back_to_host_counted():
     _assert_same(j, t)
 
 
-class _FifoOrder:
-    """A custom job-order plugin (creation order): outside every
-    whole-cycle engine's key vocabulary, while the predicates and scores
-    stay device terms — the reference runs its per-visit device scan."""
-
-    def __init__(self, arguments=None):
-        self.arguments = arguments or {}
-
-    @property
-    def name(self):
-        return "fifo-order"
-
-    def on_session_open(self, ssn):
-        def job_order_fn(l, r):
-            return (l.creation_timestamp > r.creation_timestamp) \
-                - (l.creation_timestamp < r.creation_timestamp)
-        ssn.add_job_order_fn("fifo-order", job_order_fn)
-
-    def on_session_close(self, ssn):
-        pass
-
-
-def b8_tiers():
-    """The shipped tiers with the custom job-order plugin in front."""
-    from kubebatch_tpu_torch.conf import PluginOption
-    from kubebatch_tpu_torch.framework.registry import \
-        register_plugin_builder
-
-    register_plugin_builder("fifo-order", _FifoOrder)
-    tiers = t_tiers()
-    tiers[0].plugins.insert(0, PluginOption(name="fifo-order"))
-    return tiers
-
-
 def over_vocabulary_pod(cache, m, n_terms):
     """A pending single-pod gang whose required anti-affinity names
     ``n_terms`` distinct label selectors (past the vocabulary's caps)."""
@@ -236,22 +204,46 @@ def over_vocabulary_pod(cache, m, n_terms):
             for i in range(n_terms)])))
 
 
-def test_unsupported_snapshot_on_the_card_raises():
+def j_b8_tiers():
+    """The reference's shipped tiers with the same fifo-order plugin
+    (tests/test_torch_cuda.py FifoOrder) in front."""
+    from kubebatch_tpu.conf import PluginOption as JPluginOption
+    from kubebatch_tpu.framework.registry import \
+        register_plugin_builder as j_register
+
+    j_register("fifo-order", FifoOrder)
+    tiers = j_tiers()
+    tiers[0].plugins.insert(0, JPluginOption(name="fifo-order"))
+    return tiers
+
+
+def test_custom_order_cycle_runs_the_visit_scan():
     """A cycle outside the fused solve's vocabulary for which the
     reference has a device route — a custom job-order plugin with device
-    predicates and scores, its per-visit scan (ROADMAP B8) — raises on a
-    CUDA cache instead of moving the allocate off the card. The cache
-    only claims the card here: the gate refuses the cycle before
-    anything is uploaded."""
-    t = Side(True, 2)
-    t.cache.device = torch.device("cuda")
-    dem0 = t_metrics.engine_demotions_total()
+    predicates and scores — runs the per-visit scan (ROADMAP B8) as the
+    reference does: the fused engine refuses, the demotion is counted on
+    both sides, every visit is one scan ("fused-visit"), and the cycle
+    binds as the reference's. (On a CUDA cache the scan is the
+    csrc/allocate_scan.cu kernel; tests/test_torch_cuda.py holds it
+    against this CPU run.)"""
+    from kubebatch_tpu import metrics as j_metrics
+    from kubebatch_tpu.actions import allocate as j_allocate_mod
+
+    j, t = Side(False, 2), Side(True, 2)
+    jdem0 = j_metrics.engine_demotions_total()
+    tdem0 = t_metrics.engine_demotions_total()
+    ssn = JOpen(j.cache, j_b8_tiers())
+    JAllocate(mode="fused").execute(ssn)
+    JClose(ssn)
     ssn = TOpen(t.cache, b8_tiers())
-    with pytest.raises(NotImplementedError, match="B8"):
-        TAllocate(mode="fused").execute(ssn)
+    TAllocate(mode="fused").execute(ssn)
     TClose(ssn)
-    assert t_metrics.engine_demotions_total() == dem0
-    assert not t.binder.calls
+    assert t_allocate_mod.last_cycle_engine == \
+        j_allocate_mod.last_cycle_engine == "fused-visit"
+    assert t_metrics.engine_demotions_total() - tdem0 \
+        == j_metrics.engine_demotions_total() - jdem0 == 1
+    assert t.binder.calls
+    _assert_same(j, t)
 
 
 def test_auto_refuses_the_batched_regime():

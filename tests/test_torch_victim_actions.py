@@ -610,8 +610,8 @@ def test_preemption_two_cycles_binds_like_reference():
 
 
 # ---------------------------------------------------------------------
-# vocabulary: an affinity snapshot the victim masks refuse raises on a
-# CUDA cache and demotes on a CPU cache
+# vocabulary: an affinity snapshot the victim masks refuse runs the
+# host loops on any cache, as the reference does
 # ---------------------------------------------------------------------
 
 def _affinity_world(cache, w):
@@ -627,21 +627,41 @@ def _affinity_world(cache, w):
 
 
 @pytest.mark.parametrize("action", ["preempt", "reclaim"])
-def test_affinity_snapshot_raises_on_cuda_and_demotes_on_cpu(action):
+def test_affinity_snapshot_takes_the_host_route_on_any_cache(action):
+    """Past the masks' raw window the reference has no device route:
+    its build_action_solver returns None and the action runs its host
+    loops. The port does the same on a cache that claims the card (the
+    refusal comes before anything is uploaded) and on a CPU cache,
+    decides as the reference, and moves the counters as the reference's
+    move: one affinity host fallback, no engine demotion."""
+    from kubebatch_tpu import metrics as j_metrics
+
+    jaff0 = j_metrics.affinity_host_fallback_total()
+    jdem0 = j_metrics.engine_demotions_total()
+    ref = run(_affinity_world, (action,), False)
+    j_moves = (j_metrics.affinity_host_fallback_total() - jaff0,
+               j_metrics.engine_demotions_total() - jdem0)
+    assert j_moves == (1, 0)
+
     side = Side(True, _affinity_world)
     side.cache.device = torch.device("cuda")     # a cache claiming the card
-    ssn = side.open()
-    act = make_actions((action,), True)[0]
     aff0 = t_metrics.affinity_host_fallback_total()
-    with pytest.raises(NotImplementedError, match="raw window"):
-        act.execute(ssn)
-    assert t_metrics.affinity_host_fallback_total() == aff0 + 1
+    dem0 = t_metrics.engine_demotions_total()
+    ssn = side.open()
+    make_actions((action,), True)[0].execute(ssn)
+    statuses, placed = session_result(ssn)
+    side.close(ssn)
+    assert (t_metrics.affinity_host_fallback_total() - aff0,
+            t_metrics.engine_demotions_total() - dem0) == j_moves
+    assert_same(ref, (statuses, placed, sorted(side.rec.evicted),
+                      side.rec.binds), f"claimed-card {action} vs reference")
 
+    aff0 = t_metrics.affinity_host_fallback_total()
     dem0 = t_metrics.engine_demotions_total()
     got = run(_affinity_world, (action,), True)
-    assert t_metrics.engine_demotions_total() == dem0 + 1
-    assert_same(run(_affinity_world, (action,), False), got,
-                f"demoted {action} vs reference")
+    assert (t_metrics.affinity_host_fallback_total() - aff0,
+            t_metrics.engine_demotions_total() - dem0) == j_moves
+    assert_same(ref, got, f"CPU-cache {action} vs reference")
 
 
 # ---------------------------------------------------------------------
