@@ -78,6 +78,23 @@ fused -> visit route. Every ``allocate_scan`` launch is recorded and
 held bitwise against the plain scan on the card; the kernel is timed at
 one cfg5 gang beside its bound.
 
+Phase (g) is the scale engines: cfg6 (50,000 nodes, 6,250 gangs x 8) on
+an incremental cache with its allocate-only conf, in auto. The cold
+cycle (50,000 pending) runs the two-level solve, one launch of
+csrc/hier_allocate.cu; six skewed churn cycles (256, 256, 1,024, 1,024,
+4,096 and 4,096 pods, into queue 0 then 3) run the active set at every
+grain in the same kernel, the audit (active-set and full-width solves in
+one launch, compared in the kernel) on cycles 0 and 3; then one cold
+cfg7 cycle (100,000 nodes, 13,000 gangs x 8). Every cycle: the engine,
+one launch, one counted sync, every pod bound, gang all-or-nothing and
+every node within its capacity (summed on the host from the sim's
+pods); every cfg6 launch bitwise equal to its plain version on CPU
+copies (packed result, frame and committed carry), its work counters
+beside the plain version's; two audits with no divergence, no demotion.
+cfg7 checks the invariants only (its plain comparison, a full-width
+coarse pass of ~1e10 cells a wave on the host, is left out). The
+launches are timed (events, profiler) beside their bounds.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -117,10 +134,6 @@ BARRIERS_PER_SOLVE = 7
 OPS_PER_CELL_BATCHED = 4
 OPS_PER_CELL_PIPE = 3
 OPS_PER_PAIR_CELL = OPS_PER_NODE_SCORE + 1
-#: bytes of node state a round reads: idle, releasing, backfilled (3 x f32
-#: each), n_tasks, max_task_num (i32), node_ok, nz_req and allocatable_cm
-#: (2 x f32 each)
-NODE_STATE_BYTES = 61
 #: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and
 #: float32 operations/s outside the tensor cores without FMA contraction.
 #: The data sheet's 67 TFLOP/s counts a fused multiply-add as two
@@ -199,20 +212,16 @@ def fused_bounds(kw, out) -> dict:
 
 def batched_bounds(kw, out, stats, pipe: bool) -> dict:
     """The batched solve's roofline for one run: each input read once and
-    each output written once, plus per round the [S,N] predicates and
-    scores, the [P,N] pair scores and the node state over the memory
-    rate; against the two row passes' cells (task rows x nodes, counted
-    by the plain engine on the same inputs) and the [P,N] pair-score
-    cells, per round, over the float32 rate."""
+    each output written once over the memory rate, against the two row
+    passes' cells (task rows x nodes, counted by the plain engine on the
+    same inputs) and the [P,N] pair-score cells, per round, over the
+    float32 rate."""
     n_pad = kw["idle"].shape[0]
-    s_pad = kw["sig_scores"].shape[0]
     p_pad = kw["pair_sig"].shape[0]
     rounds = stats["rounds"]
     nbytes = sum(t.numel() * t.element_size() for t in kw.values()
                  if hasattr(t, "numel"))
     nbytes += sum(t.numel() * t.element_size() for t in out)
-    nbytes += rounds * (s_pad * n_pad * 5 + p_pad * n_pad * 4
-                        + n_pad * NODE_STATE_BYTES)
     per_cell = OPS_PER_CELL_BATCHED + (OPS_PER_CELL_PIPE if pipe else 0)
     ops = (stats["rows"] * n_pad * per_cell
            + rounds * p_pad * n_pad * OPS_PER_PAIR_CELL)
@@ -1215,10 +1224,8 @@ def validate_affinity(cache) -> dict:
 def affinity_bounds(kw, aff, out, stats, pipe: bool) -> dict:
     """The affinity solve's roofline: the batched solve's (batched_bounds,
     its task rows those that take part in a round) plus the affinity
-    inputs and carry read once and written once, and per round the [A,D]
-    carry the views are built from, the per-node present, sym and used
-    words (40 B a node) and, for scoring rows, the two [A,N] score views;
-    against, besides the batched solve's operations, the predicates'
+    inputs and carry read once and written once; against, besides the
+    batched solve's operations, the predicates'
     integer operations on every row-pass row and node (OPS_PER_CELL_AFF
     over PEAK_I32_PER_S) and the interpod score's float operations on
     the rows that can score (the preferred terms and group bits they
@@ -1229,7 +1236,7 @@ def affinity_bounds(kw, aff, out, stats, pipe: bool) -> dict:
     [.,A] x [A,N]): what that formulation would do, not the bound."""
     base = batched_bounds(kw, out[:5], stats, pipe)
     n_pad = kw["idle"].shape[0]
-    n_pairs, d_cap = aff["aff_grp_cnt0"].shape
+    n_pairs = aff["aff_grp_cnt0"].shape[0]
     pt = aff["task_ports"].shape[1] if "task_ports" in aff else 0
     ip = "aff_ip_weight" in aff
     rounds, rows = stats["rounds"], stats["rows"]
@@ -1238,10 +1245,6 @@ def affinity_bounds(kw, aff, out, stats, pipe: bool) -> dict:
     nbytes += sum(t.numel() * t.element_size() for t in aff.values())
     nbytes += sum(t.numel() * t.element_size() for t in out[5].values()
                   if t is not None)
-    nbytes += rounds * (n_pairs * d_cap * 4 * (3 if ip else 2)
-                        + n_pad * 40)
-    if ip_rows:
-        nbytes += rounds * n_pairs * n_pad * 8
     int_ops = rows * n_pad * OPS_PER_CELL_AFF
     ip_ops = (ip_terms + ip_rows * OPS_PER_IP_CELL) * n_pad
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -2036,6 +2039,425 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
             "probe_wall_s": [round(w, 3) for w, _ in probe_walls]}
 
 
+#: float32 operations per task (or pair) x node cell of the coarse pass
+#: (hier_allocate.cu coarse: three fit compares and the predicate / room
+#: test; three more with pipelining)
+OPS_PER_CELL_COARSE = 4
+
+
+def scale_bounds(kw, out, counters, rounds: int, pipe: bool,
+                 pool: int) -> dict:
+    """A two-level or active-set launch's roofline: each input read once
+    and each output written once over the memory rate, against the
+    operations these inputs need over the float32 rate — the coarse
+    passes' cells (per row and pool the nodes up to and including the
+    first eligible one, or the whole pool: the pass stops there), the
+    majority pair's [N] score per pass, the rounds' (task row x pool)
+    cells and their [P,pool] pair scores. The counts are the kernel's
+    own (hier.COUNTERS), held equal to the plain version's on every
+    cfg6 launch."""
+    n_pad = kw["idle"].shape[0]
+    p_pad = kw["pair_sig"].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values()
+                 if hasattr(t, "numel"))
+    nbytes += sum(t.numel() * t.element_size() for t in out)
+    per_cell = OPS_PER_CELL_BATCHED + (OPS_PER_CELL_PIPE if pipe else 0)
+    ops = (counters["coarse_cells"] * (OPS_PER_CELL_COARSE
+                                       + (OPS_PER_CELL_PIPE if pipe else 0))
+           + counters["coarse_passes"] * n_pad * OPS_PER_PAIR_CELL
+           + counters["rows"] * pool * per_cell
+           + rounds * p_pad * pool * OPS_PER_PAIR_CELL)
+    b_ms, b_by = bound(nbytes, ops)
+    return {"bytes": nbytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
+
+
+class FreshBinder:
+    """Binds by flipping the pod's node_name; keeps the pods bound since
+    the last kubelet tick and counts the binds."""
+
+    def __init__(self):
+        self.fresh = []
+        self.count = 0
+
+    def bind(self, pod, hostname):
+        pod.node_name = hostname
+        self.fresh.append(pod)
+        self.count += 1
+
+    def bind_many(self, pairs):
+        for pod, hostname in pairs:
+            self.bind(pod, hostname)
+
+    def kubelet_tick(self, cache):
+        from kubebatch_tpu_torch.objects import PodPhase
+
+        for pod in self.fresh:
+            pod.phase = PodPhase.RUNNING
+            cache.update_pod(pod, pod)
+        self.fresh = []
+
+
+def capacity_violations(sim) -> int:
+    """Nodes whose bound pods' requests (cpu, memory, pod count) exceed
+    the node's allocatable, summed on the host from the sim's own
+    objects (independent of the cache's bookkeeping)."""
+    from kubebatch_tpu_torch.objects import CPU, MEMORY, PODS
+
+    used = {}
+    for pod in sim.pods:
+        if not pod.node_name:
+            continue
+        u = used.setdefault(pod.node_name, [0.0, 0.0, 0])
+        for c in pod.containers:
+            u[0] += c.requests.get(CPU, 0.0)
+            u[1] += c.requests.get(MEMORY, 0.0)
+        u[2] += 1
+    bad = 0
+    for node in sim.nodes:
+        u = used.get(node.name)
+        if u is None:
+            continue
+        a = node.allocatable
+        if u[0] > a.get(CPU, 0.0) or u[1] > a.get(MEMORY, 0.0) \
+                or u[2] > a.get(PODS, 0.0):
+            bad += 1
+    return bad
+
+
+class SolveRecorder:
+    """Wraps the two-level and active-set dispatchers (kernels/hier.py
+    hier_packed, kernels/activeset.py activeset_packed and
+    activeset_audit_packed) to keep each launch's kind, arguments,
+    results and work counters."""
+
+    def __init__(self):
+        from kubebatch_tpu_torch.kernels import activeset, hier
+
+        self.sites = [(hier, "hier_packed", "hier"),
+                      (activeset, "activeset_packed", "activeset"),
+                      (activeset, "activeset_audit_packed", "audit")]
+        self.inner = {}
+        self.calls = []
+
+    def wrap(self, mod, name, kind):
+        from kubebatch_tpu_torch.kernels import hier
+
+        inner = self.inner[(mod, name)]
+
+        def call(*args, **kw):
+            out = inner(*args, **kw)
+            self.calls.append({"kind": kind, "args": args, "kw": kw,
+                               "out": out,
+                               "counters": hier.last_launch["counters"]})
+            return out
+        return call
+
+    def __enter__(self):
+        for mod, name, kind in self.sites:
+            self.inner[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, self.wrap(mod, name, kind))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self.sites:
+            setattr(mod, name, self.inner[(mod, name)])
+
+
+def check_scale_call(call) -> dict:
+    """Hold one recorded two-level / active-set launch against its plain
+    version on CPU copies of its inputs (the packed result with its
+    frame, and the committed node carry), bitwise; returns the plain
+    version's host ms, its work stats and the max abs error (0)."""
+    from kubebatch_tpu_torch.kernels import activeset, hier
+
+    kw, out, stats = call["kw"], call["out"], {}
+    statics = {k: v for k, v in kw.items() if not hasattr(v, "cpu")}
+    t0 = time.perf_counter()
+    if call["kind"] == "audit":
+        node, act, full = (on_cpu(a) for a in call["args"])
+        want = activeset.activeset_audit_plain(node, act, full, **statics,
+                                               stats=stats)
+    else:
+        arrays = on_cpu({k: v for k, v in kw.items() if hasattr(v, "cpu")})
+        plain = (hier.hier_allocate_plain if call["kind"] == "hier"
+                 else activeset.activeset_allocate_plain)
+        want = plain(**arrays, **statics, stats=stats)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = [o.cpu() for o in out]
+    assert_bitwise(want, got, f"{call['kind']} launch")
+    return {"plain_ms": plain_ms, "stats": stats,
+            "err": max_abs_err(want, got)}
+
+
+def scale_phase(dev, spec6, spec7) -> list:
+    """Phase (g): the scale engines at cfg6 and cfg7, in auto, on
+    incremental caches with cfg6's allocate-only conf. A cold cfg6 cycle
+    (50,000 pending) runs the two-level solve (csrc/hier_allocate.cu);
+    six skewed churn cycles (256, 256, 1,024, 1,024, 4,096 and 4,096
+    pods, into queue 0 then 3) run the active set at every grain, the
+    audit on cycles 0 and 3 (``set_audit_every(3)``); a cold cfg7 cycle
+    runs the two-level solve once more. Every cycle: the engine, one
+    launch, one counted sync, every pod bound, gang all-or-nothing,
+    every node within its capacity (on the host); every cfg6 launch
+    bitwise equal to its plain version (packed result, frame, carry);
+    the audits report no divergence and nothing demotes. cfg7's plain
+    comparison is left out (its full-width plain coarse pass alone is
+    ~1e10 cells a wave on the host). Returns the kernels line's entries
+    for hier_allocate and activeset_allocate."""
+    import torch
+
+    from kubebatch_tpu_torch import metrics
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.actions import allocate_batched
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import CONFIG_ACTIONS, shipped_tiers
+    from kubebatch_tpu_torch.kernels import _build, activeset
+    from kubebatch_tpu_torch.kernels import hier as hier_mod
+    from kubebatch_tpu_torch.kernels.telemetry import FIELDS
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    names = ("hier_allocate", "activeset_allocate")
+    activeset.reset()
+    activeset.set_audit_every(3)
+    audits0 = metrics.activeset_audits_by_result()
+    demotions0 = metrics.activeset_demotions_total()
+    tiers = shipped_tiers()
+    actions = CONFIG_ACTIONS[6]
+    results = {"hier": [], "activeset": []}
+    timing = {}
+
+    def drive(label, cache, sim, binder, want_engine, want_kind,
+              want_binds, check):
+        _build.reset_launch_counts()
+        rb0 = metrics.blocking_readbacks()
+        b0 = binder.count
+        n_rec = len(rec.calls)
+        ms, _, _ = run_cycle(cache, tiers, actions)
+        syncs = metrics.blocking_readbacks() - rb0
+        launches = {n: _build.launch_count(n) for n in names}
+        engine = allocate_mod.last_cycle_engine
+        calls = rec.calls[n_rec:]
+        if engine != want_engine or len(calls) != 1 \
+                or calls[0]["kind"] != want_kind or syncs != 1 \
+                or sum(launches.values()) != 1:
+            raise AssertionError(
+                f"{label}: engine {engine}, launches {launches}, kinds "
+                f"{[c['kind'] for c in calls]}, syncs {syncs}; expected "
+                f"{want_engine}, one {want_kind} launch, one sync")
+        binds = binder.count - b0
+        bad_gangs = gang_all_or_nothing(cache)
+        over = capacity_violations(sim)
+        if binds != want_binds or bad_gangs or over:
+            raise AssertionError(f"{label}: binds {binds} (expected "
+                                 f"{want_binds}), gangs broken {bad_gangs}, "
+                                 f"nodes over capacity {over}")
+        call = calls[0]
+        counters = dict(zip(hier_mod.COUNTERS,
+                            call["counters"].cpu().tolist()))
+        t = (call["args"][2] if call["kind"] == "audit"
+             else call["kw"])["task_valid"].shape[0]
+        packed = call["out"][0].cpu()
+        frame = dict(zip(FIELDS, packed[3 * t + 1:].tolist()))
+        phases = dict(allocate_batched.last_phases)
+        entry = {"label": label, "kind": call["kind"], "t_pad": t,
+                 "rounds": int(packed[3 * t]), "frame": frame,
+                 "counters": counters, "kernel_ms": phases["kernel"],
+                 "phase_ns": hier_mod.last_launch["phase_ns"],
+                 "host_ms": {**{k: round(v, 3) for k, v in ms.items()},
+                             **{k: round(v, 3) for k, v in phases.items()}},
+                 "launches": launches}
+        if check:
+            chk = check_scale_call(call)
+            plain_counts = {k: chk["stats"].get(k, 0)
+                            for k in hier_mod.COUNTERS}
+            entry.update(plain_ms=chk["plain_ms"], err=chk["err"])
+            if plain_counts != counters:
+                raise AssertionError(
+                    f"(g) {label}: the kernel's work counters {counters} "
+                    f"differ from the plain version's {plain_counts}")
+        results["hier" if call["kind"] == "hier"
+                else "activeset"].append((entry, call))
+        log(f"(g) {label}: engine {engine}, {entry['rounds']} rounds, "
+            f"kernel {entry['kernel_ms']:.3f} ms (events), "
+            f"{'bitwise equal to plain (' + format(entry['plain_ms'], '.0f') + ' ms on the host CPU)' if check else 'plain comparison left out'}; "
+            f"binds {binds}; frame "
+            + json.dumps({k: frame[k] for k in (
+                "waves", "bound", "failed", "pending", "pool_occ",
+                "bucket_fill", "narrow", "narrow_gate", "retries",
+                "stranded", "act_tasks", "act_nodes", "act_scatter",
+                "act_demoted")})
+            + f"; counters {json.dumps(counters)}; host ms "
+            + json.dumps(entry["host_ms"]))
+        return entry
+
+    with SolveRecorder() as rec:
+        # ---- cfg6: cold, then six skewed churn cycles ----------------
+        t0 = time.perf_counter()
+        sim = build_cluster(spec6)
+        binder = FreshBinder()
+        cache = SchedulerCache(binder=binder, async_writeback=False,
+                               device=dev)
+        sim.populate(cache)
+        log(f"(g) cfg6: {len(sim.nodes)} nodes, {len(sim.pods)} pods built "
+            f"and populated in {time.perf_counter() - t0:.1f} s")
+        drive("cfg6 cold", cache, sim, binder, "hier", "hier",
+              len(sim.pods), True)
+        timing["cfg6"] = {k: (v.clone() if hasattr(v, "clone") else v)
+                          for k, v in results["hier"][-1][1]["kw"].items()}
+        for k, n in enumerate((256, 256, 1024, 1024, 4096, 4096)):
+            t0 = time.perf_counter()
+            binder.kubelet_tick(cache)
+            if sim.churn_tick(cache, n, arrival_queue=(0, 3)[k % 2]) != n:
+                raise AssertionError(f"(g) churn did not recycle {n} pods")
+            tick_ms = (time.perf_counter() - t0) * 1e3
+            e = drive(f"cfg6 churn {k} ({n} pods)", cache, sim, binder,
+                      "activeset", "audit" if k % 3 == 0 else "activeset",
+                      n, True)
+            e["host_ms"]["kubelet_and_churn"] = round(tick_ms, 3)
+            if e["kind"] == "activeset" and n not in timing:
+                timing[n] = ({kk: (v.clone() if hasattr(v, "clone") else v)
+                              for kk, v in results["activeset"][-1][1][
+                                  "kw"].items()}, "activeset")
+            if e["kind"] == "audit" and "audit" not in timing:
+                c = results["activeset"][-1][1]
+                timing["audit"] = (tuple({kk: v.clone() for kk, v in
+                                          a.items()} for a in c["args"]),
+                                   c["kw"])
+        audits = {r: metrics.activeset_audits_by_result().get(r, 0)
+                  - audits0.get(r, 0) for r in ("ok", "diff")}
+        if audits != {"ok": 2, "diff": 0} or activeset.demoted() \
+                or metrics.activeset_demotions_total() != demotions0:
+            raise AssertionError(f"(g) audits {audits}, demoted "
+                                 f"{activeset.demoted()}")
+        log(f"(g) cfg6 churn: activeset_audits_total{{ok}} +2, "
+            f"activeset_demotions_total flat, grains "
+            + ", ".join(str(e["t_pad"]) for e, _ in results["activeset"]))
+        cache.stop()
+        del cache, sim
+        # ---- cfg7: cold, once ---------------------------------------
+        t0 = time.perf_counter()
+        sim7 = build_cluster(spec7)
+        binder7 = FreshBinder()
+        cache7 = SchedulerCache(binder=binder7, async_writeback=False,
+                                device=dev)
+        sim7.populate(cache7)
+        log(f"(g) cfg7: {len(sim7.nodes)} nodes, {len(sim7.pods)} pods "
+            f"built and populated in {time.perf_counter() - t0:.1f} s")
+        cold7 = drive("cfg7 cold", cache7, sim7, binder7, "hier", "hier",
+                      len(sim7.pods), False)
+        kw7 = results["hier"][-1][1]["kw"]
+
+    # ---- timings (after the main-path counts were read) ----------------
+    def time_launch(fn, kernel):
+        ev = cuda_ms(fn, reps=1)
+        prof = profiled_ms(fn, kernel, reps=1)
+        return ev, prof
+
+    hier_t = {}
+    for label, kw in (("cfg6", timing["cfg6"]), ("cfg7", kw7)):
+        hier_t[label] = time_launch(lambda kw=kw: hier_mod.hier_packed(**kw),
+                                    "hier_allocate_kernel")
+    act_t = {}
+    for n in (256, 1024, 4096):
+        if n in timing:
+            kw, _ = timing[n]
+            act_t[n] = time_launch(
+                lambda kw=kw: activeset.activeset_packed(**kw),
+                "hier_allocate_kernel")
+    if "audit" in timing:
+        (node, act, full), kw = timing["audit"]
+        act_t["audit"] = time_launch(
+            lambda: activeset.activeset_audit_packed(node, act, full, **kw),
+            "hier_allocate_kernel")
+    del cache7, sim7
+
+    def entry_bounds(entry, call):
+        kw = call["kw"]
+        if call["kind"] == "audit":
+            node, act, full = call["args"]
+            kw = {**node, **full, **kw}
+        pipe = bool(kw["pipe_enabled"])
+        pool = hier_mod.hier_pool_size(kw["idle"].shape[0],
+                                       kw.get("pool_size", 0))
+        return scale_bounds({k: v for k, v in kw.items()
+                             if hasattr(v, "numel")}, call["out"],
+                            entry["counters"], entry["rounds"], pipe, pool)
+
+    hb = {e["label"]: entry_bounds(e, c) for e, c in results["hier"]}
+    ab = {e["label"]: entry_bounds(e, c) for e, c in results["activeset"]}
+    for e, _ in results["hier"] + results["activeset"]:
+        b = hb.get(e["label"]) or ab[e["label"]]
+        log(f"(g) {e['label']}: bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}: {b['bytes']} B, {b['ops']} operations); "
+            f"kernel {e['kernel_ms']:.3f} ms (events, main path)")
+    for label, (ev, prof) in hier_t.items():
+        log(f"(g) hier_allocate {label} cold re-run: {ev:.3f} ms (events), "
+            f"{prof} ms device time (profiler)")
+    for label, (ev, prof) in act_t.items():
+        log(f"(g) activeset_allocate {label}: {ev:.3f} ms (events), "
+            f"{prof} ms device time (profiler)")
+    from kubebatch_tpu_torch.kernels.batched import PHASES
+
+    for e, _ in results["hier"] + results["activeset"][:1]:
+        phase_ms = {k: v / 1e6 for k, v in zip(
+            PHASES + hier_mod.HIER_PHASES, e["phase_ns"].cpu().tolist())
+            if v}
+        e["phase_ms"] = phase_ms
+        log(f"(g) {e['label']}, main-path launch, device ms per phase "
+            f"(block 0's thread 0 between grid barriers; sum "
+            f"{sum(phase_ms.values()):.3f}): "
+            + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
+        del e["phase_ns"]
+    for e, _ in results["activeset"][1:]:
+        del e["phase_ns"]
+
+    c6 = results["hier"][0][0]
+    acts = [e for e, _ in results["activeset"]]
+    steady = [e for e in acts if e["kind"] == "activeset"][0]
+    ms256 = act_t[256][1] if act_t[256][1] is not None else act_t[256][0]
+    hier_entry = {
+        "name": "hier_allocate", "route": "cuda",
+        "source": "kubebatch_tpu_torch/kernels/csrc/hier_allocate.cu",
+        "replaces": "kubebatch_tpu/kernels/hier.py:368",
+        "launches": sum(e["launches"]["hier_allocate"]
+                        for e, _ in results["hier"]),
+        "max_abs_err": c6["err"],
+        "ms": (hier_t["cfg6"][1] if hier_t["cfg6"][1] is not None
+               else hier_t["cfg6"][0]),
+        "main_path_event_ms": c6["kernel_ms"],
+        "event_ms": hier_t["cfg6"][0], "profiler_ms": hier_t["cfg6"][1],
+        "plain_ms": c6["plain_ms"], "plain_device": "cpu",
+        "bound_ms": hb["cfg6 cold"]["bound_ms"],
+        "bound_by": hb["cfg6 cold"]["bound_by"], "library_ms": None,
+        "library_call": "none", "rounds": c6["rounds"],
+        "cfg7_main_path_event_ms": cold7["kernel_ms"],
+        "cfg7_event_ms": hier_t["cfg7"][0],
+        "cfg7_profiler_ms": hier_t["cfg7"][1],
+        "cfg7_bound_ms": hb["cfg7 cold"]["bound_ms"],
+        "cfg7_bound_by": hb["cfg7 cold"]["bound_by"],
+        "cfg7_rounds": cold7["rounds"], "phase_ms": c6["phase_ms"],
+        "cfg7_phase_ms": cold7["phase_ms"]}
+    act_entry = {
+        "name": "activeset_allocate", "route": "cuda",
+        "source": "kubebatch_tpu_torch/kernels/csrc/hier_allocate.cu",
+        "replaces": "kubebatch_tpu/kernels/activeset.py:453",
+        "launches": sum(e["launches"]["activeset_allocate"] for e in acts),
+        "max_abs_err": max(e["err"] for e in acts),
+        "ms": ms256, "main_path_event_ms": steady["kernel_ms"],
+        "plain_ms": steady["plain_ms"], "plain_device": "cpu",
+        "bound_ms": ab[steady["label"]]["bound_ms"],
+        "bound_by": ab[steady["label"]]["bound_by"],
+        "library_ms": None, "library_call": "none",
+        "per_cycle": [{"label": e["label"], "kind": e["kind"],
+                       "t_pad": e["t_pad"], "rounds": e["rounds"],
+                       "event_ms": e["kernel_ms"], "plain_ms": e["plain_ms"],
+                       "bound_ms": ab[e["label"]]["bound_ms"],
+                       "bound_by": ab[e["label"]]["bound_by"]}
+                      for e in acts],
+        "rerun_ms": {str(k): v for k, v in act_t.items()}}
+    return [hier_entry, act_entry]
+
+
 def main() -> int:
     import torch
 
@@ -2373,6 +2795,7 @@ def main() -> int:
                                   BASELINE_SPECS["3p"]))
     kernels.insert(3, scheduler_phase(dev, BASELINE_SPECS[5],
                                       BASELINE_SPECS[3], binds_a))
+    kernels += scale_phase(dev, BASELINE_SPECS[6], BASELINE_SPECS[7])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -1,17 +1,14 @@
 """allocate — the primary scheduling action.
 
 Solver modes (constructor arg; the scheduler loop's ``solver=``):
-- "auto" (default): the reference package's size-based choice on a node
-  axis below AUTO_HIER_MIN_NODES — "fused" below AUTO_BATCHED_MIN pending
-  tasks, "batched" at or above it. The reference runs its sharded round
-  engine instead of batched when it sees more than one device and a
-  large node axis; this package has no sharded engine (ROADMAP queue A,
-  multi-device), so it picks "batched" on any number of visible cards.
-  At or above AUTO_HIER_MIN_NODES the reference picks its two-level
-  engine ("hier"), not in this package yet: such a cycle raises
-  NotImplementedError, unless it carries the affinity vocabulary, which
-  the reference demotes to the batched engine (counted) and so does this
-  package.
+- "auto" (default): the reference package's size-based choice — at or
+  above AUTO_HIER_MIN_NODES nodes "hier" (with the active-set engine
+  allowed to claim steady cycles first), below it "fused" under
+  AUTO_BATCHED_MIN pending tasks and "batched" at or above. The
+  reference runs its sharded round engine instead of batched when it
+  sees more than one device and a large node axis; this package has no
+  sharded engine (ROADMAP queue A, multi-device), so it picks "batched"
+  on any number of visible cards.
 - "fused": the whole cycle as ONE device solve (kernels/fused.py) —
   queue/job/task selection and fairness state live in the solve, bit-exact
   vs the host heap algorithm; the host replays the decisions through
@@ -22,14 +19,19 @@ Solver modes (constructor arg; the scheduler loop's ``solver=``):
   Exact in capacity, predicates and gang semantics, round-granular in
   ordering (its docstring states the contract). It carries inter-pod
   affinity and host ports (kernels/affinity.py); "fused" does not.
+- "hier": the two-level engine (kernels/hier.py): the round engine run
+  wave by wave on one node pool at a time, as ONE device solve. An
+  affinity cycle demotes to "batched" (counted), as in the reference.
+- "activeset": the active-set engine (kernels/activeset.py) claims the
+  cycle when its active set fits a grain, else "hier" runs.
 - "jax": one device scan per job visit (kernels/solver.py
   ``DeviceSession.solve_job``: one launch of csrc/allocate_scan.cu and
   one counted copy back per visit) inside the reference's queue / job
   loops — the route of every cycle whose plugins no whole-cycle engine
   expresses.
 - "host": the reference-literal per-pair loops — the semantic oracle.
-- "rpc", "native", "sharded", "hier" and "activeset" as requests: not in
-  this package (NotImplementedError naming their ROADMAP items).
+- "rpc", "native" and "sharded" as requests: not in this package
+  (NotImplementedError naming their ROADMAP items).
 
 Each cycle first asks the degradation ladder (faults.LADDER.cap_engine)
 for the engine its level allows, as the reference does; a capped engine
@@ -76,7 +78,7 @@ AUTO_BATCHED_MIN = 512
 #: ... and to its two-level engine at this many nodes
 AUTO_HIER_MIN_NODES = 16384
 
-MODES = ("auto", "fused", "batched", "jax", "host")
+MODES = ("auto", "fused", "batched", "hier", "activeset", "jax", "host")
 
 #: modes of the reference this package does not have, with the ROADMAP
 #: items that bring them
@@ -84,13 +86,11 @@ NOT_PORTED = {
     "rpc": "the solver sidecar, ROADMAP queue A, A8",
     "native": "the native packer, ROADMAP queue A, A7",
     "sharded": "the sharded engines, ROADMAP queue A, A10; queue B, B14",
-    "hier": "the two-level engine, ROADMAP queue A, A3; queue B, B10",
-    "activeset": "the active-set engine, ROADMAP queue A, A3; queue B, "
-                 "B11",
 }
 
 #: engine that consumed the last allocate cycle in this process
-#: ("fused" / "batched" / "<mode>-visit" / "host-visit") — a fallback
+#: ("fused" / "batched" / "hier" / "activeset" / "<mode>-visit" /
+#: "host-visit") — a fallback
 #: off the whole-cycle engines shows here
 last_cycle_engine: str = ""
 
@@ -137,8 +137,9 @@ class AllocateAction(Action):
     @staticmethod
     def _auto_mode(ssn: Session) -> str:
         """Size-based engine selection with the reference package's
-        thresholds. No sharded engine here: "batched" on any number of
-        visible cards."""
+        thresholds, keyed on the node axis first: a cluster-scale axis
+        runs the two-level family at every churn level. No sharded
+        engine here: "batched" on any number of visible cards."""
         if len(ssn.nodes) >= AUTO_HIER_MIN_NODES:
             return "hier"
         pending = sum(
@@ -154,14 +155,14 @@ class AllocateAction(Action):
         # the cap stops at the card's last tier ("fused")
         wanted = mode
         mode = _LADDER.cap_engine(mode, on_card(ssn.cache))
-        if wanted == "hier" and mode == "batched" \
+        if wanted in ("hier", "activeset") and mode == "batched" \
                 and len(ssn.nodes) >= AUTO_HIER_MIN_NODES:
             # a demoted two-level cycle skips the flat batched engine
             # (its [T, N] state at this node count is what the two-level
             # split avoids) for the fused tier, as the reference does
             count_engine_demotion("batched", "fused")
             mode = "fused"
-        if mode in ("batched", "hier", "fused"):
+        if mode in ("batched", "hier", "activeset", "fused"):
             from .allocate_batched import execute_batched
             from .allocate_fused import execute_fused
             from .cycle_inputs import cycle_supported
@@ -172,12 +173,17 @@ class AllocateAction(Action):
             elif mode == "fused":
                 ran = execute_fused(ssn) and "fused"
             else:
-                ran = execute_batched(ssn, hier=(mode == "hier"))
+                # the active-set engine may claim an auto-selected
+                # two-level cycle or an explicit "activeset" request
+                ran = execute_batched(
+                    ssn, hier=mode in ("hier", "activeset"),
+                    activeset=(mode == "activeset"
+                               or (self.mode == "auto" and mode == "hier")))
             if ran:
                 last_cycle_engine = ran
                 return
             count_engine_demotion(mode, "visit")
-            if mode == "hier":
+            if mode in ("hier", "activeset"):
                 mode = "batched"
         self._execute_queued(ssn, mode)
 

@@ -13,7 +13,10 @@ kernels (kernels/victims.py) from the reference solver's host arrays,
 the ``affinity_*`` helpers carry the affinity vocabulary
 (kernels/affinity.py) and the round engine's affinity arrays, and
 :func:`scan_inputs_from_numpy` the per-visit scan's arguments
-(``kernels.solver.allocate_scan``).
+(``kernels.solver.allocate_scan``), and the ``*_args_from_numpy``
+helpers the two-level and active-set solves' (``kernels.hier``,
+``kernels.activeset``) from the reference's prepare_hier /
+prepare_activeset / prepare_activeset_audit plans.
 """
 from __future__ import annotations
 
@@ -179,3 +182,87 @@ def scan_inputs_from_numpy(arrays: Mapping[str, object],
             out[name] = torch.tensor(np.asarray(arrays[name]), dtype=dt,
                                      device=dev)
     return out
+
+
+# ---- the two-level and active-set solves ------------------------------------
+
+#: the statics the reference's plans and the port's solves share
+_SOLVE_STATICS = ("job_keys", "queue_keys", "prop_overused", "dyn_enabled",
+                  "pipe_enabled", "max_rounds", "pool_size", "max_waves",
+                  "gang_enabled", "narrow", "narrow_gate")
+
+
+def _unpack_np(bufs: Sequence[np.ndarray], lays) -> Dict[str, np.ndarray]:
+    out = {}
+    for buf, lay in zip(bufs, lays):
+        buf = np.asarray(buf)
+        for name, off, shape in lay:
+            size = int(np.prod(shape)) if shape else 1
+            out[name] = buf[off:off + size].reshape(shape)
+    return out
+
+
+def _solve_tensors(arrays: Mapping[str, np.ndarray], names,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    return {n: _tensor(batched, n, arrays[n], device) for n in names}
+
+
+def _node_tensors(node: Sequence[np.ndarray], device: torch.device):
+    return _solve_tensors(dict(zip(batched.NODE_ARGS, node)),
+                          batched.NODE_ARGS, device)
+
+
+def _cycle_tensors(bufs, lays, device, pair_init: bool = False):
+    arrays = _unpack_np(bufs, lays)
+    out = _solve_tensors(arrays, batched.CYCLE_ARGS, device)
+    if pair_init:
+        out["pair_init"] = torch.tensor(
+            np.asarray(arrays["pair_init_resreq"]), dtype=torch.float32,
+            device=device)
+    return out
+
+
+def hier_args_from_numpy(args: Sequence[np.ndarray],
+                         statics: Mapping[str, object], device: DeviceLike,
+                         pair_init: bool = False):
+    """The (arrays, statics) of ``kernels.hier.hier_packed`` from the
+    reference's ``prepare_hier`` plan: ``args`` its eleven arrays as
+    numpy (three packed buffers, then the eight node arrays), ``statics``
+    its static arguments (the buffers' layouts among them)."""
+    dev = resolve_device(device)
+    arrays = _node_tensors(args[3:11], dev)
+    arrays.update(_cycle_tensors(args[:3], (statics["lay_f"],
+                                            statics["lay_i"],
+                                            statics["lay_b"]), dev,
+                                 pair_init))
+    return arrays, {k: statics[k] for k in _SOLVE_STATICS if k in statics}
+
+
+def activeset_args_from_numpy(args: Sequence[np.ndarray],
+                              statics: Mapping[str, object],
+                              device: DeviceLike):
+    """The (arrays, statics) of ``kernels.activeset.activeset_packed``
+    from the reference's ``prepare_activeset`` plan (args, statics): the
+    regrained task axis and the pair representatives (``pair_init``)
+    carried across."""
+    return hier_args_from_numpy(args, statics, device, pair_init=True)
+
+
+def activeset_audit_args_from_numpy(args: Sequence[np.ndarray],
+                                    statics: Mapping[str, object],
+                                    device: DeviceLike):
+    """(node, act, full, statics) of
+    ``kernels.activeset.activeset_audit_packed`` from the reference's
+    ``prepare_activeset_audit`` plan: ``args`` its fourteen arrays as
+    numpy (the active set's three buffers, the full width's three, the
+    eight node arrays)."""
+    dev = resolve_device(device)
+    node = _node_tensors(args[6:14], dev)
+    act = _cycle_tensors(args[:3], (statics["alay_f"], statics["alay_i"],
+                                    statics["alay_b"]), dev, pair_init=True)
+    full = _cycle_tensors(args[3:6], (statics["flay_f"], statics["flay_i"],
+                                      statics["flay_b"]), dev)
+    st = {k: statics[k] for k in _SOLVE_STATICS if k in statics}
+    st.update(amax_rounds=statics["amax_rounds"],
+              max_rounds=statics["fmax_rounds"])
+    return node, act, full, st

@@ -47,6 +47,10 @@ EXPORTS: Dict[str, Dict[str, str]] = {
         "kb_batched_workspace": "pip",
         "kb_batched_allocate": "pipipp",
     },
+    "hier_allocate.cu": {
+        "kb_hier_workspace": "pppp",
+        "kb_hier_allocate": "pppppppp",
+    },
     "victims.cu": {
         "kb_victims_workspace": "ii",
         "kb_victims": "ppp",

@@ -65,7 +65,7 @@ from . import _build
 from .fused import (ALLOC, ALLOC_OB, FAIL, JOB_KEY_CODES, K_DRF_SHARE,
                     K_GANG_READY, K_PRIORITY, K_PROP_SHARE, PIPELINE, SKIP,
                     _share)
-from .solver import dynamic_node_score_plain
+from .solver import dynamic_node_score_plain, scan_node_score_plain
 from .telemetry import ENGINE_BATCHED, TELEM_WIDTH, decision_frame
 from .tensorize import VEC_EPS
 from .xla_order import associative_scan, column_sum, search_left, \
@@ -245,43 +245,88 @@ def _segmented_prefix(values: torch.Tensor, starts: torch.Tensor
     return sums - values
 
 
+def _eligibility(idle, releasing, n_tasks, a: CycleArrays, pipe_enabled: bool,
+                 eps, init, sig) -> torch.Tensor:
+    """[len(init), N] predicate + capacity eligibility of request rows
+    ``init`` [k,R] with predicate rows ``sig`` [k]."""
+    accessible = idle + a.backfilled
+    base = a.node_ok & (n_tasks < a.max_task_num)
+    fit = (init[:, None, :] <= (accessible + eps)[None]).all(dim=-1)
+    if pipe_enabled:
+        fit = fit | (init[:, None, :] <= (releasing + eps)[None]).all(dim=-1)
+    return a.sig_pred[sig.long()] & base[None, :] & fit
+
+
 def resource_eligibility(idle, releasing, n_tasks, a: CycleArrays,
                          pipe_enabled: bool, eps, rows) -> torch.Tensor:
     """[len(rows), N] predicate + capacity eligibility of task ``rows``
     (reference ``resource_eligibility``, without affinity terms)."""
-    accessible = idle + a.backfilled
-    base = a.node_ok & (n_tasks < a.max_task_num)
-    init = a.init_resreq[rows]
-    fit = (init[:, None, :] <= (accessible + eps)[None]).all(dim=-1)
-    if pipe_enabled:
-        fit = fit | (init[:, None, :] <= (releasing + eps)[None]).all(dim=-1)
-    return a.sig_pred[a.task_sig[rows].long()] & base[None, :] & fit
+    return _eligibility(idle, releasing, n_tasks, a, pipe_enabled, eps,
+                        a.init_resreq[rows], a.task_sig[rows])
+
+
+def _distinct_rows(a: CycleArrays, rows, pair_init=None):
+    """Group task ``rows`` by what their eligibility and score row read:
+    (predicate row, request, pair) — or, with ``pair_init`` (the
+    active-set engine's exact-pair fold), the pair alone. Returns
+    (inverse [len(rows)] into the groups, the groups' request rows
+    [U,R], predicate rows [U] and pairs [U])."""
+    pairs = a.task_pair[rows]
+    if pair_init is not None:
+        uniq, inv = torch.unique(pairs, return_inverse=True)
+        return inv, pair_init[uniq.long()], a.pair_sig[uniq.long()], uniq
+    key = torch.cat([a.task_sig[rows, None].to(torch.float64),
+                     pairs[:, None].to(torch.float64),
+                     a.init_resreq[rows].to(torch.float64)], dim=1)
+    uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+    first = torch.full((uniq.shape[0],), rows.shape[0], dtype=torch.int64)
+    first.scatter_reduce_(0, inv, torch.arange(rows.shape[0]), "amin")
+    rep = rows[first]
+    return inv, a.init_resreq[rep], a.task_sig[rep], pairs[first]
 
 
 def _row_pass(idle, releasing, n_tasks, a, pipe_enabled, eps, sc, mask,
-              aff=None):
+              aff=None, pair_init=None):
     """For every task with ``mask``: any eligible node, and the masked
     argmax of its score row over the eligible nodes (lowest index on
     ties; node 0 when none is eligible). The score row is its pair's;
     with ``aff`` (an :class:`_AffRound`) eligibility also takes the
     affinity predicates and, with an interpod score, the row adds its
-    term. Returns (any_elig, best, ip_scored). In chunks of task rows;
-    the kernel does one task row per warp."""
+    term. Returns (any_elig, best, ip_scored). Without affinity, rows
+    that read the same predicate row, request and pair are identical,
+    so each distinct one is evaluated once (with ``pair_init``: once a
+    pair, from its representative request); with it, in chunks of task
+    rows. The kernel does one task row per warp."""
     t_pad = mask.shape[0]
     any_elig = torch.zeros(t_pad, dtype=torch.bool)
     best = torch.zeros(t_pad, dtype=torch.int32)
     scored = torch.zeros(t_pad, dtype=torch.bool)
     rows_all = torch.nonzero(mask).flatten()
+    if aff is None:
+        if rows_all.numel() == 0:
+            return any_elig, best, scored
+        inv, init, sig, pairs = _distinct_rows(a, rows_all, pair_init)
+        g_any = torch.zeros(init.shape[0], dtype=torch.bool)
+        g_best = torch.zeros(init.shape[0], dtype=torch.int32)
+        for c in range(0, init.shape[0], _ROW_CHUNK):
+            sl = slice(c, c + _ROW_CHUNK)
+            elig = _eligibility(idle, releasing, n_tasks, a, pipe_enabled,
+                                eps, init[sl], sig[sl])
+            g_any[sl] = elig.any(dim=1)
+            masked = torch.where(elig, sc[pairs[sl].long()], -torch.inf)
+            g_best[sl] = masked.argmax(dim=1).to(torch.int32)
+        any_elig[rows_all] = g_any[inv]
+        best[rows_all] = g_best[inv]
+        return any_elig, best, scored
     for c in range(0, rows_all.shape[0], _ROW_CHUNK):
         rows = rows_all[c:c + _ROW_CHUNK]
         elig = resource_eligibility(idle, releasing, n_tasks, a,
                                     pipe_enabled, eps, rows)
         sc_rows = sc[a.task_pair[rows].long()]
-        if aff is not None:
-            elig = elig & aff.ok_rows(rows)
-            if aff.ip:
-                term, scored[rows] = aff.ip_rows(rows)
-                sc_rows = sc_rows + term
+        elig = elig & aff.ok_rows(rows)
+        if aff.ip:
+            term, scored[rows] = aff.ip_rows(rows)
+            sc_rows = sc_rows + term
         any_elig[rows] = elig.any(dim=1)
         masked = torch.where(elig, sc_rows, -torch.inf)
         best[rows] = masked.argmax(dim=1).to(torch.int32)
@@ -548,14 +593,17 @@ def _aff_rollback(state: RoundState, a: CycleArrays, revert):
     return upd
 
 
-def _pair_scores(state, a, dyn_enabled):
+def _pair_scores(state, a, dyn_enabled, weighted_fma: bool = False):
     """[P,N] float32 pair scores: static sig score + the dynamic
-    nodeorder term evaluated with the pair's own request."""
+    nodeorder term evaluated with the pair's own request (its weighted
+    sum one FMA with ``weighted_fma``: xla_order.WEIGHTED_SUM_FMA)."""
     sc = a.sig_scores[a.pair_sig.long()]
     dyn = torch.zeros_like(sc)
+    score = scan_node_score_plain if weighted_fma \
+        else dynamic_node_score_plain
     if dyn_enabled:
         for p in range(0, sc.shape[0], _PAIR_CHUNK):
-            dyn[p:p + _PAIR_CHUNK] = dynamic_node_score_plain(
+            dyn[p:p + _PAIR_CHUNK] = score(
                 state.nz_req, a.pair_nz[p:p + _PAIR_CHUNK],
                 a.allocatable_cm, a.dyn_weights)
     return sc + dyn
@@ -563,10 +611,22 @@ def _pair_scores(state, a, dyn_enabled):
 
 def _round(state: RoundState, a: CycleArrays, round_idx: int,
            job_keys, queue_keys, prop_overused: bool, dyn_enabled: bool,
-           pipe_enabled: bool, seq_stride: int, stats=None):
+           pipe_enabled: bool, seq_stride: int, stats=None,
+           elig_elsewhere=None, pair_init=None, weighted_fma: bool = False):
     """One allocation round (reference ``_round``). Returns (new_state,
     progress). ``stats`` (a dict), when given, counts the round and the
-    task rows of its two row passes."""
+    task rows of its two row passes.
+
+    The two-level solves (kernels/hier.py, kernels/activeset.py) run the
+    round on one node pool: ``state`` and ``a`` are then sliced to the
+    pool's nodes (the node window) and ``elig_elsewhere`` ([T] bool)
+    marks tasks eligible in another pool, which wait instead of failing
+    when the pool has no node for them. ``pair_init`` ([P,R]): the
+    active-set engine's exact-pair fold; every valid task's request row
+    equals its pair's (checked on the host), so eligibility and the
+    argmax are evaluated once a pair. ``weighted_fma``: the graph's
+    evaluation of the dynamic score's weighted sum
+    (xla_order.WEIGHTED_SUM_FMA)."""
     f32, i32 = torch.float32, torch.int32
     eps = torch.from_numpy(VEC_EPS)
     t_pad = a.task_valid.shape[0]
@@ -655,16 +715,20 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
     global_rank = _inverse(order)
 
     # ---- 2. exact eligibility + 3. the masked argmax (one row pass) -------
-    sc = _pair_scores(state, a, dyn_enabled)                  # [P,N]
+    sc = _pair_scores(state, a, dyn_enabled, weighted_fma)    # [P,N]
     aff = _AffRound(state, a) if a.node_dom is not None else None
     any_elig, fb, ip_scored = _row_pass(
         state.idle, state.releasing, state.n_tasks, a, pipe_enabled, eps, sc,
-        participating, aff)
+        participating, aff, pair_init)
     fail_now = participating & ~any_elig
     if aff is not None:
         # a positive-affinity task whose group a same-cycle placement can
         # still populate waits (stays SKIP) instead of killing its job
         fail_now = fail_now & ~aff.could_wait
+    if elig_elsewhere is not None:
+        # a pool-restricted round: eligibility in another pool means
+        # waiting for a later wave, never FAIL
+        fail_now = fail_now & ~elig_elsewhere
     fail_rank = torch.full((j_pad,), _IMAX, dtype=i32).scatter_reduce_(
         0, tj0, torch.where(fail_now, global_rank,
                             torch.tensor(_IMAX, dtype=i32)), "amin")
@@ -790,7 +854,7 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
         # affinity-involved tasks sit the retry out
         retry = retry & ~_aff_involved(state, a)
     any_r, fb_r, _ = _row_pass(idle_c, rel_c, ntasks_c, a, pipe_enabled,
-                               eps, sc, retry, aff)
+                               eps, sc, retry, aff, pair_init)
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + 1
         stats["rows"] = (stats.get("rows", 0) + int(participating.sum())

@@ -25,6 +25,11 @@ and the CUDA kernel (csrc/batched_allocate.cu) repeats the same orders:
 Segment sums (``jax.ops.segment_sum``) add in update order, which is
 ``Tensor.index_add_`` on the CPU; the plain engine calls that directly.
 The tests pin every helper against ``jnp`` at the shapes the round uses.
+
+Multiply-adds are contracted per compiled graph: :data:`WEIGHTED_SUM_FMA`
+records, for each reference graph, how it evaluates nodeorder's weighted
+dynamic score ``least * w0 + balanced * w1`` (equal either way for
+integer weights; the tests probe fractional ones at the edges).
 """
 from __future__ import annotations
 
@@ -32,6 +37,17 @@ import math
 from typing import Callable, List, Sequence
 
 import torch
+
+#: per reference graph: True where XLA:CPU contracts nodeorder's weighted
+#: sum into fma(balanced, w1, least * w0) (kernels/solver.py
+#: scan_node_score_plain), False where both products are rounded before
+#: the add (dynamic_node_score_plain). The two-level and active-set
+#: graphs (``_hier_packed``, ``_activeset_packed``,
+#: ``_activeset_audit_packed``) contract it in their coarse pass and in
+#: their rounds alike, unlike the flat batched graph
+#: (tests/test_torch_hier.py, tests/test_torch_activeset.py).
+WEIGHTED_SUM_FMA = {"batched": False, "allocate_scan": True, "hier": True,
+                    "activeset": True}
 
 #: tile width of the cumulative-sum rewrite
 SCAN_TILE = 16

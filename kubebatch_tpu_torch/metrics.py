@@ -7,7 +7,9 @@ dispatch), engine demotions (a requested engine that could not run and
 handed the cycle to another), affinity host fallbacks, the preemption
 victims and attempts, backfill-over-reserved's reclaims, double binds
 and lost reservations, and the event fold's folded events (per kind)
-and demotions (per reason), and the scheduler loop's robustness and
+and demotions (per reason), the active-set engine's cycles (per kind),
+audits (per result) and demotions (per reason), and the scheduler
+loop's robustness and
 timing accounting: cycle failures per reason, injected faults per seam,
 the degradation ladder's level, lazy audits, schedule-on-arrival
 sub-cycles and their arrival -> decision latencies, and the host seconds
@@ -192,6 +194,78 @@ def fold_demotions_total() -> dict:
     """Fold demotions per reason (a copy)."""
     with _fold_lock:
         return dict(_fold_demotions)
+
+
+# ---------------------------------------------------------------------------
+# the active-set engine (kernels/activeset.py): the reference's
+# activeset_cycles_total{kind}, activeset_audits_total{result} and
+# activeset_demotions_total{reason}
+# ---------------------------------------------------------------------------
+
+_act_lock = threading.Lock()
+_activeset_cycles: dict = {}
+_activeset_audits: dict = {}
+_activeset_demotions: dict = {}
+
+
+def count_activeset_cycle(audit: bool) -> None:
+    """Record one cycle the active-set engine solved, by kind: "audit"
+    for the cadence's combined full-width comparison, else "steady"."""
+    kind = "audit" if audit else "steady"
+    with _act_lock:
+        _activeset_cycles[kind] = _activeset_cycles.get(kind, 0) + 1
+
+
+def activeset_cycles_total() -> int:
+    with _act_lock:
+        return sum(_activeset_cycles.values())
+
+
+def activeset_cycles_by_kind() -> dict:
+    with _act_lock:
+        return dict(_activeset_cycles)
+
+
+def count_activeset_audit(ok: bool) -> None:
+    """Record one audit comparison, by result: "ok", or "diff" when the
+    active-set decisions diverged from the full-width solve's."""
+    result = "ok" if ok else "diff"
+    with _act_lock:
+        _activeset_audits[result] = _activeset_audits.get(result, 0) + 1
+
+
+def activeset_audits_total() -> int:
+    with _act_lock:
+        return sum(_activeset_audits.values())
+
+
+def activeset_audits_by_result() -> dict:
+    with _act_lock:
+        return dict(_activeset_audits)
+
+
+def activeset_divergences_total() -> int:
+    with _act_lock:
+        return _activeset_audits.get("diff", 0)
+
+
+def count_activeset_demotion(reason: str) -> None:
+    """Record one demotion of the active-set engine to the full-width
+    solve: "audit" (a divergence) or "fault" (the solve.activeset
+    seam)."""
+    with _act_lock:
+        _activeset_demotions[reason] = _activeset_demotions.get(reason,
+                                                                0) + 1
+
+
+def activeset_demotions_total() -> int:
+    with _act_lock:
+        return sum(_activeset_demotions.values())
+
+
+def activeset_demotions_by_reason() -> dict:
+    with _act_lock:
+        return dict(_activeset_demotions)
 
 
 # ---------------------------------------------------------------------------

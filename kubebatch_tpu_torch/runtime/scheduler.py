@@ -15,12 +15,13 @@ placed between periods by a schedule-on-arrival sub-cycle
 The reference's KUBEBATCH_* settings are keyword arguments here:
 ``solver=`` (KUBEBATCH_SOLVER: the allocate action's mode),
 ``cycle_deadline=`` (KUBEBATCH_CYCLE_DEADLINE), ``audit_every=``
-(KUBEBATCH_AUDIT_EVERY), ``subcycle=`` (KUBEBATCH_SUBCYCLE); the
-ladder's recovery probe is skipped on a CPU cache (the reference's
+(KUBEBATCH_AUDIT_EVERY), ``solve_audit_every=``
+(KUBEBATCH_SOLVE_AUDIT_EVERY: the active-set engine's audit cadence,
+process-wide as in the reference), ``subcycle=`` (KUBEBATCH_SUBCYCLE);
+the ladder's recovery probe is skipped on a CPU cache (the reference's
 KUBEBATCH_NO_BACKEND_PROBE). Not ported yet, and refused with
-NotImplementedError: ``pipeline`` (ROADMAP A4), ``slo`` (A5),
-``explain_unschedulable`` (A5, B9) and ``solve_audit_every`` (the
-active-set engine, A3 / B11).
+NotImplementedError: ``pipeline`` (ROADMAP A4), ``slo`` (A5) and
+``explain_unschedulable`` (A5, B9).
 """
 from __future__ import annotations
 
@@ -92,9 +93,10 @@ class Scheduler:
             if flag:
                 raise NotImplementedError(f"{item}: not ported yet")
         if solve_audit_every is not None:
-            raise NotImplementedError(
-                "solve_audit_every sets the active-set engine's audit, "
-                "not ported yet (ROADMAP queue A, A3; queue B, B11)")
+            # the active-set engine's audit cadence (process-wide, as in
+            # the reference; kernels/activeset.py owns the counter)
+            from ..kernels import activeset as _activeset
+            _activeset.set_audit_every(solve_audit_every)
         self.cache = cache
         self.schedule_period = schedule_period
         self.enable_preemption = enable_preemption

@@ -271,18 +271,43 @@ def test_host_visit_gate(custom, affinity, device, mode, route):
 @pytest.mark.parametrize("affinity", [False, True])
 def test_two_level_request_at_scale(monkeypatch, affinity):
     """Auto at AUTO_HIER_MIN_NODES nodes asks for the two-level engine
-    (B10): an affinity-free cycle raises; an affinity cycle demotes to
-    the batched engine, counted, as the reference demotes it. The node
-    threshold is lowered for the test."""
+    (B10), as the reference does (the node threshold lowered for the
+    test, in both packages): an affinity-free cycle runs it — its
+    active set (B11) claims the cycle, as in the reference — an affinity
+    cycle demotes to the batched engine, counted. Engines, demotion
+    deltas and task statuses equal the reference's."""
+    from kubebatch_tpu import metrics as j_metrics
+    from kubebatch_tpu.actions.allocate import AllocateAction as JAllocate
+    from kubebatch_tpu.conf import shipped_tiers as j_tiers
+    from kubebatch_tpu.framework import CloseSession as JClose
+    from kubebatch_tpu.framework import OpenSession as JOpen
+    from kubebatch_tpu.kernels import activeset as j_activeset
+    from kubebatch_tpu_torch.kernels import activeset as t_activeset
+
+    import jax
+
     monkeypatch.setattr(t_allocate_mod, "AUTO_HIER_MIN_NODES", 2)
+    monkeypatch.setattr(j_allocate_mod, "AUTO_HIER_MIN_NODES", 2)
+    # the reference demotes to its sharded engine when it sees more than
+    # one device (the tests' 8-device CPU mesh); the port runs on one card
+    one = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: one)
+    j_activeset.reset()
+    t_activeset.reset()
+    jcache = _j_gate_cache(affinity)
+    jdem0 = j_metrics.engine_demotions_total()
+    ssn = JOpen(jcache, j_tiers())
+    JAllocate(mode="auto").execute(ssn)
+    JClose(ssn)
+
     cache = _gate_cache(affinity, "cpu")
     ssn = TOpen(cache, t_tiers())
     dem0 = t_metrics.engine_demotions_total()
-    if not affinity:
-        with pytest.raises(NotImplementedError, match="B10"):
-            TAllocate(mode="auto").execute(ssn)
-    else:
-        TAllocate(mode="auto").execute(ssn)
-        assert t_allocate_mod.last_cycle_engine == "batched"
-        assert t_metrics.engine_demotions_total() == dem0 + 1
+    TAllocate(mode="auto").execute(ssn)
     TClose(ssn)
+    assert t_allocate_mod.last_cycle_engine \
+        == j_allocate_mod.last_cycle_engine \
+        == ("batched" if affinity else "activeset")
+    assert t_metrics.engine_demotions_total() - dem0 \
+        == j_metrics.engine_demotions_total() - jdem0 == int(affinity)
+    assert _statuses(cache) == _statuses(jcache)

@@ -1022,3 +1022,140 @@ def test_visit_cycle_on_the_card_binds_what_the_cpu_binds(case, mode,
             assert launches == 0
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0] == f"{mode}-visit"
+
+
+# ---- the two-level and active-set kernel (csrc/hier_allocate.cu) ---------
+
+#: (case, pool width): contended multi-pool solves, with the epilogue
+#: (reduced5), pipelined and over-backfill fits, cfg3 at the default pool
+HIER_CASES = [((REDUCED5_B, None), 8), ((REDUCED3, None), 8),
+              ((BASELINE_SPECS[3], None), 0), ((FILLED, "releasing"), 4),
+              ((FILLED, "backfill"), 4)]
+HIER_IDS = ["reduced5", "reduced3", "cfg3", "pipelined", "over_backfill"]
+
+
+def _hier_inputs(case):
+    return build_cycle_inputs(OpenSession(_cache(case, "cuda"),
+                                          shipped_tiers()))
+
+
+def _on_cpu(d):
+    return {k: v.cpu() for k, v in d.items()}
+
+
+def _scale_counters():
+    """The last hier_allocate launch's work counters, by name."""
+    from kubebatch_tpu_torch.kernels import hier
+
+    return dict(zip(hier.COUNTERS,
+                    hier.last_launch["counters"].cpu().tolist()))
+
+
+def _plain_counters(stats):
+    from kubebatch_tpu_torch.kernels import hier
+
+    return {k: stats.get(k, 0) for k in hier.COUNTERS}
+
+
+@pytest.mark.parametrize("case,pool", HIER_CASES, ids=HIER_IDS)
+def test_hier_allocate_kernel_matches_plain(case, pool):
+    from kubebatch_tpu_torch.kernels.hier import (hier_allocate_plain,
+                                                  hier_packed, prepare_hier)
+
+    _need_cuda()
+    args, statics = prepare_hier(_hier_inputs(case), pool_size=pool)
+    n0 = _build.launch_count("hier_allocate")
+    got = hier_packed(**args, **statics)
+    torch.cuda.synchronize()
+    assert _build.launch_count("hier_allocate") == n0 + 1
+    counters = _scale_counters()
+    stats = {}
+    want = hier_allocate_plain(**_on_cpu(args), **statics, stats=stats)
+    _assert_bitwise(want, [g.cpu() for g in got], "hier_allocate")
+    assert counters == _plain_counters(stats)
+
+
+@pytest.mark.parametrize("grain", [0, 1024, 4096])
+@pytest.mark.parametrize("case", [(REDUCED5_B, None), (BASELINE_SPECS[2],
+                                                        None)],
+                         ids=["reduced5", "cfg2"])
+def test_activeset_kernels_match_plain(case, grain):
+    """The active-set mode and the audit mode of the kernel against
+    their plain versions: packed result, frame and node carry; the audit
+    reports no divergence."""
+    from kubebatch_tpu_torch.kernels.activeset import (
+        activeset_allocate_plain, activeset_audit_packed,
+        activeset_audit_plain, activeset_packed, prepare_activeset,
+        prepare_activeset_audit)
+    from kubebatch_tpu_torch.kernels.telemetry import F_ACT_DEMOTED
+
+    _need_cuda()
+    inputs = _hier_inputs(case)
+    args, statics, g = prepare_activeset(inputs, grain=grain, pool_size=8)
+    n0 = _build.launch_count("activeset_allocate")
+    got = activeset_packed(**args, **statics)
+    torch.cuda.synchronize()
+    counters, stats = _scale_counters(), {}
+    want = activeset_allocate_plain(**_on_cpu(args), **statics, stats=stats)
+    _assert_bitwise(want, [x.cpu() for x in got], "activeset_allocate")
+    assert counters == _plain_counters(stats)
+    node, act, full, statics, _ = prepare_activeset_audit(
+        inputs, grain=grain, pool_size=8)
+    got = activeset_audit_packed(node, act, full, **statics)
+    torch.cuda.synchronize()
+    assert _build.launch_count("activeset_allocate") == n0 + 2
+    counters, stats = _scale_counters(), {}
+    want = activeset_audit_plain(_on_cpu(node), _on_cpu(act), _on_cpu(full),
+                                 **statics, stats=stats)
+    _assert_bitwise(want, [x.cpu() for x in got], "activeset audit")
+    assert counters == _plain_counters(stats)
+    t = full["task_valid"].shape[0]
+    assert int(got[0][3 * t + 1 + F_ACT_DEMOTED]) == 0
+
+
+def test_two_level_cycles_on_the_card_bind_what_the_cpu_binds(monkeypatch):
+    """A cold two-level cycle, then auto at the (lowered) two-level
+    threshold: churn cycles run the active set with an audit on its
+    cadence; the card binds what the CPU binds, one launch and one
+    counted copy a cycle."""
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.kernels import activeset
+
+    _need_cuda()
+    monkeypatch.setattr(allocate_mod, "AUTO_HIER_MIN_NODES", 16)
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            activeset.reset()
+            activeset.set_audit_every(2)
+            binder = _Binder()
+            sim = build_cluster(REDUCED5_B)
+            cache = SchedulerCache(binder=binder, async_writeback=False,
+                                   device=device)
+            sim.populate(cache)
+            trace = []
+            for k in range(4):
+                if k:
+                    for pod in sim.pods:
+                        if pod.node_name and pod.phase == PodPhase.PENDING:
+                            pod.phase = PodPhase.RUNNING
+                            cache.update_pod(pod, pod)
+                    sim.churn_tick(cache, 64, arrival_queue=k % 4)
+                ssn = OpenSession(cache, shipped_tiers())
+                rb0 = metrics.blocking_readbacks()
+                n0 = (_build.launch_count("hier_allocate")
+                      + _build.launch_count("activeset_allocate"))
+                AllocateAction(mode="auto" if k else "hier").execute(ssn)
+                launches = (_build.launch_count("hier_allocate")
+                            + _build.launch_count("activeset_allocate") - n0)
+                assert metrics.blocking_readbacks() - rb0 == 1
+                assert launches == (device == "cuda")
+                trace.append(allocate_mod.last_cycle_engine)
+                CloseSession(ssn)
+            out[device] = (trace, binder.calls, activeset.demoted())
+    finally:
+        activeset.reset()
+        activeset.set_audit_every(activeset.DEFAULT_AUDIT_EVERY)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] == ["hier", "activeset", "activeset", "activeset"]
+    assert out["cuda"][1] and not out["cuda"][2]

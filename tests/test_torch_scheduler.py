@@ -460,12 +460,10 @@ def test_latency_lane_arrivals_match_reference():
 def test_unported_options_raise():
     cache = TCache(async_writeback=False, device="cpu")
     for kw, item in (({"pipeline": True}, "A4"), ({"slo": True}, "A5"),
-                     ({"explain_unschedulable": True}, "B9"),
-                     ({"solve_audit_every": 4}, "B11")):
+                     ({"explain_unschedulable": True}, "B9")):
         with pytest.raises(NotImplementedError, match=item):
             TScheduler(cache, **kw)
-    for mode, item in (("rpc", "A8"), ("native", "A7"), ("sharded", "B14"),
-                       ("hier", "B10"), ("activeset", "B11")):
+    for mode, item in (("rpc", "A8"), ("native", "A7"), ("sharded", "B14")):
         with pytest.raises(NotImplementedError, match=item):
             TAllocate(mode=mode)
         with pytest.raises(NotImplementedError, match=item):
@@ -488,6 +486,39 @@ def test_solver_argument_sets_the_allocate_mode(monkeypatch):
     assert j_allocate_mod.last_cycle_engine == "jax-visit"
     assert t.rec.binds == j.rec.binds and t.rec.binds
     assert t.states() == j.states()
+
+
+@pytest.mark.parametrize("solver", ["hier", "activeset"])
+def test_two_level_solvers_run_as_the_reference(monkeypatch, solver):
+    """``solver="hier"`` / ``"activeset"`` and ``solve_audit_every``: the
+    loop runs the two-level engine (the active set claiming the cycle,
+    its first engaged cycle an audit) and binds as the reference's loop
+    under KUBEBATCH_SOLVER; both set the same audit cadence."""
+    from kubebatch_tpu.actions import allocate as j_allocate_mod
+    from kubebatch_tpu.kernels import activeset as j_activeset
+    from kubebatch_tpu_torch.actions import allocate as t_allocate_mod
+    from kubebatch_tpu_torch.kernels import activeset as t_activeset
+
+    try:
+        for mod in (j_activeset, t_activeset):
+            mod.reset()
+        t = Side(True, solver=solver, solve_audit_every=4)
+        monkeypatch.setenv("KUBEBATCH_SOLVER", solver)
+        j = Side(False, solve_audit_every=4)
+        assert j_activeset.audit_every() == t_activeset.audit_every() == 4
+        out = []
+        for s, alloc in ((j, j_allocate_mod), (t, t_allocate_mod)):
+            a0 = s.metrics.activeset_audits_total()
+            assert s.sched.run_cycle() is True
+            out.append((alloc.last_cycle_engine,
+                        s.metrics.activeset_audits_total() - a0))
+        assert out[0] == out[1] == (solver, int(solver == "activeset"))
+        assert t.rec.binds == j.rec.binds and t.rec.binds
+        assert t.states() == j.states()
+    finally:
+        for mod in (j_activeset, t_activeset):
+            mod.reset()
+            mod.set_audit_every(16)
 
 
 def test_probe_runs_a_subprocess_on_the_card_only():
