@@ -95,6 +95,24 @@ cfg7 checks the invariants only (its plain comparison, a full-width
 coarse pass of ~1e10 cells a wave on the host, is left out). The
 launches are timed (events, profiler) beside their bounds.
 
+Phase (h) is the observability plane: a saturated cfg4 (phase (c)'s
+cluster) through ``Scheduler(explain_unschedulable=True, slo=True)`` on
+the default conf, with the flight recorder, the timeline and the Chrome
+trace export armed into build/chip_smoke_obs, beside a twin loop
+without the explainer fed the same events (run with the decision ledger
+and the cycle hooks off): a cold period and a kubelet tick + churn-256
+period, each one ``explain_counts`` launch (csrc/explain_counts.cu) and
+one counted sync more than the twin, ``resources`` among the reasons;
+every launch bitwise equal to its plain version on the card, the
+fresh-inputs device pass equal to the host oracle; the five debug
+endpoints (127.0.0.1, an ephemeral port) answer and /debug/explain is
+the latest snapshot; the ledger closed one record per bind; an injected
+``device.dispatch`` failure and the ``obs.slo`` seam each write a flight
+dump that parses. Then 5p and 3p cold periods through the shipped
+policy, and the kernel at full width on fresh cold cfg5 and 5p sessions
+(T_pad 16,384 x N_pad 8,192; 5p with its 12 host ports), checked and
+timed (events, profiler) beside its bound and the plain version.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -1676,6 +1694,7 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
     from kubebatch_tpu_torch.framework.registry import \
         register_plugin_builder
     from kubebatch_tpu_torch.kernels import _build, solver
+    from kubebatch_tpu_torch.obs import ledger
     from kubebatch_tpu_torch.objects import (GROUP_NAME_ANNOTATION,
                                              Container, Pod, PodGroup,
                                              PodPhase, resource_list)
@@ -1854,7 +1873,7 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
         cache.add_pod_group(g)
     n_bind = len(binder.calls)
     sub0 = metrics.subcycles_total()
-    arr0 = metrics.arrivals_observed_total()
+    arrivals = ledger.window()
     rb0 = metrics.blocking_readbacks()
     _build.reset_launch_counts()
     with ScanRecorder() as srec:
@@ -1868,15 +1887,15 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
         sub_err = srec.check("sub-cycle")
     cache.drain(timeout=60.0)
     lat_binds = [c for c in binder.calls[n_bind:] if c[0].startswith("lat")]
-    lat = sorted(metrics.arrival_latencies()[-(
-        metrics.arrivals_observed_total() - arr0):])
+    n_dec = arrivals.subcycle_count()
     subs = metrics.subcycles_total() - sub0
     log(f"(f) sub-cycle: 64 latency-lane arrivals (32 lone pods, 4 gangs of "
         f"8), {subs} sub-cycles, {paths['subcycle']['allocate_scan']} "
         f"allocate_scan launches, {sub_syncs} counted syncs, "
-        f"{len(lat_binds)} pods bound, {len(lat)} decisions; "
-        f"arrival -> decision ms p50 {1e3 * lat[len(lat) // 2]:.3f}, max "
-        f"{1e3 * lat[-1]:.3f}; {sub_wall * 1e3:.1f} ms for the 64 adds")
+        f"{len(lat_binds)} pods bound, {n_dec} decisions; arrival -> "
+        f"decision ms p50 {arrivals.subcycle_percentile(50):.3f}, max "
+        f"{arrivals.subcycle_max_ms():.3f} (the decision ledger's "
+        f"buckets, 9% wide); {sub_wall * 1e3:.1f} ms for the 64 adds")
     # one sub-cycle per arrival; one visit (one launch, one sync) per lone
     # pod and per gang once its last member arrives (before that the
     # gang plugin holds the job out of the session, as the reference's
@@ -1885,9 +1904,9 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
             or sub_syncs != 36 or len(sub_calls) != 36:
         raise AssertionError("the sub-cycles did not run one launch and one "
                              "sync per visit")
-    if len(lat_binds) != 64 or len(lat) != 36:
+    if len(lat_binds) != 64 or n_dec != 36:
         raise AssertionError(f"{len(lat_binds)} latency pods bound, "
-                             f"{len(lat)} decisions observed")
+                             f"{n_dec} decisions observed")
     n_bind = len(binder.calls)
     kubelet(sim, cache)
     if not sched.run_cycle():
@@ -2034,8 +2053,8 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
             "library_ms": None, "library_call": "none",
             "t_pad": sb["t_pad"], "n_pad": sb["n_pad"],
             "jax_cold_wall_ms": card["wall_ms"],
-            "subcycle_arrival_ms_p50": 1e3 * lat[len(lat) // 2],
-            "subcycle_arrival_ms_max": 1e3 * lat[-1],
+            "subcycle_arrival_ms_p50": arrivals.subcycle_percentile(50),
+            "subcycle_arrival_ms_max": arrivals.subcycle_max_ms(),
             "probe_wall_s": [round(w, 3) for w, _ in probe_walls]}
 
 
@@ -2163,6 +2182,51 @@ class SolveRecorder:
             setattr(mod, name, self.inner[(mod, name)])
 
 
+class LedgerTimer:
+    """Times the decision ledger's work on the main path: wraps
+    obs.ledger.close_many (the bind funnel's closes), stage_mark (the
+    apply stamp) and the ledger's span-exit hook, and sums their host
+    seconds and the pods closed. A cycle's share is read as deltas."""
+
+    def __init__(self):
+        from kubebatch_tpu_torch.obs import ledger, spans
+
+        self.ledger, self.spans = ledger, spans
+        self.inner = {n: getattr(ledger, n)
+                      for n in ("close_many", "stage_mark", "on_span_exit")}
+        self.seconds = 0.0
+        self.pods = 0
+
+    def timed(self, fn, counts_pods=False):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                if counts_pods:
+                    self.pods += len(args[0])
+        return call
+
+    def __enter__(self):
+        for n, fn in self.inner.items():
+            setattr(self.ledger, n, self.timed(fn, n == "close_many"))
+        hooks = self.spans.SPAN_HOOKS
+        hooks[hooks.index(self.inner["on_span_exit"])] = \
+            self.ledger.on_span_exit
+        return self
+
+    def __exit__(self, *exc):
+        hooks = self.spans.SPAN_HOOKS
+        hooks[hooks.index(self.ledger.on_span_exit)] = \
+            self.inner["on_span_exit"]
+        for n, fn in self.inner.items():
+            setattr(self.ledger, n, fn)
+
+    def mark(self):
+        return self.seconds, self.pods
+
+
 def check_scale_call(call) -> dict:
     """Hold one recorded two-level / active-set launch against its plain
     version on CPU copies of its inputs (the packed result with its
@@ -2232,7 +2296,9 @@ def scale_phase(dev, spec6, spec7) -> list:
         rb0 = metrics.blocking_readbacks()
         b0 = binder.count
         n_rec = len(rec.calls)
+        l0 = lt.mark()
         ms, _, _ = run_cycle(cache, tiers, actions)
+        l_s, l_pods = (b - a for a, b in zip(l0, lt.mark()))
         syncs = metrics.blocking_readbacks() - rb0
         launches = {n: _build.launch_count(n) for n in names}
         engine = allocate_mod.last_cycle_engine
@@ -2264,8 +2330,9 @@ def scale_phase(dev, spec6, spec7) -> list:
                  "counters": counters, "kernel_ms": phases["kernel"],
                  "phase_ns": hier_mod.last_launch["phase_ns"],
                  "host_ms": {**{k: round(v, 3) for k, v in ms.items()},
-                             **{k: round(v, 3) for k, v in phases.items()}},
-                 "launches": launches}
+                             **{k: round(v, 3) for k, v in phases.items()},
+                             "ledger": l_s * 1e3},
+                 "ledger_closes": l_pods, "launches": launches}
         if check:
             chk = check_scale_call(call)
             plain_counts = {k: chk["stats"].get(k, 0)
@@ -2290,7 +2357,7 @@ def scale_phase(dev, spec6, spec7) -> list:
             + json.dumps(entry["host_ms"]))
         return entry
 
-    with SolveRecorder() as rec:
+    with SolveRecorder() as rec, LedgerTimer() as lt:
         # ---- cfg6: cold, then six skewed churn cycles ----------------
         t0 = time.perf_counter()
         sim = build_cluster(spec6)
@@ -2390,6 +2457,19 @@ def scale_phase(dev, spec6, spec7) -> list:
         log(f"(g) {e['label']}: bound {b['bound_ms']:.6f} ms "
             f"({b['bound_by']}: {b['bytes']} B, {b['ops']} operations); "
             f"kernel {e['kernel_ms']:.3f} ms (events, main path)")
+    ledger_cost = {}
+    for e, _ in results["hier"] + results["activeset"]:
+        h = e["host_ms"]
+        ledger_cost[e["label"]] = {
+            "ledger_ms": h["ledger"], "closes": e["ledger_closes"],
+            "replay_ms": h["replay"],
+            "share_of_replay": h["ledger"] / h["replay"]}
+        log(f"(g) {e['label']}: the ledger's work {h['ledger']:.3f} ms "
+            f"(close_many, stage_mark, its span hook) for "
+            f"{e['ledger_closes']} closes, "
+            f"{h['ledger'] / max(1, e['ledger_closes']) * 1e3:.3f} us a "
+            f"pod; {100 * h['ledger'] / h['replay']:.2f}% of the replay's "
+            f"{h['replay']:.1f} ms")
     for label, (ev, prof) in hier_t.items():
         log(f"(g) hier_allocate {label} cold re-run: {ev:.3f} ms (events), "
             f"{prof} ms device time (profiler)")
@@ -2436,7 +2516,7 @@ def scale_phase(dev, spec6, spec7) -> list:
         "cfg7_bound_ms": hb["cfg7 cold"]["bound_ms"],
         "cfg7_bound_by": hb["cfg7 cold"]["bound_by"],
         "cfg7_rounds": cold7["rounds"], "phase_ms": c6["phase_ms"],
-        "cfg7_phase_ms": cold7["phase_ms"]}
+        "cfg7_phase_ms": cold7["phase_ms"], "ledger_cost": ledger_cost}
     act_entry = {
         "name": "activeset_allocate", "route": "cuda",
         "source": "kubebatch_tpu_torch/kernels/csrc/hier_allocate.cu",
@@ -2456,6 +2536,501 @@ def scale_phase(dev, spec6, spec7) -> list:
                       for e in acts],
         "rerun_ms": {str(k): v for k, v in act_t.items()}}
     return [hier_entry, act_entry]
+
+
+#: the least work of the explainer's counts (csrc/explain_counts.cu's
+#: function, counted as the card would do it at the fewest instructions):
+#: per (real task x candidate node) cell the three float32 request
+#: compares (FSETP chains their AND in its predicate input), and five
+#: 32-bit operations: the predicate byte's test, the eligible fold of the
+#: predicate, the resources result and the node's candidate-and-slot bit
+#: (one three-input LOP3), and the increments of the predicate, resources
+#: and eligible counts; with ports four more: the two words' AND folded
+#: to one by two LOP3 (lo & lo, then hi & hi | that), the zero test with
+#: the eligible AND in its predicate input, and the port count's
+#: increment. The task-slots column does not depend on the task: per node
+#: the candidate test and its count, the slot compare and its count.
+OPS_PER_CELL_EXPLAIN_F32 = 3
+OPS_PER_CELL_EXPLAIN_I32 = 5
+OPS_PER_CELL_EXPLAIN_PORTS = 4
+OPS_PER_NODE_EXPLAIN = 4
+
+
+def explain_bounds(kw, out, has_ports: bool, t_real: int,
+                   n_cand: int) -> dict:
+    """The explainer's roofline for one call: every input read once
+    (the port arrays only with ``has_ports``) and the [T, 6] block
+    written once, over the memory rate; the operations of the cells over
+    real tasks x candidate nodes (the port work only with ``has_ports``)
+    and of the nodes, float32 compares at the float32 rate and the rest
+    at the 32-bit integer rate. ``distinct_rows`` counts the real task
+    rows that differ in (signature, request, ports): a kernel folding
+    equal rows would need only that many rows of cells."""
+    import torch
+
+    nbytes = sum(v.numel() * v.element_size() for k, v in kw.items()
+                 if has_ports or k not in ("task_ports", "port_base"))
+    nbytes += out.numel() * out.element_size()
+    cells = t_real * n_cand
+    n_pad = int(kw["idle"].shape[0])
+    i32 = cells * (OPS_PER_CELL_EXPLAIN_I32 + (OPS_PER_CELL_EXPLAIN_PORTS
+                                               if has_ports else 0)) \
+        + n_pad * OPS_PER_NODE_EXPLAIN
+    f32 = cells * OPS_PER_CELL_EXPLAIN_F32
+    t_ops = (f32 / PEAK_F32_PER_S + i32 / PEAK_I32_PER_S) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    cols = [kw["task_sig"][:t_real, None].double(),
+            kw["resreq"][:t_real].double()]
+    if has_ports:
+        cols.append(kw["task_ports"][:t_real].double())
+    distinct = int(torch.unique(torch.cat(cols, 1).cpu(), dim=0).shape[0])
+    return {"bytes": nbytes, "cells": cells, "ops": f32 + i32,
+            "f32_ops": f32, "i32_ops": i32, "distinct_rows": distinct,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+class ExplainRecorder:
+    """Wraps obs.explain.explain_counts: keeps a copy of each launch's
+    inputs and result (the device carry is refreshed in place by later
+    cycles) for the plain comparison on the card."""
+
+    def __init__(self):
+        from kubebatch_tpu_torch.obs import explain
+
+        self.mod = explain
+        self.inner = explain.explain_counts
+        self.calls = []
+
+    def __call__(self, **kw):
+        out = self.inner(**kw)
+        self.calls.append(({k: v.clone() if hasattr(v, "clone") else v
+                            for k, v in kw.items()}, out.clone()))
+        return out
+
+    def __enter__(self):
+        self.mod.explain_counts = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.explain_counts = self.inner
+
+    def check(self, what: str) -> float:
+        """Every recorded launch bitwise equal to the plain version on
+        the card; returns the max abs error (0)."""
+        import torch
+
+        err = 0.0
+        for kw, got in self.calls:
+            want = self.mod.explain_counts_plain(**kw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([want], [got]))
+            assert_bitwise([want], [got], what)
+        return err
+
+
+def http_get(base: str, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def obs_phase(dev, spec4, spec5, spec5p, spec3p,
+              churn: int = 256) -> dict:
+    """Phase (h): the observability plane. (h1) a saturated cfg4 through
+    ``Scheduler(explain_unschedulable=True, slo=True)`` on the default
+    conf, with the flight recorder, timeline and trace export armed into
+    build/chip_smoke_obs: a cold period and a churn-256 period, each one
+    ``explain_counts`` launch bitwise equal to plain and one counted sync
+    more than a twin loop without the explainer fed the same events;
+    the reasons name ``resources``; the fresh-inputs launch equals the
+    host oracle; the five debug endpoints answer and /debug/explain is
+    the latest snapshot; the ledger closed one record per bind; an
+    injected ``device.dispatch`` failure and the ``obs.slo`` seam each
+    dump the ring. (h2) 5p and 3p cold periods through the shipped conf
+    with the explainer on, then 5p after a kubelet tick and a churn of
+    1,024 pods: one launch on a fresh session with ports claimed, a
+    nonzero port-conflict column. (h3) the kernel at
+    full width on fresh cold cfg5 and 5p sessions, timed beside its
+    bound and the plain version. Returns the kernels line's entry."""
+    import shutil
+
+    import torch
+
+    from kubebatch_tpu_torch import faults, metrics, obs
+    from kubebatch_tpu_torch.actions.cycle_inputs import build_cycle_inputs
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import shipped_tiers
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.kernels import _build
+    from kubebatch_tpu_torch.obs import (explain, export, flight, http,
+                                         ledger, slo, timeline)
+    from kubebatch_tpu_torch.runtime import Scheduler
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    t_phase = time.perf_counter()
+    shipped = open(os.path.join(HERE, "config", "kube-batch-conf.yaml")).read()
+    out_dir = os.path.join(HERE, "build", "chip_smoke_obs")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    flight_dir = os.path.join(out_dir, "flight")
+    flight.arm(flight_dir)
+    timeline.arm(os.path.join(out_dir, "timeline"), spill_every=1)
+    trace_path = export.arm(os.path.join(out_dir, "trace"))
+    ledger.reset()
+    launches = {}
+
+    def side(spec, explained: bool, conf: str = ""):
+        sim = build_cluster(spec)
+        binder = FreshBinder()
+        cache = SchedulerCache(device=dev, binder=binder,
+                               async_writeback=False)
+        sim.populate(cache)
+        sched = Scheduler(cache, conf, explain_unschedulable=explained,
+                          slo=explained)
+        return sim, cache, binder, sched
+
+    def drive(label, sched, binder):
+        _build.reset_launch_counts()
+        rb0 = metrics.blocking_readbacks()
+        b0 = binder.count
+        t0 = time.perf_counter()
+        ok = sched.run_cycle()
+        wall = (time.perf_counter() - t0) * 1e3
+        n = _build.launch_count("explain_counts")
+        if not ok:
+            raise AssertionError(f"(h) {label}: the cycle failed "
+                                 f"({sched.last_cycle_failure})")
+        return {"launches": n, "syncs": metrics.blocking_readbacks() - rb0,
+                "binds": binder.count - b0, "wall_ms": wall}
+
+    def quiet(fn):
+        """Run ``fn`` with the ledger and the cycle hooks off (the twin
+        loop's work stays out of the plane under test)."""
+        ledger.set_enabled(False)
+        obs.set_enabled(False)
+        try:
+            return fn()
+        finally:
+            obs.set_enabled(True)
+            ledger.set_enabled(True)
+
+    h3 = {}
+    err = 0.0
+
+    def fresh(label, cache):
+        """explain_session on a freshly opened session of ``cache``: its
+        one launch (counted) checked bitwise against plain on the card."""
+        nonlocal err
+        ssn = OpenSession(cache, shipped_tiers())
+        inputs = build_cycle_inputs(ssn, allow_affinity=True)
+        kw, has_ports = explain.explain_args(inputs)
+        _build.reset_launch_counts()
+        with ExplainRecorder() as rec:
+            snap = explain.explain_session(ssn)
+            n = _build.launch_count("explain_counts")
+            err = max(err, rec.check(f"explain_counts {label}"))
+        CloseSession(ssn)
+        if n != 1 or len(rec.calls) != 1:
+            raise AssertionError(f"(h) {label}: {n} explain_counts "
+                                 f"launches, expected 1")
+        return inputs, kw, has_ports, rec.calls[0][1], snap
+
+    def full_width(label, cache):
+        """``fresh`` on a cold cache (every pod pending), then the kernel
+        timed beside its bound and the plain version on the card."""
+        inputs, kw, has_ports, got, snap = fresh(f"{label} full width",
+                                                 cache)
+        t_real, n_cand = len(inputs.tasks), int(got[0, 5])
+        b = explain_bounds(kw, got, has_ports, t_real, n_cand)
+        for _ in range(10):             # clocks up after the host work
+            explain.explain_counts(**kw, has_ports=has_ports)
+        ev = cuda_ms(lambda: explain.explain_counts(**kw,
+                                                    has_ports=has_ports), 50)
+        prof = profiled_ms(lambda: explain.explain_counts(
+            **kw, has_ports=has_ports), "explain_counts_kernel", reps=10)
+        plain = cuda_ms(lambda: explain.explain_counts_plain(
+            **kw, has_ports=has_ports), 3)
+        h3[label] = {"t_pad": int(kw["task_valid"].shape[0]),
+                     "n_pad": int(kw["idle"].shape[0]), "t_real": t_real,
+                     "n_cand": n_cand, "pt": int(kw["task_ports"].shape[1]),
+                     "has_ports": has_ports, "event_ms": ev,
+                     "profiler_ms": prof, "plain_ms": plain, **b,
+                     "unschedulable": snap["unschedulable_tasks"]}
+        log(f"(h3) {label} fresh cold session: T_pad {h3[label]['t_pad']} x "
+            f"N_pad {h3[label]['n_pad']} ({t_real} tasks x {n_cand} "
+            f"candidates, PT {h3[label]['pt']}, ports {has_ports}): "
+            f"{ev:.4f} ms a launch (events, 50), {prof} ms device time "
+            f"(profiler); plain {plain:.3f} ms on the card; bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['cells']} cells, {b['f32_ops']} float32 + {b['i32_ops']} "
+            f"integer operations), {ev / b['bound_ms']:.2f}x (events); "
+            f"{b['distinct_rows']} distinct task rows")
+
+    # ---- (h1) saturated cfg4 ----------------------------------------------
+    t0 = time.perf_counter()
+    sim4, cache4, bind4, sched4 = side(spec4, True)
+    # the shipped ledger objectives (5 s arrival -> bind) assume pods that
+    # arrive live; this backlog is stamped at populate, seconds before
+    # the cold period binds it: those objectives are set to 10 minutes
+    slo.arm([dataclasses.replace(o, threshold_ms=600_000.0)
+             if o.kind == "ledger" else o for o in slo.DEFAULT_OBJECTIVES])
+    tsim, tcache, tbind, tsched = quiet(lambda: side(spec4, False))
+    log(f"(h1) saturated cfg4, two incremental caches (explainer on / a "
+        f"twin without it): {len(cache4.nodes)} nodes, {len(sim4.pods)} "
+        f"pods each, built in {time.perf_counter() - t0:.1f} s")
+    periods = []
+    with ExplainRecorder() as rec:
+        for k in range(2):
+            recycled = []
+            if k:
+                # only fully bound gangs finish: on the saturated cluster
+                # the churn recycles what the cold period completed
+                for sim, cache, binder in ((sim4, cache4, bind4),
+                                           (tsim, tcache, tbind)):
+                    def tick(sim=sim, cache=cache, binder=binder):
+                        binder.kubelet_tick(cache)
+                        return sim.churn_tick(cache, churn)
+                    recycled.append(tick() if sim is sim4 else quiet(tick))
+                if recycled[0] != recycled[1]:
+                    raise AssertionError(f"(h1) churn recycled {recycled}")
+            n_rec = len(rec.calls)
+            on = drive(f"cfg4 period {k}", sched4, bind4)
+            root = obs.last_cycle()
+            snap = explain.latest()
+            off = quiet(lambda: drive(f"cfg4 twin {k}", tsched, tbind))
+            exp_sp = root.find("explain")
+            tree = {c.name: round(c.dur * 1e3, 3)
+                    for c in (exp_sp.children if exp_sp else ())}
+            reasons = {}
+            for rec_job in snap["jobs"]:
+                for r, v in rec_job["reasons"].items():
+                    reasons[r] = reasons.get(r, 0) + v
+            p = {"period": k, "on": on, "off": off,
+                 "recycled": recycled[0] if recycled else 0,
+                 "unschedulable": snap["unschedulable_tasks"],
+                 "pending": snap["pending_tasks"], "reasons": reasons,
+                 "cycle_ms": root.dur * 1e3,
+                 "explain_ms": exp_sp.dur * 1e3 if exp_sp else None}
+            periods.append(p)
+            log(f"(h1) cfg4 period {k} (churn recycled {p['recycled']} "
+                f"pods): launches {on['launches']} (twin "
+                f"{off['launches']}), counted syncs {on['syncs']} (twin "
+                f"{off['syncs']}), binds {on['binds']} (twin "
+                f"{off['binds']}); pending {p['pending']}, unschedulable "
+                f"{p['unschedulable']}, reasons {json.dumps(reasons)}; "
+                f"cycle {p['cycle_ms']:.1f} ms, explain span "
+                f"{p['explain_ms']:.3f} ms (of it {json.dumps(tree)}), "
+                f"actions {json.dumps(action_ms(root))}")
+            if on["launches"] != 1 or off["launches"] != 0 \
+                    or len(rec.calls) != n_rec + 1:
+                raise AssertionError(f"(h1) period {k}: explain_counts "
+                                     f"launches {on['launches']} / twin "
+                                     f"{off['launches']}, expected 1 / 0")
+            if on["syncs"] != off["syncs"] + 1:
+                raise AssertionError(f"(h1) period {k}: {on['syncs']} "
+                                     f"counted syncs, the twin "
+                                     f"{off['syncs']}: not one more")
+            if on["binds"] != off["binds"]:
+                raise AssertionError(f"(h1) period {k}: the explained loop "
+                                     f"bound differently from its twin")
+            if p["unschedulable"] <= 0 or "resources" not in reasons:
+                raise AssertionError(f"(h1) period {k}: no unschedulable "
+                                     f"task with a resources reason")
+        launches["h1"] = sum(p["on"]["launches"] for p in periods)
+        err = max(err, rec.check("explain_counts cfg4 periods"))
+        # fresh inputs: the device pass on a just-built session equals
+        # the host oracle (the state the NodeState mirror holds)
+        ssn = OpenSession(cache4, shipped_tiers())
+        inputs = build_cycle_inputs(ssn, allow_affinity=True)
+        dev_counts = explain.failure_counts_device(inputs)
+        host_counts = explain.failure_counts_host(inputs)
+        CloseSession(ssn)
+        for a, b in zip(dev_counts, host_counts):
+            if not (a == b if isinstance(a, int)
+                    else bool((a == b).all())):
+                raise AssertionError("(h1) fresh inputs: the device pass "
+                                     "differs from the host oracle")
+        err = max(err, rec.check("explain_counts cfg4 fresh inputs"))
+    log(f"(h1) every launch ({len(rec.calls)}) bitwise equal to plain on "
+        f"the card; on fresh inputs the device pass == the host oracle "
+        f"({len(dev_counts[1])} tasks, {dev_counts[2]} candidates)")
+    # ---- the debug server ---------------------------------------------
+    srv = http.DebugHTTPServer("127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        got = {p: http_get(base, p) for p in (
+            "/metrics", "/healthz", "/debug/vars", "/debug/explain",
+            "/debug/slo")}
+    finally:
+        srv.stop()
+    bad = {p: c for p, (c, _) in got.items() if c != 200}
+    if bad:
+        raise AssertionError(f"(h1) endpoints answered {bad}")
+    docs = {p: json.loads(b) for p, (_, b) in got.items() if p != "/metrics"}
+    metrics_text = got["/metrics"][1].decode()
+    if not metrics_text.endswith("# EOF\n") \
+            or "kube_batch_decisions_total" not in metrics_text:
+        raise AssertionError("(h1) /metrics is not the OpenMetrics text")
+    if docs["/debug/explain"] != json.loads(json.dumps(explain.latest())):
+        raise AssertionError("(h1) /debug/explain differs from latest()")
+    if not docs["/debug/slo"]["armed"]:
+        raise AssertionError("(h1) /debug/slo: the plane is not armed")
+    lstats = ledger.stats()
+    binds = sum(p["on"]["binds"] for p in periods)
+    log(f"(h1) endpoints: 5 x 200 ({len(metrics_text)} B of OpenMetrics, "
+        f"healthz {docs['/healthz']['status']}); ledger closed "
+        f"{lstats['closed_total']} == binds {binds}, unmatched "
+        f"{lstats['unmatched_total']}, arrival->bind "
+        f"{json.dumps(lstats.get('arrival_bind'))}")
+    if lstats["closed_total"] != binds or lstats["unmatched_total"]:
+        raise AssertionError("(h1) the ledger's closes differ from the "
+                             "binds")
+    # ---- an injected dispatch failure and the SLO seam both dump --------
+    dumps0 = set(os.listdir(flight_dir))
+    faults.arm(faults.FaultPlan(counts={"device.dispatch": 1}))
+    try:
+        if sched4.run_cycle() or sched4.last_cycle_failure != "exception":
+            raise AssertionError("(h1) the injected failure did not fail "
+                                 "the cycle")
+    finally:
+        faults.disarm()
+    b0 = metrics.slo_breaches_by_objective()
+    faults.arm(faults.FaultPlan(counts={"obs.slo": 1}))
+    try:
+        if not sched4.run_cycle():
+            raise AssertionError("(h1) the SLO seam's cycle failed")
+    finally:
+        faults.disarm()
+    moved = {k: v - b0.get(k, 0)
+             for k, v in metrics.slo_breaches_by_objective().items()
+             if v != b0.get(k, 0)}
+    new = sorted(set(os.listdir(flight_dir)) - dumps0)
+    reasons = [json.load(open(os.path.join(flight_dir, n)))["reason"]
+               for n in new]
+    log(f"(h1) dumps {new}: reasons {reasons}; SLO breaches moved "
+        f"{json.dumps(moved)}")
+    seen = [r for r in reasons if r in ("cycle_failure-exception",
+                                        "slo_breach-injected")]
+    if seen != ["cycle_failure-exception", "slo_breach-injected"] \
+            or moved.get("injected/fast") != 1 \
+            or moved.get("injected/slow") != 1:
+        raise AssertionError("(h1) the failure and SLO dumps are not the "
+                             "expected two")
+    cache4.stop()
+    tcache.stop()
+    del sim4, cache4, tsim, tcache
+    # ---- (h2) 5p and 3p cold, the shipped conf ----------------------------
+    h2, ports = {}, None
+    with ExplainRecorder() as rec:
+        for label, spec in (("5p", spec5p), ("3p", spec3p)):
+            t0 = time.perf_counter()
+            sim, cache, binder, sched = side(spec, True, shipped)
+            built = time.perf_counter() - t0
+            if label == "5p":
+                # (h3) at 5p: the full width before the period (cold)
+                n_rec0 = len(rec.calls)
+                full_width(label, cache)
+                del rec.calls[n_rec0:]   # checked inside, not main path
+            n_rec = len(rec.calls)
+            c = drive(f"{label} cold", sched, binder)
+            snap = explain.latest()
+            kw = rec.calls[-1][0] if len(rec.calls) > n_rec else {}
+            pt = int(kw["task_ports"].shape[1]) if kw else 0
+            reasons = {}
+            for rec_job in snap["jobs"]:
+                for r, v in rec_job["reasons"].items():
+                    reasons[r] = reasons.get(r, 0) + v
+            h2[label] = dict(c, pt=pt, reasons=reasons,
+                             pending=snap["pending_tasks"],
+                             unschedulable=snap["unschedulable_tasks"])
+            log(f"(h2) {label} cold (built in {built:.1f} s): launches "
+                f"{c['launches']}, syncs {c['syncs']}, binds {c['binds']}, "
+                f"PT {pt}; pending {snap['pending_tasks']}, unschedulable "
+                f"{snap['unschedulable_tasks']}, reasons "
+                f"{json.dumps(reasons)}; wall {c['wall_ms']:.1f} ms")
+            # a period that leaves nothing pending publishes the empty
+            # snapshot without a launch, as the reference's does
+            want = 1 if snap["pending_tasks"] else 0
+            if c["launches"] != want or c["syncs"] < want:
+                raise AssertionError(f"(h2) {label}: {c['launches']} "
+                                     f"explain_counts launches for "
+                                     f"{snap['pending_tasks']} pending")
+            if label == "5p":
+                # the port branch with ports claimed: after a kubelet
+                # tick and a churn of 1,024 pods (its fresh gangs include
+                # one that asks for a port the cold period's binds hold),
+                # the explainer on a fresh session over the bound cache
+                binder.kubelet_tick(cache)
+                recycled = sim.churn_tick(cache, 1024)
+                _, kw, has_ports, got, snap = fresh("5p after churn", cache)
+                cols = got[:, :5].sum(0).tolist()
+                ports = {"recycled": recycled, "has_ports": has_ports,
+                         "pt": int(kw["task_ports"].shape[1]),
+                         "pending": snap["pending_tasks"],
+                         "column_sums": cols,
+                         "unschedulable": snap["unschedulable_tasks"]}
+                log(f"(h2) 5p after a kubelet tick and churn 1,024 "
+                    f"({recycled} recycled): one launch bitwise equal to "
+                    f"plain, PT {ports['pt']}, ports {has_ports}, pending "
+                    f"{ports['pending']}; column sums (predicate, "
+                    f"resources, task-slots, port-conflict, eligible) "
+                    f"{cols}")
+                if not has_ports or cols[3] <= 0:
+                    raise AssertionError("(h2) 5p after churn: no port "
+                                         "conflict counted with ports "
+                                         "claimed")
+            cache.stop()
+        err = max(err, rec.check("explain_counts 5p / 3p cold"))
+    if not h3["5p"]["has_ports"]:
+        raise AssertionError("(h3) 5p did not take the port branch")
+    launches["h2"] = sum(v["launches"] for v in h2.values()) + 1
+    # ---- flush the armed exporters ----------------------------------------
+    if export.flush() != trace_path:
+        raise AssertionError("(h) the trace export wrote nothing")
+    events = json.load(open(trace_path))["traceEvents"]
+    timeline.flush()
+    digests = [json.loads(x) for x in open(os.path.join(
+        out_dir, "timeline", "timeline.jsonl"))]
+    log(f"(h) Chrome trace {len(events)} events over "
+        f"{sum(1 for e in events if e['name'] == 'cycle')} cycle roots; "
+        f"timeline {len(digests)} digests; "
+        f"{len(os.listdir(flight_dir))} flight dumps")
+    if not events or any(e["ph"] != "X" for e in events) or not digests:
+        raise AssertionError("(h) the trace or the timeline is empty")
+    for mod in (flight, export, timeline, slo):
+        mod.disarm()
+    # ---- (h3) full width: a fresh cold cfg5 session ----------------------
+    sim = build_cluster(spec5)
+    cache = SchedulerCache(device=dev, binder=FreshBinder())
+    sim.populate(cache)
+    full_width("cfg5", cache)
+    cache.stop()
+    del sim, cache
+    c5 = h3["cfg5"]
+    entry = {
+        "name": "explain_counts", "route": "cuda",
+        "source": "kubebatch_tpu_torch/kernels/csrc/explain_counts.cu",
+        "replaces": "kubebatch_tpu/obs/explain.py:57",
+        "launches": launches["h1"] + launches["h2"],
+        "launches_by_part": launches, "max_abs_err": err,
+        "ms": c5["profiler_ms"] if c5["profiler_ms"] is not None
+        else c5["event_ms"],
+        "event_ms": c5["event_ms"], "profiler_ms": c5["profiler_ms"],
+        "plain_ms": c5["plain_ms"], "plain_device": "cuda",
+        "bound_ms": c5["bound_ms"], "bound_by": c5["bound_by"],
+        "library_ms": None, "library_call": "none",
+        "full_width": h3, "ports_claimed": ports,
+        "h1_periods": [{k: p[k] for k in ("period", "cycle_ms",
+                                          "explain_ms", "unschedulable")}
+                       for p in periods]}
+    log(f"(h) done in {time.perf_counter() - t_phase:.1f} s")
+    return entry
 
 
 def main() -> int:
@@ -2796,6 +3371,9 @@ def main() -> int:
     kernels.insert(3, scheduler_phase(dev, BASELINE_SPECS[5],
                                       BASELINE_SPECS[3], binds_a))
     kernels += scale_phase(dev, BASELINE_SPECS[6], BASELINE_SPECS[7])
+    kernels.append(obs_phase(
+        dev, dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95),
+        BASELINE_SPECS[5], BASELINE_SPECS["5p"], BASELINE_SPECS["3p"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -14,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from .. import obs
 from ..device import to_host
 from ..faults import check as _fault_check
 from ..framework import Session
@@ -92,18 +93,21 @@ def execute_fused(ssn: Session) -> bool:
     args, statics = prepare_fused(inputs)
     t2 = time.perf_counter()
     on_card = device.device.type == "cuda"
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    host_block, idle_f, rel_f, ntasks_f, nz_f = fused_allocate(
-        **args, **statics)
-    if on_card:
-        end.record()
-    t3 = time.perf_counter()
-    host = to_host(host_block)        # the cycle's ONE device->host copy
-    t4 = time.perf_counter()
-    task_state, task_node, task_seq, _, _ = unpack_host_block(host)
+    with obs.span("fused_allocate", cat="kernel") as sp:
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        host_block, idle_f, rel_f, ntasks_f, nz_f = fused_allocate(
+            **args, **statics)
+        if on_card:
+            end.record()
+        t3 = time.perf_counter()
+        with obs.span("readback", cat="readback"):
+            host = to_host(host_block)  # the cycle's ONE device->host copy
+        t4 = time.perf_counter()
+        task_state, task_node, task_seq, _, telem = unpack_host_block(host)
+        obs.telemetry.record(telem, span=sp)
     device.idle, device.releasing, device.n_tasks = idle_f, rel_f, ntasks_f
     device.nz_req = nz_f
     replay_decisions(ssn, inputs, task_state, task_node, task_seq)

@@ -259,7 +259,16 @@ def build_cycle_inputs(ssn: Session,
     affinity carry. A vocabulary past the raw collection window or, after
     compaction, past the caps refuses (None), counted in
     metrics.affinity_host_fallback_total as the reference counts it
-    (reference actions/cycle_inputs.py:344-437)."""
+    (reference actions/cycle_inputs.py:344-437). Runs inside the
+    "tensorize" phase span (the decision ledger's pack stage)."""
+    from ..obs import span as _span
+
+    with _span("tensorize", cat="phase"):
+        return _build_cycle_inputs(ssn, allow_affinity)
+
+
+def _build_cycle_inputs(ssn: Session,
+                        allow_affinity: bool) -> Optional[CycleInputs]:
     # ---- queues ----------------------------------------------------------
     queue_ids = sorted(ssn.queues)          # uid order = order fallback
     q_index = {q: i for i, q in enumerate(queue_ids)}
@@ -460,10 +469,14 @@ def replay_decisions(ssn: Session, inputs: CycleInputs,
     registered event handler is a recognized built-in and the volume
     binder is the no-op default — anything custom gets the per-event
     ordering it may depend on."""
-    if _bulk_replay_supported(ssn):
-        _replay_bulk(ssn, inputs, task_state, task_node, task_seq)
-    else:
-        _replay_ordered(ssn, inputs, task_state, task_node, task_seq)
+    from ..obs import span as _span
+
+    bulk = _bulk_replay_supported(ssn)
+    with _span("replay", cat="phase", bulk=bulk):
+        if bulk:
+            _replay_bulk(ssn, inputs, task_state, task_node, task_seq)
+        else:
+            _replay_ordered(ssn, inputs, task_state, task_node, task_seq)
 
 
 def _bulk_replay_supported(ssn: Session) -> bool:
@@ -480,11 +493,13 @@ def _replay_ordered(ssn: Session, inputs: CycleInputs,
                     task_state: np.ndarray, task_node: np.ndarray,
                     task_seq: np.ndarray) -> None:
     from ..kernels.fused import ALLOC, ALLOC_OB, FAIL, PIPELINE, SKIP
+    from ..metrics import count_slow_path_items
 
     device = inputs.device
     tasks = inputs.tasks
     order = [i for i in range(len(tasks)) if task_state[i] != SKIP]
     order.sort(key=lambda i: task_seq[i])
+    count_slow_path_items("replay", len(order))
     try:
         for i in order:
             task = tasks[i]

@@ -40,6 +40,8 @@ from ..faults import check as _fault_check
 from ..objects import (Node, Pod, PodDisruptionBudget, PodGroup,
                        PodGroupPhase, PodPhase, PriorityClass, Queue,
                        UNSCHEDULABLE_CONDITION, is_backfill_pod)
+from ..obs import ledger as _ledger
+from ..obs import span as _span
 from .eventfold import EventFold
 from .interface import (Binder, EventRecorder, Evictor, ListRecorder,
                         NullBinder, NullEvictor, NullStatusUpdater,
@@ -382,8 +384,13 @@ class SchedulerCache:
     def _fire_arrival_hooks(self, pod: Pod) -> None:
         """Notify arrival observers (the schedule-on-arrival sub-cycle)
         of a freshly added PENDING pod — OUTSIDE the cache lock: a hook
-        opens a session, which re-enters the cache."""
-        if pod.phase != PodPhase.PENDING or not self.arrival_hooks:
+        opens a session, which re-enters the cache. The decision
+        ledger's arrival stamp fires here too, hooks or not: every
+        PENDING pod's decision clock starts at ingestion."""
+        if pod.phase != PodPhase.PENDING:
+            return
+        _ledger.stamp_arrival(pod)
+        if not self.arrival_hooks:
             return
         for hook in list(self.arrival_hooks):
             try:
@@ -411,6 +418,9 @@ class SchedulerCache:
         with self._lock:
             self._delete_pod_locked(pod)
             self.fold.record("pod.delete")
+        # a pod deleted while pending never binds: drop its open ledger
+        # record instead of leaving it to the MAX_OPEN evictor
+        _ledger.discard(pod.uid)
 
     def _delete_pod_locked(self, pod: Pod) -> None:
         """ref: event_handlers.go:151-171 — prefer the cache's own task (it
@@ -593,6 +603,7 @@ class SchedulerCache:
         """Local state flips to Binding under the lock; the API call runs
         through the binder seam with resync-on-failure
         (ref: cache.go:392-432)."""
+        _ledger.stage_mark("apply")
         with self._lock:
             job, task = self._find_job_and_task(ti)
             node = self.nodes.get(hostname)
@@ -611,6 +622,9 @@ class SchedulerCache:
             self._mark_node(hostname)
             self.fold.record("bind")
             pod = task.pod
+        # the decision is applied at the state flip above: the ledger
+        # closes here, not at the write-back
+        _ledger.close(pod)
         self._submit(lambda: self._bind_one(task, pod, hostname))
 
     def _bind_one(self, task: TaskInfo, pod, hostname: str) -> None:
@@ -639,7 +653,11 @@ class SchedulerCache:
 
         submits = []
         binding = TaskStatus.BINDING
-        with self._lock:
+        # the ledger's "apply" stamp at entry (the per-pod closes happen
+        # inside the span below, before its exit could stamp anything)
+        _ledger.stage_mark("apply")
+        with _span("apply", cat="phase", decisions=len(bindings)), \
+                self._lock:
             # resolve every lookup BEFORE mutating: a vanished pod or a
             # duplicate key rejects the batch while the cache is still
             # consistent
@@ -750,6 +768,9 @@ class SchedulerCache:
 
             submits.extend((t, t.pod, h) for t, h in zip(twins, hostnames))
             self.fold.record("bind", n=len(submits))
+        # the ledger closes at the state flip (outside the lock: the
+        # decisions are applied above), one batch for the whole bind
+        _ledger.close_many([t.pod for t in twins])
         self._submit_binds(submits)
 
     def _submit_binds(self, submits: List[tuple]) -> None:
@@ -892,7 +913,8 @@ class SchedulerCache:
                     fold.dirty_jobs.clear()
                     fold.dirty_nodes.clear()
                 return snap
-            return self._snapshot_folded_locked(alloc_total)
+            with _span("fold", cat="phase"):
+                return self._snapshot_folded_locked(alloc_total)
 
     def _snapshot_folded_locked(self, alloc_total) -> ClusterInfo:
         """O(events) assembly: dict copies of the adopted base patched

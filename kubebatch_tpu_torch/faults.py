@@ -205,6 +205,11 @@ def on_ladder_demotion(cb: Callable[[int], None]) -> None:
         _DEMOTION_HOOKS.append(cb)
 
 
+def remove_ladder_demotion_hook(cb: Callable[[int], None]) -> None:
+    while cb in _DEMOTION_HOOKS:
+        _DEMOTION_HOOKS.remove(cb)
+
+
 def _notify_demotion(level: int) -> None:
     for cb in list(_DEMOTION_HOOKS):
         try:

@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import List
 
 from ..conf import Tier
+from ..metrics import ON_SESSION_CLOSE, ON_SESSION_OPEN
+from ..obs import span as _span
 from .registry import get_plugin_builder
 from .session import Session, close_session, open_session, validate_jobs
 
@@ -19,19 +21,22 @@ from .session import Session, close_session, open_session, validate_jobs
 def open_session_with_tiers(cache, tiers: List[Tier],
                             enable_preemption: bool = False,
                             snapshot=None) -> Session:
-    """ref: framework.go:29-50 (OpenSession)."""
-    ssn = open_session(cache, enable_preemption, snapshot=snapshot)
-    ssn.tiers = tiers
-    for tier in tiers:
-        for opt in tier.plugins:
-            builder = get_plugin_builder(opt.name)
-            if builder is None:
-                continue
-            plugin = builder(opt.arguments)
-            ssn.plugins[plugin.name] = plugin
-    for plugin in ssn.plugins.values():
-        plugin.on_session_open(ssn)
-    validate_jobs(ssn)
+    """ref: framework.go:29-50 (OpenSession). Timed by the "open" phase
+    span, each plugin's hook by a "plugin" span."""
+    with _span("open", cat="phase"):
+        ssn = open_session(cache, enable_preemption, snapshot=snapshot)
+        ssn.tiers = tiers
+        for tier in tiers:
+            for opt in tier.plugins:
+                builder = get_plugin_builder(opt.name)
+                if builder is None:
+                    continue
+                plugin = builder(opt.arguments)
+                ssn.plugins[plugin.name] = plugin
+        for plugin in ssn.plugins.values():
+            with _span(plugin.name, cat="plugin", phase=ON_SESSION_OPEN):
+                plugin.on_session_open(ssn)
+        validate_jobs(ssn)
     return ssn
 
 
@@ -44,11 +49,13 @@ def CloseSession(ssn: Session) -> None:
     statement a mid-action fault left open — plugin close hooks and the
     status write-back must observe the pre-transaction state, never a
     half-applied eviction batch."""
-    for st in list(getattr(ssn, "open_statements", ()) or ()):
-        st.discard()
-    for plugin in ssn.plugins.values():
-        plugin.on_session_close(ssn)
-    close_session(ssn)
+    with _span("close", cat="phase"):
+        for st in list(getattr(ssn, "open_statements", ()) or ()):
+            st.discard()
+        for plugin in ssn.plugins.values():
+            with _span(plugin.name, cat="plugin", phase=ON_SESSION_CLOSE):
+                plugin.on_session_close(ssn)
+        close_session(ssn)
 
 
 close_session_with_plugins = CloseSession

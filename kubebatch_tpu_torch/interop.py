@@ -16,7 +16,9 @@ the ``affinity_*`` helpers carry the affinity vocabulary
 (``kernels.solver.allocate_scan``), and the ``*_args_from_numpy``
 helpers the two-level and active-set solves' (``kernels.hier``,
 ``kernels.activeset``) from the reference's prepare_hier /
-prepare_activeset / prepare_activeset_audit plans.
+prepare_activeset / prepare_activeset_audit plans, and
+:func:`explain_inputs_from_numpy` the unschedulability explainer's
+(``obs.explain.explain_counts``).
 """
 from __future__ import annotations
 
@@ -266,3 +268,16 @@ def activeset_audit_args_from_numpy(args: Sequence[np.ndarray],
     st.update(amax_rounds=statics["amax_rounds"],
               max_rounds=statics["fmax_rounds"])
     return node, act, full, st
+
+
+def explain_inputs_from_numpy(arrays: Mapping[str, np.ndarray],
+                              device: DeviceLike) -> Dict[str, torch.Tensor]:
+    """The reference explainer's ``_explain_kernel`` arguments (numpy,
+    keyed by its argument names) as explain_counts' contiguous tensors
+    on ``device``."""
+    from .obs.explain import ARG_DTYPES
+
+    dev = resolve_device(device)
+    return {n: torch.tensor(np.ascontiguousarray(arrays[n]), dtype=dt,
+                            device=dev)
+            for n, dt in ARG_DTYPES}

@@ -64,6 +64,9 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
     },
+    "explain_counts.cu": {
+        "kb_explain_counts": "p" * 10 + "i" * 4 + "p" * 2,
+    },
 }
 
 _lock = threading.Lock()

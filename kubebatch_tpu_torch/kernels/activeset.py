@@ -112,8 +112,8 @@ def demoted() -> bool:
 def demote(reason: str) -> None:
     """Disable the active-set engine for the rest of the process (an
     audit divergence or a fired ``solve.activeset`` seam): counted and
-    logged, never raised into the loop. Idempotent. (The reference also
-    writes a flight-recorder dump here; the recorder is ROADMAP A5.)"""
+    logged and dumped by an armed flight recorder, never raised into the
+    loop. Idempotent."""
     global _demoted
     if _demoted:
         return
@@ -121,6 +121,8 @@ def demote(reason: str) -> None:
     count_activeset_demotion(reason)
     log.error("active-set solve DEMOTED to full-width (reason=%s): steady "
               "cycles fall back to the two-level engine", reason)
+    from ..obs import flight
+    flight.dump(f"activeset_demotion-{reason}")
 
 
 def reset() -> None:
@@ -388,7 +390,8 @@ def solve_activeset(inputs, plan=None, phases=None):
         return None
     args, statics, g = plan
     return run_solve(inputs.device, g,
-                     lambda: activeset_packed(**args, **statics), phases)
+                     lambda: activeset_packed(**args, **statics), phases,
+                     name="activeset_allocate")
 
 
 def solve_activeset_audit(inputs, plan=None, phases=None):
@@ -402,7 +405,8 @@ def solve_activeset_audit(inputs, plan=None, phases=None):
     node, act, full, statics, _ = plan
     res = run_solve(inputs.device, inputs.task_valid.shape[0],
                     lambda: activeset_audit_packed(node, act, full,
-                                                   **statics), phases)
+                                                   **statics), phases,
+                    name="activeset_audit")
     return res + (int(res[4][F_ACT_DEMOTED]),)
 
 

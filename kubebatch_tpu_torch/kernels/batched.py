@@ -1427,6 +1427,7 @@ def solve_batched(inputs, max_rounds: int = 0, compact_bucket=None,
     the solve's device milliseconds from CUDA events (NaN on the CPU)."""
     import time
 
+    from .. import obs
     from ..device import to_host
 
     device = inputs.device
@@ -1435,17 +1436,20 @@ def solve_batched(inputs, max_rounds: int = 0, compact_bucket=None,
     args, statics = prepare_batched(inputs, max_rounds, compact_bucket)
     t1 = time.perf_counter()
     on_card = device.device.type == "cuda"
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    packed, idle, releasing, n_tasks, nz = batched_allocate(
-        **args, **statics)[:5]
-    if on_card:
-        end.record()
-    t2 = time.perf_counter()
-    host = to_host(packed)            # the solve's ONE device->host copy
-    t3 = time.perf_counter()
+    with obs.span("batched_allocate", cat="kernel") as sp:
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        packed, idle, releasing, n_tasks, nz = batched_allocate(
+            **args, **statics)[:5]
+        if on_card:
+            end.record()
+        t2 = time.perf_counter()
+        with obs.span("readback", cat="readback"):
+            host = to_host(packed)    # the solve's ONE device->host copy
+        t3 = time.perf_counter()
+        obs.telemetry.record(host[3 * t_pad + 1:], span=sp)
     device.idle, device.releasing, device.n_tasks = idle, releasing, n_tasks
     device.nz_req = nz
     if phases is not None:

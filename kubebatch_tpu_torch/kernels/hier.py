@@ -605,29 +605,35 @@ def prepare_hier(inputs, pool_size: int = 0):
     return args, statics
 
 
-def run_solve(device, t_pad: int, solve, phases=None):
+def run_solve(device, t_pad: int, solve, phases=None,
+              name: str = "hier_allocate"):
     """Launch ``solve()`` (returning packed + the node carry), make its
     ONE counted device->host copy and commit the carry to the
     DeviceSession. Returns (task_state, task_node, task_seq, rounds,
-    telemetry) as numpy. ``phases`` (a dict), when given, receives the
-    host milliseconds of the launch and the sync, and ``kernel``: the
-    device milliseconds from CUDA events (NaN on the CPU)."""
+    telemetry) as numpy; the frame is recorded on the ``name`` kernel
+    span (obs/telemetry.py). ``phases`` (a dict), when given, receives
+    the host milliseconds of the launch and the sync, and ``kernel``:
+    the device milliseconds from CUDA events (NaN on the CPU)."""
     import time
 
+    from .. import obs
     from ..device import to_host
 
     on_card = device.device.type == "cuda"
     t1 = time.perf_counter()
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    packed, idle, releasing, n_tasks, nz = solve()
-    if on_card:
-        end.record()
-    t2 = time.perf_counter()
-    host = to_host(packed)            # the solve's ONE device->host copy
-    t3 = time.perf_counter()
+    with obs.span(name, cat="kernel") as sp:
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        packed, idle, releasing, n_tasks, nz = solve()
+        if on_card:
+            end.record()
+        t2 = time.perf_counter()
+        with obs.span("readback", cat="readback"):
+            host = to_host(packed)    # the solve's ONE device->host copy
+        t3 = time.perf_counter()
+        obs.telemetry.record(host[3 * t_pad + 1:], span=sp)
     device.idle, device.releasing, device.n_tasks = idle, releasing, n_tasks
     device.nz_req = nz
     if phases is not None:

@@ -567,7 +567,7 @@ class DeviceSession:
         def up(a) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        with obs.span("allocate_scan", cat="kernel"):
+        with obs.span("allocate_scan", cat="kernel") as sp:
             packed, idle, releasing, n_tasks, nz_req = allocate_scan(
                 self.idle, self.releasing, self.backfilled,
                 self.allocatable_cm, self.nz_req, self.max_task_num,
@@ -578,10 +578,9 @@ class DeviceSession:
                 int(init_allocated), up(weights), dyn_enabled=dyn_enabled)
             with obs.span("readback", cat="readback"):
                 host = to_host(packed)      # the visit's ONE copy back
+            obs.telemetry.record(host[2 * t_pad + 1:], span=sp)
         self.idle, self.releasing, self.n_tasks = idle, releasing, n_tasks
         self.nz_req = nz_req
-        #: the last visit's telemetry frame (kernels/telemetry.py layout)
-        self.last_frame = host[2 * t_pad + 1:]
         decisions = host[:t_pad]
         node_idx = host[t_pad:2 * t_pad]
         out: List[Decision] = []

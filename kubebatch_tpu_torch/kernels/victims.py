@@ -1584,15 +1584,21 @@ class VictimSolver:
         kw.update({n: self._tensor(n, a) for n, a in lanes.items()})
         self.dispatches += 1
         self.dispatch_kinds[kind] += 1
-        packed = to_host(victim_wave(**kw, **self.config(filter_kind)))
-        n_pad = st.n_pad
-        pick = packed[:, :n_pad]
-        guard = packed[:, n_pad:2 * n_pad]
-        victims = packed[:, 2 * n_pad:]
-        victim_frames.append(host_frame(
-            ENGINE_VICTIM_WAVE, waves=1, pending=p,
-            census=int(pick[:p].any(axis=1).sum()),
-            bound=int(victims[:p].any(axis=1).sum())))
+        from .. import obs
+        with obs.span("victim_wave", cat="kernel") as sp:
+            out = victim_wave(**kw, **self.config(filter_kind))
+            with obs.span("readback", cat="readback"):
+                packed = to_host(out)
+            n_pad = st.n_pad
+            pick = packed[:, :n_pad]
+            guard = packed[:, n_pad:2 * n_pad]
+            victims = packed[:, 2 * n_pad:]
+            frame = host_frame(
+                ENGINE_VICTIM_WAVE, waves=1, pending=p,
+                census=int(pick[:p].any(axis=1).sum()),
+                bound=int(victims[:p].any(axis=1).sum()))
+            victim_frames.append(frame)
+            obs.telemetry.record(frame, span=sp)
         log_pos = len(st.events)
         for i, t in enumerate(chunk):
             self._wave_cache[(filter_kind, t.uid)] = {
@@ -1609,10 +1615,16 @@ class VictimSolver:
                       visited: np.ndarray) -> VisitResult:
         kw = self.kernel_args([task], 1, visited=visited)
         self.dispatch_kinds["visit"] += 1
-        packed = to_host(victim_visit(**kw, **self.config(filter_kind)))
-        victim_frames.append(host_frame(
-            ENGINE_VICTIM_VISIT, waves=1, pending=1,
-            bound=int(bool(packed[0])), census=int(packed[2])))
+        from .. import obs
+        with obs.span("victim_visit", cat="kernel") as sp:
+            out = victim_visit(**kw, **self.config(filter_kind))
+            with obs.span("readback", cat="readback"):
+                packed = to_host(out)
+            frame = host_frame(
+                ENGINE_VICTIM_VISIT, waves=1, pending=1,
+                bound=int(bool(packed[0])), census=int(packed[2]))
+            victim_frames.append(frame)
+            obs.telemetry.record(frame, span=sp)
         found, node, vcount, guard = (bool(packed[0]), int(packed[1]),
                                       int(packed[2]), bool(packed[3]))
         rows = np.nonzero(packed[4:])[0].tolist() if found else []

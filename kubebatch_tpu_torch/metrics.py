@@ -1,26 +1,38 @@
-"""Process-lifetime counters the scheduling actions touch.
+"""Process-lifetime counters (ref: kubebatch_tpu/metrics.py).
 
-Plain integers (no Prometheus exporter in this package yet): consumers
-read a counter before and after a window and diff. Counted: the
-blocking device->host copies (``device.to_host``, one per solve or victim
-dispatch), engine demotions (a requested engine that could not run and
-handed the cycle to another), affinity host fallbacks, the preemption
-victims and attempts, backfill-over-reserved's reclaims, double binds
-and lost reservations, and the event fold's folded events (per kind)
-and demotions (per reason), the active-set engine's cycles (per kind),
-audits (per result) and demotions (per reason), and the scheduler
-loop's robustness and
-timing accounting: cycle failures per reason, injected faults per seam,
-the degradation ladder's level, lazy audits, schedule-on-arrival
-sub-cycles and their arrival -> decision latencies, and the host seconds
-the span tracer feeds per phase, action, kernel and session
-(obs/spans.py). The remaining functions are the hooks the framework and
-the gang plugin call; with no exporter they record nothing.
+Plain integers and small host histograms: consumers read a counter
+before and after a window and diff. :func:`counters_snapshot` gathers
+every one into the JSON document that ``/debug/vars`` serves, that
+``/metrics`` renders as OpenMetrics (obs/http.py) and that each flight
+recorder entry embeds (obs/flight.py). This package keeps no Prometheus
+client registry: the counters here are the only source.
+
+Counted: the blocking device->host copies (``device.to_host``, one per
+solve or victim dispatch) and the decisions the device solves bound (from
+each solve's telemetry frame, obs/telemetry.py), engine demotions (a
+requested engine that could not run and handed the cycle to another),
+affinity host fallbacks, the preemption victims and attempts,
+backfill-over-reserved's reclaims, double binds and lost reservations,
+the event fold's folded events (per kind) and demotions (per reason),
+the active-set engine's cycles (per kind), audits (per result) and
+demotions (per reason), the scheduler loop's robustness and timing
+accounting (cycle failures per reason, injected faults per seam, the
+degradation ladder's level, lazy audits, schedule-on-arrival sub-cycles
+and their arrival -> decision latencies, the host seconds the span
+tracer feeds per phase, action, kernel and session), and the
+observability plane's SLO breaches and timeline drift. The keys of
+modules not ported yet (the rpc sidecar, the tenant service, the
+pipelined executor, the compile service) keep their zero values.
+The remaining functions are the hooks the framework and the gang
+plugin call; they record nothing.
 """
 from __future__ import annotations
 
 import threading
-from collections import deque
+
+#: plugin-span phase labels (the reference's session hook names)
+ON_SESSION_OPEN = "OnSessionOpen"
+ON_SESSION_CLOSE = "OnSessionClose"
 
 _blocking_readbacks = 0
 _engine_demotions = 0
@@ -282,8 +294,6 @@ _audit_cycles = 0
 _audit_failures = 0
 _subcycles = 0
 _arrivals_observed = 0
-#: the latest sub-cycle arrival -> decision latencies, seconds (bounded)
-_arrival_latencies: deque = deque(maxlen=65536)
 
 
 def count_cycle_failure(reason: str = "exception") -> None:
@@ -359,23 +369,20 @@ def subcycles_total() -> int:
 
 
 def observe_arrival_latency(seconds: float) -> None:
-    """Record one latency-lane arrival -> decision duration."""
+    """Record one latency-lane arrival -> decision duration: the exact
+    count here, the latency in the decision ledger's histogram
+    (obs/ledger.py), which :func:`arrival_latency_percentiles` and a
+    ledger window read."""
     global _arrivals_observed
     with _robust_lock:
         _arrivals_observed += 1
-        _arrival_latencies.append(seconds)
+    from .obs import ledger as _ledger      # lazy: obs imports metrics
+    _ledger.observe_subcycle_arrival(seconds)
 
 
 def arrivals_observed_total() -> int:
     with _robust_lock:
         return _arrivals_observed
-
-
-def arrival_latencies() -> list:
-    """The latest arrival -> decision latencies in seconds, oldest
-    first (a copy of a bounded window)."""
-    with _robust_lock:
-        return list(_arrival_latencies)
 
 
 # ---------------------------------------------------------------------------
@@ -423,3 +430,273 @@ def update_e2e_duration(seconds: float) -> None:
 def e2e_seconds() -> tuple:
     """(total seconds, sessions) over every session span."""
     return tuple(_e2e_seconds)
+
+
+def update_plugin_duration(plugin: str, phase: str, seconds: float) -> None:
+    """A plugin's session open / close hook (the "plugin" span view)."""
+
+
+def update_tensorize_duration(seconds: float) -> None:
+    """A device snapshot build or refresh (the "tensorize" span view)."""
+
+
+#: per-entity Python-loop fallback work: a per-item slow path in
+#: tensorize or replay counts its items here (0 on a fully bulk cycle)
+_slow_path_items: dict = {}
+
+
+def count_slow_path_items(phase: str, n: int) -> None:
+    if n:
+        _slow_path_items[phase] = _slow_path_items.get(phase, 0) + n
+
+
+def slow_path_items() -> dict:
+    """Per-item fallback counts per phase (a copy)."""
+    return dict(_slow_path_items)
+
+
+# ---------------------------------------------------------------------------
+# decisions and readbacks per decision (fed by obs/telemetry.py)
+# ---------------------------------------------------------------------------
+
+_decisions = 0
+
+
+def count_decisions(n: int) -> None:
+    """Record n scheduling decisions (tasks a device solve bound)."""
+    global _decisions
+    if n:
+        _decisions += int(n)
+
+
+def decisions_total() -> int:
+    return _decisions
+
+
+def readback_accounting(since: "dict | None" = None) -> dict:
+    """{readbacks, deferred_readbacks, decisions, readbacks_per_decision,
+    total_readbacks_per_decision}, process-lifetime or since an earlier
+    readback_accounting() snapshot. The ratios are None for a window that
+    bound nothing. ``deferred_readbacks`` is the pipelined executor's
+    (ROADMAP A4) and stays 0 here."""
+    rb = _blocking_readbacks
+    dfr = 0
+    dec = _decisions
+    if since is not None:
+        rb -= int(since.get("readbacks", 0))
+        dfr -= int(since.get("deferred_readbacks", 0))
+        dec -= int(since.get("decisions", 0))
+    return {"readbacks": rb, "deferred_readbacks": dfr,
+            "decisions": dec,
+            "readbacks_per_decision": (round(rb / dec, 6) if dec
+                                       else None),
+            "total_readbacks_per_decision":
+                (round((rb + dfr) / dec, 6) if dec else None)}
+
+
+def _buckets(start: float, factor: float, count: int) -> list:
+    out, v = [], start
+    for _ in range(count):
+        out.append(v)
+        v *= factor
+    return out
+
+
+class _BoundedHist:
+    """A host histogram with fixed bucket uppers and an overflow slot,
+    rendered as an OpenMetrics histogram by obs/http.py."""
+
+    __slots__ = ("uppers", "counts", "sum", "count")
+
+    def __init__(self, uppers):
+        self.uppers = tuple(uppers)
+        self.counts = [0] * (len(self.uppers) + 1)
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, v) -> None:
+        v = float(v)
+        for i, ub in enumerate(self.uppers):
+            if v <= ub:
+                break
+        else:
+            i = len(self.uppers)
+        self.counts[i] += 1
+        self.sum += v
+        self.count += 1
+
+    def snapshot(self) -> dict:
+        cum, buckets = 0, {}
+        for ub, c in zip(self.uppers, self.counts):
+            cum += c
+            buckets[repr(float(ub))] = cum
+        return {"buckets": buckets, "sum": round(self.sum, 6),
+                "count": self.count}
+
+
+_telemetry_last: dict = {}          # engine -> last decoded frame
+_telemetry_tenant_last: dict = {}   # tenant -> last decoded frame
+_telemetry_hists = {
+    "telemetry_waves": _BoundedHist(_buckets(1, 2, 12)),
+    "telemetry_bound": _BoundedHist(_buckets(1, 4, 10)),
+    "cycle_latency_ms": _BoundedHist(_buckets(1, 2, 14)),
+}
+
+
+def observe_telemetry(engine: str, frame: dict, tenant=None) -> None:
+    """Fold one decoded telemetry frame into the per-engine last frames
+    and the histograms (obs/telemetry.record is the only caller); the
+    frame's bound count is the dispatch's decision count."""
+    count_decisions(frame.get("bound", 0))
+    _telemetry_last[engine] = frame
+    if tenant:
+        _telemetry_tenant_last[tenant] = frame
+    _telemetry_hists["telemetry_waves"].observe(frame.get("waves", 0))
+    _telemetry_hists["telemetry_bound"].observe(frame.get("bound", 0))
+
+
+def observe_cycle_latency_ms(ms: float) -> None:
+    """Cycle wall time into its histogram (the obs cycle hook)."""
+    _telemetry_hists["cycle_latency_ms"].observe(ms)
+
+
+def telemetry_snapshot() -> dict:
+    """Last decoded frame per engine (and per tenant when attributed)
+    plus the histograms: counters_snapshot's "telemetry" section."""
+    out = {"last": dict(_telemetry_last),
+           "histograms": {k: h.snapshot()
+                          for k, h in _telemetry_hists.items()}}
+    if _telemetry_tenant_last:
+        out["tenant_last"] = dict(_telemetry_tenant_last)
+    return out
+
+
+def arrival_latency_percentiles() -> dict:
+    """p50/p99 ms of the sub-cycle arrival -> decision latencies from the
+    decision ledger's histogram (bucket resolution, ~9% relative), with
+    the exact count; {} when no sub-cycle decided anything."""
+    with _robust_lock:
+        n = _arrivals_observed
+    if not n:
+        return {}
+    from .obs import ledger as _ledger      # lazy: obs imports metrics
+    pct = _ledger.subcycle_percentiles()
+    if not pct:
+        return {}
+    return {"arrivals": n,
+            "arrival_ms_p50": pct["p50_ms"],
+            "arrival_ms_p99": pct["p99_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# SLO breaches and timeline drift (obs/slo.py, obs/timeline.py)
+# ---------------------------------------------------------------------------
+
+_slo_breaches: dict = {}
+_timeline_drift: dict = {}
+
+
+def count_slo_breach(objective: str, window: str) -> None:
+    """One burn-rate breach of ``objective`` in ``window`` ("fast" /
+    "slow"; a breach fires both, once per episode)."""
+    with _robust_lock:
+        key = f"{objective}/{window}"
+        _slo_breaches[key] = _slo_breaches.get(key, 0) + 1
+
+
+def slo_breaches_total() -> int:
+    with _robust_lock:
+        return sum(_slo_breaches.values())
+
+
+def slo_breaches_by_objective() -> dict:
+    """Breach counts keyed "objective/window"."""
+    with _robust_lock:
+        return dict(_slo_breaches)
+
+
+def count_timeline_drift(kind: str) -> None:
+    """One timeline EWMA drift firing ("cycle_ms" / "rss_mb")."""
+    with _robust_lock:
+        _timeline_drift[kind] = _timeline_drift.get(kind, 0) + 1
+
+
+def timeline_drift_total() -> int:
+    with _robust_lock:
+        return sum(_timeline_drift.values())
+
+
+def timeline_drift_by_kind() -> dict:
+    with _robust_lock:
+        return dict(_timeline_drift)
+
+
+# ---------------------------------------------------------------------------
+# the one-call snapshot: /debug/vars, /metrics, the flight recorder
+# ---------------------------------------------------------------------------
+
+def counters_snapshot(include_rpc: bool = True) -> dict:
+    """Every process-lifetime counter as one JSON-able dict, with the
+    reference's keys. ``include_rpc`` is the reference's switch for its
+    rpc dispatch percentiles; the rpc sidecar is not ported, so that
+    section never appears. Keys whose modules are not ported yet hold
+    their zero values: ``compile_ms_total`` and ``recompiles_*`` (the
+    compile service), ``shed_level``, ``load_shed_total`` and ``mega_*``
+    (the tenant service), ``deferred_readbacks`` and ``pipeline_*`` (the
+    pipelined executor)."""
+    snap = {
+        "engine_demotions_total": engine_demotions_total(),
+        "affinity_host_fallback_total": affinity_host_fallback_total(),
+        "cycle_failures_total": cycle_failures_total(),
+        "cycle_failures_by_reason": cycle_failures_by_reason(),
+        "fault_injected_total": fault_injected_total(),
+        "degradation_level": degradation_level(),
+        "compile_ms_total": 0.0,
+        "recompiles_total": 0,
+        "recompiles_by_reason": {},
+        "solver_kernel_seconds": round(solver_kernel_seconds(), 6),
+        "host_phase_seconds": {k: round(v, 6) for k, v
+                               in host_phase_seconds().items()},
+        "slow_path_items": slow_path_items(),
+        "blocking_readbacks": blocking_readbacks(),
+        "decisions_total": decisions_total(),
+        "shed_level": 0,
+        "load_shed_total": {},
+        "mega_dispatches_total": 0,
+        "mega_lanes_total": 0,
+        "events_folded_total": events_folded_total(),
+        "subcycles_total": subcycles_total(),
+        "audit_cycles_total": audit_cycles_total(),
+        "audit_failures_total": audit_failures_total(),
+        "fold_demotions_total": fold_demotions_total(),
+        "activeset_cycles_total": activeset_cycles_total(),
+        "activeset_audits_total": activeset_audits_total(),
+        "activeset_divergences_total": activeset_divergences_total(),
+        "activeset_demotions_total": activeset_demotions_total(),
+        "deferred_readbacks": 0,
+        "pipeline_cycles_total": 0,
+        "pipeline_conflicts_total": 0,
+        "pipeline_conflicts_by_outcome": {},
+        "pipeline_demotions_total": 0,
+        "slo_breaches_total": slo_breaches_total(),
+        "slo_breaches_by_objective": slo_breaches_by_objective(),
+        "timeline_drift_total": timeline_drift_total(),
+        "timeline_drift_by_kind": timeline_drift_by_kind(),
+        "telemetry": telemetry_snapshot(),
+    }
+    snap["readback_accounting"] = readback_accounting()
+    arrival = arrival_latency_percentiles()
+    if arrival:
+        snap["subcycle_arrival"] = arrival
+    from .obs import ledger as _ledger, slo as _slo, spans as _spans
+    from .obs import timeline as _timeline  # lazy: obs imports metrics
+    snap["tracer"] = _spans.tracer_stats()
+    lstats = _ledger.stats()
+    if lstats.get("closed_total"):
+        snap["ledger"] = lstats
+    slo_section = _slo.metrics_section()
+    if slo_section:
+        snap["slo"] = slo_section
+    if _timeline.armed():
+        snap["timeline"] = _timeline.stats()
+    return snap

@@ -17,11 +17,18 @@ The reference's KUBEBATCH_* settings are keyword arguments here:
 ``cycle_deadline=`` (KUBEBATCH_CYCLE_DEADLINE), ``audit_every=``
 (KUBEBATCH_AUDIT_EVERY), ``solve_audit_every=``
 (KUBEBATCH_SOLVE_AUDIT_EVERY: the active-set engine's audit cadence,
-process-wide as in the reference), ``subcycle=`` (KUBEBATCH_SUBCYCLE);
-the ladder's recovery probe is skipped on a CPU cache (the reference's
-KUBEBATCH_NO_BACKEND_PROBE). Not ported yet, and refused with
-NotImplementedError: ``pipeline`` (ROADMAP A4), ``slo`` (A5) and
-``explain_unschedulable`` (A5, B9).
+process-wide as in the reference), ``subcycle=`` (KUBEBATCH_SUBCYCLE),
+``slo=`` (KUBEBATCH_SLO: arms the SLO plane, obs/slo.py) and
+``timeline_dir=`` (KUBEBATCH_TIMELINE_DIR: arms the timeline's spill,
+obs/timeline.py); the ladder's recovery probe is skipped on a CPU cache
+(the reference's KUBEBATCH_NO_BACKEND_PROBE).
+``explain_unschedulable=True`` runs the unschedulability explainer
+(obs/explain.py) after the actions, inside the session span: one
+``csrc/explain_counts.cu`` launch and one counted copy back a cycle on a
+CUDA cache, published at /debug/explain; an explainer failure is logged
+and never fails the cycle. An armed flight recorder (obs/flight.py)
+dumps on every counted cycle failure and failed fold audit. Not ported
+yet, and refused with NotImplementedError: ``pipeline`` (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import List, Optional, Tuple
 from .. import actions as _actions  # noqa: F401  (self-registration)
 from .. import faults as _faults
 from .. import obs
+from ..obs import explain, flight
 from .. import plugins as _plugins  # noqa: F401  (self-registration)
 from ..conf import SchedulerConfiguration, Tier, parse_scheduler_conf
 from ..device import on_card
@@ -83,15 +91,11 @@ class Scheduler:
                  subcycle: Optional[bool] = None,
                  pipeline: Optional[bool] = None,
                  slo: Optional[bool] = None,
-                 solver: Optional[str] = None):
-        for flag, item in ((pipeline, "pipelined cycles, ROADMAP queue A, "
-                                      "A4"),
-                           (slo, "the SLO plane, ROADMAP queue A, A5"),
-                           (explain_unschedulable,
-                            "the unschedulability explainer, ROADMAP "
-                            "queue A, A5, and queue B, B9")):
-            if flag:
-                raise NotImplementedError(f"{item}: not ported yet")
+                 solver: Optional[str] = None,
+                 timeline_dir: Optional[str] = None):
+        if pipeline:
+            raise NotImplementedError("pipelined cycles, ROADMAP queue A, "
+                                      "A4: not ported yet")
         if solve_audit_every is not None:
             # the active-set engine's audit cadence (process-wide, as in
             # the reference; kernels/activeset.py owns the counter)
@@ -136,6 +140,18 @@ class Scheduler:
         #: "deadline")
         self.last_cycle_failure: Optional[str] = None
         self._cycle_seq = -1
+        #: opt-in unschedulability explainer: one extra launch and copy
+        #: a cycle, the snapshot at /debug/explain
+        self.explain_unschedulable = bool(explain_unschedulable)
+        #: the SLO burn-rate plane, armed per scheduler (fresh objective
+        #: state); disarmed it costs nothing
+        self.slo_enabled = bool(slo)
+        if self.slo_enabled:
+            from ..obs import slo as _slo
+            _slo.arm()
+        if timeline_dir:
+            from ..obs import timeline as _timeline
+            _timeline.arm(timeline_dir)
 
     @staticmethod
     def _load_conf(conf_str: str):
@@ -230,6 +246,9 @@ class Scheduler:
             count_cycle_failure("exception")
             self.last_cycle_failure = "exception"
             self.ladder.record_failure(on_card(self.cache))
+            # the failing cycle's tree is in the ring the dump writes:
+            # end_cycle ran first
+            flight.maybe_dump_on_failure("exception")
             return False
         obs.end_cycle(root)
         if self.cycle_deadline is not None \
@@ -240,6 +259,7 @@ class Scheduler:
             count_cycle_failure("deadline")
             self.last_cycle_failure = "deadline"
             self.ladder.record_failure(on_card(self.cache))
+            flight.maybe_dump_on_failure("deadline")
             return False
         self.ladder.record_success()
         return True
@@ -261,6 +281,7 @@ class Scheduler:
             if diffs:
                 log.error("fold audit FAILED (%d diffs; fold demoted to "
                           "snapshot-primary): %s", len(diffs), diffs[:4])
+                flight.maybe_dump_on_failure("fold-audit")
         try:
             with obs.span("session", cat="e2e") as session_span:
                 ssn = OpenSession(self.cache, self.tiers,
@@ -275,6 +296,16 @@ class Scheduler:
                         log.debug("action %s took %.2fms", action.name,
                                   1e3 * asp.dur)
                         action.uninitialize()
+                    if self.explain_unschedulable:
+                        # opt-in debug pass: a diagnostic must not fail
+                        # the cycle (its decisions are applied) or feed
+                        # the degradation ladder
+                        try:
+                            with obs.span("explain", cat="host"):
+                                explain.explain_session(ssn)
+                        except Exception:
+                            log.exception("unschedulability explainer "
+                                          "failed; cycle unaffected")
                 finally:
                     CloseSession(ssn)
         finally:

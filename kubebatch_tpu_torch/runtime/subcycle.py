@@ -14,7 +14,9 @@ latency-lane pods don't wait for the period.
   cycle sees a non-pending task and re-places nothing.
 
 Each sub-cycle runs under its own span root ("subcycle"); arrival ->
-decision latencies go to ``metrics.observe_arrival_latency``.
+decision latencies go to ``metrics.observe_arrival_latency``, which
+keeps the exact count and sends the latency to the decision ledger's
+histogram (obs/ledger.py ``observe_subcycle_arrival``).
 """
 from __future__ import annotations
 
@@ -27,14 +29,12 @@ from ..api import TaskStatus
 from ..api.job import get_job_id
 from ..metrics import count_subcycle, observe_arrival_latency
 from ..objects import Pod
+from ..obs.ledger import DEFAULT_LANE, LANE_ANNOTATION, LATENCY_LANE
+
+__all__ = ["DEFAULT_LANE", "LANE_ANNOTATION", "LATENCY_LANE",
+           "is_latency_pod", "pod_lane", "run_subcycle"]
 
 log = logging.getLogger("kubebatch.subcycle")
-
-#: pod annotation carrying the service lane (latency > normal > batch);
-#: the reference keeps these in its decision ledger (obs/ledger.py)
-LANE_ANNOTATION = "scheduling.k8s.io/kube-batch/lane"
-LATENCY_LANE = "latency"
-DEFAULT_LANE = "normal"
 
 
 def pod_lane(pod: Pod) -> str:

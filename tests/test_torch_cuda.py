@@ -1159,3 +1159,113 @@ def test_two_level_cycles_on_the_card_bind_what_the_cpu_binds(monkeypatch):
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0] == ["hier", "activeset", "activeset", "activeset"]
     assert out["cuda"][1] and not out["cuda"][2]
+
+
+# ---- the unschedulability explainer (csrc/explain_counts.cu) -------------
+
+def _explain_case(t, n, pt, seed, kind="random"):
+    """Seeded explain_counts arguments (the CPU tests' generator): ties
+    at resreq == idle from one small value grid, a fifth of the nodes
+    cordoned, some at their pod cap, a quarter of the task rows padded."""
+    rng = np.random.default_rng(seed)
+    grid = np.asarray([0.0, 250.0, 500.0, 1000.0, 2048.0], np.float32)
+    a = {"idle": rng.choice(grid, (n, 3)).astype(np.float32),
+         "node_ok": rng.random(n) < 0.8,
+         "n_tasks": rng.integers(0, 6, n).astype(np.int32),
+         "max_task_num": rng.integers(1, 6, n).astype(np.int32),
+         "sig_pred": rng.random((4, n)) < 0.7,
+         "task_sig": rng.integers(0, 4, t).astype(np.int32),
+         "task_valid": np.arange(t) < max(1, (3 * t) // 4),
+         "resreq": rng.choice(grid, (t, 3)).astype(np.float32),
+         "task_ports": rng.random((t, pt)) < 0.15,
+         "port_base": rng.random((n, pt)) < 0.15}
+    if kind == "cordoned":
+        a["node_ok"][:] = False
+    elif kind == "full-slots":
+        a["max_task_num"] = a["n_tasks"].copy()
+    elif kind == "ties":
+        a["idle"][0] = -0.0
+        a["resreq"][:] = a["idle"][rng.integers(0, n, t)]
+    return a
+
+
+@pytest.mark.parametrize("kind", ["random", "cordoned", "full-slots",
+                                  "ties"])
+@pytest.mark.parametrize("ports", [(False, 1), (True, 1), (True, 12),
+                                   (True, 64)])
+@pytest.mark.parametrize("t,n", [(1, 8), (33, 64), (300, 1000),
+                                 (1000, 300)])
+def test_explain_counts_kernel_matches_plain(t, n, ports, kind):
+    from kubebatch_tpu_torch import interop
+    from kubebatch_tpu_torch.obs.explain import (explain_counts,
+                                                 explain_counts_plain)
+
+    _need_cuda()
+    has_ports, pt = ports
+    a = _explain_case(t, n, pt, seed=t * 131 + n + pt, kind=kind)
+    if kind == "random" and not has_ports:
+        a["task_ports"][:] = True          # ignored without has_ports
+    args = interop.explain_inputs_from_numpy(a, "cuda")
+    c0 = _build.launch_count("explain_counts")
+    got = explain_counts(**args, has_ports=has_ports)
+    torch.cuda.synchronize()
+    assert _build.launch_count("explain_counts") == c0 + 1
+    want = explain_counts_plain(
+        **interop.explain_inputs_from_numpy(a, "cpu"), has_ports=has_ports)
+    _assert_bitwise([want], [got.cpu()], f"explain_counts {t}x{n} {kind}")
+
+
+def test_explain_counts_refuses_what_the_kernel_does_not_take():
+    """Mixed devices, a wrong dtype or a port width past one word raise
+    before any launch; CPU tensors run the plain version (no launch)."""
+    from kubebatch_tpu_torch import interop
+    from kubebatch_tpu_torch.obs.explain import explain_counts
+
+    _need_cuda()
+    a = _explain_case(33, 64, 12, seed=1)
+    cpu = interop.explain_inputs_from_numpy(a, "cpu")
+    card = interop.explain_inputs_from_numpy(a, "cuda")
+    c0 = _build.launch_count("explain_counts")
+    with pytest.raises(ValueError, match="mixed devices"):
+        explain_counts(**dict(card, idle=cpu["idle"]), has_ports=True)
+    with pytest.raises(ValueError, match="task_sig"):
+        explain_counts(**dict(card, task_sig=card["task_sig"].long()),
+                       has_ports=True)
+    wide = _explain_case(33, 64, 65, seed=1)
+    with pytest.raises(ValueError, match="65 ports"):
+        explain_counts(**interop.explain_inputs_from_numpy(wide, "cuda"),
+                       has_ports=True)
+    explain_counts(**cpu, has_ports=True)
+    assert _build.launch_count("explain_counts") == c0
+
+
+def test_explainer_cycle_on_the_card_matches_a_cpu_cache():
+    """Scheduler(explain_unschedulable=True) on a CUDA and a CPU cache fed
+    the same 2p cluster: one explain_counts launch on the card, one more
+    counted copy than without the explainer, the same snapshot."""
+    from kubebatch_tpu_torch.obs import explain
+    from kubebatch_tpu_torch.runtime import Scheduler
+
+    _need_cuda()
+    conf = open(__file__.replace("tests/test_torch_cuda.py",
+                                 "config/kube-batch-conf.yaml")).read()
+    out = {}
+    for device in ("cuda", "cpu"):
+        rb = []
+        for on in (False, True):
+            sim = build_cluster(BASELINE_SPECS["2p"])
+            cache = SchedulerCache(async_writeback=False, device=device)
+            sim.populate(cache)
+            sched = Scheduler(cache, conf, explain_unschedulable=on)
+            c0 = _build.launch_count("explain_counts")
+            rb0 = metrics.blocking_readbacks()
+            assert sched.run_cycle()
+            rb.append(metrics.blocking_readbacks() - rb0)
+        snap = dict(explain.latest())
+        snap.pop("ts")
+        out[device] = (snap, rb[1] - rb[0],
+                       _build.launch_count("explain_counts") - c0)
+    explain.set_latest(None)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert out["cuda"][1] == 1 and out["cuda"][2] == 1
+    assert out["cpu"][2] == 0

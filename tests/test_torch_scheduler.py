@@ -459,10 +459,8 @@ def test_latency_lane_arrivals_match_reference():
 
 def test_unported_options_raise():
     cache = TCache(async_writeback=False, device="cpu")
-    for kw, item in (({"pipeline": True}, "A4"), ({"slo": True}, "A5"),
-                     ({"explain_unschedulable": True}, "B9")):
-        with pytest.raises(NotImplementedError, match=item):
-            TScheduler(cache, **kw)
+    with pytest.raises(NotImplementedError, match="A4"):
+        TScheduler(cache, pipeline=True)
     for mode, item in (("rpc", "A8"), ("native", "A7"), ("sharded", "B14")):
         with pytest.raises(NotImplementedError, match=item):
             TAllocate(mode=mode)
