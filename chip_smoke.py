@@ -113,6 +113,22 @@ policy, and the kernel at full width on fresh cold cfg5 and 5p sessions
 (T_pad 16,384 x N_pad 8,192; 5p with its 12 host ports), checked and
 timed (events, profiler) beside its bound and the plain version.
 
+Phase (i) is the tenant solve service: eight cfg5 tenants (seeds 0-7,
+uncut) through one ``TenantSolveService`` on the card, one thread each,
+every request and answer through the wire's bytes (rpc/wire.py): a cold
+cycle each (10,000 pending: a single, one batched_allocate launch), then
+three churn-256 cycles whose fused lanes coalesce as they come; the end
+states of tenants 0 and 1 equal dedicated in-process auto runs. Each
+steady cycle's eight requests then go through ``solve_many``: one 8-lane
+launch of csrc/mega_fused.cu (one block per lane, N_pad 8,192), bitwise
+equal to the plain version and to eight single fused_allocate launches,
+its decisions equal to ``solve_snapshot``'s; the launch is timed against
+the eight single launches back to back. A 3p tenant's cold request takes
+the service's affinity single and equals the in-process batched cycle;
+``run_saturation`` measures solves/s at capacity and the tail under 2x
+offered load on the eight steady requests; ``run_multi_tenant`` runs
+four "t" tenants against their dedicated runs.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -211,20 +227,22 @@ def fused_bounds(kw, out) -> dict:
 
     ``bound_ms`` is the roofline: each input read once and each output
     written once over the memory rate, against the node passes' float
-    operations over the float32 rate. ``reread_ms`` counts what the node
-    pass moves instead: the node state read again by every node solve,
-    over the memory rate (a floor for a design that streams it from
-    memory each time; the one-block kernel streams it from L2)."""
+    operations over the float32 rate, counted over the real nodes
+    (``node_ok``), not the padded axis. ``reread_ms`` counts what the
+    node pass moves instead: the node state read again by every node
+    solve, over the memory rate (a floor for a design that streams it
+    from memory each time; the one-block kernel streams it from L2)."""
     frame = out[0][0, -20:].tolist()
     iters, n_solves = frame[1], frame[2] + frame[3]     # placed + failed
     n_pad = kw["idle"].shape[0]
+    n_real = int(kw["node_ok"].sum())
     nbytes = sum(t.numel() * t.element_size() for t in kw.values()
                  if hasattr(t, "numel"))
     nbytes += sum(t.numel() * t.element_size() for t in out)
-    b_ms, b_by = bound(nbytes, n_solves * n_pad * OPS_PER_NODE_FUSED)
+    b_ms, b_by = bound(nbytes, n_solves * n_real * OPS_PER_NODE_FUSED)
     return {"iters": iters, "n_solves": n_solves, "n_pad": n_pad,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "reread_ms": n_solves * n_pad * NODE_PASS_BYTES
+            "n_real": n_real, "bound_ms": b_ms, "bound_by": b_by,
+            "reread_ms": n_solves * n_real * NODE_PASS_BYTES
             / PEAK_BYTES_PER_S * 1e3}
 
 
@@ -3033,6 +3051,434 @@ def obs_phase(dev, spec4, spec5, spec5p, spec3p,
     return entry
 
 
+def mega_bounds(args, out) -> dict:
+    """The mega launch's roofline over all its lanes, counted as
+    fused_bounds counts one solve: each stacked input read once and each
+    output written once over the memory rate, against each lane's node
+    solves (placed + failed, from its telemetry frame) x that lane's real
+    nodes (``node_ok``) x the node pass's float32 operations over the
+    float32 rate."""
+    from kubebatch_tpu_torch.kernels.mega import ARG_NAMES
+
+    frames = out[0][:, 0, -20:].tolist()
+    n_pad = args[0].shape[1]
+    n_real = args[ARG_NAMES.index("node_ok")].sum(dim=1).tolist()
+    solves = [f[2] + f[3] for f in frames]
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    nbytes += sum(t.numel() * t.element_size() for t in out)
+    ops = sum(k * n for k, n in zip(solves, n_real)) * OPS_PER_NODE_FUSED
+    b_ms, b_by = bound(nbytes, ops)
+    return {"lanes": len(frames), "n_pad": n_pad, "n_real": n_real,
+            "n_solves": sum(solves), "iters": [f[1] for f in frames],
+            "bytes": nbytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
+
+
+class MegaRecorder:
+    """Wraps the mega solve entry the tenant service calls
+    (tenantsvc/megasolve.py ``mega_fused``) to keep each launch's
+    stacked inputs and results."""
+
+    def __init__(self):
+        from kubebatch_tpu_torch.tenantsvc import megasolve
+
+        self.mod = megasolve
+        self.inner = megasolve.mega_fused
+        self.calls = []
+
+    def __call__(self, *args, **statics):
+        out = self.inner(*args, **statics)
+        self.calls.append((args, statics, out))
+        return out
+
+    def __enter__(self):
+        self.mod.mega_fused = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mega_fused = self.inner
+
+
+def tenant_phase(dev, churn: int = 256, n_tenants: int = 8,
+                 steady: int = 3, saturation_s: float = 2.0, config=5,
+                 aff_config="3p") -> dict:
+    """Phase (i): the tenant solve service on the card. (i1) eight cfg5
+    tenants (seeds 0-7, uncut) through one ``TenantSolveService``, one
+    thread each: a cold cycle (10,000 pending: a single, the batched
+    kernel) then ``steady`` churn-256 cycles (fused lanes, coalesced as
+    they come), every request and answer through the wire's bytes; the
+    end states of tenants 0 and 1 equal dedicated in-process auto runs.
+    (i2) each steady cycle's eight requests through ``solve_many``: one
+    8-lane ``mega_fused`` launch, its results bitwise equal to
+    ``mega_fused_plain`` and to eight single ``fused_allocate``
+    launches, its decisions equal to ``solve_snapshot``'s; timed against
+    the eight single launches back to back. (i3) a 3p tenant's cold
+    request (affinity payload) through the service equals the
+    in-process batched cycle. (i4) ``run_saturation`` on the last
+    cycle's eight requests. (i5) ``run_multi_tenant`` on four "t"
+    tenants. Returns the kernels line's entry."""
+    import threading
+
+    import torch
+
+    from kubebatch_tpu_torch import faults, metrics
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.kernels import _build
+    from kubebatch_tpu_torch.kernels.fused import fused_allocate
+    from kubebatch_tpu_torch.kernels.mega import mega_fused, mega_fused_plain
+    from kubebatch_tpu_torch.rpc.client import set_tenant
+    from kubebatch_tpu_torch.rpc.server import (decode_snapshot,
+                                                fused_lane_args,
+                                                solve_snapshot)
+    from kubebatch_tpu_torch.sim import tenants as sim_tenants
+    from kubebatch_tpu_torch.tenantsvc import megasolve
+    from kubebatch_tpu_torch.tenantsvc.service import TenantSolveService
+
+    t_phase = time.perf_counter()
+
+    class RecordingService(TenantSolveService):
+        """Keeps every (tenant, request) the service was handed."""
+
+        def __init__(self):
+            super().__init__(device=dev)
+            self.calls = []
+            self._rec = threading.Lock()
+
+        def solve(self, tenant, lane, req, timeout=120.0):
+            with self._rec:
+                self.calls.append((tenant, req))
+            return super().solve(tenant, lane, req, timeout)
+
+    def decisions(resp):
+        return [(d.task_uid, d.kind, d.node_name, d.order)
+                for d in resp.decisions]
+
+    def service_cycle(sim, cache, binder, svc, n_churn):
+        """One tenant cycle through the service on this thread (a
+        kubelet tick and a churn of ``n_churn`` first when nonzero), host
+        ms per part."""
+        from kubebatch_tpu_torch.conf import shipped_tiers
+        from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+        from kubebatch_tpu_torch.objects import PodPhase
+        from kubebatch_tpu_torch.rpc.client import (apply_decisions,
+                                                    build_snapshot)
+        from kubebatch_tpu_torch.rpc.wire import (DecisionsResponse,
+                                                  SnapshotRequest)
+
+        if n_churn:
+            for pod in binder.fresh:
+                pod.phase = PodPhase.RUNNING
+                cache.update_pod(pod, pod)
+            binder.fresh.clear()
+            sim.churn_tick(cache, n_churn)
+        t = [time.perf_counter()]
+        ssn = OpenSession(cache, shipped_tiers())
+        t.append(time.perf_counter())
+        req, tasks = build_snapshot(ssn)
+        t.append(time.perf_counter())
+        sent = SnapshotRequest.FromString(req.SerializeToString())
+        t.append(time.perf_counter())
+        resp, _ = svc.solve("alone", "normal", sent)
+        t.append(time.perf_counter())
+        back = DecisionsResponse.FromString(resp.SerializeToString())
+        t.append(time.perf_counter())
+        apply_decisions(ssn, back, tasks)
+        t.append(time.perf_counter())
+        CloseSession(ssn)
+        t.append(time.perf_counter())
+        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        return {"pending": len(tasks), "open": ms[0], "encode": ms[1],
+                "wire": ms[2] + ms[4], "solve": ms[3], "replay": ms[5],
+                "close": ms[6], "wall": sum(ms)}
+
+    names = ("batched_allocate", "fused_allocate", "mega_fused")
+    tenants = [f"cfg5-{i}" for i in range(n_tenants)]
+    # ---- (i1) eight cfg5 tenants through one service ---------------------
+    t0 = time.perf_counter()
+    clusters = [sim_tenants._tenant_cluster(i, config, dev)
+                for i in range(n_tenants)]
+    log(f"(i1) {n_tenants} tenants of config {config} populated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    svc = RecordingService()
+    states, errors, walls = {}, [], {}
+    dem0 = metrics.engine_demotions_total()
+    mega0 = (metrics.mega_dispatches_total(), metrics.mega_lanes_total())
+    tc0 = metrics.tenant_counters()
+
+    def worker(i):
+        set_tenant(tenants[i])
+        try:
+            w0 = time.perf_counter()
+            states[i] = sim_tenants.drive_tenant_cycles(
+                *clusters[i], 1 + steady, mode="rpc", svc=svc,
+                tenant=tenants[i], churn=churn)
+            walls[i] = time.perf_counter() - w0
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{tenants[i]}: {type(e).__name__}: {e}")
+        finally:
+            set_tenant(None)
+
+    _build.reset_launch_counts()
+    with MegaRecorder() as rec:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n_tenants)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        i1_wall = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"(i1) tenant errors: {errors}")
+        i1_launches = {n: _build.launch_count(n) for n in names}
+        i1_mega = (metrics.mega_dispatches_total() - mega0[0],
+                   metrics.mega_lanes_total() - mega0[1])
+        # ---- (i2) each steady cycle's eight requests, one launch ---------
+        by_tenant = {t: [r for tt, r in svc.calls if tt == t]
+                     for t in tenants}
+        counts = {t: len(v) for t, v in by_tenant.items()}
+        if any(n != 1 + steady for n in counts.values()):
+            raise AssertionError("(i1) a tenant's cycle did not reach the "
+                                 "service: " + json.dumps(counts))
+        n_i1 = len(rec.calls)
+        cycles = []
+        for k in range(1, 1 + steady):
+            reqs = [by_tenant[t][k] for t in tenants]
+            lanes = [fused_lane_args(r) for r in reqs]
+            if any(lane is None for lane in lanes):
+                raise AssertionError(f"(i2) cycle {k}: a steady request "
+                                     f"takes the batched route")
+            keys = {megasolve.lane_key(*lane) for lane in lanes}
+            if len(keys) != 1:
+                raise AssertionError(
+                    f"(i2) cycle {k}: the eight requests do not share one "
+                    f"lane key: " + json.dumps([
+                        {"shapes": [s for s, _ in key[0]],
+                         "statics": [list(map(str, kv)) for kv in key[1]]}
+                        for key in keys]))
+            m0 = metrics.mega_dispatches_total()
+            c0 = len(rec.calls)
+            resps = svc.solve_many([(t, "normal", r)
+                                    for t, r in zip(tenants, reqs)])
+            if len(rec.calls) != c0 + 1 or \
+                    metrics.mega_dispatches_total() != m0 + 1:
+                raise AssertionError(f"(i2) cycle {k}: solve_many made "
+                                     f"{len(rec.calls) - c0} launches")
+            cycles.append((reqs, resps, rec.calls[-1]))
+        launches = {n: _build.launch_count(n) for n in names}
+    torch.cuda.synchronize()
+    if metrics.engine_demotions_total() != dem0:
+        raise AssertionError("(i1) a tenant cycle fell back in-process")
+    cold_batched = sum(decode_snapshot(by_tenant[t][0]).use_batched
+                       for t in tenants)
+    if config == 5 and cold_batched != n_tenants:
+        raise AssertionError("(i1) a cfg5 cold request did not take the "
+                             "batched route")
+    if launches["batched_allocate"] < cold_batched or \
+            launches["mega_fused"] < steady:
+        raise AssertionError(f"(i) launches {launches}: expected a batched "
+                             f"launch per batched-sized cold cycle "
+                             f"({cold_batched}) and a mega launch per steady "
+                             f"cycle")
+    tc = metrics.tenant_counters()
+    solves = {t: tc[t].get("solves", 0) - tc0.get(t, {}).get("solves", 0)
+              for t in tenants}
+    if any(v != 1 + 2 * steady for v in solves.values()):
+        raise AssertionError(f"(i) per-tenant solves {solves}")
+    log(f"(i1) {n_tenants} tenants x (cold + {steady} churn-{churn}) "
+        f"through one service in {i1_wall:.1f} s (per tenant "
+        + ", ".join(f"{walls[i]:.1f}" for i in range(n_tenants))
+        + f" s); launches {json.dumps(i1_launches)}; opportunistic mega "
+        f"dispatches {i1_mega[0]} with {i1_mega[1]} lanes "
+        f"({n_i1} recorded); engines ok, no fallback")
+    # dedicated in-process runs of two tenants on the card
+    for i in range(2):
+        want = sim_tenants.drive_tenant_cycles(
+            *sim_tenants._tenant_cluster(i, config, dev), 1 + steady,
+            mode="auto", churn=churn)
+        if want != states[i]:
+            bad = [k for k in want if want[k] != states[i].get(k)]
+            raise AssertionError(f"(i1) tenant {i}: {len(bad)} tasks differ "
+                                 f"from the dedicated run, e.g. {bad[:3]}")
+    log("(i1) tenants 0 and 1 end states == dedicated in-process auto runs "
+        "on the card")
+    for c in clusters:
+        c[1].stop()
+    del clusters
+    # one more tenant alone: where a service cycle's host time goes
+    sim, cache, binder = sim_tenants._tenant_cluster(n_tenants, config, dev)
+    breakdown = {"cold": service_cycle(sim, cache, binder, svc, 0),
+                 "steady": service_cycle(sim, cache, binder, svc, churn)}
+    cache.stop()
+    del sim, cache, binder
+    log("(i1) one tenant alone through the service, host ms per part "
+        "(open, encode = build_snapshot, wire = the request's and the "
+        "answer's bytes both ways, solve = svc.solve: admission, decode, "
+        "upload, launch, the counted sync, the answer; replay = "
+        "apply_decisions; close): " + json.dumps(breakdown))
+    # ---- (i2) checks: plain, singles, solve_snapshot ---------------------
+    err = 0.0
+    plain_ms = []
+    for k, (reqs, resps, (args, statics, out)) in enumerate(cycles, 1):
+        b = args[0].shape[0]
+        if b != n_tenants:
+            raise AssertionError(f"(i2) cycle {k}: {b} lanes")
+        t0 = time.perf_counter()
+        want = mega_fused_plain(*args, **statics)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        err = max(err, max_abs_err(want, out))
+        assert_bitwise(want, out, f"mega_fused cycle {k}")
+        for i in range(b):
+            single = fused_allocate(*(a[i] for a in args), **statics)
+            assert_bitwise(single, [o[i] for o in out],
+                           f"mega_fused cycle {k} lane {i}")
+        for t, req, resp in zip(tenants, reqs, resps):
+            if decisions(solve_snapshot(req, device=dev)) != \
+                    decisions(resp):
+                raise AssertionError(f"(i2) cycle {k} {t}: solve_many's "
+                                     f"decisions differ from solve_snapshot")
+        placed = int(((out[0][:, 0, :-21] >= 1)
+                      & (out[0][:, 0, :-21] <= 3)).sum())
+        log(f"(i2) cycle {k}: one {b}-lane mega_fused launch (T_pad "
+            f"{args[8].shape[1]}, N_pad {args[0].shape[1]}, {placed} "
+            f"placed) bitwise equal to mega_fused_plain "
+            f"({plain_ms[-1]:.0f} ms on the card) and to {b} single "
+            f"fused_allocate launches; decisions == solve_snapshot's")
+    # the opportunistic (i1) launches: plain and single launches too
+    i1_lanes = 0
+    for k, (args, statics, out) in enumerate(rec.calls[:n_i1], 1):
+        want = mega_fused_plain(*args, **statics)
+        err = max(err, max_abs_err(want, out))
+        assert_bitwise(want, out, f"(i1) mega_fused launch {k}")
+        for i in range(args[0].shape[0]):
+            single = fused_allocate(*(a[i] for a in args), **statics)
+            assert_bitwise(single, [o[i] for o in out],
+                           f"(i1) mega_fused launch {k} lane {i}")
+        i1_lanes += args[0].shape[0]
+    log(f"(i1) the {n_i1} opportunistic mega_fused launches ({i1_lanes} "
+        f"lanes) bitwise equal to mega_fused_plain and to single "
+        f"fused_allocate launches")
+    args, statics, out = cycles[-1][2]
+    mb = mega_bounds(args, out)
+
+    def singles():
+        for i in range(args[0].shape[0]):
+            fused_allocate(*(a[i] for a in args), **statics)
+
+    mega_event_ms = cuda_ms(lambda: mega_fused(*args, **statics), reps=3)
+    singles_event_ms = cuda_ms(singles, reps=3)
+    mega_prof_ms = profiled_ms(lambda: mega_fused(*args, **statics),
+                               "mega_fused_kernel", reps=2)
+    single_prof_ms = profiled_ms(singles, "fused_allocate_kernel", reps=1)
+    mega_ms = mega_prof_ms if mega_prof_ms is not None else mega_event_ms
+    # one lane alone: the lane launch (kb_mega_fused, b = 1) against the
+    # single launch (kb_fused_allocate) on lane 0, timed single, mega,
+    # mega, single
+    lane0 = [a[:1] for a in args]
+    one = [a[0] for a in args]
+    assert_bitwise(fused_allocate(*one, **statics),
+                   [o[0] for o in mega_fused(*lane0, **statics)],
+                   "mega_fused b=1 vs fused_allocate")
+    b1 = {"single": [], "mega": []}
+    for kind in ("single", "mega", "mega", "single"):
+        fn = ((lambda: fused_allocate(*one, **statics)) if kind == "single"
+              else (lambda: mega_fused(*lane0, **statics)))
+        b1[kind].append(cuda_ms(fn, reps=5))
+    log(f"(i2) lane 0 alone, ms per launch (events, 5 launches each, "
+        f"order single, mega, mega, single): fused_allocate "
+        f"{b1['single']}, mega_fused b=1 {b1['mega']}; mega / single "
+        f"{sum(b1['mega']) / sum(b1['single']):.4f}")
+    log(f"(i2) mega_fused {mb['lanes']} lanes: {mega_event_ms:.3f} ms per "
+        f"launch (events, 3 launches), {mega_prof_ms} ms device time "
+        f"(profiler); the {mb['lanes']} single fused_allocate launches back "
+        f"to back {singles_event_ms:.3f} ms (events), "
+        f"{single_prof_ms} ms each (profiler); speedup "
+        f"{singles_event_ms / mega_event_ms:.2f}x; bound "
+        f"{mb['bound_ms']:.6f} ms ({mb['bound_by']}: {mb['bytes']} B, "
+        f"{mb['n_solves']} node solves over each lane's real nodes "
+        f"{mb['n_real']} (N_pad {mb['n_pad']}), {mb['ops']} float32 "
+        f"operations); iterations per lane {mb['iters']}")
+    # ---- (i3) an affinity single: a 3p tenant's cold request -------------
+    b0 = _build.launch_count("batched_allocate")
+    n0 = len(svc.calls)
+    got = sim_tenants.drive_tenant_cycles(
+        *sim_tenants._tenant_cluster(0, aff_config, dev), 1, mode="rpc",
+        svc=svc, tenant="aff")
+    engine = allocate_mod.last_cycle_engine
+    req = svc.calls[-1][1]
+    w = decode_snapshot(req)
+    if len(svc.calls) != n0 + 1 or engine != "rpc" or \
+            len(req.affinity) != 13 or w.affinity is None or \
+            _build.launch_count("batched_allocate") != b0 + 1:
+        raise AssertionError(f"(i3) the 3p request did not take the "
+                             f"service's affinity single (engine {engine})")
+    want = sim_tenants.drive_tenant_cycles(
+        *sim_tenants._tenant_cluster(0, aff_config, dev), 1, mode="batched")
+    if want != got:
+        raise AssertionError("(i3) 3p through the service differs from the "
+                             "in-process batched cycle")
+    bound3 = sum(1 for st, node in got.values() if node)
+    log(f"(i3) 3p cold through the service: {w.t} pending, affinity payload "
+        f"of {len(req.affinity)} tensors ({w.affinity.n_pairs} pairs), one "
+        f"batched_allocate launch, {bound3} tasks on nodes == the in-process "
+        f"batched cycle")
+    # ---- (i4) saturation on the eight steady requests --------------------
+    sat_launch0 = {n: _build.launch_count(n) for n in names}
+    sat_mega0 = (metrics.mega_dispatches_total(), metrics.mega_lanes_total())
+    sat = sim_tenants.run_saturation(
+        duration_s=saturation_s, svc=TenantSolveService(device=dev),
+        requests=cycles[-1][0], device=dev)
+    sat_launches = {n: _build.launch_count(n) - sat_launch0[n]
+                    for n in names}
+    sat_mega = (metrics.mega_dispatches_total() - sat_mega0[0],
+                metrics.mega_lanes_total() - sat_mega0[1])
+    if sat.overload_errors:
+        raise AssertionError(f"(i4) {sat.overload_errors} errors under "
+                             f"overload")
+    sat_d = dataclasses.asdict(sat)
+    sat_d.update(launches=sat_launches, mega_dispatches=sat_mega[0],
+                 mega_lanes=sat_mega[1], shed_level_after=faults.SHED.level)
+    log("(i4) saturation (the last steady cycle's requests, batch lane, "
+        "warm-up, closed loop, then open loop at 2x with each latency "
+        "from its scheduled send): " + json.dumps(sat_d))
+    # the ladder stays escalated for its cooldown: (i5) sends on the
+    # normal lane, which reject-lowest would answer from the mirror
+    faults.SHED.reset()
+    # ---- (i5) the reference's own tenant check ---------------------------
+    rep = sim_tenants.run_multi_tenant(n_tenants=4, cycles=2, device=dev)
+    if not rep.bit_identical:
+        raise AssertionError(f"(i5) {rep.mismatched} {rep.rpc_errors}")
+    log(f"(i5) run_multi_tenant 4 x 2 on \"t\": bit-identical to dedicated "
+        f"runs; solves {json.dumps(rep.solves_by_tenant)}; mega "
+        f"dispatches {rep.mega_dispatches}, lanes {rep.mega_lanes}")
+    snap = metrics.counters_snapshot(include_rpc=False)
+    log(f"(i) counters: mega_dispatches_total "
+        f"{snap['mega_dispatches_total']}, mega_lanes_total "
+        f"{snap['mega_lanes_total']}, shed_level {snap['shed_level']}, "
+        f"load_shed_total {json.dumps(snap['load_shed_total'])}; tenants "
+        + json.dumps(snap.get("tenants", {})))
+    log(f"(i) done in {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "mega_fused", "route": "cuda",
+        "source": "kubebatch_tpu_torch/kernels/csrc/mega_fused.cu",
+        "replaces": "kubebatch_tpu/tenantsvc/megasolve.py:56",
+        "launches": launches["mega_fused"], "max_abs_err": err,
+        "ms": mega_ms, "event_ms_3_reps": mega_event_ms,
+        "profiler_ms": mega_prof_ms, "plain_ms": plain_ms[-1],
+        "plain_device": "cuda", "bound_ms": mb["bound_ms"],
+        "bound_by": mb["bound_by"], "library_ms": None,
+        "library_call": "none", "lanes": mb["lanes"],
+        "lanes_padded": megasolve.lane_bucket(mb["lanes"]),
+        "singles_event_ms": singles_event_ms,
+        "single_profiler_ms": single_prof_ms,
+        "lane0_single_ms": b1["single"], "lane0_mega_ms": b1["mega"],
+        "n_real": mb["n_real"], "n_pad": mb["n_pad"],
+        "phase_launches": launches, "i1_launches": i1_launches,
+        "i1_mega_dispatches": i1_mega[0], "i1_mega_lanes": i1_mega[1],
+        "i1_wall_s": i1_wall, "service_cycle_ms": breakdown,
+        "saturation": sat_d}
+
+
 def main() -> int:
     import torch
 
@@ -3338,7 +3784,8 @@ def main() -> int:
         f"{churn_plain_ms:.1f} ms")
     for name, b in zip(("cold solve", "cycle 2 (churn)"), fb):
         log(f"fused_allocate {name}: {b['iters']} iterations, "
-            f"{b['n_solves']} node solves over {b['n_pad']} nodes; roofline "
+            f"{b['n_solves']} node solves over {b['n_real']} real nodes "
+            f"(N_pad {b['n_pad']}); roofline "
             f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}); node state "
             f"re-read per solve at the memory rate {b['reread_ms']:.3f} ms; "
             f"one-block floors (chain_probe.cu): {BARRIERS_PER_SOLVE} "
@@ -3374,6 +3821,7 @@ def main() -> int:
     kernels.append(obs_phase(
         dev, dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95),
         BASELINE_SPECS[5], BASELINE_SPECS["5p"], BASELINE_SPECS["3p"]))
+    kernels.append(tenant_phase(dev))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

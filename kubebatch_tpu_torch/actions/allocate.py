@@ -31,7 +31,9 @@ Solver modes (constructor arg; the scheduler loop's ``solver=``):
   expresses.
 - "host": the reference-literal per-pair loops — the semantic oracle.
 - "rpc", "native" and "sharded" as requests: not in this package
-  (NotImplementedError naming their ROADMAP items).
+  (NotImplementedError naming their ROADMAP items). The rpc mode's wire
+  and the tenant solve service are ported (rpc/, tenantsvc/); what it
+  still lacks is the grpc transport.
 
 Each cycle first asks the degradation ladder (faults.LADDER.cap_engine)
 for the engine its level allows, as the reference does; a capped engine
@@ -83,7 +85,9 @@ MODES = ("auto", "fused", "batched", "hier", "activeset", "jax", "host")
 #: modes of the reference this package does not have, with the ROADMAP
 #: items that bring them
 NOT_PORTED = {
-    "rpc": "the solver sidecar, ROADMAP queue A, A8",
+    "rpc": "the solver's grpc transport, ROADMAP queue A, A8 (the wire "
+           "codec and the tenant service are ported: sim/tenants.py drives "
+           "a cycle through them in process)",
     "native": "the native packer, ROADMAP queue A, A7",
     "sharded": "the sharded engines, ROADMAP queue A, A10; queue B, B14",
 }

@@ -23,9 +23,15 @@
   the "host" level is a CPU cache's only (the reference demotes any
   backend to its host loops).
 
-Not here yet: the reference's ``Quarantine`` / ``ShedLadder`` (the rpc
-breaker and the tenant service's shedding, ROADMAP A8) and arming from
-the daemon's settings (the CLI, A9).
+- **Quarantine**: per-target failure quarantine with backoff-gated
+  recovery probes; the tenant service quarantines a tenant that keeps
+  uploading stale mirrors (tenantsvc/sessions.py ``TENANT_QUARANTINE``).
+- **ShedLadder** (``SHED``): the tenant service's overload ladder —
+  serve the lowest lane from the stale decision mirror, then reject it.
+
+Not here yet: the sidecar breaker ``SIDECAR_QUARANTINE`` (it goes with
+the grpc transport, ROADMAP A8) and arming from the daemon's settings
+(the CLI, A9).
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 from .metrics import (count_engine_demotion, count_fault_injected,
-                      set_degradation_level)
+                      set_degradation_level, set_shed_level)
 
 log = logging.getLogger("kubebatch.faults")
 
@@ -164,11 +170,13 @@ def parse_fault_spec(spec: str, seed: int = 0) -> FaultPlan:
 
 @dataclass(frozen=True)
 class BackoffPolicy:
-    """The ladder's recovery timing: ``cooldown`` seconds before the
-    first recovery probe after a demotion, escalated by
-    ``probe_backoff`` per level up to ``max_cooldown``. (The reference's
-    policy also carries the cache retry queue's delays and a jittered
-    breaker schedule, for its Quarantine: not ported, ROADMAP A8.)"""
+    """Recovery timing: ``cooldown`` seconds before the first recovery
+    probe after a demotion or a quarantine trip, escalated by
+    ``probe_backoff`` per level or strike up to ``max_cooldown``. (The
+    reference's policy also carries the cache retry queue's delays,
+    which this package's cache takes as constructor arguments, and the
+    sidecar breaker's randomized schedule, which goes with the
+    transport: ROADMAP A8.)"""
 
     cooldown: float = 60.0
     probe_backoff: float = 2.0
@@ -181,6 +189,70 @@ class BackoffPolicy:
 
 
 DEFAULT_BACKOFF = BackoffPolicy()
+
+
+class Quarantine:
+    """Per-target failure quarantine with backoff-gated recovery probes.
+
+    ``trip(t)`` starts (or escalates) the cooldown; ``blocked(t)`` is
+    True inside it. When the cooldown elapses the next ``blocked`` call
+    returns False exactly once — the probe window — and re-arms the
+    cooldown; a failure re-trips with an escalated cooldown, a success
+    (``clear``) resets the strikes. ``policy`` None follows
+    ``DEFAULT_BACKOFF``."""
+
+    def __init__(self, policy: Optional[BackoffPolicy] = None):
+        self.policy = policy
+        self._until: Dict[str, float] = {}
+        self._strikes: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def _pol(self) -> BackoffPolicy:
+        return self.policy or DEFAULT_BACKOFF
+
+    def trip(self, target: str) -> None:
+        if not target:
+            return
+        with self._lock:
+            strikes = self._strikes.get(target, 0) + 1
+            self._strikes[target] = strikes
+            self._until[target] = (time.monotonic()
+                                   + self._pol().quarantine_for(strikes))
+
+    def blocked(self, target: str) -> bool:
+        with self._lock:
+            until = self._until.get(target)
+            if until is None:
+                return False
+            now = time.monotonic()
+            if now >= until:
+                # the probe window: this caller passes, later ones stay
+                # blocked until the probe clears or re-trips the target
+                strikes = self._strikes.get(target, 1)
+                self._until[target] = (
+                    now + self._pol().quarantine_for(strikes))
+                return False
+            return True
+
+    def clear(self, target: str) -> None:
+        """The target answered a probe — full reset."""
+        with self._lock:
+            self._until.pop(target, None)
+            self._strikes.pop(target, None)
+
+    def strikes(self, target: str) -> int:
+        with self._lock:
+            return self._strikes.get(target, 0)
+
+    def strike_snapshot(self) -> Dict[str, int]:
+        """A locked copy of {target: strikes}."""
+        with self._lock:
+            return dict(self._strikes)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._until.clear()
+            self._strikes.clear()
 
 
 # ---------------------------------------------------------------------
@@ -355,11 +427,89 @@ class DegradationLadder:
 LADDER = DegradationLadder()
 
 
+# ---------------------------------------------------------------------
+# the shed ladder: the degradation ladder's overload twin
+# ---------------------------------------------------------------------
+
+#: shed modes in escalation order: level 1 serves the lowest lane from
+#: the tenant's stale decision mirror, level 2 rejects the lowest lane
+#: and stale-serves the middle one; the "latency" lane is never shed
+SHED_LEVELS = ("none", "serve-stale", "reject-lowest")
+
+
+class ShedLadder:
+    """Overload-driven shedding for the tenant solve service.
+
+    ``record_pressure(overloaded)`` is called at every admission with the
+    queue-depth verdict: ``shed_after`` consecutive overloaded admissions
+    escalate one level; ``recover_after`` consecutive calm ones — once
+    the policy's cooldown since the escalation has elapsed — step back
+    down."""
+
+    def __init__(self, policy: Optional[BackoffPolicy] = None,
+                 shed_after: int = 3, recover_after: int = 8):
+        self.policy = policy
+        self.shed_after = shed_after
+        self.recover_after = recover_after
+        self._lock = threading.Lock()
+        self.level = 0
+        self._over_streak = 0
+        self._ok_streak = 0
+        self._cooldown_until = 0.0
+
+    def _pol(self) -> BackoffPolicy:
+        return self.policy or DEFAULT_BACKOFF
+
+    def record_pressure(self, overloaded: bool) -> None:
+        with self._lock:
+            if overloaded:
+                self._over_streak += 1
+                self._ok_streak = 0
+                if (self._over_streak < self.shed_after
+                        or self.level >= len(SHED_LEVELS) - 1):
+                    return
+                self.level += 1
+                self._over_streak = 0
+                self._cooldown_until = (time.monotonic()
+                                        + self._pol().quarantine_for(1))
+                set_shed_level(self.level)
+                log.warning("shed ladder ESCALATED to level %d (%s)",
+                            self.level, SHED_LEVELS[self.level])
+            else:
+                self._ok_streak += 1
+                self._over_streak = 0
+                if (self.level == 0
+                        or self._ok_streak < self.recover_after
+                        or time.monotonic() < self._cooldown_until):
+                    return
+                self.level -= 1
+                self._ok_streak = 0
+                set_shed_level(self.level)
+                log.warning("shed ladder recovered to level %d (%s)",
+                            self.level, SHED_LEVELS[self.level])
+
+    def mode(self) -> str:
+        return SHED_LEVELS[self.level]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.level = 0
+            self._over_streak = 0
+            self._ok_streak = 0
+            self._cooldown_until = 0.0
+        set_shed_level(0)
+
+
+#: the process-wide shed ladder — tenant admission drives and consults it
+SHED = ShedLadder()
+
+
 def reset() -> None:
     """Disarm and clear every piece of process-wide robustness state,
-    the ladder's probe and policy included."""
+    the ladder's probe and policy and the shed ladder included."""
     global _PLAN
     _PLAN = None
     LADDER.reset()
     LADDER.probe = None
     LADDER.policy = None
+    SHED.reset()

@@ -18,7 +18,8 @@ helpers the two-level and active-set solves' (``kernels.hier``,
 ``kernels.activeset``) from the reference's prepare_hier /
 prepare_activeset / prepare_activeset_audit plans, and
 :func:`explain_inputs_from_numpy` the unschedulability explainer's
-(``obs.explain.explain_counts``).
+(``obs.explain.explain_counts``), and :func:`mega_lanes_from_numpy`
+the tenant service's stacked mega lanes (``kernels.mega.mega_fused``).
 """
 from __future__ import annotations
 
@@ -281,3 +282,20 @@ def explain_inputs_from_numpy(arrays: Mapping[str, np.ndarray],
     return {n: torch.tensor(np.ascontiguousarray(arrays[n]), dtype=dt,
                             device=dev)
             for n, dt in ARG_DTYPES}
+
+
+def mega_lanes_from_numpy(stacked: Sequence[np.ndarray],
+                          device: DeviceLike) -> tuple:
+    """The positional arguments of ``kernels.mega.mega_fused`` from the
+    reference's stacked mega lanes (``tenantsvc/megasolve.py``
+    ``_stack_lanes``: the fused solve's 32 arguments, each [B, ...] numpy
+    in ``fused_allocate`` order), as tensors on ``device`` with the
+    dtypes the fused solve takes."""
+    from .kernels.mega import ARG_NAMES
+
+    if len(stacked) != len(ARG_NAMES):
+        raise ValueError(f"{len(ARG_NAMES)} stacked arguments expected, got "
+                         f"{len(stacked)}")
+    dev = resolve_device(device)
+    return tuple(_tensor(fused, n, a, dev) for n, a in zip(ARG_NAMES,
+                                                             stacked))

@@ -43,6 +43,9 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "fused_allocate.cu": {
         "kb_fused_allocate": "p" * 35 + "i" * 15 + "p",
     },
+    "mega_fused.cu": {
+        "kb_mega_fused": "p" * 35 + "i" * 17 + "p",
+    },
     "batched_allocate.cu": {
         "kb_batched_workspace": "pip",
         "kb_batched_allocate": "pipipp",

@@ -284,74 +284,113 @@ def fused_allocate(*args, **kwargs):
     return _fused_allocate_cuda(bound, **statics)
 
 
-def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
-                                         K_DRF_SHARE),
-                         queue_keys=(K_PROP_SHARE,), gang_enabled=True,
-                         prop_overused=True, dyn_enabled=False, max_iters=0,
-                         narrow=False, narrow_gate=False):
+def check_args(a, lead: Tuple[int, ...] = ()):
+    """Validate the bound arguments ``a`` (name -> tensor) of a kernel
+    launch: each with the dtype fused_allocate takes and its shape behind
+    the leading dimensions ``lead`` (the lane axis of a stacked mega
+    solve). Returns (n, t, j, q, s)."""
+    k = len(lead)
     for name, t in a.items():
         want = arg_dtype(name)
         if t.dtype != want:
             raise ValueError(f"fused_allocate: {name} must be {want}, got "
                              f"{t.dtype}")
-    if len(job_keys) > 3 or any(k not in JOB_KEY_CODES for k in job_keys):
-        raise ValueError(f"fused_allocate: unsupported job keys {job_keys}")
-    if len(queue_keys) > 1 or any(k != K_PROP_SHARE for k in queue_keys):
-        raise ValueError(f"fused_allocate: unsupported queue keys "
-                         f"{queue_keys}")
-    dev = a["idle"].device
-    n = a["idle"].shape[0]
-    t = a["task_valid"].shape[0]
-    j = a["job_valid"].shape[0]
-    q = a["q_entries"].shape[0]
-    s = a["sig_scores"].shape[0]
+    n = a["idle"].shape[k]
+    t = a["task_valid"].shape[k]
+    j = a["job_valid"].shape[k]
+    q = a["q_entries"].shape[k]
+    s = a["sig_scores"].shape[k]
     shapes = {"idle": (n, 3), "releasing": (n, 3), "backfilled": (n, 3),
               "allocatable_cm": (n, 2), "nz_req0": (n, 2),
               "max_task_num": (n,), "n_tasks": (n,), "node_ok": (n,),
               "resreq": (t, 3), "init_resreq": (t, 3), "task_nz": (t, 2),
               "task_job": (t,), "task_rank": (t,), "task_sig": (t,),
-              "sig_scores": (s, n), "sig_pred": (s, n),
+              "task_valid": (t,), "sig_scores": (s, n), "sig_pred": (s, n),
               "min_available": (j,), "order_min_available": (j,),
               "init_allocated": (j,), "job_queue": (j,),
               "job_priority": (j,), "job_create_rank": (j,),
+              "job_valid": (j,), "q_entries": (q,),
               "q_create_rank": (q,), "q_deserved": (q, 3),
               "q_alloc0": (q, 3), "j_alloc0": (j, 3),
               "cluster_total": (3,), "dyn_weights": (2,)}
     for name, shape in shapes.items():
-        if tuple(a[name].shape) != shape:
+        if tuple(a[name].shape) != tuple(lead) + shape:
             raise ValueError(f"fused_allocate: {name} must have shape "
-                             f"{shape}, got {tuple(a[name].shape)}")
+                             f"{tuple(lead) + shape}, got "
+                             f"{tuple(a[name].shape)}")
+    return n, t, j, q, s
+
+
+def key_codes(job_keys, queue_keys):
+    """The kernel's job-key codes (padded to three) for these order keys;
+    raises for keys it does not carry."""
+    if len(job_keys) > 3 or any(k not in JOB_KEY_CODES for k in job_keys):
+        raise ValueError(f"fused_allocate: unsupported job keys {job_keys}")
+    if len(queue_keys) > 1 or any(k != K_PROP_SHARE for k in queue_keys):
+        raise ValueError(f"fused_allocate: unsupported queue keys "
+                         f"{queue_keys}")
+    return [JOB_KEY_CODES[k] for k in job_keys] + [0] * (3 - len(job_keys))
+
+
+#: the pointer arguments of kb_fused_allocate / kb_mega_fused after the
+#: four node carries, in order
+KERNEL_INPUTS = (
+    "backfilled", "allocatable_cm", "max_task_num", "node_ok",
+    "resreq", "init_resreq", "task_nz", "task_job", "task_rank",
+    "task_sig", "task_valid", "sig_scores", "sig_pred",
+    "min_available", "order_min_available", "init_allocated",
+    "job_queue", "job_priority", "job_create_rank", "job_valid",
+    "q_entries", "q_create_rank", "q_deserved", "q_alloc0",
+    "j_alloc0", "cluster_total", "dyn_weights")
+
+
+def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
+                                         K_DRF_SHARE),
+                         queue_keys=(K_PROP_SHARE,), gang_enabled=True,
+                         prop_overused=True, dyn_enabled=False, max_iters=0,
+                         narrow=False, narrow_gate=False, lanes=None):
+    """One launch of the fused loop on the bound CUDA arguments ``a``:
+    ``csrc/fused_allocate.cu`` on one problem (``lanes`` None), or
+    ``csrc/mega_fused.cu`` on ``lanes`` problems stacked over a leading
+    axis, one block each. Results as fused_allocate's, stacked over the
+    lanes when there are lanes."""
+    lead = () if lanes is None else (lanes,)
+    if lead and lanes < 1:
+        raise ValueError("mega_fused: no lanes")
+    n, t, j, q, s = check_args(a, lead)
+    codes = key_codes(job_keys, queue_keys)
+    dev = a["idle"].device
     c = {k: v.contiguous() for k, v in a.items()}
     # node carries live in the outputs (the JAX kernel returns new arrays)
     idle = c["idle"].clone()
     releasing = c["releasing"].clone()
     n_tasks = c["n_tasks"].clone()
     nz = c["nz_req0"].clone()
-    host_block = torch.empty((3, t + 1 + TELEM_WIDTH), dtype=torch.int32,
-                             device=dev)
-    ws_i32 = torch.empty(q + 4 * j + 1 + t, dtype=torch.int32, device=dev)
-    ws_f32 = torch.empty(3 * q + 3 * j, dtype=torch.float32, device=dev)
+    b = lanes or 1
+    host_block = torch.empty(lead + (3, t + 1 + TELEM_WIDTH),
+                             dtype=torch.int32, device=dev)
+    ws_i32 = torch.empty(b * (q + 4 * j + 1 + t), dtype=torch.int32,
+                         device=dev)
+    ws_f32 = torch.empty(b * (3 * q + 3 * j), dtype=torch.float32,
+                         device=dev)
     eps = torch.from_numpy(VEC_EPS).to(dev)
-    codes = [JOB_KEY_CODES[k] for k in job_keys] + [0] * (3 - len(job_keys))
-    lib = _build.library("fused_allocate.cu")
-    err = lib.kb_fused_allocate(
-        idle.data_ptr(), releasing.data_ptr(), n_tasks.data_ptr(),
-        nz.data_ptr(),
-        *(c[k].data_ptr() for k in (
-            "backfilled", "allocatable_cm", "max_task_num", "node_ok",
-            "resreq", "init_resreq", "task_nz", "task_job", "task_rank",
-            "task_sig", "task_valid", "sig_scores", "sig_pred",
-            "min_available", "order_min_available", "init_allocated",
-            "job_queue", "job_priority", "job_create_rank", "job_valid",
-            "q_entries", "q_create_rank", "q_deserved", "q_alloc0",
-            "j_alloc0", "cluster_total", "dyn_weights")),
-        eps.data_ptr(), ws_i32.data_ptr(), ws_f32.data_ptr(),
-        host_block.data_ptr(),
-        n, t, j, q, codes[0], codes[1], codes[2], len(job_keys),
-        len(queue_keys), int(bool(gang_enabled)), int(bool(prop_overused)),
-        int(bool(dyn_enabled)), int(max_iters), int(bool(narrow)),
-        int(bool(narrow_gate)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("fused_allocate", err)
-    _build.count_launch("fused_allocate")
+    args = (idle.data_ptr(), releasing.data_ptr(), n_tasks.data_ptr(),
+            nz.data_ptr(), *(c[k].data_ptr() for k in KERNEL_INPUTS),
+            eps.data_ptr(), ws_i32.data_ptr(), ws_f32.data_ptr(),
+            host_block.data_ptr(),
+            n, t, j, q, codes[0], codes[1], codes[2], len(job_keys),
+            len(queue_keys), int(bool(gang_enabled)),
+            int(bool(prop_overused)), int(bool(dyn_enabled)),
+            int(max_iters), int(bool(narrow)), int(bool(narrow_gate)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if lead:
+        name = "mega_fused"
+        err = _build.library("mega_fused.cu").kb_mega_fused(
+            *args, b, s, stream)
+    else:
+        name = "fused_allocate"
+        err = _build.library("fused_allocate.cu").kb_fused_allocate(
+            *args, stream)
+    _build.check_launch(name, err)
+    _build.count_launch(name)
     return host_block, idle, releasing, n_tasks, nz

@@ -19,10 +19,11 @@ demotions (per reason), the scheduler loop's robustness and timing
 accounting (cycle failures per reason, injected faults per seam, the
 degradation ladder's level, lazy audits, schedule-on-arrival sub-cycles
 and their arrival -> decision latencies, the host seconds the span
-tracer feeds per phase, action, kernel and session), and the
-observability plane's SLO breaches and timeline drift. The keys of
-modules not ported yet (the rpc sidecar, the tenant service, the
-pipelined executor, the compile service) keep their zero values.
+tracer feeds per phase, action, kernel and session), the observability
+plane's SLO breaches and timeline drift, and the tenant solve
+service's per-tenant events, mega dispatches and lanes, shed level and
+shed requests. The keys of modules not ported yet (the pipelined
+executor, the compile service) keep their zero values.
 The remaining functions are the hooks the framework and the gang
 plugin call; they record nothing.
 """
@@ -632,18 +633,87 @@ def timeline_drift_by_kind() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the tenant solve service (tenantsvc/)
+# ---------------------------------------------------------------------------
+
+_tenant_counters: dict = {}
+_mega_dispatches = 0
+_mega_lanes = 0
+_shed_level = 0
+_load_shed: dict = {}
+
+
+def count_tenant(tenant: str, result: str, n: int = 1) -> None:
+    """Record n tenant solve-service events ("solves", "mega_solves",
+    "rejected", "stale_served", "queue_full", "quarantined")."""
+    with _robust_lock:
+        per = _tenant_counters.setdefault(tenant, {})
+        per[result] = per.get(result, 0) + n
+
+
+def tenant_counters() -> dict:
+    """Per-tenant event counts, {tenant: {result: n}} (a deep copy)."""
+    with _robust_lock:
+        return {t: dict(per) for t, per in _tenant_counters.items()}
+
+
+def count_mega_dispatch(lanes: int) -> None:
+    """Record one coalesced mega-solve dispatch serving ``lanes`` real
+    tenant lanes."""
+    global _mega_dispatches, _mega_lanes
+    with _robust_lock:
+        _mega_dispatches += 1
+        _mega_lanes += lanes
+
+
+def mega_dispatches_total() -> int:
+    with _robust_lock:
+        return _mega_dispatches
+
+
+def mega_lanes_total() -> int:
+    """Total real lanes served by mega dispatches; divide by
+    mega_dispatches_total() for the mean coalescing factor."""
+    with _robust_lock:
+        return _mega_lanes
+
+
+def set_shed_level(level: int) -> None:
+    global _shed_level
+    _shed_level = level
+
+
+def shed_level() -> int:
+    """Current shed-ladder level (0 = no shedding)."""
+    return _shed_level
+
+
+def count_load_shed(mode: str) -> None:
+    """Record one request degraded by the shed ladder ("serve-stale" /
+    "reject-lowest")."""
+    with _robust_lock:
+        _load_shed[mode] = _load_shed.get(mode, 0) + 1
+
+
+def load_shed_total() -> dict:
+    with _robust_lock:
+        return dict(_load_shed)
+
+
+# ---------------------------------------------------------------------------
 # the one-call snapshot: /debug/vars, /metrics, the flight recorder
 # ---------------------------------------------------------------------------
 
 def counters_snapshot(include_rpc: bool = True) -> dict:
     """Every process-lifetime counter as one JSON-able dict, with the
     reference's keys. ``include_rpc`` is the reference's switch for its
-    rpc dispatch percentiles; the rpc sidecar is not ported, so that
-    section never appears. Keys whose modules are not ported yet hold
-    their zero values: ``compile_ms_total`` and ``recompiles_*`` (the
-    compile service), ``shed_level``, ``load_shed_total`` and ``mega_*``
-    (the tenant service), ``deferred_readbacks`` and ``pipeline_*`` (the
-    pipelined executor)."""
+    rpc dispatch percentiles; the grpc transport is not ported, so that
+    section never appears, nor do the fleet's ``fleet_routes`` /
+    ``failovers*``. The ``tenants`` section appears once a tenant event
+    was counted. Keys whose modules are not ported yet hold their zero
+    values: ``compile_ms_total`` and ``recompiles_*`` (the compile
+    service), ``deferred_readbacks`` and ``pipeline_*`` (the pipelined
+    executor)."""
     snap = {
         "engine_demotions_total": engine_demotions_total(),
         "affinity_host_fallback_total": affinity_host_fallback_total(),
@@ -660,10 +730,10 @@ def counters_snapshot(include_rpc: bool = True) -> dict:
         "slow_path_items": slow_path_items(),
         "blocking_readbacks": blocking_readbacks(),
         "decisions_total": decisions_total(),
-        "shed_level": 0,
-        "load_shed_total": {},
-        "mega_dispatches_total": 0,
-        "mega_lanes_total": 0,
+        "shed_level": shed_level(),
+        "load_shed_total": load_shed_total(),
+        "mega_dispatches_total": mega_dispatches_total(),
+        "mega_lanes_total": mega_lanes_total(),
         "events_folded_total": events_folded_total(),
         "subcycles_total": subcycles_total(),
         "audit_cycles_total": audit_cycles_total(),
@@ -688,6 +758,9 @@ def counters_snapshot(include_rpc: bool = True) -> dict:
     arrival = arrival_latency_percentiles()
     if arrival:
         snap["subcycle_arrival"] = arrival
+    tenants = tenant_counters()
+    if tenants:
+        snap["tenants"] = tenants
     from .obs import ledger as _ledger, slo as _slo, spans as _spans
     from .obs import timeline as _timeline  # lazy: obs imports metrics
     snap["tracer"] = _spans.tracer_stats()

@@ -1269,3 +1269,120 @@ def test_explainer_cycle_on_the_card_matches_a_cpu_cache():
     assert out["cuda"][:2] == out["cpu"][:2]
     assert out["cuda"][1] == 1 and out["cuda"][2] == 1
     assert out["cpu"][2] == 0
+
+
+# ---------------------------------------------------------------------
+# the tenant service's mega solve (csrc/mega_fused.cu)
+# ---------------------------------------------------------------------
+
+def _tenant_lanes(seeds, device, churn=False):
+    """Each seeded tenant cluster's fused lane through the wire (encode,
+    bytes, decode), as (numpy args, statics); ``churn`` takes the lane
+    after a cold cycle, a kubelet tick and a churn of 8 pods."""
+    from kubebatch_tpu_torch.objects import PodPhase as Phase
+    from kubebatch_tpu_torch.rpc.client import build_snapshot
+    from kubebatch_tpu_torch.rpc.server import fused_lane_args
+    from kubebatch_tpu_torch.rpc.wire import SnapshotRequest
+    from kubebatch_tpu_torch.sim.tenants import _tenant_cluster
+
+    lanes = []
+    for seed in seeds:
+        sim, cache, binder = _tenant_cluster(seed, device=device)
+        if churn:
+            ssn = OpenSession(cache, shipped_tiers())
+            AllocateAction(mode="auto").execute(ssn)
+            CloseSession(ssn)
+            for pod in binder.fresh:
+                pod.phase = Phase.RUNNING
+                cache.update_pod(pod, pod)
+            sim.churn_tick(cache, 8)
+        ssn = OpenSession(cache, shipped_tiers())
+        req, _ = build_snapshot(ssn)
+        CloseSession(ssn)
+        req = SnapshotRequest.FromString(req.SerializeToString())
+        lanes.append(fused_lane_args(req))
+    return lanes
+
+
+@pytest.mark.parametrize("churn", [False, True], ids=["cold", "churn"])
+@pytest.mark.parametrize("b", [1, 2, 3, 8])
+def test_mega_fused_kernel_matches_plain_and_single_launches(b, churn):
+    """b lanes of different tenants in one launch: every lane's host
+    block and node carries bitwise equal to mega_fused_plain's and to a
+    single fused_allocate launch on that lane."""
+    from kubebatch_tpu_torch.kernels.mega import mega_fused, mega_fused_plain
+    from kubebatch_tpu_torch.tenantsvc.megasolve import (_stack_lanes,
+                                                         lane_key)
+
+    _need_cuda()
+    lanes = _tenant_lanes(range(b), "cuda", churn)
+    assert len({lane_key(*lane) for lane in lanes}) == 1
+    statics = lanes[0][1]
+    stacked = _stack_lanes([args for args, _ in lanes])
+    dev = [torch.from_numpy(a).cuda() for a in stacked]
+    c0 = _build.launch_count("mega_fused")
+    got = mega_fused(*dev, **statics)
+    torch.cuda.synchronize()
+    assert _build.launch_count("mega_fused") == c0 + 1
+    want = mega_fused_plain(*(torch.from_numpy(a) for a in stacked),
+                            **statics)
+    _assert_bitwise(want, [g.cpu() for g in got], f"mega b={b}")
+    for i in range(b):
+        single = fused_allocate(*(a[i] for a in dev), **statics)
+        _assert_bitwise(single, [g[i] for g in got], f"lane {i}")
+    assert int((got[0][:, 0, :-21] > 0).sum()) > 0      # something placed
+
+
+def test_mega_fused_refuses_what_the_kernel_does_not_take():
+    from kubebatch_tpu_torch.kernels.mega import mega_fused
+    from kubebatch_tpu_torch.tenantsvc.megasolve import _stack_lanes
+
+    _need_cuda()
+    lanes = _tenant_lanes([0, 1], "cuda")
+    statics = lanes[0][1]
+    dev = [torch.from_numpy(a).cuda()
+           for a in _stack_lanes([args for args, _ in lanes])]
+    bad = list(dev)
+    bad[0] = bad[0].double()
+    with pytest.raises(ValueError):
+        mega_fused(*bad, **statics)
+    mixed = list(dev)
+    mixed[1] = mixed[1].cpu()
+    with pytest.raises(ValueError):
+        mega_fused(*mixed, **statics)
+
+
+def test_tenant_service_on_the_card_decides_as_the_cpu():
+    """solve_many on the card: the coalesced lanes are one mega launch
+    and one counted copy, each answer equal to a single solve's on the
+    card and to the CPU service's; run_multi_tenant on the card equals
+    its dedicated runs."""
+    from kubebatch_tpu_torch.rpc.server import solve_snapshot
+    from kubebatch_tpu_torch.sim.tenants import (_tenant_requests,
+                                                 run_multi_tenant)
+    from kubebatch_tpu_torch.tenantsvc.service import TenantSolveService
+
+    _need_cuda()
+    out = {}
+    for device in ("cuda", "cpu"):
+        reqs = _tenant_requests(4, device=device)
+        svc = TenantSolveService(device=device)
+        c0 = _build.launch_count("mega_fused")
+        rb0 = metrics.blocking_readbacks()
+        resps = svc.solve_many([(f"t{i}", "normal", r)
+                                for i, r in enumerate(reqs)])
+        launches = _build.launch_count("mega_fused") - c0
+        syncs = metrics.blocking_readbacks() - rb0
+        singles = [solve_snapshot(r, device=device) for r in reqs]
+        assert [list(map(_dec, a.decisions)) for a in resps] == \
+            [list(map(_dec, a.decisions)) for a in singles]
+        out[device] = ([list(map(_dec, a.decisions)) for a in resps],
+                       launches, syncs)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1:] == (1, 1) and out["cpu"][1:] == (0, 1)
+    rep = run_multi_tenant(n_tenants=4, cycles=2, device="cuda")
+    assert rep.bit_identical, (rep.mismatched, rep.rpc_errors)
+
+
+def _dec(d):
+    return (d.kind, d.node_name, d.order)

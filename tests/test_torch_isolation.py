@@ -62,8 +62,55 @@ def test_port_imports_without_jax_or_reference_package():
                  "kubebatch_tpu_torch.actions.backfill",
                  "kubebatch_tpu_torch.kernels.affinity",
                  "kubebatch_tpu_torch.kernels.terms",
-                 "kubebatch_tpu_torch.actions.cycle_inputs"):
+                 "kubebatch_tpu_torch.actions.cycle_inputs",
+                 "kubebatch_tpu_torch.kernels.mega",
+                 "kubebatch_tpu_torch.rpc.wire",
+                 "kubebatch_tpu_torch.rpc.client",
+                 "kubebatch_tpu_torch.rpc.server",
+                 "kubebatch_tpu_torch.tenantsvc.admission",
+                 "kubebatch_tpu_torch.tenantsvc.megasolve",
+                 "kubebatch_tpu_torch.tenantsvc.service",
+                 "kubebatch_tpu_torch.tenantsvc.sessions",
+                 "kubebatch_tpu_torch.sim.tenants"):
         assert must in mods
+
+
+_NO_WIRE_LIBS = r"""
+import importlib, json, pkgutil, sys
+for blocked in ("jax", "grpc", "google.protobuf"):
+    sys.modules[blocked] = None
+sys.path.insert(0, sys.argv[1])
+import kubebatch_tpu_torch
+names = ["kubebatch_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(kubebatch_tpu_torch.__path__,
+                                          "kubebatch_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from kubebatch_tpu_torch.rpc import wire
+req = wire.SnapshotRequest(gang_enabled=True)
+req.nodes.names = ["n0"]
+raw = req.SerializeToString()
+assert wire.SnapshotRequest.FromString(raw) == req
+loaded = sorted(m for m in sys.modules
+                if sys.modules[m] is not None
+                and (m.split(".")[0] == "grpc"
+                     or m.startswith("google.protobuf")))
+print(json.dumps({"loaded": loaded, "n": len(names)}))
+"""
+
+
+def test_port_imports_neither_protobuf_nor_grpc():
+    """Every module of the port (the wire codec and the tenant service
+    among them) and chip_smoke.py import with grpc and protobuf blocked,
+    and the codec works without them."""
+    env = {**os.environ, "PYTHONPATH": ""}
+    out = subprocess.run([sys.executable, "-c", _NO_WIRE_LIBS, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(REPO.parent), env=env)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["n"] > 40
 
 
 def test_no_environment_variable_steers_the_port():

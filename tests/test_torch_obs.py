@@ -96,8 +96,9 @@ _SETTINGS = ("KUBEBATCH_SOLVER", "KUBEBATCH_CYCLE_DEADLINE",
              "KUBEBATCH_PIPELINE", "KUBEBATCH_SLO", "KUBEBATCH_TIMELINE_DIR",
              "KUBEBATCH_FAULTS")
 #: counters_snapshot sections of modules the port has not got (the rpc
-#: sidecar, the tenant service's fleet), which other tests of this
-#: process may have filled on the reference's side
+#: transport, the tenant service's fleet), and the tenants section, which
+#: appears once some test of this process counted a tenant event, on
+#: either side
 _UNPORTED_SECTIONS = {"rpc_dispatch", "tenants", "fleet_routes",
                       "failovers_total", "failovers"}
 
