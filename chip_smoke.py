@@ -47,8 +47,8 @@ equals its plain version; per-phase host ms of both caches are printed.
 Phase (e) is the predicate-rich configurations through the shipped
 policy on incremental caches: 5p (cfg5's shape with 16 zones,
 selectors, taints, required anti-affinity, zone affinity, preferred
-co-location and host ports) cold, then two skewed churn-256 cycles,
-then 3p cold and two churn cycles. A cold cycle's allocate runs the
+co-location and host ports) cold, then a churn-256 cycle, then 3p cold
+and two skewed churn-256 cycles. A cold cycle's allocate runs the
 affinity branch of the batched kernel (one launch, one counted sync, no
 affinity host fallback), held bitwise against the plain engine with its [A,D] carry
 and port claims, the final state validated against the affinity and
@@ -128,6 +128,26 @@ the service's affinity single and equals the in-process batched cycle;
 ``run_saturation`` measures solves/s at capacity and the tail under 2x
 offered load on the eight steady requests; ``run_multi_tenant`` runs
 four "t" tenants against their dedicated runs.
+
+Phase (j) is the pipelined executor at cfg6 (uncut, allocate-only, in
+auto): a sequential ``Scheduler`` on one incremental cache (cold: the
+two-level solve; eight churn-256 and two churn-1,024 cycles with
+kubelet ticks), then ``Scheduler(pipeline=True)`` on a second cache fed
+the same events: each churn cycle dispatches the active-set solve in
+place on the DeviceSession's carry (csrc/hier_allocate.cu) and returns,
+and the next cycle consumes it through one deferred readback. Binds and
+statuses must equal the sequential twin's, each dispatch one in-place
+launch and one deferred readback with no blocking one; the window from
+each launch to its consume runs under ``set_sync_debug_mode("warn")``
+and every synchronizing call is reported with its site. A capacity
+change on a node the in-flight decisions bind to must invalidate the
+consume, swap the pre-dispatch carry back bit for bit and re-solve; a
+``pipeline.conflict`` seam storm demotes the executor and later cycles
+bind sequentially. Every in-place launch is held bitwise against the
+plain version and its work counters; per cycle the host walls
+(pipelined against sequential), the wait at consume, the kernel's event
+time and the deferred copy are printed, and the launch is timed in
+place against cloning at each grain.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
@@ -1300,7 +1320,8 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
     """(e) the predicate-rich configurations through the shipped policy
     on incremental caches: 5p (cfg5's shape with 16 zones, selectors,
     taints, both affinity kinds, preferred scores, host ports) cold, then
-    two skewed churn cycles of ``churn`` pods, then 3p cold and two churn
+    one churn cycle of ``churn`` pods into queue 0 (each runs the host
+    loops over 5,000 nodes: ~25 s), then 3p cold and two skewed churn
     cycles. The
     cold cycles' allocate runs the batched kernel with the affinity
     carry (one launch, one counted sync, no affinity host fallback),
@@ -1329,7 +1350,7 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
     names = ("batched_allocate", "fused_allocate", "victim_wave",
              "victim_visit", "scatter_rows")
 
-    def config_cycles(label, spec):
+    def config_cycles(label, spec, n_churn=2):
         t0 = time.perf_counter()
         sim = build_cluster(spec)
         evictor = CountingEvictor()
@@ -1343,7 +1364,7 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
         with Recorder(batched_mod, "batched_allocate") as brec, \
                 Recorder(victims, "victim_wave") as wrec:
             _build.reset_launch_counts()
-            for k in range(3):                 # cold, then two churn cycles
+            for k in range(1 + n_churn):       # cold, then the churn cycles
                 if k:
                     for pod in sim.pods:
                         if pod.node_name and pod.phase == PodPhase.PENDING:
@@ -1481,7 +1502,7 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
                 "wave_err": wave_err, "plain_ms": plain_ms,
                 "n_waves": len(wrec.calls)}
 
-    r5 = config_cycles("5p", spec5p)
+    r5 = config_cycles("5p", spec5p, n_churn=1)
     kw, aff = r5["kw"], r5["aff"]
     statics = {k: kw[k] for k in ("job_keys", "queue_keys", "prop_overused",
                                   "dyn_enabled", "pipe_enabled",
@@ -3479,6 +3500,625 @@ def tenant_phase(dev, churn: int = 256, n_tenants: int = 8,
         "saturation": sat_d}
 
 
+class PipeBinder(FreshBinder):
+    """FreshBinder that also keeps every bind, in commit order."""
+
+    def __init__(self):
+        super().__init__()
+        self.events = []
+
+    def bind(self, pod, hostname):
+        self.events.append((f"{pod.namespace}/{pod.name}", hostname))
+        super().bind(pod, hostname)
+
+
+class SyncWatch:
+    """Every synchronizing CUDA call torch reports under
+    ``torch.cuda.set_sync_debug_mode("warn")``, with the innermost frame
+    of this repository that made it and whether a pipelined solve was in
+    flight then (``in_window``: from the in-place launch to its consume,
+    set by InplaceRecorder)."""
+
+    def __init__(self):
+        self.in_window = False
+        self.events = []
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        # the mode switch's own report is not the loop's
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self.show
+        return self
+
+    def show(self, message, category, filename, lineno, file=None,
+             line=None):
+        import traceback
+
+        if "synchroniz" not in str(message):
+            self._show(message, category, filename, lineno, file, line)
+            return
+        site = f"{os.path.relpath(filename, HERE)}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            rel = os.path.relpath(fr.filename, HERE)
+            if not rel.startswith(".."):
+                site = f"{rel}:{fr.lineno} ({fr.name})"
+                break
+        self.events.append({"in_window": self.in_window, "site": site,
+                            "message": str(message).strip()[:100]})
+
+    def __exit__(self, *exc):
+        import warnings
+
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        warnings.showwarning = self._show
+        self._cm.__exit__(*exc)
+
+    def report(self) -> dict:
+        out = {}
+        for e in self.events:
+            key = ("in flight: " if e["in_window"] else "") + e["site"]
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+class InplaceRecorder:
+    """Records each in-place active-set launch (kernels/activeset.py
+    ``activeset_packed_inplace``) to hold it against the plain version
+    later: its inputs cloned on the card when ``prepare_activeset`` made
+    them (before the launch and its CUDA events: the kernel writes the
+    carry it is given), its packed result, and its carry cloned when
+    ``PendingSolve.consume`` starts (nothing writes the carry between
+    the launch and the consume). The pre-dispatch carry so cloned is
+    what ``PendingSolve.restore_carry`` must give back, checked at each
+    restore. ``host_ms`` sums the recorder's own host time, which the
+    pipelined cycles' walls include. Marks the SyncWatch window: open
+    at the launch, closed at its consume."""
+
+    def __init__(self, watch=None):
+        self.watch = watch
+        self.calls = []
+        self.restores = []
+        self.host_ms = 0.0
+        self._prepared = None
+
+    def __enter__(self):
+        import torch
+
+        from kubebatch_tpu_torch.kernels import activeset, hier
+
+        self.mod = activeset
+        self.inner = {n: getattr(activeset, n) for n in (
+            "prepare_activeset", "activeset_packed_inplace")}
+        self.inner_consume = activeset.PendingSolve.consume
+        self.inner_restore = activeset.PendingSolve.restore_carry
+
+        def prepare(*args, **kw):
+            plan = self.inner["prepare_activeset"](*args, **kw)
+            t0 = time.perf_counter()
+            self._prepared = None if plan is None else {
+                k: v.clone() for k, v in plan[0].items()}
+            self.host_ms += (time.perf_counter() - t0) * 1e3
+            return plan
+
+        def launch(*args, **kw):
+            if self.watch is not None:
+                self.watch.in_window = True
+            out = self.inner["activeset_packed_inplace"](*args, **kw)
+            kin = {**kw, **{k: v for k, v in self._prepared.items()
+                            if k in kw}}
+            self.calls.append({"kind": "activeset", "args": args,
+                               "kw": kin, "out": list(out),
+                               "counters": hier.last_launch.get(
+                                   "counters")})
+            return out
+
+        def consume(pend, *args, **kw):
+            if self.watch is not None:
+                self.watch.in_window = False
+            t0 = time.perf_counter()
+            call = self.calls[-1]
+            call["out"] = call["out"][:1] + [o.clone()
+                                              for o in call["out"][1:]]
+            self.host_ms += (time.perf_counter() - t0) * 1e3
+            return self.inner_consume(pend, *args, **kw)
+
+        def restore_carry(pend):
+            self.inner_restore(pend)
+            d, kw = pend.device, self.calls[-1]["kw"]
+            self.restores.append(all(
+                torch.equal(a.view(torch.uint8), kw[k].view(torch.uint8))
+                for a, k in zip((d.idle, d.releasing, d.n_tasks, d.nz_req),
+                                ("idle", "releasing", "n_tasks", "nz_req"))))
+
+        activeset.prepare_activeset = prepare
+        activeset.activeset_packed_inplace = launch
+        activeset.PendingSolve.consume = consume
+        activeset.PendingSolve.restore_carry = restore_carry
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.inner.items():
+            setattr(self.mod, n, fn)
+        self.mod.PendingSolve.consume = self.inner_consume
+        self.mod.PendingSolve.restore_carry = self.inner_restore
+
+
+#: the spans phase (j) breaks a cycle's host wall into
+CYCLE_SPANS = ("fold", "open", "consume", "tensorize", "activeset_dispatch",
+               "activeset_allocate", "readback", "replay", "close")
+
+
+def span_ms(root) -> dict:
+    """Host ms per span name (CYCLE_SPANS) summed over a cycle's tree."""
+    out = {}
+
+    def walk(sp):
+        if sp.name in CYCLE_SPANS:
+            out[sp.name] = out.get(sp.name, 0.0) + sp.dur * 1e3
+        for c in sp.children:
+            walk(c)
+    walk(root)
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def time_inplace_against_cloning(kw, reps: int = 2) -> dict:
+    """Device ms (CUDA events) of one active-set launch on ``kw``, in
+    place against cloning, alternated (cloning, in place, in place,
+    cloning per rep); the in-place launch's carry is put back before
+    each of its launches, so both solve the same problem. Medians."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import activeset
+
+    carry = ("idle", "releasing", "n_tasks", "nz_req")
+    saved = {k: kw[k].clone() for k in carry}
+    mine = dict(kw, **{k: kw[k].clone() for k in carry})
+
+    def one(inplace):
+        if inplace:
+            for k in carry:
+                mine[k].copy_(saved[k])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if inplace:
+            activeset.activeset_packed_inplace(**mine)
+        else:
+            activeset.activeset_packed(**kw)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    one(False)
+    one(True)
+    times = {False: [], True: []}
+    for _ in range(reps):
+        for inplace in (False, True, True, False):
+            times[inplace].append(one(inplace))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return {"inplace_ms": med[True], "cloning_ms": med[False],
+            "inplace_all_ms": times[True], "cloning_all_ms": times[False]}
+
+
+def pipeline_timings(grain_kw, by_grain) -> dict:
+    """Phase (j)'s timings: per grain the in-place launch against the
+    cloning one (time_inplace_against_cloning), the roofline bound of
+    that launch's work (scale_bounds with the kernel's counters) and,
+    where the grain ran on the main path, the plain version's ms."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import activeset
+    from kubebatch_tpu_torch.kernels import hier as hier_mod
+
+    timing = {}
+    for g in sorted(grain_kw):
+        kw = grain_kw[g]
+        tm = time_inplace_against_cloning(kw)
+        out = activeset.activeset_packed(**kw)
+        torch.cuda.synchronize()
+        counters = dict(zip(hier_mod.COUNTERS,
+                            hier_mod.last_launch["counters"].cpu().tolist()))
+        rounds = int(out[0][3 * kw["task_valid"].shape[0]])
+        pool = hier_mod.hier_pool_size(kw["idle"].shape[0],
+                                       kw.get("pool_size", 0))
+        b = scale_bounds({k: v for k, v in kw.items() if hasattr(v, "numel")},
+                         out, counters, rounds, bool(kw["pipe_enabled"]),
+                         pool)
+        tm.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                  bytes=b["bytes"], ops=b["ops"], rounds=rounds,
+                  main_path=g in by_grain)
+        if g in by_grain:
+            tm["plain_ms"] = by_grain[g][1]["plain_ms"]
+        timing[g] = tm
+        log(f"(j) grain {g}: in place {tm['inplace_ms']:.3f} ms, cloning "
+            f"{tm['cloning_ms']:.3f} ms (CUDA events, medians of "
+            f"{len(tm['inplace_all_ms'])}: {tm['inplace_all_ms']} / "
+            f"{tm['cloning_all_ms']}); bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}: {b['bytes']} B, {b['ops']} operations); "
+            f"{rounds} rounds"
+            + ("" if g in by_grain else "; grain forced on a churn "
+               "cycle's inputs (off the main path)"))
+    return timing
+
+
+def pipeline_phase(dev, spec6, churns=(256,) * 8 + (1024,) * 2) -> dict:
+    """Phase (j): pipelined cycles at cfg6, uncut, allocate-only, in auto.
+    A sequential ``Scheduler`` runs first on its own incremental cache:
+    the cold cycle (50,000 pending: the active set declines, the
+    two-level solve runs) and one churn cycle per ``churns`` entry
+    (kubelet tick, then that many pods recycled into queue 0 / 3). Then
+    ``Scheduler(pipeline=True)`` on a second cache fed the same events:
+    the cold cycle runs sequentially, each churn cycle dispatches the
+    active-set solve in place (csrc/hier_allocate.cu, active-set mode,
+    on the DeviceSession's own carry) and returns, and the next cycle
+    consumes it through one deferred readback; a drain ends it. The
+    binds and statuses of the two caches must be equal, each dispatch
+    one in-place launch and one deferred readback with no blocking one,
+    and the window from each launch to its consume runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing call
+    is reported with its site. On the pipelined cache then: a node the
+    in-flight decisions bind to changes capacity (the consume must
+    invalidate, swap the pre-dispatch carry back bit for bit, and
+    re-solve the cycle sequentially, nothing bound twice), and a
+    ``pipeline.conflict`` seam storm demotes the executor, the cycles
+    after it binding sequentially. Every in-place launch is held bitwise
+    against ``activeset_allocate_plain`` on CPU copies, and timed at the
+    three grains against the cloning launch. The active set's audit is
+    off here (phase (g) covers it). Returns the kernels line's entry."""
+    import gc
+
+    import torch
+
+    from kubebatch_tpu_torch import faults, metrics, obs
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.actions import allocate_batched
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import CONFIG_ACTIONS, SHIPPED_CONF
+    from kubebatch_tpu_torch.kernels import _build, activeset
+    from kubebatch_tpu_torch.kernels import hier as hier_mod
+    from kubebatch_tpu_torch.objects import PODS
+    from kubebatch_tpu_torch.runtime import Scheduler
+    from kubebatch_tpu_torch.runtime import pipeline as pipeline_mod
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    t_phase = time.perf_counter()
+    conf = SHIPPED_CONF.replace(
+        SHIPPED_CONF.strip().splitlines()[0],
+        'actions: "' + ", ".join(CONFIG_ACTIONS[6]) + '"')
+    activeset.reset()
+    pipeline_mod.reset()
+    faults.disarm()
+
+    def side(pipe):
+        t0 = time.perf_counter()
+        sim = build_cluster(spec6)
+        binder = PipeBinder()
+        cache = SchedulerCache(binder=binder, async_writeback=False,
+                               device=dev)
+        sim.populate(cache)
+        sched = Scheduler(cache, scheduler_conf=conf, pipeline=pipe,
+                          solve_audit_every=0)
+        log(f"(j) cfg6 {'pipelined' if pipe else 'sequential'}: "
+            f"{len(sim.nodes)} nodes, {len(sim.pods)} pods built and "
+            f"populated in {time.perf_counter() - t0:.1f} s")
+        return sim, cache, binder, sched
+
+    def cycle(sched, label, want_engine):
+        """One guarded cycle: its host wall ms and span_ms breakdown."""
+        t0 = time.perf_counter()
+        if not sched.run_cycle():
+            raise AssertionError(f"(j) {label}: the cycle failed "
+                                 f"({sched.last_cycle_failure})")
+        wall = (time.perf_counter() - t0) * 1e3
+        if allocate_mod.last_cycle_engine != want_engine:
+            raise AssertionError(f"(j) {label}: engine "
+                                 f"{allocate_mod.last_cycle_engine}, "
+                                 f"expected {want_engine}")
+        return wall, span_ms(obs.last_cycle())
+
+    def churn(sim, cache, binder, k, n):
+        binder.kubelet_tick(cache)
+        if sim.churn_tick(cache, n, arrival_queue=(0, 3)[k % 2]) != n:
+            raise AssertionError(f"(j) churn did not recycle {n} pods")
+
+    def statuses(cache):
+        return {t.key: (t.status.name, t.node_name)
+                for j in cache.jobs.values() for t in j.tasks.values()}
+
+    # ---- (j1) the sequential twin ----------------------------------------
+    sim_s, cache_s, binder_s, sched_s = side(False)
+    seq_cold, _ = cycle(sched_s, "sequential cold", "hier")
+    gc.collect()
+    if binder_s.count != len(sim_s.pods):
+        raise AssertionError(f"(j) sequential cold bound {binder_s.count} "
+                             f"of {len(sim_s.pods)}")
+    seq = []
+    for k, n in enumerate(churns):
+        churn(sim_s, cache_s, binder_s, k, n)
+        rb0 = metrics.blocking_readbacks()
+        wall, spans = cycle(sched_s, f"sequential churn {k}", "activeset")
+        ph = dict(allocate_batched.last_phases)
+        seq.append({"n": n, "wall_ms": wall, "kernel_ms": ph["kernel"],
+                    "sync_ms": ph["sync"], "spans": spans,
+                    "syncs": metrics.blocking_readbacks() - rb0})
+    # the last cycle's binds go Running too: the pipelined loop binds
+    # a cycle later, so both compare after a final kubelet tick
+    binder_s.kubelet_tick(cache_s)
+    seq_statuses = statuses(cache_s)
+    seq_binds = sorted(binder_s.events)
+    cache_s.stop()
+    del sim_s, cache_s, binder_s, sched_s
+    # the twin's object graph is collected here, not inside a timed cycle
+    gc.collect()
+
+    # ---- (j2) the pipelined loop fed the same events ---------------------
+    sim, cache, binder, sched = side(True)
+    pipe_cold, _ = cycle(sched, "pipelined cold", "hier")
+    gc.collect()
+    if sched._pipeline.pending is not None:
+        raise AssertionError("(j) the cold cycle dispatched asynchronously")
+    watch = SyncWatch()
+    rec = InplaceRecorder(watch)
+    counts0 = (metrics.pipeline_cycles_total(), metrics.deferred_readbacks(),
+               metrics.blocking_readbacks(),
+               metrics.pipeline_conflicts_total())
+    pipe = []
+    with rec:
+        _build.reset_launch_counts()
+        with watch:
+            for k, n in enumerate(churns):
+                churn(sim, cache, binder, k, n)
+                rec_ms = rec.host_ms
+                wall, spans = cycle(sched, f"pipelined churn {k}",
+                                    "activeset")
+                if sched._pipeline.pending is None:
+                    raise AssertionError(f"(j) pipelined churn {k} did not "
+                                         f"dispatch")
+                row = {"n": n, "wall_ms": wall, "spans": spans,
+                       "recorder_ms": rec.host_ms - rec_ms,
+                       "dispatch": dict(sched._pipeline.dispatch_phases)}
+                if k:
+                    pipe[-1]["consume"] = dict(
+                        sched._pipeline.consume_phases)
+                pipe.append(row)
+            t0 = time.perf_counter()
+            sched._pipeline.drain()
+            drain_ms = (time.perf_counter() - t0) * 1e3
+        pipe[-1]["consume"] = dict(sched._pipeline.consume_phases)
+        binder.kubelet_tick(cache)
+        launches = _build.launch_count("activeset_allocate_inplace")
+        others = {n: _build.launch_count(n) for n in
+                  ("activeset_allocate", "hier_allocate")}
+        counts = [b - a for a, b in zip(counts0, (
+            metrics.pipeline_cycles_total(), metrics.deferred_readbacks(),
+            metrics.blocking_readbacks(),
+            metrics.pipeline_conflicts_total()))]
+        n_main = len(rec.calls)
+        if sched._pipeline.pending is not None:
+            raise AssertionError("(j) the drain left a solve in flight")
+        if counts != [len(churns), len(churns), 0, 0] \
+                or launches != len(churns) or n_main != len(churns) \
+                or any(others.values()):
+            raise AssertionError(
+                f"(j) pipelined loop: pipeline cycles, deferred readbacks, "
+                f"blocking readbacks, conflicts {counts}; in-place "
+                f"launches {launches}, recorded {n_main}, other launches "
+                f"{others}; expected one dispatch, one in-place launch and "
+                f"one deferred readback a churn cycle, no blocking one")
+        binds_equal = sorted(binder.events) == seq_binds
+        if not binds_equal or statuses(cache) != seq_statuses:
+            raise AssertionError("(j) the pipelined cache's binds or "
+                                 "statuses differ from the sequential "
+                                 "twin's")
+        if len(binder.events) != len({p for p, _ in binder.events}):
+            raise AssertionError("(j) a pod was bound twice")
+        log(f"(j) pipelined loop: {len(churns)} churn cycles, each one "
+            f"in-place launch ({launches}) and one deferred readback "
+            f"({counts[1]}), blocking readbacks {counts[2]}, conflicts "
+            f"{counts[3]}; binds ({len(binder.events)}) and statuses equal "
+            f"to the sequential twin's")
+        report = watch.report()
+        in_flight = sum(1 for e in watch.events if e["in_window"])
+        log(f"(j) sync-debug report (set_sync_debug_mode('warn')): "
+            f"{len(watch.events)} synchronizing calls on the pipelined "
+            f"loop, {in_flight} of them while a solve was in flight: "
+            + json.dumps(report))
+
+        # ---- (j3) a capacity change mid-flight ----------------------------
+        c0 = metrics.pipeline_conflicts_by_outcome()
+        churn(sim, cache, binder, 0, churns[0])
+        cycle(sched, "conflict dispatch", "activeset")
+        torch.cuda.synchronize()
+        call = rec.calls[-1]
+        t = call["kw"]["task_valid"].shape[0]
+        packed = call["out"][0].cpu().numpy()
+        placed = [int(packed[t + i]) for i in range(t)
+                  if packed[i] in (1, 2, 3)]
+        names = sched._pipeline.pending.inputs.device.state.names
+        victim = cache.nodes[names[placed[0]]].node
+        alloc = dict(victim.allocatable)
+        alloc[PODS] = alloc.get(PODS, 0) + 1
+        cache.update_node(victim, dataclasses.replace(
+            victim, allocatable=alloc, capacity=dict(alloc)))
+        binder.kubelet_tick(cache)
+        n_bind = len(binder.events)
+        cycle(sched, "conflict consume", "activeset")
+        c1 = metrics.pipeline_conflicts_by_outcome()
+        conflict = {k: v - c0.get(k, 0) for k, v in c1.items()
+                    if v - c0.get(k, 0)}
+        if conflict != {"conflict": 1} or rec.restores != [True]:
+            raise AssertionError(f"(j) capacity change mid-flight: "
+                                 f"conflicts {conflict}, carry restored "
+                                 f"bit for bit {rec.restores}")
+        if len(binder.events) - n_bind != churns[0] or len(
+                binder.events) != len({p for p, _ in binder.events}):
+            raise AssertionError("(j) the re-solve did not bind the churn "
+                                 "once")
+        log(f"(j) capacity change on {victim.name} mid-flight: consume "
+            f"invalidated (conflicts {conflict}), the carry swapped back "
+            f"bit for bit, the cycle re-solved sequentially "
+            f"({len(binder.events) - n_bind} binds), no pod bound twice")
+
+        # ---- (j4) a seam storm --------------------------------------------
+        # a dispatch and a clean consume first, so the storm starts from
+        # a streak of 0
+        for k in range(2):
+            churn(sim, cache, binder, k, churns[0])
+            cycle(sched, f"before the storm {k}", "activeset")
+        d0 = metrics.pipeline_demotions_total()
+        storm = []
+        faults.arm(faults.FaultPlan(counts={
+            "pipeline.conflict": pipeline_mod.CONFLICT_STORM_LIMIT}))
+        try:
+            for k in range(4 * pipeline_mod.CONFLICT_STORM_LIMIT):
+                if pipeline_mod.demoted():
+                    break
+                churn(sim, cache, binder, k, churns[0])
+                cycle(sched, f"storm {k}", "activeset")
+                storm.append(sched._pipeline.pending is not None)
+        finally:
+            faults.disarm()
+        if not pipeline_mod.demoted() \
+                or metrics.pipeline_demotions_total() - d0 != 1:
+            raise AssertionError("(j) the seam storm did not demote the "
+                                 "executor")
+        n_bind = len(binder.events)
+        rb0 = metrics.blocking_readbacks()
+        for k in range(2):
+            churn(sim, cache, binder, k, churns[0])
+            cycle(sched, f"after the storm {k}", "activeset")
+        if len(binder.events) - n_bind != 2 * churns[0] \
+                or metrics.blocking_readbacks() - rb0 != 2:
+            raise AssertionError("(j) the demoted loop did not bind "
+                                 "sequentially")
+        log(f"(j) seam storm: {len(storm)} cycles to demotion (dispatched "
+            f"{storm}), pipeline_demotions_total +1; two more cycles ran "
+            f"sequentially (one blocking readback each, "
+            f"{2 * churns[0]} binds)")
+    bad_gangs = gang_all_or_nothing(cache)
+    over = capacity_violations(sim)
+    if bad_gangs or over or not all(rec.restores) or len(
+            binder.events) != len({p for p, _ in binder.events}):
+        raise AssertionError(f"(j) gangs broken {bad_gangs}, nodes over "
+                             f"capacity {over}, carries restored bit for "
+                             f"bit {rec.restores}")
+    pipeline_mod.reset()
+    activeset.reset()
+    activeset.set_audit_every(activeset.DEFAULT_AUDIT_EVERY)
+
+    # ---- every in-place launch against the plain version ----------------
+    checks = []
+    for call in rec.calls:
+        chk = check_scale_call(call)
+        # a CPU launch (the plain version) keeps no work counters
+        counters = (dict(zip(hier_mod.COUNTERS,
+                             call["counters"].cpu().tolist()))
+                    if call["counters"] is not None else None)
+        plain_counts = {k: chk["stats"].get(k, 0) for k in hier_mod.COUNTERS}
+        if counters is not None and plain_counts != counters:
+            raise AssertionError(f"(j) in-place launch: work counters "
+                                 f"{counters} differ from the plain "
+                                 f"version's {plain_counts}")
+        t = call["kw"]["task_valid"].shape[0]
+        checks.append({"t_pad": t, "plain_ms": chk["plain_ms"],
+                       "err": chk["err"], "counters": counters,
+                       "rounds": int(call["out"][0][3 * t])})
+    log(f"(j) {len(rec.calls)} in-place launches bitwise equal to "
+        f"activeset_allocate_plain on CPU copies (packed result, frame, "
+        f"carry) and their work counters to the plain version's; grains "
+        + ", ".join(str(c["t_pad"]) for c in checks))
+
+    # ---- timings: in place against cloning at each grain ----------------
+    by_grain = {}
+    for call, chk in zip(rec.calls, checks):
+        by_grain.setdefault(chk["t_pad"], (call, chk))
+    last_inputs = None
+    grain_kw = {g: dict(c["kw"]) for g, (c, _) in by_grain.items()}
+    for g in activeset.ACT_GRAINS:
+        if g not in grain_kw:
+            if last_inputs is None:
+                # a churn cycle's inputs, forced to the missing grain
+                churn(sim, cache, binder, 0, churns[-1])
+                from kubebatch_tpu_torch.actions.cycle_inputs import \
+                    build_cycle_inputs
+                from kubebatch_tpu_torch.framework import (CloseSession,
+                                                           OpenSession)
+                ssn = OpenSession(cache, sched.tiers)
+                last_inputs = build_cycle_inputs(ssn)
+            args, statics, _ = activeset.prepare_activeset(last_inputs,
+                                                           grain=g)
+            grain_kw[g] = {**{k: v.clone() for k, v in args.items()},
+                           **statics}
+    if last_inputs is not None:
+        CloseSession(ssn)
+    timing = pipeline_timings(grain_kw, by_grain)
+    cache.stop()
+
+    # ---- the per-cycle report -------------------------------------------
+    rows = []
+    for k, (s, p) in enumerate(zip(seq, pipe)):
+        c = p.get("consume", {})
+        rows.append({"n": s["n"], "seq_wall_ms": s["wall_ms"],
+                     "pipe_wall_ms": p["wall_ms"],
+                     "pipe_recorder_ms": p["recorder_ms"],
+                     "seq_spans": s["spans"], "pipe_spans": p["spans"],
+                     "seq_kernel_ms": s["kernel_ms"],
+                     "seq_sync_ms": s["sync_ms"],
+                     "consume_wait_ms": c.get("wait"),
+                     "kernel_ms": c.get("kernel"),
+                     "copy_ms": c.get("copy"),
+                     "launch_ms": p["dispatch"].get("launch"),
+                     "replay_ms": c.get("replay")})
+        log(f"(j) churn {k} ({s['n']} pods): host wall pipelined "
+            f"{p['wall_ms']:.1f} ms ({p['recorder_ms']:.1f} of it this "
+            f"script's recorder) against sequential {s['wall_ms']:.1f} "
+            f"(its kernel {s['kernel_ms']:.3f}, sync {s['sync_ms']:.3f}); "
+            f"consumed in the next cycle: wait {c.get('wait', 0):.3f} ms, "
+            f"kernel {c.get('kernel', float('nan')):.3f} ms, deferred "
+            f"copy {c.get('copy', float('nan')):.4f} ms (events), replay "
+            f"{c.get('replay', 0):.1f} ms; launch "
+            f"{p['dispatch'].get('launch', 0):.3f} ms host; spans ms "
+            f"pipelined {json.dumps(p['spans'])}, sequential "
+            f"{json.dumps(s['spans'])}")
+    log(f"(j) cold cycles {seq_cold:.1f} (sequential) / {pipe_cold:.1f} "
+        f"(pipelined) ms; drain {drain_ms:.1f} ms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    steady = [r for r in rows if r["n"] == churns[0]]
+    t256 = timing[min(timing)]
+    return {
+        "name": "activeset_allocate_inplace", "route": "cuda",
+        "source": "kubebatch_tpu_torch/kernels/csrc/hier_allocate.cu",
+        "replaces": "kubebatch_tpu/kernels/activeset.py:463",
+        "launches": launches, "max_abs_err": max(c["err"] for c in checks),
+        "ms": t256["inplace_ms"], "cloning_ms": t256["cloning_ms"],
+        "plain_ms": by_grain[min(by_grain)][1]["plain_ms"],
+        "plain_device": "cpu", "bound_ms": t256["bound_ms"],
+        "bound_by": t256["bound_by"], "library_ms": None,
+        "library_call": "none",
+        "per_grain": {str(g): v for g, v in timing.items()},
+        "cycles": rows,
+        "median_steady": {
+            "seq_wall_ms": med([r["seq_wall_ms"] for r in steady]),
+            "pipe_wall_ms": med([r["pipe_wall_ms"] for r in steady]),
+            "pipe_wall_less_recorder_ms": med([
+                r["pipe_wall_ms"] - r["pipe_recorder_ms"] for r in steady]),
+            "consume_wait_ms": med([r["consume_wait_ms"] for r in steady]),
+            "kernel_ms": med([r["kernel_ms"] for r in steady])},
+        "syncs": report, "syncs_in_flight": in_flight,
+        "checked_launches": len(checks)}
+
+
 def main() -> int:
     import torch
 
@@ -3822,6 +4462,7 @@ def main() -> int:
         dev, dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95),
         BASELINE_SPECS[5], BASELINE_SPECS["5p"], BASELINE_SPECS["3p"]))
     kernels.append(tenant_phase(dev))
+    kernels.append(pipeline_phase(dev, BASELINE_SPECS[6]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

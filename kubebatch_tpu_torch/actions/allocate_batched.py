@@ -40,7 +40,7 @@ last_solve: Dict[str, object] = {}
 
 
 def execute_batched(ssn: Session, hier: bool = False,
-                    activeset: bool = False):
+                    activeset: bool = False, inputs=None):
     """Run the whole allocate action as one solve. Returns the engine that
     ran ("activeset" / "hier" / "batched", truthy), or False — without
     consuming any state — when the snapshot has features the solves
@@ -54,9 +54,16 @@ def execute_batched(ssn: Session, hier: bool = False,
     reference, an affinity cycle demotes to the batched engine (counted
     in engine_demotions_total). ``activeset``: the active-set engine may
     claim the cycle first; it declines (and the two-level solve runs)
-    for a cold-sized active set, inexact pairs, or once demoted."""
+    for a cold-sized active set, inexact pairs, or once demoted.
+
+    ``inputs``: this session's CycleInputs when the caller built them
+    already (the pipelined executor, falling back here when the
+    asynchronous dispatch declines): building them consumes one-shot
+    cache state (the event fold's active rows), so a second build in
+    one session would see an empty active set."""
     t0 = time.perf_counter()
-    inputs = build_cycle_inputs(ssn, allow_affinity=True)
+    if inputs is None:
+        inputs = build_cycle_inputs(ssn, allow_affinity=True)
     t1 = time.perf_counter()
     if inputs is EMPTY_CYCLE:
         return "hier" if hier else "batched"

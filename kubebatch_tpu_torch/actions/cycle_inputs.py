@@ -479,6 +479,40 @@ def replay_decisions(ssn: Session, inputs: CycleInputs,
             _replay_ordered(ssn, inputs, task_state, task_node, task_seq)
 
 
+def rebase_inputs(ssn: Session, inputs: CycleInputs,
+                  task_state: np.ndarray) -> bool:
+    """Point ``inputs``' host indexes (jobs, tasks) at THIS session's
+    clones before a deferred replay (ref: the reference package's
+    ``rebase_inputs``).
+
+    The pipelined executor replays cycle N's decisions into session N+1,
+    but the inputs hold session N's clones; OpenSession cloned afresh, so
+    the replay must go through session N+1's objects, found by uid (the
+    lookup the Session's mutators use). Returns False, and the caller
+    invalidates instead of replaying, when a PLACED task (or its job) no
+    longer resolves as pending here: the cache moved under the flight in
+    a way the conflict check did not see. Rows not placed are only read
+    (FAIL fit deltas), so a vanished one keeps its old object."""
+    from ..kernels.fused import ALLOC, ALLOC_OB, PIPELINE
+
+    state = np.asarray(task_state)[:len(inputs.tasks)]
+    placed = ((state == ALLOC) | (state == ALLOC_OB)
+              | (state == PIPELINE)).tolist()
+    jobs = [ssn.jobs.get(j.uid, j) for j in inputs.jobs]
+    tasks = list(inputs.tasks)
+    for i, t in enumerate(tasks):
+        job = ssn.jobs.get(t.job)
+        cur = None if job is None else job.tasks.get(t.uid)
+        if cur is None or (placed[i] and cur.status != TaskStatus.PENDING):
+            if placed[i]:
+                return False
+            continue
+        tasks[i] = cur
+    inputs.jobs = jobs
+    inputs.tasks = tasks
+    return True
+
+
 def _bulk_replay_supported(ssn: Session) -> bool:
     from ..cache.interface import NullVolumeBinder
 

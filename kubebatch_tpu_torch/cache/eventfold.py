@@ -25,8 +25,14 @@ injection seam (faults.py) in :meth:`EventFold.record`, calls
 **snapshot-primary** (full clones every cycle) for the rest of the
 process instead of raising. Counted in ``metrics.fold_demotions_total``.
 
-ref: kubebatch_tpu/cache/eventfold.py, without the pipelined in-flight
-window (the pipelined loop is not part of this package yet).
+The in-flight window (:meth:`EventFold.begin_flight` /
+:meth:`EventFold.end_flight`): while a pipelined solve is in flight
+(runtime/pipeline.py), every mark is also tagged into the flight sets,
+node capacity/shape marks apart (``flight_caps``), so the consume-time
+conflict check can ask whether an event since the dispatch touched an
+entity the in-flight decisions bind against.
+
+ref: kubebatch_tpu/cache/eventfold.py.
 """
 from __future__ import annotations
 
@@ -81,6 +87,16 @@ class EventFold:
         #: PDB, or missing queue) — rebuilt by the full snapshot paths,
         #: patched at dirty jobs by the incremental path
         self.excluded_uids: set = set()
+        #: the in-flight window: while a pipelined solve is in flight
+        #: every mark is also tagged here, whether or not the fold is
+        #: enabled (the conflict check needs the marks after a fold
+        #: demotion too)
+        self._flight_open = False
+        self.flight_jobs: set = set()
+        self.flight_nodes: set = set()
+        #: node marks from capacity/shape events: never the echo of our
+        #: own binds, so they always conflict
+        self.flight_caps: set = set()
 
     # ------------------------------------------------------------------
     # the fold entry point (called by every cache handler, under the
@@ -100,18 +116,45 @@ class EventFold:
             self.demote("fault")
 
     def mark_job(self, uid: str) -> None:
+        if self._flight_open:
+            self.flight_jobs.add(uid)
         if self.enabled:
             self.dirty_jobs.add(uid)
             self.vicjob_dirty.add(uid)
 
     def mark_node(self, name: str, cap: bool = False) -> None:
-        """``cap`` flags a capacity/shape change; it matters only to the
-        reference's pipelined conflict check, which this package does
-        not have yet, so here it marks like any other node event."""
+        """``cap`` flags a capacity/shape change (the cache's node
+        handlers): inside the flight window it is also a capacity mark."""
+        if self._flight_open:
+            self.flight_nodes.add(name)
+            if cap:
+                self.flight_caps.add(name)
         if self.enabled:
             self.dirty_nodes.add(name)
             self.dev_dirty.add(name)
             self.vic_dirty.add(name)
+
+    # ------------------------------------------------------------------
+    # the in-flight window (runtime/pipeline.py)
+    # ------------------------------------------------------------------
+    def begin_flight(self) -> None:
+        """Open the window, right after a pipelined solve dispatched:
+        every mark until :meth:`end_flight` is evidence the dispatched
+        inputs may be stale."""
+        self.flight_jobs = set()
+        self.flight_nodes = set()
+        self.flight_caps = set()
+        self._flight_open = True
+
+    def end_flight(self) -> Tuple[set, set, set]:
+        """Close the window and hand back the (jobs, nodes,
+        capacity-nodes) marked while the solve was in flight."""
+        self._flight_open = False
+        marks = (self.flight_jobs, self.flight_nodes, self.flight_caps)
+        self.flight_jobs = set()
+        self.flight_nodes = set()
+        self.flight_caps = set()
+        return marks
 
     # ------------------------------------------------------------------
     # snapshot-side protocol

@@ -2,11 +2,24 @@
 (ref: kubebatch_tpu/faults.py).
 
 - **Injection seams** (``check`` / ``should_fail``): named crossing
-  points in the failure-prone layers — ``device.dispatch`` before every
-  allocate solve (per-visit scan, fused, batched), ``cache.bind`` (per
-  bind and per ``bind_many`` chunk), ``cache.evict``, ``cache.resync``,
-  and ``cache.fold`` in the event fold (a fired fold seam demotes the
-  fold to snapshot-primary instead of raising). Disarmed, a crossing is
+  points in the failure-prone layers, by group (a "group.*" rate
+  addresses a group) —
+
+  - device: ``device.dispatch`` before every allocate solve (per-visit
+    scan, fused, batched, two-level, active set, the pipelined dispatch);
+  - rpc: ``rpc.admission``, the tenant service's admission gate (a fired
+    seam rejects the request);
+  - cache: ``cache.bind`` (per bind and per ``bind_many`` chunk),
+    ``cache.evict``, ``cache.resync``, and ``cache.fold`` in the event
+    fold (a fired seam demotes the fold to snapshot-primary);
+  - solve: ``solve.activeset`` (demotes the active-set engine to the
+    full-width solve);
+  - pipeline: ``pipeline.conflict`` at the pipelined consume (forces the
+    in-flight result stale: its decisions are discarded, the device
+    carry is restored from its shadow, the cycle re-solves sequentially);
+  - obs: ``obs.slo`` (a synthetic breach through the real fire path).
+
+  A fired demoting seam never raises. Disarmed, a crossing is
   one module-global read and a ``None`` compare. Armed with ``arm()``;
   this package reads no process-wide settings, so the reference's
   KUBEBATCH_FAULTS / KUBEBATCH_QUARANTINE_S become arguments (a plan,

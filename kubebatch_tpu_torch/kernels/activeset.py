@@ -25,11 +25,21 @@ kubebatch_tpu/kernels/activeset.py).
    the process (:func:`demote`, counted; cycles run the full-width
    solve).
 
+5. **Asynchronous twin** (runtime/pipeline.py is its only caller):
+   :func:`solve_cycle_async` has :func:`solve_cycle`'s gates, seam,
+   cadence and counters, but returns a :class:`PendingSolve` with the
+   result still on the device; the next cycle's ``consume`` pays the one
+   deferred readback. Its steady launch is :func:`activeset_packed_inplace`
+   (the reference's donated ``_activeset_packed_donated``): the kernel
+   writes the next carry into the DeviceSession's own arrays, after
+   :func:`carry_shadow` copied them into a second slot the session keeps
+   (allocated once), which ``restore_carry`` swaps back when the consume
+   invalidates the result. The audit's launch stays the cloning one, as
+   in the reference.
+
 The wave loop is kernels/hier.py's (:func:`activeset_allocate` names it
 with the pair fold); the CUDA kernel is csrc/hier_allocate.cu in its
-active-set and audit modes. Not here yet: the pipelined executor's
-asynchronous twin (``solve_cycle_async``, ``carry_shadow``,
-``PendingSolve`` and the donated entry, ROADMAP A4).
+active-set and audit modes.
 """
 from __future__ import annotations
 
@@ -49,9 +59,10 @@ from .batched import (CYCLE_ARGS, NODE_ARGS, _PACK_BOOL, _PACK_F32,
 from .fused import (ALLOC, ALLOC_OB, K_DRF_SHARE, K_GANG_READY,
                     K_PRIORITY, K_PROP_SHARE, PIPELINE)
 from .hier import (MODE_ACT, MODE_AUDIT, _coarse_pass, bind_args,
-                   check_plain_args, device_of, hier_allocate,
-                   hier_pool_size, launch, pack_result, prepare_hier,
-                   run_solve, solve_opts, state_arrays)
+                   check_plain_args, consume_solve, device_of,
+                   dispatch_solve, hier_allocate, hier_pool_size, launch,
+                   pack_result, prepare_hier, run_solve, solve_opts,
+                   state_arrays)
 from .telemetry import ENGINE_ACTIVESET, F_ACT_DEMOTED, decision_frame
 
 log = logging.getLogger("kubebatch.activeset")
@@ -262,6 +273,27 @@ def activeset_packed(*args, **kwargs):
                   bound["pair_init"], **statics)
 
 
+def activeset_packed_inplace(*args, **kwargs):
+    """:func:`activeset_packed` writing the committed node carry into the
+    carry tensors it was given (the reference's donated twin
+    ``_activeset_packed_donated``): the CUDA kernel in place for CUDA
+    tensors (``launch(in_place=True)``, which raises rather than clone);
+    for CPU tensors :func:`activeset_allocate_plain`, its carry copied
+    into the given tensors. Returns activeset_packed's tuple, the carry
+    being the given tensors."""
+    bound, statics = bind_args("activeset_packed_inplace", args, kwargs,
+                               ACT_ARGS)
+    if device_of("activeset_packed_inplace", bound) == "cpu":
+        packed, *carry = activeset_allocate_plain(**bound, **statics)
+        for k, v in zip(NODE_ARGS[:4], carry):
+            bound[k].copy_(v)
+        return (packed, *(bound[k] for k in NODE_ARGS[:4]))
+    statics.pop("stats", None)
+    return launch(MODE_ACT, {k: bound[k] for k in NODE_ARGS},
+                  {k: bound[k] for k in CYCLE_ARGS}, None,
+                  bound["pair_init"], in_place=True, **statics)
+
+
 def activeset_audit_packed(node, act, full, **statics):
     """The audit cycle on the inputs' device: the CUDA kernel (audit
     mode) for CUDA tensors, :func:`activeset_audit_plain` for CPU
@@ -445,3 +477,105 @@ def solve_cycle(inputs, phases=None):
     if div:
         demote("audit")
     return tuple(res)
+
+
+# ---- the asynchronous twin (runtime/pipeline.py) -----------------------------
+
+def carry_shadow(device):
+    """Copy the node carry into the DeviceSession's second slot before a
+    pipelined dispatch writes it (the slot is allocated once and reused;
+    on the card a device-to-device copy on the stream) and return the
+    slot: the pre-dispatch carry that ``PendingSolve.restore_carry``
+    swaps back."""
+    carry = (device.idle, device.releasing, device.n_tasks, device.nz_req)
+    slot = device.carry_slot
+    if slot is None or any(
+            s.shape != c.shape or s.dtype != c.dtype or s.device != c.device
+            for s, c in zip(slot, carry)):
+        slot = device.carry_slot = tuple(torch.empty_like(c) for c in carry)
+    for s, c in zip(slot, carry):
+        s.copy_(c)
+    return slot
+
+
+class PendingSolve:
+    """A dispatched, unread active-set solve. Its carry was committed at
+    dispatch (the next cycle's inputs chain on it on the stream);
+    :meth:`consume` pays the one deferred readback and returns the
+    decisions, :meth:`restore_carry` puts the pre-dispatch carry back
+    when the consume-time check invalidates them."""
+
+    __slots__ = ("solve", "audit", "shadow", "device")
+
+    def __init__(self, solve, audit: bool, shadow, device):
+        self.solve = solve
+        self.audit = audit
+        self.shadow = shadow
+        self.device = device
+
+    def consume(self, sp=None, phases=None):
+        """Wait for the result (usually landed: the host ran a whole
+        cycle meanwhile) and decode it: solve_cycle's tuple, the frame
+        recorded on ``sp``. An audit's comparison is read here: the
+        committed result is the full-width solve's, so it replays
+        either way; a divergence demotes."""
+        res = consume_solve(self.solve, sp, phases)
+        if self.audit:
+            div = int(res[4][F_ACT_DEMOTED])
+            count_activeset_audit(div == 0)
+            if div:
+                demote("audit")
+        return res
+
+    def restore_carry(self) -> None:
+        """Swap the pre-dispatch carry back in; the dispatched one
+        becomes the session's second slot."""
+        d = self.device
+        dispatched = (d.idle, d.releasing, d.n_tasks, d.nz_req)
+        d.idle, d.releasing, d.n_tasks, d.nz_req = self.shadow
+        d.carry_slot = dispatched
+
+
+def solve_cycle_async(inputs, phases=None) -> Optional[PendingSolve]:
+    """:func:`solve_cycle`'s asynchronous twin: the same decline gates,
+    fault seam, audit cadence and counters, but the dispatch returns a
+    :class:`PendingSolve` without reading the result back. None when the
+    engine declines (the caller runs the cycle sequentially).
+    ``phases`` receives the host ms of the upload and the launch."""
+    global _cycle_idx
+    if _demoted:
+        return None
+    t0 = time.perf_counter()
+    plan = prepare_activeset(inputs)
+    if plan is None:
+        return None
+    if _faults_armed() and _should_fail("solve.activeset"):
+        demote("fault")
+        return None
+    idx = _cycle_idx
+    _cycle_idx += 1
+    n = audit_every()
+    audit = n > 0 and idx % n == 0
+    count_activeset_cycle(audit)
+    device = inputs.device
+    if audit:
+        # the audit stays the cloning launch, as the reference's does
+        node, act, full, statics, _ = prepare_activeset_audit(inputs)
+        t = inputs.task_valid.shape[0]
+        name = "activeset_audit_dispatch"
+
+        def solve():
+            return activeset_audit_packed(node, act, full, **statics)
+    else:
+        args, statics, t = plan
+        name = "activeset_dispatch"
+
+        def solve():
+            return activeset_packed_inplace(**args, **statics)
+    shadow = carry_shadow(device)
+    if phases is not None:
+        phases["upload"] = (time.perf_counter() - t0) * 1e3
+    dispatched = dispatch_solve(device, t, solve, name=name)
+    if phases is not None:
+        phases["launch"] = dispatched.launch_ms
+    return PendingSolve(dispatched, audit, shadow, device)

@@ -41,6 +41,13 @@ Both return ``(packed, idle, releasing, n_tasks, nz_req)`` as
 kernels/batched.py does. The active-set engine (kernels/activeset.py)
 runs the same wave loop at a churn-sized task width.
 
+A launch writes the node carry into clones of the DeviceSession's
+arrays, or, in place (``launch(in_place=True)``, the active set's
+pipelined entry), into the session's own arrays. :func:`run_solve`
+launches and reads the result back at once; :func:`dispatch_solve` and
+:func:`consume_solve` are its two halves for the pipelined executor,
+the readback deferred to the next cycle.
+
 Inter-pod affinity and host ports are not expressible here (their
 domain carries are cluster-global): the action layer demotes such a
 cycle to the batched engine, counted.
@@ -410,6 +417,34 @@ COUNTERS = ("coarse_passes", "coarse_rows", "rows", "waves", "coarse_cells")
 #: the phases the kernel times beyond the round's (batched.PHASES)
 HIER_PHASES = ("coarse", "waves")
 
+#: VEC_EPS on each device it was asked for: uploaded once, so a launch
+#: makes no host->device copy (a pageable copy waits on the stream)
+_EPS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _eps_on(dev: torch.device) -> torch.Tensor:
+    eps = _EPS.get(dev)
+    if eps is None:
+        eps = _EPS[dev] = torch.from_numpy(VEC_EPS).to(dev)
+    return eps
+
+
+def _check_no_alias(what: str, carry: dict, others) -> None:
+    """An in-place carry must share no byte with any other pointer slot
+    of the launch (the kernel reads those while it writes the carry)."""
+    def span(t):
+        start = t.data_ptr()
+        return start, start + t.numel() * t.element_size()
+
+    for k, c in carry.items():
+        c0, c1 = span(c)
+        for o in others:
+            o0, o1 = span(o)
+            if c0 < o1 and o0 < c1:
+                raise ValueError(f"{what}: the in-place carry {k} overlaps "
+                                 f"another argument of the launch")
+
+
 def _shapes(n, t, j, q, s, p) -> dict:
     return {
         "idle": (n, 3), "releasing": (n, 3), "n_tasks": (n,),
@@ -475,7 +510,7 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
            queue_keys=(K_PROP_SHARE,), prop_overused=True,
            dyn_enabled=False, pipe_enabled=True, max_rounds=64,
            amax_rounds=0, pool_size=0, max_waves=0, gang_enabled=True,
-           narrow=False, narrow_gate=False):
+           narrow=False, narrow_gate=False, in_place=False):
     """One launch of csrc/hier_allocate.cu. ``mode``: MODE_HIER (the
     two-level solve of ``cycle``), MODE_ACT (the active-set solve of
     ``cycle``, at grain width, with ``pair_init``) or MODE_AUDIT (the
@@ -483,7 +518,10 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
     the carry, then the two-level solve of ``cycle`` on the carry, and
     their divergence in the frame). Returns (packed of ``cycle``, idle,
     releasing, n_tasks, nz_req): the packed result and node carry the
-    kernel committed."""
+    kernel committed. ``in_place`` (MODE_ACT only): the kernel writes the
+    carry into ``node``'s own carry tensors, which must be contiguous and
+    share no byte with another argument, and returns them; else into
+    clones."""
     import ctypes
 
     if len(job_keys) > 3 or any(k not in JOB_KEY_CODES for k in job_keys):
@@ -513,13 +551,22 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
                                   or tuple(pair_init.shape) != (p, 3)):
         raise ValueError(f"{what}: pair_init must be float32 ({p}, 3)")
     pool = hier_pool_size(n, pool_size)
+    if in_place:
+        if mode != MODE_ACT:
+            raise ValueError(f"{what}: only the active-set solve runs in "
+                             f"place")
+        if not all(node[k].is_contiguous() for k in NODE_ARGS[:4]):
+            raise ValueError(f"{what}: an in-place carry must be "
+                             f"contiguous")
     node = {k: v.contiguous() for k, v in node.items()}
     cycle = {k: v.contiguous() for k, v in cycle.items()}
-    # the node carry lives in the outputs
-    carry = {k: node[k].clone() for k in NODE_ARGS[:4]}
+    # the node carry lives in the outputs: the session's own arrays in
+    # place, else clones of them
+    carry = {k: node[k] if in_place else node[k].clone()
+             for k in NODE_ARGS[:4]}
     packed = torch.empty(3 * t + 1 + TELEM_WIDTH, dtype=torch.int32,
                          device=dev)
-    eps = torch.from_numpy(VEC_EPS).to(dev)
+    eps = _eps_on(dev)
     opts = dict(job_keys=job_keys, queue_keys=queue_keys,
                 prop_overused=prop_overused, dyn_enabled=dyn_enabled,
                 pipe_enabled=pipe_enabled, gang_enabled=gang_enabled,
@@ -547,6 +594,10 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
     if act is not None:
         ptrs_a = _ptrs(act_carry, node, act, eps, act_out, phase_ns, ws)
     counters = torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+    if in_place:
+        _check_no_alias(what, carry, [
+            *(node[k] for k in NODE_ARGS[4:]), *cycle.values(), eps, packed,
+            phase_ns, ws, counters, pair_init])
     hptrs = np.asarray([pair_init.data_ptr() if pair_init is not None
                         else 0, counters.data_ptr()], dtype=np.uint64)
     info = np.zeros(3, dtype=np.int32)
@@ -555,7 +606,7 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
         ints_a.ctypes.data, hints.ctypes.data, hptrs.ctypes.data,
         info.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(what, err)
-    _build.count_launch(what)
+    _build.count_launch(what + "_inplace" if in_place else what)
     last_launch.clear()
     last_launch.update(grid=int(info[0]), threads=int(info[1]),
                        smem_bytes=int(info[2]), workspace_bytes=ws.numel(),
@@ -605,6 +656,39 @@ def prepare_hier(inputs, pool_size: int = 0):
     return args, statics
 
 
+def _launch_timed(device, solve):
+    """``solve()`` between two CUDA events on the card (None on the
+    CPU): (packed, idle, releasing, n_tasks, nz_req), events."""
+    if device.device.type != "cuda":
+        return solve(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = solve()
+    end.record()
+    return out, (start, end)
+
+
+def _event_ms(events) -> float:
+    """Device ms between two recorded CUDA events (NaN without them);
+    the events must have completed."""
+    return events[0].elapsed_time(events[1]) if events else float("nan")
+
+
+def _commit(device, idle, releasing, n_tasks, nz_req) -> None:
+    device.idle, device.releasing, device.n_tasks = idle, releasing, n_tasks
+    device.nz_req = nz_req
+
+
+def _decode(host: np.ndarray, t_pad: int, sp):
+    """The packed host block's decisions, its frame recorded on ``sp``."""
+    from .. import obs
+
+    obs.telemetry.record(host[3 * t_pad + 1:], span=sp)
+    state, node, seq, rounds, telem = unpack_result(host, t_pad)
+    return state, node, seq, int(rounds), telem
+
+
 def run_solve(device, t_pad: int, solve, phases=None,
               name: str = "hier_allocate"):
     """Launch ``solve()`` (returning packed + the node carry), make its
@@ -619,29 +703,66 @@ def run_solve(device, t_pad: int, solve, phases=None,
     from .. import obs
     from ..device import to_host
 
-    on_card = device.device.type == "cuda"
     t1 = time.perf_counter()
     with obs.span(name, cat="kernel") as sp:
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        packed, idle, releasing, n_tasks, nz = solve()
-        if on_card:
-            end.record()
+        (packed, *carry), events = _launch_timed(device, solve)
         t2 = time.perf_counter()
         with obs.span("readback", cat="readback"):
             host = to_host(packed)    # the solve's ONE device->host copy
         t3 = time.perf_counter()
-        obs.telemetry.record(host[3 * t_pad + 1:], span=sp)
-    device.idle, device.releasing, device.n_tasks = idle, releasing, n_tasks
-    device.nz_req = nz
+        res = _decode(host, t_pad, sp)
+    _commit(device, *carry)
     if phases is not None:
         phases.update(solve=(t2 - t1) * 1e3, sync=(t3 - t2) * 1e3,
-                      kernel=(start.elapsed_time(end) if on_card
-                              else float("nan")))
-    state, node, seq, rounds, telem = unpack_result(host, t_pad)
-    return state, node, seq, int(rounds), telem
+                      kernel=_event_ms(events))
+    return res
+
+
+class DispatchedSolve:
+    """A launched solve whose result is still on the device: the
+    deferred copy of its packed result (device.DeferredCopy), the
+    launch's CUDA events and the result's task width."""
+
+    __slots__ = ("t_pad", "copy", "events", "launch_ms")
+
+    def __init__(self, t_pad, copy, events, launch_ms):
+        self.t_pad = t_pad
+        self.copy = copy
+        self.events = events
+        self.launch_ms = launch_ms
+
+
+def dispatch_solve(device, t_pad: int, solve,
+                   name: str = "activeset_dispatch") -> DispatchedSolve:
+    """:func:`run_solve`'s first half: launch ``solve()`` on the ``name``
+    kernel span, commit its carry to the DeviceSession (the NEXT cycle's
+    inputs chain on it, on the stream) and start the deferred copy of
+    the packed result. Nothing waits for the device."""
+    import time
+
+    from .. import obs
+    from ..device import DeferredCopy
+
+    t0 = time.perf_counter()
+    with obs.span(name, cat="kernel"):
+        (packed, *carry), events = _launch_timed(device, solve)
+        copy = DeferredCopy(packed)
+    _commit(device, *carry)
+    return DispatchedSolve(t_pad, copy, events,
+                           (time.perf_counter() - t0) * 1e3)
+
+
+def consume_solve(solve: DispatchedSolve, sp=None, phases=None):
+    """:func:`run_solve`'s second half: wait for the deferred copy (one
+    counted deferred readback) and decode it, the frame recorded on
+    ``sp``. Returns run_solve's tuple. ``phases`` receives ``wait``
+    (host ms blocked on the copy), ``kernel`` and ``copy`` (device ms
+    from CUDA events, NaN on the CPU)."""
+    host, wait_ms = solve.copy.wait()
+    if phases is not None:
+        phases.update(wait=wait_ms, kernel=_event_ms(solve.events),
+                      copy=solve.copy.device_ms())
+    return _decode(host, solve.t_pad, sp)
 
 
 def solve_hier(inputs, phases=None):

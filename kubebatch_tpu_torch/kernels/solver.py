@@ -463,6 +463,10 @@ class DeviceSession:
         self.n_tasks = up(st.n_tasks)
         self.max_task_num = up(st.max_task_num)
         self.node_ok = up(st.schedulable & st.valid)
+        #: the carry's second slot (idle, releasing, n_tasks, nz_req):
+        #: the pipelined active-set dispatch's pre-dispatch copy
+        #: (kernels/activeset.py carry_shadow), allocated at first use
+        self.carry_slot = None
 
     @property
     def n_padded(self) -> int:

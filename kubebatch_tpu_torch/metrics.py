@@ -22,8 +22,10 @@ and their arrival -> decision latencies, the host seconds the span
 tracer feeds per phase, action, kernel and session), the observability
 plane's SLO breaches and timeline drift, and the tenant solve
 service's per-tenant events, mega dispatches and lanes, shed level and
-shed requests. The keys of modules not ported yet (the pipelined
-executor, the compile service) keep their zero values.
+shed requests, and the pipelined executor's overlapped cycles,
+consume-time conflicts (per outcome), demotions (per reason) and
+deferred readbacks. The keys of the compile service, not ported yet,
+keep their zero values.
 The remaining functions are the hooks the framework and the gang
 plugin call; they record nothing.
 """
@@ -61,6 +63,22 @@ def count_blocking_readback(n: int = 1) -> None:
 
 def blocking_readbacks() -> int:
     return _blocking_readbacks
+
+
+_deferred_readbacks = 0
+
+
+def count_deferred_readback(n: int = 1) -> None:
+    """Record n DEFERRED device->host copies: the pipelined consume's
+    read of a result dispatched a cycle earlier (``device.DeferredCopy``).
+    Counted apart from the blocking ones, so a window can tell "read
+    later" from "never read"."""
+    global _deferred_readbacks
+    _deferred_readbacks += n
+
+
+def deferred_readbacks() -> int:
+    return _deferred_readbacks
 
 
 def count_engine_demotion(from_engine: str, to_engine: str) -> None:
@@ -282,6 +300,63 @@ def activeset_demotions_by_reason() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the pipelined executor (runtime/pipeline.py): the reference's
+# pipeline_cycles_total, pipeline_conflicts_total{outcome} and
+# pipeline_demotions_total{reason}
+# ---------------------------------------------------------------------------
+
+_pipeline_cycles = 0
+_pipeline_conflicts: dict = {}
+_pipeline_demotions: dict = {}
+
+
+def count_pipeline_cycle() -> None:
+    """Record one overlapped cycle: a cycle that committed the in-flight
+    solve the previous cycle dispatched."""
+    global _pipeline_cycles
+    with _act_lock:
+        _pipeline_cycles += 1
+
+
+def pipeline_cycles_total() -> int:
+    with _act_lock:
+        return _pipeline_cycles
+
+
+def count_pipeline_conflict(outcome: str) -> None:
+    """Record one consume that discarded the in-flight decisions:
+    "conflict" (a folded event touched their job / node footprint, or a
+    placed task no longer resolves) or "fault" (the armed
+    ``pipeline.conflict`` seam)."""
+    with _act_lock:
+        _pipeline_conflicts[outcome] = \
+            _pipeline_conflicts.get(outcome, 0) + 1
+
+
+def pipeline_conflicts_total() -> int:
+    with _act_lock:
+        return sum(_pipeline_conflicts.values())
+
+
+def pipeline_conflicts_by_outcome() -> dict:
+    with _act_lock:
+        return dict(_pipeline_conflicts)
+
+
+def count_pipeline_demotion(reason: str) -> None:
+    """Record one demotion of the pipelined executor to the sequential
+    loop ("storm": consecutive consume-time conflicts)."""
+    with _act_lock:
+        _pipeline_demotions[reason] = \
+            _pipeline_demotions.get(reason, 0) + 1
+
+
+def pipeline_demotions_total() -> int:
+    with _act_lock:
+        return sum(_pipeline_demotions.values())
+
+
+# ---------------------------------------------------------------------------
 # the scheduler loop: cycle failures, injected faults, the degradation
 # ladder, audits and sub-cycles. These are hit from the event-delivery
 # and write-back threads as well as the loop, so they take a lock.
@@ -478,10 +553,11 @@ def readback_accounting(since: "dict | None" = None) -> dict:
     """{readbacks, deferred_readbacks, decisions, readbacks_per_decision,
     total_readbacks_per_decision}, process-lifetime or since an earlier
     readback_accounting() snapshot. The ratios are None for a window that
-    bound nothing. ``deferred_readbacks`` is the pipelined executor's
-    (ROADMAP A4) and stays 0 here."""
+    bound nothing. ``readbacks_per_decision`` counts the blocking copies
+    only (0 on a pipelined window); ``total_readbacks_per_decision`` adds
+    the deferred ones (the pipelined consume's)."""
     rb = _blocking_readbacks
-    dfr = 0
+    dfr = _deferred_readbacks
     dec = _decisions
     if since is not None:
         rb -= int(since.get("readbacks", 0))
@@ -712,8 +788,7 @@ def counters_snapshot(include_rpc: bool = True) -> dict:
     ``failovers*``. The ``tenants`` section appears once a tenant event
     was counted. Keys whose modules are not ported yet hold their zero
     values: ``compile_ms_total`` and ``recompiles_*`` (the compile
-    service), ``deferred_readbacks`` and ``pipeline_*`` (the pipelined
-    executor)."""
+    service)."""
     snap = {
         "engine_demotions_total": engine_demotions_total(),
         "affinity_host_fallback_total": affinity_host_fallback_total(),
@@ -743,11 +818,11 @@ def counters_snapshot(include_rpc: bool = True) -> dict:
         "activeset_audits_total": activeset_audits_total(),
         "activeset_divergences_total": activeset_divergences_total(),
         "activeset_demotions_total": activeset_demotions_total(),
-        "deferred_readbacks": 0,
-        "pipeline_cycles_total": 0,
-        "pipeline_conflicts_total": 0,
-        "pipeline_conflicts_by_outcome": {},
-        "pipeline_demotions_total": 0,
+        "deferred_readbacks": deferred_readbacks(),
+        "pipeline_cycles_total": pipeline_cycles_total(),
+        "pipeline_conflicts_total": pipeline_conflicts_total(),
+        "pipeline_conflicts_by_outcome": pipeline_conflicts_by_outcome(),
+        "pipeline_demotions_total": pipeline_demotions_total(),
         "slo_breaches_total": slo_breaches_total(),
         "slo_breaches_by_objective": slo_breaches_by_objective(),
         "timeline_drift_total": timeline_drift_total(),

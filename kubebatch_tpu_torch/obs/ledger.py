@@ -19,11 +19,11 @@ the full latency story of its decision:
 - **bind** closes the record: the cache calls :func:`close` per pod at
   the state flip, the moment the decision is durably applied.
 
-The reference's deferred attribution (``attribute``: a pipelined
-consume closing cycle k's records inside cycle k+1) waits for the
-pipelined executor (ROADMAP A4): every close here is in its own cycle's
-epoch, so ``deferred_closed_total`` stays 0 and a record's ``deferred``
-is False.
+The pipelined executor's consume closes cycle k's records inside cycle
+k+1: it replays under :class:`attribute` ``(epoch=k, deferred=True)``,
+so those records take their fold / pack / solve stamps from epoch k (the
+launching cycle), their apply stamp from the consuming cycle, and count
+in ``deferred_closed_total``.
 
 Closed records land in lock-free-read, log-bucketed **streaming
 histograms** keyed ``(lane, tenant, engine)`` — 8 buckets per octave
@@ -53,7 +53,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 __all__ = ["LANE_ANNOTATION", "LATENCY_LANE", "DEFAULT_LANE", "STAGES",
            "StreamHist", "LedgerWindow", "set_enabled", "enabled",
            "reset", "stamp_arrival", "discard", "stage_mark", "close",
-           "close_many", "on_span_exit", "observe_subcycle_arrival",
+           "close_many", "attribute", "on_span_exit", "observe_subcycle_arrival",
            "subcycle_percentiles", "observe_admission", "window",
            "percentile", "stats", "retain", "stop_retention", "retained",
            "MAX_OPEN", "MAX_KEYS"]
@@ -193,8 +193,11 @@ _sub_hist = StreamHist()                       # sub-cycle arrival->decision
 _admission_hists: Dict[Tuple[str, str], StreamHist] = {}
 
 _closed_total = 0
+_deferred_closed_total = 0
 _unmatched_total = 0
 _evicted_total = 0
+#: the per-thread deferred attribution (:class:`attribute`)
+_TLS = threading.local()
 
 _retained: Optional[deque] = None              # audit mode
 
@@ -214,7 +217,7 @@ def reset() -> None:
     """Clear all ledger state (tests / soak isolation). Histograms are
     process-lifetime accumulators otherwise, like everything in
     metrics.py."""
-    global _sub_hist, _closed_total
+    global _sub_hist, _closed_total, _deferred_closed_total
     global _unmatched_total, _evicted_total, _retained
     with _lock:
         _open.clear()
@@ -224,6 +227,7 @@ def reset() -> None:
         _admission_hists.clear()
         _sub_hist = StreamHist()
         _closed_total = 0
+        _deferred_closed_total = 0
         _unmatched_total = 0
         _evicted_total = 0
         _retained = None
@@ -311,6 +315,40 @@ def on_span_exit(sp) -> None:
 
 
 # ---------------------------------------------------------------------
+# deferred attribution (the pipelined consume)
+# ---------------------------------------------------------------------
+
+class _Attr:
+    __slots__ = ("epoch", "deferred")
+
+    def __init__(self, epoch: Optional[int], deferred: bool):
+        self.epoch = epoch
+        self.deferred = deferred
+
+
+class attribute:
+    """``with ledger.attribute(epoch=k, deferred=True):`` closes inside
+    the block take their fold / pack / solve stamps from epoch ``k`` (the
+    launching cycle) and are flagged deferred; apply still comes from
+    the current (consuming) epoch. The pipelined executor wraps its
+    replay in this."""
+
+    __slots__ = ("_attr", "_prev")
+
+    def __init__(self, epoch: Optional[int], deferred: bool = True):
+        self._attr = _Attr(epoch, deferred)
+        self._prev = None
+
+    def __enter__(self) -> "attribute":
+        self._prev = getattr(_TLS, "attr", None)
+        _TLS.attr = self._attr
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _TLS.attr = self._prev
+
+
+# ---------------------------------------------------------------------
 # close (the bind funnel)
 # ---------------------------------------------------------------------
 
@@ -366,19 +404,28 @@ def close_many(pods, engine: Optional[str] = None) -> None:
     suffix of the batch's monotone stage chain at or after its arrival
     (stamps older than the arrival drop, no stage precedes the one
     before it), so the intervals between chain stages, shared by every
-    pod that keeps them, are bucketed once per batch. O(1) a pod."""
+    pod that keeps them, are bucketed once per batch. O(1) a pod. Under
+    :class:`attribute` the fold / pack / solve stamps are the launching
+    epoch's and apply the current one's (its own when it has none)."""
     if not _enabled:
         return
-    global _closed_total, _unmatched_total
+    global _closed_total, _deferred_closed_total, _unmatched_total
     t = _now()
     from . import spans as _spans
-    epoch = _spans.current_epoch()
+    cur_epoch = _spans.current_epoch()
+    attr: Optional[_Attr] = getattr(_TLS, "attr", None)
+    epoch = attr.epoch if attr is not None else cur_epoch
+    deferred = bool(attr.deferred) if attr is not None else False
     eng = engine or _current_engine()
     with _lock:
         src = _epoch_stages.get(epoch, {}) if epoch else {}
+        cur = (_epoch_stages.get(cur_epoch, {})
+               if cur_epoch and cur_epoch != epoch else src)
         chain: List[Tuple[str, float]] = []
         for stage in STAGES:
-            v = src.get(stage)
+            v = cur.get(stage) if stage == "apply" else src.get(stage)
+            if v is None and stage == "apply":
+                v = src.get(stage)
             if v is not None and (not chain or v >= chain[-1][1]):
                 chain.append((stage, v))
         values = [v for _, v in chain]
@@ -412,11 +459,13 @@ def close_many(pods, engine: Optional[str] = None) -> None:
             else:
                 _stage_hist_for(lane, "bind").observe(total)
             _closed_total += 1
+            if deferred:
+                _deferred_closed_total += 1
             if _retained is not None:
                 _retained.append({
                     "uid": pod.uid, "name": getattr(pod, "name", ""),
                     "lane": lane, "tenant": tenant, "engine": eng,
-                    "epoch": epoch, "deferred": False,
+                    "epoch": epoch, "deferred": deferred,
                     "arrival": arrival, "stages": chain[k:],
                     "bind": pod_bind, "total_ms": round(total * 1e3, 6),
                 })
@@ -506,6 +555,7 @@ class LedgerWindow:
             self._base = {k: h.snapshot() for k, h in _hists.items()}
             self._sub_base = _sub_hist.snapshot()
             self._closed0 = _closed_total
+            self._deferred0 = _deferred_closed_total
 
     def _diffs(self, lane=None, tenant=None, engine=None
                ) -> Tuple[int, float, Dict[int, int]]:
@@ -565,6 +615,9 @@ class LedgerWindow:
     def closed(self) -> int:
         return _closed_total - self._closed0
 
+    def deferred_closed(self) -> int:
+        return _deferred_closed_total - self._deferred0
+
 
 def window() -> LedgerWindow:
     return LedgerWindow()
@@ -590,6 +643,7 @@ def stats() -> dict:
             lanes.setdefault(lane, []).append(h.snapshot())
         open_n = len(_open)
         closed = _closed_total
+        deferred = _deferred_closed_total
         unmatched = _unmatched_total
         evicted = _evicted_total
         keys = len(_hists)
@@ -608,7 +662,7 @@ def stats() -> dict:
     out = {
         "enabled": _enabled,
         "closed_total": closed,
-        "deferred_closed_total": 0,
+        "deferred_closed_total": deferred,
         "unmatched_total": unmatched,
         "evicted_total": evicted,
         "open": open_n,

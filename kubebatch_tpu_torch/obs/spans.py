@@ -112,7 +112,11 @@ SPAN_HOOKS: List[Callable[[Span], None]] = []
 _last_cycle: Optional[Span] = None
 #: process-lifetime completed-span count
 _spans_total = 0
-#: process-unique epoch stamped on every cycle root
+#: process-unique epoch stamped on every cycle root: with the pipelined
+#: executor a span can close inside a later cycle's root than the one
+#: that launched its work (cycle N's consume runs under cycle N+1, its
+#: span carrying ``epoch=N``'s), so the epoch, not the tree position,
+#: attributes overlapped work to its launching cycle
 _epoch_seq = itertools.count(1)
 
 

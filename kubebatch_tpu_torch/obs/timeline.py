@@ -22,9 +22,9 @@ made after the timeline's lock is released (the dump reads
 counted, dumped event, not a surprise OOM.
 
 The spill directory is an argument (``arm(directory)``,
-``Scheduler(timeline_dir=)``). The digests' ``deferred_readbacks`` and
-``recompiles`` deltas are the pipelined executor's and the compile
-service's (ROADMAP A4, A6) and stay 0 here.
+``Scheduler(timeline_dir=)``). The digests' ``deferred_readbacks`` delta
+is the pipelined executor's consumes; ``recompiles`` is the compile
+service's (ROADMAP A6) and stays 0 here.
 """
 from __future__ import annotations
 

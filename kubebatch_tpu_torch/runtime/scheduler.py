@@ -27,8 +27,12 @@ obs/timeline.py); the ladder's recovery probe is skipped on a CPU cache
 ``csrc/explain_counts.cu`` launch and one counted copy back a cycle on a
 CUDA cache, published at /debug/explain; an explainer failure is logged
 and never fails the cycle. An armed flight recorder (obs/flight.py)
-dumps on every counted cycle failure and failed fold audit. Not ported
-yet, and refused with NotImplementedError: ``pipeline`` (ROADMAP A4).
+dumps on every counted cycle failure and failed fold audit.
+``pipeline=True`` (KUBEBATCH_PIPELINE) builds the pipelined executor
+(runtime/pipeline.py), which runs the session block while it is active:
+a steady active-set cycle dispatches its solve and returns, and the next
+cycle consumes the result through one deferred readback; a conflict
+storm demotes it to the sequential block for the rest of the process.
 """
 from __future__ import annotations
 
@@ -93,9 +97,6 @@ class Scheduler:
                  slo: Optional[bool] = None,
                  solver: Optional[str] = None,
                  timeline_dir: Optional[str] = None):
-        if pipeline:
-            raise NotImplementedError("pipelined cycles, ROADMAP queue A, "
-                                      "A4: not ported yet")
         if solve_audit_every is not None:
             # the active-set engine's audit cadence (process-wide, as in
             # the reference; kernels/activeset.py owns the counter)
@@ -152,6 +153,13 @@ class Scheduler:
         if timeline_dir:
             from ..obs import timeline as _timeline
             _timeline.arm(timeline_dir)
+        #: the pipelined executor; run_once hands it the session block
+        #: while it is active (not demoted)
+        self.pipeline_enabled = bool(pipeline)
+        self._pipeline = None
+        if self.pipeline_enabled:
+            from .pipeline import PipelinedExecutor
+            self._pipeline = PipelinedExecutor(self)
 
     @staticmethod
     def _load_conf(conf_str: str):
@@ -282,6 +290,11 @@ class Scheduler:
                 log.error("fold audit FAILED (%d diffs; fold demoted to "
                           "snapshot-primary): %s", len(diffs), diffs[:4])
                 flight.maybe_dump_on_failure("fold-audit")
+        if self._pipeline is not None and self._pipeline.active():
+            # the previous cycle's in-flight solve is consumed first and
+            # the allocate action dispatches without reading back
+            self._pipeline.run_once(snapshot)
+            return
         try:
             with obs.span("session", cat="e2e") as session_span:
                 ssn = OpenSession(self.cache, self.tiers,

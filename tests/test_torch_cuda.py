@@ -1161,6 +1161,140 @@ def test_two_level_cycles_on_the_card_bind_what_the_cpu_binds(monkeypatch):
     assert out["cuda"][1] and not out["cuda"][2]
 
 
+# ---- the pipelined executor's in-place launch and deferred copy ----------
+
+def _clone_carry(args):
+    from kubebatch_tpu_torch.kernels.batched import NODE_ARGS
+
+    return dict(args, **{k: args[k].clone() for k in NODE_ARGS[:4]})
+
+
+@pytest.mark.parametrize("grain", [0, 1024, 4096])
+def test_activeset_inplace_launch_matches_cloning_and_plain(grain):
+    """The in-place active-set launch writes the carry it was given, and
+    its packed result and carry equal the cloning launch's and the plain
+    version's bit for bit; an aliased or non-contiguous carry raises."""
+    from kubebatch_tpu_torch.kernels.activeset import (
+        activeset_allocate_plain, activeset_packed, activeset_packed_inplace,
+        prepare_activeset)
+    from kubebatch_tpu_torch.kernels.batched import NODE_ARGS
+
+    _need_cuda()
+    args, statics, _ = prepare_activeset(_hier_inputs((REDUCED5_B, None)),
+                                         grain=grain, pool_size=8)
+    want = activeset_allocate_plain(**_on_cpu(args), **statics)
+    cloning = activeset_packed(**_clone_carry(args), **statics)
+    mine = _clone_carry(args)
+    n0 = _build.launch_count("activeset_allocate_inplace")
+    got = activeset_packed_inplace(**mine, **statics)
+    torch.cuda.synchronize()
+    assert _build.launch_count("activeset_allocate_inplace") == n0 + 1
+    assert all(g is mine[k] for g, k in zip(got[1:], NODE_ARGS[:4]))
+    _assert_bitwise(want, [x.cpu() for x in got], "in place vs plain")
+    _assert_bitwise([x.cpu() for x in cloning], [x.cpu() for x in got],
+                    "in place vs cloning")
+    aliased = _clone_carry(args)
+    aliased["backfilled"] = aliased["idle"]
+    with pytest.raises(ValueError, match="overlaps"):
+        activeset_packed_inplace(**aliased, **statics)
+    strided = _clone_carry(args)
+    strided["idle"] = strided["idle"].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        activeset_packed_inplace(**strided, **statics)
+
+
+def test_deferred_copy_is_counted_once():
+    """A DeferredCopy of a card tensor counts no blocking readback, one
+    deferred readback at its wait, returns the tensor's values, times
+    the copy, and refuses a second read."""
+    from kubebatch_tpu_torch.device import DeferredCopy
+
+    _need_cuda()
+    src = torch.arange(4099, dtype=torch.int32, device="cuda")
+    rb0, dr0 = metrics.blocking_readbacks(), metrics.deferred_readbacks()
+    copy = DeferredCopy(src * 3)
+    assert metrics.deferred_readbacks() == dr0
+    host, wait_ms = copy.wait()
+    assert metrics.deferred_readbacks() == dr0 + 1
+    assert metrics.blocking_readbacks() == rb0
+    assert np.array_equal(host, np.arange(4099, dtype=np.int32) * 3)
+    assert wait_ms >= 0.0 and copy.device_ms() >= 0.0
+    with pytest.raises(RuntimeError):
+        copy.wait()
+
+
+def test_pipelined_scheduler_on_the_card_equals_sequential():
+    """Scheduler(pipeline=True) on a CUDA cache (the active set, audit
+    off) binds what its sequential twin binds, cycle for cycle after a
+    drain; every dispatch is one in-place launch consumed by one
+    deferred readback, with no blocking readback on the pipelined
+    cycles."""
+    _need_cuda()
+    out = pipelined_run("cuda")
+    assert out[True][0] == out[False][0] and out[True][0]
+    cycles, deferred, blocking, inplace = out[True][1]
+    assert cycles == deferred == inplace == 4 and blocking == 0
+    assert out[False][1][:2] == [0, 0]
+
+
+#: roomy: every cold pod binds, so each churn tick recycles gangs bound
+#: cycles before and both loops see the same events
+ROOMY = ClusterSpec(n_nodes=64, n_groups=48, pods_per_group=4, n_queues=2,
+                    queue_weights=(1, 2), pod_cpu_millis=500,
+                    pod_mem_bytes=GiB, jitter=0.2, seed=3)
+
+
+def pipelined_run(device):
+    """ROOMY through Scheduler(pipeline=True) and its sequential twin on
+    ``device``: cold, one cycle with no churn, three churn-32 cycles
+    (kubelet ticks between), then a drain. Per loop: (sorted binds, moves of pipeline_cycles_total,
+    deferred_readbacks, blocking_readbacks and in-place launches)."""
+    from kubebatch_tpu_torch.kernels import activeset
+    from kubebatch_tpu_torch.runtime import Scheduler, pipeline
+
+    out = {}
+    try:
+        for piped in (True, False):
+            activeset.reset()
+            pipeline.reset()
+            binder = _Binder()
+            sim = build_cluster(ROOMY)
+            cache = SchedulerCache(binder=binder, async_writeback=False,
+                                   device=device)
+            sim.populate(cache)
+            sched = Scheduler(cache, schedule_period=3600.0,
+                              pipeline=piped, solver="activeset",
+                              solve_audit_every=0)
+            c0 = (metrics.pipeline_cycles_total(),
+                  metrics.deferred_readbacks(), metrics.blocking_readbacks(),
+                  _build.launch_count("activeset_allocate_inplace"))
+            for k in range(5):
+                if k:
+                    for pod in sim.pods:
+                        if pod.node_name and pod.phase == PodPhase.PENDING:
+                            pod.phase = PodPhase.RUNNING
+                            cache.update_pod(pod, pod)
+                    # the pipelined cold solve lands at cycle 1: churn
+                    # from there on (the oldest gangs, bound in both)
+                    if k > 1:
+                        assert sim.churn_tick(cache, 32,
+                                              arrival_queue=k % 2) == 32
+                assert sched.run_cycle()
+            if piped:
+                sched._pipeline.drain()
+            c1 = (metrics.pipeline_cycles_total(),
+                  metrics.deferred_readbacks(), metrics.blocking_readbacks(),
+                  _build.launch_count("activeset_allocate_inplace"))
+            out[piped] = (sorted(binder.calls),
+                          [b - a for a, b in zip(c0, c1)])
+            cache.stop()
+    finally:
+        activeset.reset()
+        activeset.set_audit_every(activeset.DEFAULT_AUDIT_EVERY)
+        pipeline.reset()
+    return out
+
+
 # ---- the unschedulability explainer (csrc/explain_counts.cu) -------------
 
 def _explain_case(t, n, pt, seed, kind="random"):

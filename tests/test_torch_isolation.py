@@ -53,6 +53,7 @@ def test_port_imports_without_jax_or_reference_package():
                  "kubebatch_tpu_torch.actions.allocate_batched",
                  "kubebatch_tpu_torch.kernels.solver",
                  "kubebatch_tpu_torch.actions.allocate",
+                 "kubebatch_tpu_torch.runtime.pipeline",
                  "kubebatch_tpu_torch.cache.cache",
                  "kubebatch_tpu_torch.interop",
                  "kubebatch_tpu_torch.sim.cluster",

@@ -459,13 +459,26 @@ def test_latency_lane_arrivals_match_reference():
 
 def test_unported_options_raise():
     cache = TCache(async_writeback=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        TScheduler(cache, pipeline=True)
     for mode, item in (("rpc", "A8"), ("native", "A7"), ("sharded", "B14")):
         with pytest.raises(NotImplementedError, match=item):
             TAllocate(mode=mode)
         with pytest.raises(NotImplementedError, match=item):
             TScheduler(cache, solver=mode)
+
+
+def test_pipeline_option_builds_the_executor():
+    """``pipeline=True`` (the reference's KUBEBATCH_PIPELINE) builds the
+    pipelined executor, active and empty; without it there is none."""
+    from kubebatch_tpu_torch.runtime.pipeline import PipelinedExecutor
+
+    cache = TCache(async_writeback=False, device="cpu")
+    sched = TScheduler(cache, pipeline=True)
+    assert sched.pipeline_enabled
+    assert isinstance(sched._pipeline, PipelinedExecutor)
+    assert sched._pipeline.sched is sched
+    assert sched._pipeline.active() and sched._pipeline.pending is None
+    plain = TScheduler(cache)
+    assert not plain.pipeline_enabled and plain._pipeline is None
 
 
 def test_solver_argument_sets_the_allocate_mode(monkeypatch):
