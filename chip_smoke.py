@@ -149,6 +149,22 @@ plain version and its work counters; per cycle the host walls
 time and the deferred copy are printed, and the launch is timed in
 place against cloning at each grain.
 
+Phase (k) is the node-sharded engines (kernels/batched_sharded.py,
+kernels/sharded.py): k = 2 and 4 ranks of a gloo process group on the
+one card, rank 0 here and k - 1 solver workers spawned through
+kubebatch_tpu_torch/parallel/worker.py (each reports that it imported no
+jax). cfg5 cold through ``AllocateAction(mode="sharded", mesh=...)``
+must bind and leave statuses exactly as a one-card batched twin with
+``compact_bucket=0`` does, with only csrc/sharded_round.cu launched and
+the same launch count on every rank; the same cold inputs then run
+again with every rank holding each launch bitwise against the plain
+version on its own inputs. At k = 2 ``Scheduler(mesh=...)`` in auto
+takes a cold cycle and two churn-256 cycles (sharded, fused, fused); at
+k = 4 the explicit-collective scan runs at T 256 x N_pad 8,192
+(csrc/sharded_scan.cu, one launch a step), checked the same way and
+against the plain ranks. Per rank: launches, device ms by step,
+collectives, stages and their host ms.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -4119,6 +4135,399 @@ def pipeline_phase(dev, spec6, churns=(256,) * 8 + (1024,) * 2) -> dict:
         "checked_launches": len(checks)}
 
 
+def sharded_bounds(node, rep, packed, carry, stats, pipe: bool,
+                   world: int) -> dict:
+    """Rank 0's roofline in the sharded solve, beside rank 0's kernel ms:
+    its node block's inputs, the replicated inputs, the packed result
+    and its block of the carry, each moved once, over the memory rate,
+    against the row-pass and pair-score cells over the block's real
+    nodes (``node_ok``, not the padded bucket) for the task rows and
+    rounds the one-card plain engine counted on the same inputs, over
+    the float32 rate (the same cells as ``batched_bounds``)."""
+    import numpy as np
+
+    n_sh = node["idle"].shape[0]
+    nb = n_sh // world
+    block = {k: (v[:, :nb] if k in ("sig_scores", "sig_pred") else v[:nb])
+             for k, v in node.items()}
+    n_real = int(np.asarray(block["node_ok"]).sum())
+    p_pad = rep["pair_sig"].shape[0]
+    nbytes = sum(a.nbytes for a in block.values()) + sum(
+        a.nbytes for a in rep.values())
+    nbytes += packed.numel() * 4 + carry[:nb].numel() * 4
+    per_cell = OPS_PER_CELL_BATCHED + (OPS_PER_CELL_PIPE if pipe else 0)
+    ops = (stats["rows"] * n_real * per_cell
+           + stats["rounds"] * p_pad * n_real * OPS_PER_PAIR_CELL)
+    b_ms, b_by = bound(nbytes, ops)
+    return {"bytes": nbytes, "ops": ops, "rows": stats["rows"],
+            "block": nb, "block_real_nodes": n_real,
+            "rounds_run": stats["rounds"], "bound_ms": b_ms, "bound_by": b_by}
+
+
+def sharded_scan_bounds(args, out, world: int) -> dict:
+    """Rank 0's roofline over the whole scan, beside rank 0's kernel ms
+    over all its launches: its block of the node inputs and of the
+    [T, N] rows, the replicated task inputs and its share of the
+    outputs, each moved once, over the memory rate, against
+    OPS_PER_NODE_SCAN per real node (``node_ok``) of its block per task
+    step, over the float32 rate."""
+    import numpy as np
+
+    n = args["node_ok"].shape[0]
+    nb = n // world
+    t_steps = args["resreq"].shape[0]
+    n_real = int(np.asarray(args["node_ok"][:nb]).sum())
+    nbytes = 0
+    for a in args.values():
+        a = np.asarray(a)
+        if a.ndim and n in a.shape:
+            nbytes += a.nbytes // world
+        else:
+            nbytes += a.nbytes
+    for o in out:
+        size = o.numel() * o.element_size()
+        nbytes += size // world if o.dim() and o.shape[0] == n else size
+    b_ms, b_by = bound(nbytes, t_steps * n_real * OPS_PER_NODE_SCAN)
+    return {"bytes": nbytes, "block": nb, "block_real_nodes": n_real,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def same_frame(got, want) -> bool:
+    """Two telemetry frames agree but for the engine id and the narrow
+    words (the sharded engine sets those by the per-shard policy)."""
+    return got[1:12] == want[1:12] and got[14:] == want[14:]
+
+
+#: float32 compares and adds per node of one scan step (sharded_scan.cu:
+#: idle + bf, three fit tests of three compares each, the score select)
+OPS_PER_NODE_SCAN = 13
+
+
+def scan_args(n: int, t: int, seed: int) -> dict:
+    """The sharded scan's inputs (kernels/sharded.py INPUTS) at n nodes
+    and t tasks, contended, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    args = dict(
+        idle=rng.uniform(20, 120, (n, 3)).astype(np.float32),
+        releasing=np.where(rng.random((n, 1)) < 0.3,
+                           rng.uniform(10, 80, (n, 3)), 0).astype(np.float32),
+        backfilled=np.where(rng.random((n, 1)) < 0.2,
+                            rng.uniform(5, 30, (n, 3)), 0).astype(np.float32),
+        max_task_num=rng.integers(1, 4, n).astype(np.int32),
+        n_tasks=rng.integers(0, 2, n).astype(np.int32),
+        node_ok=rng.random(n) < 0.95,
+        resreq=rng.uniform(10, 90, (t, 3)).astype(np.float32),
+        task_valid=np.ones(t, bool),
+        scores=np.round(rng.normal(size=(t, n)) * 4).astype(np.float32),
+        pred_mask=rng.random((t, n)) < 0.7,
+        min_available=np.int32(t // 2), init_allocated=np.int32(0))
+    args["init_resreq"] = args["resreq"].copy()
+    return args
+
+
+def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
+                  scan_shape=(256, 8192)) -> list:
+    """(k) the node-sharded engines: k ranks of a gloo group on the one
+    card (rank 0 here, k - 1 spawned solver workers). For each k, cfg5
+    cold through AllocateAction(mode="sharded", mesh=...) (binds and
+    statuses equal to the one-card batched solve with compact_bucket=0),
+    then the same cold inputs once more with every rank holding each
+    launch bitwise against the plain version; at k = 2 Scheduler(mesh=...)
+    in auto, cold and two churn cycles (sharded, fused, fused); at k = 4
+    the scan at T x N_pad ``scan_shape``. Returns the kernels line's rows
+    10 and 11."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kubebatch_tpu_torch import metrics
+    from kubebatch_tpu_torch.actions import allocate as allocate_mod
+    from kubebatch_tpu_torch.actions import allocate_batched
+    from kubebatch_tpu_torch.actions.allocate import AllocateAction
+    from kubebatch_tpu_torch.actions.cycle_inputs import build_cycle_inputs
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import shipped_tiers
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.kernels import _build
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+    from kubebatch_tpu_torch.kernels import sharded as sh
+    from kubebatch_tpu_torch.kernels.batched import (CYCLE_ARGS, NODE_ARGS,
+                                                     arg_dtype,
+                                                     batched_allocate_plain)
+    from kubebatch_tpu_torch.objects import PodPhase
+    from kubebatch_tpu_torch.parallel import worker
+    from kubebatch_tpu_torch.runtime.scheduler import Scheduler
+    from kubebatch_tpu_torch.sim import build_cluster
+
+    t_phase = time.perf_counter()
+
+    def cold_cache():
+        sim = build_cluster(spec5)
+        binder = RecordingBinder()
+        cache = SchedulerCache(device=dev, binder=binder,
+                               async_writeback=False,
+                               incremental_snapshot=False)
+        sim.populate(cache)
+        return sim, cache, binder
+
+    def statuses(cache):
+        return {f"{t.namespace}/{t.name}": (t.status.name, t.node_name)
+                for j in cache.jobs.values() for t in j.tasks.values()}
+
+    # the one-card twin: the batched kernel with compact_bucket=0
+    _, cache0, binder0 = cold_cache()
+    inner = allocate_batched.solve_batched
+
+    def no_compact(inputs, **kw):
+        kw["compact_bucket"] = 0
+        return inner(inputs, **kw)
+
+    allocate_batched.solve_batched = no_compact
+    try:
+        ssn = OpenSession(cache0, shipped_tiers())
+        AllocateAction(mode="batched").execute(ssn)
+        CloseSession(ssn)
+    finally:
+        allocate_batched.solve_batched = inner
+    twin_kernel_ms = allocate_batched.last_phases["kernel"]
+    want_status, want_binds = statuses(cache0), list(binder0.calls)
+    want_telem = allocate_batched.last_solve["telemetry"]
+    cache0.stop()
+    log(f"(k) twin: cfg5 cold batched, compact_bucket=0: "
+        f"{len(want_binds)} binds, kernel {twin_kernel_ms:.3f} ms (events)")
+
+    runs, scan = {}, None
+    store_dir = tempfile.mkdtemp(prefix="kb_mesh_")
+    for k in worlds:
+        t0 = time.perf_counter()
+        group = worker.launch(k, os.path.join(store_dir, f"store{k}"),
+                              device=str(dev), timeout=300)
+        with group:
+            mesh = group.mesh
+            spawn_s = time.perf_counter() - t0
+            facts = worker.request_status(mesh)
+            if any(f["jax"] or f["kubebatch_tpu"] for f in facts):
+                raise AssertionError(f"(k) a rank imported the reference "
+                                     f"side: {facts}")
+            staged = dict(mesh.staged)
+            # the main path: cfg5 cold through the sharded mode
+            _, cache, binder = cold_cache()
+            _build.reset_launch_counts()
+            rb0 = metrics.blocking_readbacks()
+            dem0 = metrics.engine_demotions_total()
+            t0 = time.perf_counter()
+            ssn = OpenSession(cache, shipped_tiers())
+            AllocateAction(mode="sharded", mesh=mesh).execute(ssn)
+            CloseSession(ssn)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches0 = _build.launch_count("sharded_round")
+            batched_launches = _build.launch_count("batched_allocate")
+            engine = allocate_mod.last_cycle_engine
+            ranks = bs.last_solve["ranks"]
+            solve_ms = bs.last_solve["wall_ms"]
+            readbacks = metrics.blocking_readbacks() - rb0
+            if engine != "sharded" or batched_launches or (
+                    dev.type == "cuda" and not launches0):
+                raise AssertionError(f"(k) k={k}: engine {engine}, "
+                                     f"{batched_launches} batched launches")
+            if metrics.engine_demotions_total() != dem0:
+                raise AssertionError(f"(k) k={k}: an engine demotion")
+            if launches0 != ranks[0]["launches"] or any(
+                    r["launches"] != launches0 for r in ranks):
+                raise AssertionError(f"(k) k={k}: launches "
+                                     f"{[r['launches'] for r in ranks]}")
+            got_telem = allocate_batched.last_solve["telemetry"]
+            if statuses(cache) != want_status or binder.calls != want_binds:
+                raise AssertionError(f"(k) k={k}: binds / statuses differ "
+                                     f"from the one-card batched solve")
+            if not same_frame(got_telem, want_telem) or got_telem[0] != 5:
+                raise AssertionError(f"(k) k={k}: frame {got_telem} vs the "
+                                     f"twin's {want_telem}")
+            cache.stop()
+            # the same cold inputs, every launch on every rank against
+            # the plain version on that rank's inputs (raises on any
+            # difference, after every rank has finished)
+            _, cache_c, _ = cold_cache()
+            inputs_c = build_cycle_inputs(OpenSession(cache_c,
+                                                      shipped_tiers()))
+            t0 = time.perf_counter()
+            res_c = bs.solve_batched_sharded(mesh, inputs_c.device, inputs_c,
+                                             check=True)
+            check_s = time.perf_counter() - t0
+            checked = bs.last_solve["ranks"]
+            placed = int(np.isin(res_c[0], [1, 2, 3]).sum())
+            if placed != len(want_binds) or not same_frame(
+                    res_c[4].tolist(), want_telem):
+                raise AssertionError(f"(k) k={k}: checked run placed "
+                                     f"{placed}, frame {res_c[4].tolist()}")
+            rounds = res_c[3]
+            per_rank = [{
+                "launches": r["launches"],
+                "kernel_ms": round(sum(r["kernel_ms"].values()), 6),
+                "kernel_ms_per_round": round(
+                    sum(r["kernel_ms"].values()) / rounds, 6),
+                "by_step": {s: round(v, 6) for s, v in r["kernel_ms"].items()},
+                "collectives": r["collectives"], "stages": r["stages"],
+                "collective_ms": round(r["collective_ms"], 6),
+                "collective_ms_per_round": round(
+                    r["collective_ms"] / rounds, 6),
+                "wall_ms": round(r["wall_ms"], 6)} for r in ranks]
+            runs[k] = {"wall_ms": wall_ms, "solve_ms": solve_ms,
+                       "rounds": rounds, "readbacks": readbacks,
+                       "launches": sum(r["launches"] for r in ranks),
+                       "per_rank": per_rank, "staged": staged,
+                       "spawn_s": spawn_s, "check_s": check_s,
+                       "compared": [r["compared"] for r in checked]}
+            cache_c.stop()
+            log(f"(k) k={k}: cfg5 cold sharded == one-card batched "
+                f"(compact_bucket=0): {len(want_binds)} binds, statuses "
+                f"equal, {rounds} rounds; action wall {wall_ms:.1f} ms, "
+                f"solve {solve_ms:.1f} ms; {readbacks} counted readbacks; "
+                f"transport {staged}; spawn {spawn_s:.1f} s; every launch "
+                f"on every rank bitwise the plain version "
+                f"({runs[k]['compared']} checks, {check_s:.1f} s); per rank "
+                + json.dumps(per_rank))
+            if k == worlds[0]:
+                sim_s, cache_s, _ = cold_cache()
+                sched = Scheduler(cache_s, schedule_period=3600.0, mesh=mesh)
+                engines, binds = [], []
+                for cyc in range(3):
+                    if cyc:
+                        for pod in sim_s.pods:
+                            if pod.node_name and \
+                                    pod.phase == PodPhase.PENDING:
+                                pod.phase = PodPhase.RUNNING
+                                cache_s.update_pod(pod, pod)
+                        if sim_s.churn_tick(cache_s, churn) != churn:
+                            raise AssertionError("(k) churn short")
+                    b0 = binding_count(cache_s)
+                    t0 = time.perf_counter()
+                    if not sched.run_cycle():
+                        raise AssertionError(f"(k) scheduler cycle {cyc} "
+                                             f"failed")
+                    cache_s.drain(timeout=60.0)
+                    engines.append((allocate_mod.last_cycle_engine,
+                                    round((time.perf_counter() - t0) * 1e3,
+                                          3)))
+                    binds.append(binding_count(cache_s) - b0)
+                if [e for e, _ in engines] != ["sharded", "fused", "fused"] \
+                        or binds != [len(want_binds), churn, churn]:
+                    raise AssertionError(f"(k) scheduler engines {engines}, "
+                                         f"binds {binds}")
+                runs[k]["scheduler"] = engines
+                cache_s.stop()
+                log(f"(k) Scheduler(mesh=k={k}) auto: engines and cycle ms "
+                    f"{engines}, binds {binds}")
+            if k == worlds[-1]:
+                t_steps, n = scan_shape
+                args = scan_args(n, t_steps, seed=0)
+                run = sh.build_sharded_allocate(mesh)
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = run(*(args[name] for name in sh.INPUTS))
+                scan_wall = (time.perf_counter() - t0) * 1e3
+                scan_ranks = sh.last_scan["ranks"]
+                scan_launches = _build.launch_count("sharded_scan")
+                if dev.type == "cuda" and any(
+                        r["launches"] != t_steps + 1 for r in scan_ranks):
+                    raise AssertionError(f"(k) scan launches "
+                                         f"{[r['launches'] for r in scan_ranks]}")
+                checked_run = sh.build_sharded_allocate(mesh, check=True)
+                out_c = checked_run(*(args[name] for name in sh.INPUTS))
+                for a, b in zip(out, out_c):
+                    if not torch.equal(a.cpu(), b.cpu()):
+                        raise AssertionError("(k) scan: checked run differs")
+                t0 = time.perf_counter()
+                want, _ = sh.scan_lockstep(args, k, "cpu")
+                scan_plain_ms = (time.perf_counter() - t0) * 1e3
+                for a, b in zip(out, want):
+                    if not torch.equal(a.cpu(), b.cpu()):
+                        raise AssertionError("(k) scan differs from plain")
+                sb = sharded_scan_bounds(args, out, k)
+                scan = {"wall_ms": scan_wall,
+                        "per_step_ms": scan_wall / t_steps,
+                        "kernel_ms": scan_ranks[0]["kernel_ms"],
+                        "kernel_ms_per_launch":
+                            scan_ranks[0]["kernel_ms"] / (t_steps + 1),
+                        "collective_ms_per_step":
+                            scan_ranks[0]["collective_ms"] / t_steps,
+                        "collectives": scan_ranks[0]["collectives"],
+                        "stages": scan_ranks[0]["stages"],
+                        "launches": sum(r["launches"] for r in scan_ranks),
+                        "rank0_launches": scan_launches,
+                        "plain_ms": scan_plain_ms,
+                        "bound_ms": sb["bound_ms"],
+                        "bound_by": sb["bound_by"], "bytes": sb["bytes"],
+                        "block_real_nodes": sb["block_real_nodes"],
+                        "placed": int((out[0] > 0).sum())}
+                log(f"(k) scan k={k} T {t_steps} x N_pad {n}: "
+                    + json.dumps({a: (round(b, 6) if isinstance(b, float)
+                                      else b) for a, b in scan.items()})
+                    + "; every launch bitwise the plain version, result "
+                      "== the plain ranks'")
+    # plain versions' times: the sharded plain ranks in lock step on the
+    # host CPU at the first k, and the one-card plain's row counts (the
+    # bound's work)
+    _, cache_p, _ = cold_cache()
+    inputs_p = build_cycle_inputs(OpenSession(cache_p, shipped_tiers()))
+    k0 = worlds[0]
+    node, rep, statics, n_sh = bs.prepare_sharded(k0, inputs_p.device,
+                                                  inputs_p)
+    t0 = time.perf_counter()
+    packed_p, carry_p, _ = bs.solve_lockstep(node, rep, statics, n_sh, k0,
+                                             "cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    tens = {name: torch.from_numpy(np.ascontiguousarray(v)).to(arg_dtype(name))
+            for name, v in {**node, **rep}.items()}
+    stats = {}
+    one = batched_allocate_plain(**{name: tens[name]
+                                    for name in NODE_ARGS + CYCLE_ARGS},
+                                 compact_bucket=0, stats=stats, **statics)
+    if not torch.equal(one[0][:3 * inputs_p.task_valid.shape[0] + 1],
+                       packed_p[:3 * inputs_p.task_valid.shape[0] + 1]):
+        raise AssertionError("(k) plain sharded != one-card plain at cfg5")
+    cache_p.stop()
+    sb = sharded_bounds(node, rep, packed_p, carry_p, stats,
+                        bool(statics["pipe_enabled"]), k0)
+    r0 = runs[k0]["per_rank"][0]
+    log(f"(k) sharded_round cfg5: rank 0's bound at k={k0} "
+        f"{sb['bound_ms']:.6f} ms ({sb['bound_by']}: {sb['bytes']} B, "
+        f"{sb['ops']} operations, {sb['rows']} task rows over "
+        f"{sb['block_real_nodes']} real nodes of its {sb['block']}, "
+        f"{sb['rounds_run']} rounds); plain "
+        f"ranks in lock step at k={k0} {plain_ms:.0f} ms on the host CPU; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return [
+        {"name": "sharded_round", "route": "cuda",
+         "source": "kubebatch_tpu_torch/kernels/csrc/sharded_round.cu",
+         "replaces": "kubebatch_tpu/kernels/batched_sharded.py:130",
+         "launches": runs[k0]["launches"], "max_abs_err": 0.0,
+         "ms": r0["kernel_ms"], "plain_ms": plain_ms, "plain_device": "cpu",
+         "plain_is": f"the {k0} plain ranks in lock step (the whole solve)",
+         "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+         "library_ms": None, "ms_is": f"rank 0's device ms over its "
+         f"launches of the main-path solve at k={k0}",
+         "bound_is": f"rank 0's work in that solve: its node block's real "
+         f"nodes ({sb['block_real_nodes']} of {sb['block']})",
+         "twin_batched_kernel_ms": twin_kernel_ms,
+         "runs": {str(k): v for k, v in runs.items()}},
+        {"name": "sharded_scan", "route": "cuda",
+         "source": "kubebatch_tpu_torch/kernels/csrc/sharded_scan.cu",
+         "replaces": "kubebatch_tpu/kernels/sharded.py:113",
+         "launches": scan["launches"], "max_abs_err": 0.0,
+         "ms": scan["kernel_ms"], "plain_ms": scan["plain_ms"],
+         "plain_device": "cpu", "bound_ms": scan["bound_ms"],
+         "bound_by": scan["bound_by"], "library_ms": None,
+         "ms_is": "rank 0's device ms over its launches of the whole scan",
+         "bound_is": "rank 0's work over the whole scan: its node block's "
+                     "real nodes, every task step",
+         "scan": scan},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -4463,6 +4872,7 @@ def main() -> int:
         BASELINE_SPECS[5], BASELINE_SPECS["5p"], BASELINE_SPECS["3p"]))
     kernels.append(tenant_phase(dev))
     kernels.append(pipeline_phase(dev, BASELINE_SPECS[6]))
+    kernels += sharded_phase(dev, BASELINE_SPECS[5])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -4,11 +4,10 @@ Solver modes (constructor arg; the scheduler loop's ``solver=``):
 - "auto" (default): the reference package's size-based choice — at or
   above AUTO_HIER_MIN_NODES nodes "hier" (with the active-set engine
   allowed to claim steady cycles first), below it "fused" under
-  AUTO_BATCHED_MIN pending tasks and "batched" at or above. The
-  reference runs its sharded round engine instead of batched when it
-  sees more than one device and a large node axis; this package has no
-  sharded engine (ROADMAP queue A, multi-device), so it picks "batched"
-  on any number of visible cards.
+  AUTO_BATCHED_MIN pending tasks and "batched" at or above, upgraded to
+  "sharded" at AUTO_SHARDED_MIN_NODES nodes or more when the action has
+  a node mesh of more than one rank (the reference: more than one
+  visible device).
 - "fused": the whole cycle as ONE device solve (kernels/fused.py) —
   queue/job/task selection and fairness state live in the solve, bit-exact
   vs the host heap algorithm; the host replays the decisions through
@@ -19,9 +18,18 @@ Solver modes (constructor arg; the scheduler loop's ``solver=``):
   Exact in capacity, predicates and gang semantics, round-granular in
   ordering (its docstring states the contract). It carries inter-pod
   affinity and host ports (kernels/affinity.py); "fused" does not.
+- "sharded": the round engine with its node axis split over the
+  action's node mesh (kernels/batched_sharded.py; ranks > 0 serve,
+  parallel/worker.py). No mesh or a one-rank mesh demotes to "batched"
+  (counted). The sharded engine does not carry affinity yet (ROADMAP
+  queue B, B14a's affinity branch): an affinity cycle under mode
+  "sharded" raises NotImplementedError naming it; one that auto's
+  upgrade sent there runs "batched", counted as a ("sharded",
+  "batched") demotion.
 - "hier": the two-level engine (kernels/hier.py): the round engine run
   wave by wave on one node pool at a time, as ONE device solve. An
-  affinity cycle demotes to "batched" (counted), as in the reference.
+  affinity cycle demotes to "batched" (counted), as in the reference,
+  or with a node mesh to "sharded", and from there as above.
 - "activeset": the active-set engine (kernels/activeset.py) claims the
   cycle when its active set fits a grain, else "hier" runs.
 - "jax": one device scan per job visit (kernels/solver.py
@@ -30,7 +38,7 @@ Solver modes (constructor arg; the scheduler loop's ``solver=``):
   loops — the route of every cycle whose plugins no whole-cycle engine
   expresses.
 - "host": the reference-literal per-pair loops — the semantic oracle.
-- "rpc", "native" and "sharded" as requests: not in this package
+- "rpc" and "native" as requests: not in this package
   (NotImplementedError naming their ROADMAP items). The rpc mode's wire
   and the tenant solve service are ported (rpc/, tenantsvc/); what it
   still lacks is the grpc transport.
@@ -80,7 +88,13 @@ AUTO_BATCHED_MIN = 512
 #: ... and to its two-level engine at this many nodes
 AUTO_HIER_MIN_NODES = 16384
 
-MODES = ("auto", "fused", "batched", "hier", "activeset", "jax", "host")
+#: auto mode upgrades batched -> sharded when a node mesh of more than
+#: one rank is attached AND the node axis is at least this large (the
+#: reference's threshold, keyed on its visible device count)
+AUTO_SHARDED_MIN_NODES = 512
+
+MODES = ("auto", "fused", "batched", "sharded", "hier", "activeset", "jax",
+         "host")
 
 #: modes of the reference this package does not have, with the ROADMAP
 #: items that bring them
@@ -89,11 +103,11 @@ NOT_PORTED = {
            "codec and the tenant service are ported: sim/tenants.py drives "
            "a cycle through them in process)",
     "native": "the native packer, ROADMAP queue A, A7",
-    "sharded": "the sharded engines, ROADMAP queue A, A10; queue B, B14",
 }
 
 #: engine that consumed the last allocate cycle in this process
-#: ("fused" / "batched" / "hier" / "activeset" / "<mode>-visit" /
+#: ("fused" / "batched" / "sharded" / "hier" / "activeset" /
+#: "<mode>-visit" /
 #: "host-visit") — a fallback
 #: off the whole-cycle engines shows here
 last_cycle_engine: str = ""
@@ -124,8 +138,16 @@ def _init_allocated(job: JobInfo) -> int:
 
 
 class AllocateAction(Action):
-    def __init__(self, mode: Optional[str] = None):
+    """``mesh``: a node mesh (parallel/mesh.py) on rank 0 of a group
+    whose other ranks serve (parallel/worker.py); with one of more than
+    one rank, mode "sharded" and the auto upgrade run the node-sharded
+    engine (kernels/batched_sharded.py) over it. Without one, "sharded"
+    demotes to batched, counted, as on the reference's one-device
+    host."""
+
+    def __init__(self, mode: Optional[str] = None, mesh=None):
         mode = mode or "auto"
+        self.mesh = mesh
         if mode in NOT_PORTED:
             raise NotImplementedError(
                 f"allocate mode {mode!r} needs {NOT_PORTED[mode]}: not "
@@ -138,18 +160,26 @@ class AllocateAction(Action):
     def name(self) -> str:
         return "allocate"
 
-    @staticmethod
-    def _auto_mode(ssn: Session) -> str:
+    def _auto_mode(self, ssn: Session) -> str:
         """Size-based engine selection with the reference package's
         thresholds, keyed on the node axis first: a cluster-scale axis
-        runs the two-level family at every churn level. No sharded
-        engine here: "batched" on any number of visible cards."""
+        runs the two-level family at every churn level; a batched-sized
+        cycle on a node axis of AUTO_SHARDED_MIN_NODES or more runs
+        sharded when the action's mesh has more than one rank (the
+        reference: more than one visible device)."""
+        from ..parallel.mesh import world_size
+
         if len(ssn.nodes) >= AUTO_HIER_MIN_NODES:
             return "hier"
         pending = sum(
             len(j.task_status_index.get(TaskStatus.PENDING, {}))
             for j in ssn.jobs.values())
-        return "batched" if pending >= AUTO_BATCHED_MIN else "fused"
+        if pending < AUTO_BATCHED_MIN:
+            return "fused"
+        if len(ssn.nodes) >= AUTO_SHARDED_MIN_NODES \
+                and world_size(self.mesh) > 1:
+            return "sharded"
+        return "batched"
 
     def execute(self, ssn: Session) -> None:
         global last_cycle_engine
@@ -166,7 +196,7 @@ class AllocateAction(Action):
             # split avoids) for the fused tier, as the reference does
             count_engine_demotion("batched", "fused")
             mode = "fused"
-        if mode in ("batched", "hier", "activeset", "fused"):
+        if mode in ("batched", "sharded", "hier", "activeset", "fused"):
             from .allocate_batched import execute_batched
             from .allocate_fused import execute_fused
             from .cycle_inputs import cycle_supported
@@ -182,12 +212,14 @@ class AllocateAction(Action):
                 ran = execute_batched(
                     ssn, hier=mode in ("hier", "activeset"),
                     activeset=(mode == "activeset"
-                               or (self.mode == "auto" and mode == "hier")))
+                               or (self.mode == "auto" and mode == "hier")),
+                    sharded=mode == "sharded", mesh=self.mesh,
+                    sharded_required=self.mode == "sharded")
             if ran:
                 last_cycle_engine = ran
                 return
             count_engine_demotion(mode, "visit")
-            if mode in ("hier", "activeset"):
+            if mode in ("hier", "activeset", "sharded"):
                 mode = "batched"
         self._execute_queued(ssn, mode)
 

@@ -8,9 +8,10 @@ per round instead of one per loop iteration (see its docstring for the
 faithfulness contract), with the inter-pod affinity / host-port
 vocabulary in its rounds; at cluster scale the two-level engine
 (kernels/hier.py) runs those rounds pool by pool, and on steady cycles
-the active-set engine (kernels/activeset.py) claims the cycle first. The
-reference package's sharded branch is not in this package (ROADMAP queue
-A, multi-device).
+the active-set engine (kernels/activeset.py) claims the cycle first; with
+a node mesh of more than one rank the sharded engine
+(kernels/batched_sharded.py) runs the rounds with the node axis split
+over it.
 """
 from __future__ import annotations
 
@@ -21,8 +22,10 @@ from ..faults import check as _fault_check
 from ..framework import Session
 from ..kernels import activeset as _activeset
 from ..kernels.batched import solve_batched
+from ..kernels.batched_sharded import solve_batched_sharded
 from ..kernels.hier import solve_hier
 from ..metrics import count_engine_demotion
+from ..parallel.mesh import world_size
 from .cycle_inputs import (EMPTY_CYCLE, build_cycle_inputs, cycle_supported,
                            replay_decisions)
 
@@ -40,7 +43,9 @@ last_solve: Dict[str, object] = {}
 
 
 def execute_batched(ssn: Session, hier: bool = False,
-                    activeset: bool = False, inputs=None):
+                    activeset: bool = False, inputs=None,
+                    sharded: bool = False, mesh=None,
+                    sharded_required: bool = False):
     """Run the whole allocate action as one solve. Returns the engine that
     ran ("activeset" / "hier" / "batched", truthy), or False — without
     consuming any state — when the snapshot has features the solves
@@ -55,6 +60,18 @@ def execute_batched(ssn: Session, hier: bool = False,
     in engine_demotions_total). ``activeset``: the active-set engine may
     claim the cycle first; it declines (and the two-level solve runs)
     for a cold-sized active set, inexact pairs, or once demoted.
+
+    ``sharded``: the node-sharded engine over ``mesh`` (rank 0 of a
+    node mesh, parallel/mesh.py); with no mesh or a one-rank mesh it
+    demotes to batched, counted, as the reference does on one device.
+    A hier cycle with affinity keeps the sharded upgrade when a mesh of
+    more than one rank is attached (the reference's demotion goes to its
+    sharded engine there). The sharded engine does not carry affinity
+    yet (batched_sharded.AFFINITY_ITEM): an affinity cycle that reached
+    it by an upgrade (auto's, or the hier demotion's) runs batched,
+    counted as a ("sharded", "batched") demotion; one whose caller asked
+    for it (``sharded_required``, mode "sharded") raises
+    NotImplementedError naming the ROADMAP item.
 
     ``inputs``: this session's CycleInputs when the caller built them
     already (the pipelined executor, falling back here when the
@@ -84,8 +101,22 @@ def execute_batched(ssn: Session, hier: bool = False,
             engine = "hier"
     elif hier:
         # the two-level engine has no affinity carry: the reference
-        # demotes the cycle to the flat batched engine
-        count_engine_demotion("hier", "batched")
+        # demotes the cycle to the flat engines, keeping the sharded
+        # upgrade when a mesh is there
+        sharded = world_size(mesh) > 1
+        count_engine_demotion("hier", "sharded" if sharded else "batched")
+    if res is None and sharded:
+        if world_size(mesh) > 1 and (inputs.affinity is None
+                                     or sharded_required):
+            t2 = time.perf_counter()
+            res = solve_batched_sharded(mesh, inputs.device, inputs)
+            phases["solve"] = (time.perf_counter() - t2) * 1e3
+            engine = "sharded"
+        else:
+            # one device (the mesh adds nothing), or an upgraded cycle
+            # with affinity the sharded engine cannot carry yet
+            # (AFFINITY_ITEM): the one-card engine runs
+            count_engine_demotion("sharded", "batched")
     if res is None:
         res = solve_batched(inputs, phases=phases)
     task_state, task_node, task_seq, rounds, telem = res

@@ -45,10 +45,15 @@ def on_card(cache) -> bool:
     return dev is not None and torch.device(dev).type == "cuda"
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor, out: torch.Tensor = None) -> np.ndarray:
     """The counted blocking device->host copy (for a CPU tensor a copy-free
-    view, counted all the same so the accounting is device-independent)."""
+    view, counted all the same so the accounting is device-independent).
+    ``out``: a host tensor of ``t``'s shape and dtype (a pinned staging
+    buffer) to copy into; the result is then a view of it."""
     count_blocking_readback()
+    if out is not None:
+        out.copy_(t.detach())
+        return out.numpy()
     return t.detach().cpu().numpy()
 
 

@@ -67,6 +67,13 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
     },
+    "sharded_round.cu": {
+        "kb_sharded_workspace": "pipp",
+        "kb_sharded_round": "pipi" + "iiii" + "pppp",
+    },
+    "sharded_scan.cu": {
+        "kb_sharded_scan": "pipi" + "pppp",
+    },
     "explain_counts.cu": {
         "kb_explain_counts": "p" * 10 + "i" * 4 + "p" * 2,
     },

@@ -609,35 +609,20 @@ def _pair_scores(state, a, dyn_enabled, weighted_fma: bool = False):
     return sc + dyn
 
 
-def _round(state: RoundState, a: CycleArrays, round_idx: int,
-           job_keys, queue_keys, prop_overused: bool, dyn_enabled: bool,
-           pipe_enabled: bool, seq_stride: int, stats=None,
-           elig_elsewhere=None, pair_init=None, weighted_fma: bool = False):
-    """One allocation round (reference ``_round``). Returns (new_state,
-    progress). ``stats`` (a dict), when given, counts the round and the
-    task rows of its two row passes.
-
-    The two-level solves (kernels/hier.py, kernels/activeset.py) run the
-    round on one node pool: ``state`` and ``a`` are then sliced to the
-    pool's nodes (the node window) and ``elig_elsewhere`` ([T] bool)
-    marks tasks eligible in another pool, which wait instead of failing
-    when the pool has no node for them. ``pair_init`` ([P,R]): the
-    active-set engine's exact-pair fold; every valid task's request row
-    equals its pair's (checked on the host), so eligibility and the
-    argmax are evaluated once a pair. ``weighted_fma``: the graph's
-    evaluation of the dynamic score's weighted sum
-    (xla_order.WEIGHTED_SUM_FMA)."""
+def _admit(state: RoundState, a: CycleArrays, job_keys, queue_keys,
+           prop_overused: bool, avail_pool):
+    """A round's ordering and demand window (reference ``_round`` steps 1
+    and the window): queue shares, the lexicographic job order, the
+    engaged tasks, the window over ``avail_pool`` ([R], the accessible
+    pool's column sums) and the per-queue budgets. Returns
+    (participating, order, global_rank)."""
     f32, i32 = torch.float32, torch.int32
     eps = torch.from_numpy(VEC_EPS)
-    t_pad = a.task_valid.shape[0]
-    n_pad = a.node_ok.shape[0]
     j_pad = a.job_valid.shape[0]
     q_pad = a.q_deserved.shape[0]
     tj = a.task_job.long()                   # -1 wraps to J-1, as in jnp
     tj0 = a.task_job.clamp(min=0).long()
     jq = a.job_queue.long()
-
-    # ---- 1. ordering ------------------------------------------------------
     overused = torch.zeros(q_pad, dtype=torch.bool)
     if prop_overused:
         overused = (a.q_deserved < state.q_allocated + eps).all(dim=-1)
@@ -662,13 +647,6 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
                & state.job_alive[tj] & a.job_valid[tj] & ~overused[jq[tj]])
 
     # ---- demand window ----------------------------------------------------
-    base = a.node_ok & (state.n_tasks < a.max_task_num)
-    avail_pool = column_sum(torch.where(
-        base[:, None], torch.maximum(state.idle + a.backfilled, _f32(0.0)),
-        _f32(0.0)))
-    if pipe_enabled:
-        avail_pool = avail_pool + column_sum(
-            torch.maximum(state.releasing, _f32(0.0)))
     job_demand = _segsum(torch.where(engaged[:, None], a.resreq, _f32(0.0)),
                          tj0, j_pad)
     eng_job = (job_demand > 0).any(dim=-1)
@@ -712,45 +690,60 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
     jr = torch.where(participating, job_sort_rank[tj],
                      torch.tensor(_IMAX, dtype=i32))
     order = _lexsort([a.task_rank, jr])
-    global_rank = _inverse(order)
+    return participating, order, _inverse(order)
 
-    # ---- 2. exact eligibility + 3. the masked argmax (one row pass) -------
-    sc = _pair_scores(state, a, dyn_enabled, weighted_fma)    # [P,N]
-    aff = _AffRound(state, a) if a.node_dom is not None else None
-    any_elig, fb, ip_scored = _row_pass(
-        state.idle, state.releasing, state.n_tasks, a, pipe_enabled, eps, sc,
-        participating, aff, pair_init)
-    fail_now = participating & ~any_elig
-    if aff is not None:
-        # a positive-affinity task whose group a same-cycle placement can
-        # still populate waits (stays SKIP) instead of killing its job
-        fail_now = fail_now & ~aff.could_wait
-    if elig_elsewhere is not None:
-        # a pool-restricted round: eligibility in another pool means
-        # waiting for a later wave, never FAIL
-        fail_now = fail_now & ~elig_elsewhere
+
+def _avail_pool(state: RoundState, a: CycleArrays, pipe_enabled: bool):
+    """The demand window's pool: per node max(idle + backfilled, 0) where
+    the node is ok and has room, and max(releasing, 0) with pipelining
+    ([N, R] each; the second None without)."""
+    base = a.node_ok & (state.n_tasks < a.max_task_num)
+    avail = torch.where(base[:, None],
+                        torch.maximum(state.idle + a.backfilled, _f32(0.0)),
+                        _f32(0.0))
+    rel = torch.maximum(state.releasing, _f32(0.0)) if pipe_enabled else None
+    return avail, rel
+
+
+def _pool_sums(avail, rel) -> torch.Tensor:
+    """[R] column sums of the pool in XLA's order (rel's added after)."""
+    pool = column_sum(avail)
+    return pool if rel is None else pool + column_sum(rel)
+
+
+def _settle(a: CycleArrays, participating, any_elig, fail_now, global_rank):
+    """The first failure of each job kills its later-ranked tasks:
+    (fail_first, job_killed, part2)."""
+    i32 = torch.int32
+    j_pad = a.job_valid.shape[0]
+    tj = a.task_job.long()
+    tj0 = a.task_job.clamp(min=0).long()
     fail_rank = torch.full((j_pad,), _IMAX, dtype=i32).scatter_reduce_(
         0, tj0, torch.where(fail_now, global_rank,
                             torch.tensor(_IMAX, dtype=i32)), "amin")
-    job_killed = fail_rank < _IMAX
     fail_first = fail_now & (global_rank == fail_rank[tj])
     blocked = participating & (global_rank > fail_rank[tj])
     part2 = participating & ~fail_now & ~blocked & any_elig
+    return fail_first, fail_rank < _IMAX, part2
 
-    # ---- 3. proposals: the shared waterfall --------------------------------
+
+def _maj_pair(a: CycleArrays, part2) -> int:
+    """The waterfall's majority pair: the most part2 tasks (lowest
+    index on ties)."""
     p_pad = a.pair_sig.shape[0]
-    pair_demand = _segsum(part2.to(i32), a.task_pair.long(), p_pad)
-    maj_pair = int(pair_demand.argmax())
-    shared_sc = sc[maj_pair]
-    ord_sh = _lexsort([-shared_sc])
-    maj_ok = a.sig_pred[int(a.pair_sig[maj_pair])] & base
-    cap_mass = torch.where(maj_ok[:, None],
-                           torch.maximum(state.idle + a.backfilled,
-                                         _f32(0.0)), _f32(0.0))
-    room_cnt = torch.clamp(a.max_task_num - state.n_tasks, min=0).to(f32)
-    cum_mass = tiled_cumsum(cap_mass[ord_sh])
-    cum_cnt = tiled_cumsum(torch.where(maj_ok, room_cnt, _f32(0.0))[ord_sh])
+    return int(_segsum(part2.to(torch.int32), a.task_pair.long(),
+                       p_pad).argmax())
 
+
+def _waterfall_slots(a: CycleArrays, part2, order, shared_sc, cap_mass,
+                     room_cnt):
+    """The shared waterfall over nodes in the majority pair's score order:
+    each part2 task's slot (the first node where the cumulative capacity
+    and room cover the requests ranked before it and its own). Returns
+    (ord_sh, slot)."""
+    ord_sh = _lexsort([-shared_sc])
+    cum_mass = tiled_cumsum(cap_mass[ord_sh])
+    cum_cnt = tiled_cumsum(room_cnt[ord_sh])
     one_zero = torch.where(part2, _f32(1.0), _f32(0.0))
     mass_sorted = one_zero[order, None] * a.resreq[order]
     prefix_sorted = tiled_cumsum(mass_sorted) - mass_sorted
@@ -767,8 +760,176 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
         slot = torch.maximum(slot, search_left(cum_mass[:, d].contiguous(),
                                                need[:, d].contiguous()))
     slot = torch.maximum(slot, search_left(cum_cnt, cnt_prefix + 1.0))
+    return ord_sh, slot
+
+
+def _accept_rows(a: CycleArrays, global_rank, proposal, mask, acc, idle,
+                 rel, room, pipe_enabled: bool, n_key: int):
+    """Reference ``accept_phase``: per node, proposers in global-rank
+    order while the cumulative requests fit. Each proposer's carry row at
+    its proposal is given: ``acc`` (idle + backfilled), ``idle``, ``rel``
+    ([T,R]) and ``room`` ([T], max_task_num - n_tasks); ``n_key`` sorts
+    the tasks outside ``mask`` last. Returns (accept, over-backfill,
+    prop_alloc)."""
+    i32 = torch.int32
+    eps = torch.from_numpy(VEC_EPS)
+    prop_alloc = (a.init_resreq <= acc + eps).all(dim=-1)
+    node_key = torch.where(mask, proposal, torch.tensor(n_key, dtype=i32))
+    perm2 = _lexsort([global_rank, node_key])
+    nid = node_key[perm2]
+    seg_start = search_left(nid, nid)
+    s_req = a.resreq[perm2]
+    s_init = a.init_resreq[perm2]
+    s_alloc = prop_alloc[perm2]
+    s_part = mask[perm2]
+    alloc_vals = torch.where((s_alloc & s_part)[:, None], s_req, _f32(0.0))
+    pipe_vals = torch.where((~s_alloc & s_part)[:, None], s_req, _f32(0.0))
+    excl_alloc = _segmented_prefix(alloc_vals, seg_start)
+    excl_pipe = _segmented_prefix(pipe_vals, seg_start)
+    excl_cnt = _segmented_prefix(s_part.to(i32), seg_start)
+    room_left = (room[perm2] - excl_cnt) > 0
+    ok_alloc = (s_alloc & s_part & room_left
+                & (s_init <= acc[perm2] - excl_alloc + eps).all(dim=-1))
+    if pipe_enabled:
+        ok_pipe = (~s_alloc & s_part & room_left
+                   & (s_init <= rel[perm2] - excl_pipe + eps).all(dim=-1))
+    else:
+        ok_pipe = torch.zeros_like(ok_alloc)
+    accept_s = ok_alloc | ok_pipe
+    ob_s = ok_alloc & ~(s_init <= idle[perm2] - excl_alloc + eps).all(dim=-1)
+    accept = torch.empty_like(accept_s)
+    accept[perm2] = accept_s
+    ob = torch.empty_like(ob_s)
+    ob[perm2] = ob_s
+    return accept, ob, prop_alloc
+
+
+def _commit_node(a: CycleArrays, accept, is_alloc, is_pipe, proposal,
+                 idle, rel, ntasks, nz, fold_nz: bool, lo: int = 0):
+    """The commit's segment sums onto the node carry of nodes lo ..
+    lo + len(idle) (a rank's block; the whole axis by default), per node
+    in task-index order. ``fold_nz``: XLA folds phase 1's ``nz +
+    segment_sum`` into the scatter (adds onto the carry in turn) but not
+    the retry's (sums first, then adds)."""
+    n = idle.shape[0]
+    node_seg = torch.where(accept, proposal, torch.tensor(0, dtype=torch.int32))
+    sel = torch.nonzero((node_seg >= lo) & (node_seg < lo + n)).flatten()
+    seg = node_seg[sel] - lo
+    zero = _f32(0.0)
+    req = a.resreq[sel]
+    idle_n = idle - _segsum(torch.where(is_alloc[sel, None], req, zero),
+                            seg, n)
+    rel_n = rel - _segsum(torch.where(is_pipe[sel, None], req, zero), seg, n)
+    ntasks_n = ntasks + _segsum(accept[sel].to(torch.int32), seg, n)
+    nz_vals = torch.where(accept[sel, None], a.task_nz[sel], zero)
+    nz_n = (_add_segsum(nz, nz_vals, seg) if fold_nz
+            else nz + _segsum(nz_vals, seg, n))
+    return idle_n, rel_n, ntasks_n, nz_n
+
+
+def _commit_jobs(state: RoundState, a: CycleArrays, phase1, retry,
+                 fail_first, job_killed, global_rank, round_idx: int,
+                 seq_stride: int):
+    """Merge the two acceptance phases (``phase1`` / ``retry``: accept,
+    over-backfill, proposal, prop_alloc) and commit the job / queue
+    aggregates and the decisions. Returns (the state fields, accept,
+    proposal, changed)."""
+    i32 = torch.int32
+    j_pad = a.job_valid.shape[0]
+    tj0 = a.task_job.clamp(min=0).long()
+    accept1, ob1, proposal1, prop_alloc1 = phase1
+    accept_r, ob_r, fb_r, prop_alloc_r = retry
+    accept = accept1 | accept_r
+    ob = torch.where(accept_r, ob_r, ob1)
+    proposal = torch.where(accept_r, fb_r, proposal1)
+    prop_alloc = torch.where(accept_r, prop_alloc_r, prop_alloc1)
+    is_alloc = prop_alloc & accept
+    is_pipe = ~prop_alloc & accept
+    zero_i = torch.tensor(0, dtype=i32)
+    job_seg = torch.where(accept, a.task_job, zero_i)
+    take_any = torch.where(accept[:, None], a.resreq, _f32(0.0))
+    new_j_alloc = _add_segsum(state.j_allocated, take_any, job_seg)
+    queue_seg = torch.where(accept, a.job_queue[tj0], zero_i)
+    new_q_alloc = _add_segsum(state.q_allocated, take_any, queue_seg)
+    counted = accept & ~ob
+    new_alloc_cnt = state.alloc_cnt + _segsum(counted.to(i32), job_seg,
+                                              j_pad)
+    decision = torch.where(
+        fail_first, FAIL,
+        torch.where(is_pipe, PIPELINE,
+                    torch.where(is_alloc & ob, ALLOC_OB,
+                                torch.where(is_alloc, ALLOC, SKIP))))
+    changed = accept | fail_first
+    fields = dict(
+        q_allocated=new_q_alloc, j_allocated=new_j_alloc,
+        alloc_cnt=new_alloc_cnt, job_alive=state.job_alive & ~job_killed,
+        task_state=torch.where(changed, decision.to(i32), state.task_state),
+        task_node=torch.where(accept, proposal, state.task_node),
+        task_seq=torch.where(changed, round_idx * seq_stride + global_rank,
+                             state.task_seq))
+    return fields, accept, proposal, changed
+
+
+def _round(state: RoundState, a: CycleArrays, round_idx: int,
+           job_keys, queue_keys, prop_overused: bool, dyn_enabled: bool,
+           pipe_enabled: bool, seq_stride: int, stats=None,
+           elig_elsewhere=None, pair_init=None, weighted_fma: bool = False):
+    """One allocation round (reference ``_round``). Returns (new_state,
+    progress). ``stats`` (a dict), when given, counts the round and the
+    task rows of its two row passes.
+
+    The two-level solves (kernels/hier.py, kernels/activeset.py) run the
+    round on one node pool: ``state`` and ``a`` are then sliced to the
+    pool's nodes (the node window) and ``elig_elsewhere`` ([T] bool)
+    marks tasks eligible in another pool, which wait instead of failing
+    when the pool has no node for them. ``pair_init`` ([P,R]): the
+    active-set engine's exact-pair fold; every valid task's request row
+    equals its pair's (checked on the host), so eligibility and the
+    argmax are evaluated once a pair. ``weighted_fma``: the graph's
+    evaluation of the dynamic score's weighted sum
+    (xla_order.WEIGHTED_SUM_FMA). The node-sharded engine
+    (kernels/batched_sharded.py) runs the same steps on a rank's node
+    block, joined at the node-axis reductions."""
+    eps = torch.from_numpy(VEC_EPS)
+    n_pad = a.node_ok.shape[0]
+
+    # ---- 1. ordering and the demand window --------------------------------
+    participating, order, global_rank = _admit(
+        state, a, job_keys, queue_keys, prop_overused,
+        _pool_sums(*_avail_pool(state, a, pipe_enabled)))
+    base = a.node_ok & (state.n_tasks < a.max_task_num)
+
+    # ---- 2. exact eligibility + 3. the masked argmax (one row pass) -------
+    sc = _pair_scores(state, a, dyn_enabled, weighted_fma)    # [P,N]
+    aff = _AffRound(state, a) if a.node_dom is not None else None
+    any_elig, fb, ip_scored = _row_pass(
+        state.idle, state.releasing, state.n_tasks, a, pipe_enabled, eps, sc,
+        participating, aff, pair_init)
+    fail_now = participating & ~any_elig
+    if aff is not None:
+        # a positive-affinity task whose group a same-cycle placement can
+        # still populate waits (stays SKIP) instead of killing its job
+        fail_now = fail_now & ~aff.could_wait
+    if elig_elsewhere is not None:
+        # a pool-restricted round: eligibility in another pool means
+        # waiting for a later wave, never FAIL
+        fail_now = fail_now & ~elig_elsewhere
+    fail_first, job_killed, part2 = _settle(a, participating, any_elig,
+                                            fail_now, global_rank)
+
+    # ---- 3. proposals: the shared waterfall --------------------------------
+    maj_pair = _maj_pair(a, part2)
+    maj_ok = a.sig_pred[int(a.pair_sig[maj_pair])] & base
+    cap_mass = torch.where(maj_ok[:, None],
+                           torch.maximum(state.idle + a.backfilled,
+                                         _f32(0.0)), _f32(0.0))
+    room_cnt = torch.clamp(a.max_task_num - state.n_tasks, min=0).to(
+        torch.float32)
+    ord_sh, slot = _waterfall_slots(
+        a, part2, order, sc[maj_pair], cap_mass,
+        torch.where(maj_ok, room_cnt, _f32(0.0)))
     slot_ok = slot < n_pad
-    p_water = ord_sh[slot.clamp(max=n_pad - 1)].to(i32)
+    p_water = ord_sh[slot.clamp(max=n_pad - 1)].to(torch.int32)
     water_elig = _cell_elig(state.idle, state.releasing, state.n_tasks, a,
                             pipe_enabled, eps, p_water) & slot_ok
     if aff is not None:
@@ -780,71 +941,19 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
 
     # ---- 4. acceptance (two phases) ---------------------------------------
     def accept_phase(proposal, mask, idle_c, rel_c, ntasks_c):
-        acc_c = idle_c + a.backfilled
-        pl = proposal.long()
-        prop_alloc = (a.init_resreq <= acc_c[pl] + eps).all(dim=-1)
-        node_key = torch.where(mask, proposal,
-                               torch.tensor(n_pad, dtype=i32))
-        perm2 = _lexsort([global_rank, node_key])
-        nid = node_key[perm2]
-        seg_start = search_left(nid, nid)
-        nid_c = nid.clamp(max=n_pad - 1).long()
-        s_req = a.resreq[perm2]
-        s_init = a.init_resreq[perm2]
-        s_alloc = prop_alloc[perm2]
-        s_part = mask[perm2]
-        alloc_vals = torch.where((s_alloc & s_part)[:, None], s_req,
-                                 _f32(0.0))
-        pipe_vals = torch.where((~s_alloc & s_part)[:, None], s_req,
-                                _f32(0.0))
-        excl_alloc = _segmented_prefix(alloc_vals, seg_start)
-        excl_pipe = _segmented_prefix(pipe_vals, seg_start)
-        excl_cnt = _segmented_prefix(s_part.to(i32), seg_start)
-        pool_acc = acc_c[nid_c]
-        pool_idle = idle_c[nid_c]
-        pool_rel = rel_c[nid_c]
-        room_left = (a.max_task_num[nid_c] - ntasks_c[nid_c]
-                     - excl_cnt) > 0
-        ok_alloc = (s_alloc & s_part & room_left
-                    & (s_init <= pool_acc - excl_alloc + eps).all(dim=-1))
-        if pipe_enabled:
-            ok_pipe = (~s_alloc & s_part & room_left
-                       & (s_init <= pool_rel - excl_pipe + eps).all(dim=-1))
-        else:
-            ok_pipe = torch.zeros_like(ok_alloc)
-        accept_s = ok_alloc | ok_pipe
-        ob_s = ok_alloc & ~(s_init <= pool_idle - excl_alloc
-                            + eps).all(dim=-1)
-        accept = torch.empty_like(accept_s)
-        accept[perm2] = accept_s
-        ob = torch.empty_like(ob_s)
-        ob[perm2] = ob_s
-        return accept, ob, prop_alloc
-
-    def commit_node(accept, is_alloc, is_pipe, proposal, idle_c, rel_c,
-                    ntasks_c, nz_c, fold_nz):
-        # fold_nz: XLA folds phase 1's ``nz + segment_sum`` into the
-        # scatter (adds onto the carry in turn) but not the retry's
-        # (sums first, then adds)
-        node_seg = torch.where(accept, proposal, torch.tensor(0, dtype=i32))
-        zero = _f32(0.0)
-        idle_n = idle_c - _segsum(
-            torch.where(is_alloc[:, None], a.resreq, zero), node_seg, n_pad)
-        rel_n = rel_c - _segsum(
-            torch.where(is_pipe[:, None], a.resreq, zero), node_seg, n_pad)
-        ntasks_n = ntasks_c + _segsum(accept.to(i32), node_seg, n_pad)
-        nz_vals = torch.where(accept[:, None], a.task_nz, zero)
-        nz_n = (_add_segsum(nz_c, nz_vals, node_seg) if fold_nz
-                else nz_c + _segsum(nz_vals, node_seg, n_pad))
-        return idle_n, rel_n, ntasks_n, nz_n
+        p = proposal.long()
+        return _accept_rows(a, global_rank, proposal, mask,
+                            (idle_c + a.backfilled)[p], idle_c[p], rel_c[p],
+                            a.max_task_num[p] - ntasks_c[p], pipe_enabled,
+                            n_pad)
 
     accept1, ob1, prop_alloc1 = accept_phase(
         proposal1, part2, state.idle, state.releasing, state.n_tasks)
     if aff is not None:
         # remove in-round affinity / port races before capacity commits
         accept1 = _aff_serialize(state, a, accept1, proposal1, global_rank)
-    idle_c, rel_c, ntasks_c, nz_c = commit_node(
-        accept1, prop_alloc1 & accept1, ~prop_alloc1 & accept1, proposal1,
+    idle_c, rel_c, ntasks_c, nz_c = _commit_node(
+        a, accept1, prop_alloc1 & accept1, ~prop_alloc1 & accept1, proposal1,
         state.idle, state.releasing, state.n_tasks, state.nz_req, True)
 
     # retry phase: rejected tasks re-propose their argmax against the
@@ -864,43 +973,20 @@ def _round(state: RoundState, a: CycleArrays, round_idx: int,
     retry = retry & any_r
     accept_r, ob_r, prop_alloc_r = accept_phase(fb_r, retry, idle_c, rel_c,
                                                 ntasks_c)
-    idle_c, rel_c, ntasks_c, nz_c = commit_node(
-        accept_r, prop_alloc_r & accept_r, ~prop_alloc_r & accept_r, fb_r,
+    idle_c, rel_c, ntasks_c, nz_c = _commit_node(
+        a, accept_r, prop_alloc_r & accept_r, ~prop_alloc_r & accept_r, fb_r,
         idle_c, rel_c, ntasks_c, nz_c, False)
-    accept = accept1 | accept_r
-    ob = torch.where(accept_r, ob_r, ob1)
-    proposal = torch.where(accept_r, fb_r, proposal1)
-    prop_alloc = torch.where(accept_r, prop_alloc_r, prop_alloc1)
-    is_alloc = prop_alloc & accept
-    is_pipe = ~prop_alloc & accept
 
     # ---- 5. commit (job / queue aggregates) -------------------------------
-    zero_i = torch.tensor(0, dtype=i32)
-    job_seg = torch.where(accept, a.task_job, zero_i)
-    take_any = torch.where(accept[:, None], a.resreq, _f32(0.0))
-    new_j_alloc = _add_segsum(state.j_allocated, take_any, job_seg)
-    queue_seg = torch.where(accept, a.job_queue[tj0], zero_i)
-    new_q_alloc = _add_segsum(state.q_allocated, take_any, queue_seg)
-    counted = accept & ~ob
-    new_alloc_cnt = state.alloc_cnt + _segsum(counted.to(i32), job_seg,
-                                              j_pad)
-
-    decision = torch.where(
-        fail_first, FAIL,
-        torch.where(is_pipe, PIPELINE,
-                    torch.where(is_alloc & ob, ALLOC_OB,
-                                torch.where(is_alloc, ALLOC, SKIP))))
-    changed = accept | fail_first
+    fields, accept, proposal, changed = _commit_jobs(
+        state, a, (accept1, ob1, proposal1, prop_alloc1),
+        (accept_r, ob_r, fb_r, prop_alloc_r), fail_first, job_killed,
+        global_rank, round_idx, seq_stride)
     aff_upd = (_aff_commit(state, a, accept, proposal) if aff is not None
                else {})
     new_state = state._replace(
         idle=idle_c, releasing=rel_c, n_tasks=ntasks_c, nz_req=nz_c,
-        q_allocated=new_q_alloc, j_allocated=new_j_alloc,
-        alloc_cnt=new_alloc_cnt, job_alive=state.job_alive & ~job_killed,
-        task_state=torch.where(changed, decision.to(i32), state.task_state),
-        task_node=torch.where(accept, proposal, state.task_node),
-        task_seq=torch.where(changed, round_idx * seq_stride + global_rank,
-                             state.task_seq), **aff_upd)
+        **fields, **aff_upd)
     return new_state, bool(changed.any())
 
 
@@ -930,9 +1016,11 @@ def _stranded_jobs(state: RoundState, a: CycleArrays,
 
 
 def _rollback_stranded(state: RoundState, a: CycleArrays,
-                       revive: bool = False):
+                       revive: bool = False, lo: int = 0):
     """Revert every this-cycle placement of stranded jobs (reference
-    ``_rollback_stranded``); task_node and task_seq keep their values."""
+    ``_rollback_stranded``); task_node and task_seq keep their values.
+    The node carry in ``state`` holds nodes lo .. lo + len(idle) (a
+    rank's block; the whole axis by default)."""
     i32, zero = torch.int32, _f32(0.0)
     stranded = _stranded_jobs(state, a, include_killed=revive)
     tj0 = a.task_job.clamp(min=0).long()
@@ -942,13 +1030,16 @@ def _rollback_stranded(state: RoundState, a: CycleArrays,
     j_pad = a.job_valid.shape[0]
     zero_i = torch.tensor(0, dtype=i32)
     node_seg = torch.where(revert, state.task_node, zero_i)
+    sel = torch.nonzero((node_seg >= lo) & (node_seg < lo + n_pad)).flatten()
+    seg = node_seg[sel] - lo
+    req = a.resreq[sel]
     idle = _add_segsum(state.idle, torch.where(
-        (revert & ~is_pipe)[:, None], a.resreq, zero), node_seg)
+        (revert & ~is_pipe)[sel, None], req, zero), seg)
     rel = _add_segsum(state.releasing, torch.where(
-        is_pipe[:, None], a.resreq, zero), node_seg)
-    ntasks = state.n_tasks - _segsum(revert.to(i32), node_seg, n_pad)
-    nz = state.nz_req - _segsum(torch.where(revert[:, None], a.task_nz,
-                                            zero), node_seg, n_pad)
+        is_pipe[sel, None], req, zero), seg)
+    ntasks = state.n_tasks - _segsum(revert[sel].to(i32), seg, n_pad)
+    nz = state.nz_req - _segsum(torch.where(revert[sel, None],
+                                            a.task_nz[sel], zero), seg, n_pad)
     job_seg = torch.where(revert, a.task_job, zero_i)
     take = torch.where(revert[:, None], a.resreq, zero)
     j_alloc = state.j_allocated - _segsum(take, job_seg, j_pad)

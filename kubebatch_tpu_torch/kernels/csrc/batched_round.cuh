@@ -1029,6 +1029,32 @@ struct Cycle {
 
     // block 0: queue overuse / shares, the job order, the demand window
     __device__ void order_jobs() {
+        job_order();
+        // avail_pool: column sums over the nodes of the accessible pool
+        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
+            const bool base = p.node_ok[n] && p.ntasks[n] < p.maxt[n];
+            for (int r = 0; r < 3; ++r) {
+                const int i = n * 3 + r;
+                w.col_in[i] = base ? fmaxf(p.idle[i] + p.bf[i], 0.0f) : 0.0f;
+            }
+        }
+        __syncthreads();
+        block_column_sum(w.col_in, p.N, 3, w.col_a, w.col_b, w.fscal);
+        if (p.pipe) {
+            for (int i = threadIdx.x; i < p.N * 3; i += blockDim.x)
+                w.col_in[i] = fmaxf(p.rel[i], 0.0f);
+            __syncthreads();
+            block_column_sum(w.col_in, p.N, 3, w.col_a, w.col_b, w.fscal + 3);
+            if (threadIdx.x < 3)
+                w.fscal[threadIdx.x] = w.fscal[threadIdx.x]
+                                       + w.fscal[3 + threadIdx.x];
+            __syncthreads();
+        }
+    }
+
+    // block 0: queue overuse / shares and the job order (job_order,
+    // job_rank; fail_rank and pair_demand reset)
+    __device__ void job_order() {
         const int J = p.J, Q = p.Q;
         for (int q = threadIdx.x; q < Q; q += blockDim.x) {
             bool over = p.prop_overused;
@@ -1075,26 +1101,6 @@ struct Cycle {
         }
         for (int q = threadIdx.x; q < p.P; q += blockDim.x)
             w.pair_demand[q] = 0;
-        // avail_pool: column sums over the nodes of the accessible pool
-        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
-            const bool base = p.node_ok[n] && p.ntasks[n] < p.maxt[n];
-            for (int r = 0; r < 3; ++r) {
-                const int i = n * 3 + r;
-                w.col_in[i] = base ? fmaxf(p.idle[i] + p.bf[i], 0.0f) : 0.0f;
-            }
-        }
-        __syncthreads();
-        block_column_sum(w.col_in, p.N, 3, w.col_a, w.col_b, w.fscal);
-        if (p.pipe) {
-            for (int i = threadIdx.x; i < p.N * 3; i += blockDim.x)
-                w.col_in[i] = fmaxf(p.rel[i], 0.0f);
-            __syncthreads();
-            block_column_sum(w.col_in, p.N, 3, w.col_a, w.col_b, w.fscal + 3);
-            if (threadIdx.x < 3)
-                w.fscal[threadIdx.x] = w.fscal[threadIdx.x]
-                                       + w.fscal[3 + threadIdx.x];
-            __syncthreads();
-        }
     }
 
     // grid: engaged tasks
@@ -1267,7 +1273,57 @@ struct Cycle {
 
     // block 0: the shared waterfall's cumulative capacity and task prefixes
     __device__ void waterfall() {
-        const int tc = tcur(), N = p.N;
+        maj_pair();
+        const int N = p.N;
+        const int maj = w.iscal[S_MAJ];
+        const float* shared_sc = w.sc + (size_t)maj * N;
+        const uint8_t* maj_pred = p.sig_pred + (size_t)p.pair_sig[maj] * p.NS;
+        uint64_t* keys = keybuf(p.MN);
+        sort_keys(keys, N, p.MN, [&](int n) {
+            return ((uint64_t)ord_bits(-shared_sc[n]) << 32) | (uint32_t)n;
+        });
+        for (int i = threadIdx.x; i < N; i += blockDim.x) {
+            const int n = (int)(keys[i] & 0xffffffffu);
+            w.ord_sh[i] = n;
+            const bool ok = maj_pred[n] && w.basep[n];
+            for (int r = 0; r < 3; ++r)
+                w.cm_in[i * 3 + r] = ok ? fmaxf(p.idle[n * 3 + r]
+                                                + p.bf[n * 3 + r], 0.0f)
+                                        : 0.0f;
+            w.cnt_in[i] = ok ? (float)max(p.maxt[n] - p.ntasks[n], 0) : 0.0f;
+        }
+        waterfall_prefixes(N);
+    }
+
+    // block 0: the node cumsums of the sorted cm_in / cnt_in (N of them)
+    // and the task mass / count prefixes in global-rank order
+    __device__ void waterfall_prefixes(int N) {
+        const int tc = tcur();
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = w.order[i];
+            const int t = w.tmap[k];
+            const float one = w.part2[k] ? 1.0f : 0.0f;
+            for (int r = 0; r < 3; ++r)
+                w.mass_in[i * 3 + r] = one * p.resreq[t * 3 + r];
+            w.cnt_in_t[i] = one;
+        }
+        __syncthreads();
+        block_tiled_cumsum(w.cm_in, w.cum_mass, N, 3, w.tscr);
+        block_tiled_cumsum(w.cnt_in, w.cum_cnt, N, 1, w.tscr);
+        block_tiled_cumsum(w.mass_in, w.mass_cum, tc, 3, w.tscr);
+        block_tiled_cumsum(w.cnt_in_t, w.cnt_cum_t, tc, 1, w.tscr);
+        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+            const int k = w.order[i];
+            for (int r = 0; r < 3; ++r)
+                w.prefix[k * 3 + r] = w.mass_cum[i * 3 + r]
+                                      - w.mass_in[i * 3 + r];
+            w.cnt_prefix[k] = w.cnt_cum_t[i] - w.cnt_in_t[i];
+        }
+    }
+
+    // block 0: maj_pair (iscal[S_MAJ]), the argmax of pair_demand, lowest
+    // index on ties
+    __device__ void maj_pair() {
         __shared__ int s_best[NT / 32], s_bidx[NT / 32];
         // maj_pair: argmax of pair_demand, lowest index on ties
         int bv = -1, bi = 0;
@@ -1295,43 +1351,6 @@ struct Cycle {
             w.iscal[S_MAJ] = bidx;
         }
         __syncthreads();
-        const int maj = w.iscal[S_MAJ];
-        const float* shared_sc = w.sc + (size_t)maj * N;
-        const uint8_t* maj_pred = p.sig_pred + (size_t)p.pair_sig[maj] * p.NS;
-        uint64_t* keys = keybuf(p.MN);
-        sort_keys(keys, N, p.MN, [&](int n) {
-            return ((uint64_t)ord_bits(-shared_sc[n]) << 32) | (uint32_t)n;
-        });
-        for (int i = threadIdx.x; i < N; i += blockDim.x) {
-            const int n = (int)(keys[i] & 0xffffffffu);
-            w.ord_sh[i] = n;
-            const bool ok = maj_pred[n] && w.basep[n];
-            for (int r = 0; r < 3; ++r)
-                w.cm_in[i * 3 + r] = ok ? fmaxf(p.idle[n * 3 + r]
-                                                + p.bf[n * 3 + r], 0.0f)
-                                        : 0.0f;
-            w.cnt_in[i] = ok ? (float)max(p.maxt[n] - p.ntasks[n], 0) : 0.0f;
-        }
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            const int k = w.order[i];
-            const int t = w.tmap[k];
-            const float one = w.part2[k] ? 1.0f : 0.0f;
-            for (int r = 0; r < 3; ++r)
-                w.mass_in[i * 3 + r] = one * p.resreq[t * 3 + r];
-            w.cnt_in_t[i] = one;
-        }
-        __syncthreads();
-        block_tiled_cumsum(w.cm_in, w.cum_mass, N, 3, w.tscr);
-        block_tiled_cumsum(w.cnt_in, w.cum_cnt, N, 1, w.tscr);
-        block_tiled_cumsum(w.mass_in, w.mass_cum, tc, 3, w.tscr);
-        block_tiled_cumsum(w.cnt_in_t, w.cnt_cum_t, tc, 1, w.tscr);
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            const int k = w.order[i];
-            for (int r = 0; r < 3; ++r)
-                w.prefix[k * 3 + r] = w.mass_cum[i * 3 + r]
-                                      - w.mass_in[i * 3 + r];
-            w.cnt_prefix[k] = w.cnt_cum_t[i] - w.cnt_in_t[i];
-        }
     }
 
     // grid: proposals (waterfall slot, else the argmax) and their fit kind
@@ -1747,24 +1766,37 @@ struct Cycle {
     }
 
     __device__ void rollback(bool revive) {
+        rollback_mask(revive);
+        rollback_nodes(0, p.N);
+        rollback_jobs(revive);
+    }
+
+    // block 0: the stranded jobs and the placements to revert (w.mask)
+    __device__ void rollback_mask(bool revive) {
         stranded_jobs(revive);
-        const int T = p.T;
-        for (int t = threadIdx.x; t < T; t += blockDim.x)
+        for (int t = threadIdx.x; t < p.T; t += blockDim.x)
             w.mask[t] = placed(t) && w.stranded[max(p.tjob[t], 0)];
         __syncthreads();
-        // node carry: idle / rel onto the carry, nz summed then subtracted
+    }
+
+    // block 0: the reverted placements off the node carry of global
+    // nodes [n0, n0 + nn), held at p.idle[(n - n0) * 3] and so on:
+    // idle / rel onto the carry, nz summed then subtracted
+    __device__ void rollback_nodes(int n0, int nn) {
+        const int T = p.T;
         uint64_t* keys = segment_keys([&](int t) {
             return w.mask[t] ? p.out[T + t] : -1;
         });
-        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
+        for (int m = threadIdx.x; m < nn; m += blockDim.x) {
+            const int n = n0 + m;
             const int lo = lower_bound_u64(keys, p.MT, (uint64_t)n << 32);
             const int hi = lower_bound_u64(keys, p.MT,
                                            (uint64_t)(n + 1) << 32);
             if (lo == hi) continue;
             float id[3], rl[3], z[2] = {0.0f, 0.0f};
             for (int r = 0; r < 3; ++r) {
-                id[r] = p.idle[n * 3 + r];
-                rl[r] = p.rel[n * 3 + r];
+                id[r] = p.idle[m * 3 + r];
+                rl[r] = p.rel[m * 3 + r];
             }
             for (int i = lo; i < hi; ++i) {
                 const int t = (int)(keys[i] & 0xffffffffu);
@@ -1778,16 +1810,22 @@ struct Cycle {
                 z[1] = z[1] + p.tnz[t * 2 + 1];
             }
             for (int r = 0; r < 3; ++r) {
-                p.idle[n * 3 + r] = id[r];
-                p.rel[n * 3 + r] = rl[r];
+                p.idle[m * 3 + r] = id[r];
+                p.rel[m * 3 + r] = rl[r];
             }
-            p.ntasks[n] -= hi - lo;
-            p.nz[n * 2] = p.nz[n * 2] - z[0];
-            p.nz[n * 2 + 1] = p.nz[n * 2 + 1] - z[1];
+            p.ntasks[m] -= hi - lo;
+            p.nz[m * 2] = p.nz[m * 2] - z[0];
+            p.nz[m * 2 + 1] = p.nz[m * 2 + 1] - z[1];
         }
         __syncthreads();
+    }
+
+    // block 0: the reverted placements off the job / queue carry (and
+    // the affinity carry), the tasks cleared to SKIP
+    __device__ void rollback_jobs(bool revive) {
+        const int T = p.T;
         // jobs: j_allocated summed then subtracted, alloc_cnt
-        keys = segment_keys([&](int t) {
+        uint64_t* keys = segment_keys([&](int t) {
             return w.mask[t] ? p.tjob[t] : -1;
         });
         for (int j = threadIdx.x; j < p.J; j += blockDim.x) {

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["TELEM_WIDTH", "WAVE_SLOTS", "FIELDS", "ENGINE_NAMES",
-           "ENGINE_BATCHED", "ENGINE_FUSED", "ENGINE_HIER",
+           "ENGINE_BATCHED", "ENGINE_FUSED", "ENGINE_HIER", "ENGINE_SHARDED",
            "ENGINE_ACTIVESET", "ENGINE_VICTIM_WAVE", "ENGINE_VICTIM_VISIT",
            "decision_frame", "host_frame", "victim_frames"]
 
@@ -60,12 +60,14 @@ ENGINE_VISIT = 1
 ENGINE_BATCHED = 2
 ENGINE_FUSED = 3
 ENGINE_HIER = 4
+ENGINE_SHARDED = 5
 ENGINE_VICTIM_WAVE = 7
 ENGINE_VICTIM_VISIT = 8
 ENGINE_ACTIVESET = 9
 
 ENGINE_NAMES = {ENGINE_VISIT: "visit", ENGINE_BATCHED: "batched",
                 ENGINE_FUSED: "fused", ENGINE_HIER: "hier",
+                ENGINE_SHARDED: "sharded",
                 ENGINE_VICTIM_WAVE: "victim_wave",
                 ENGINE_VICTIM_VISIT: "victim_visit",
                 ENGINE_ACTIVESET: "activeset"}

@@ -20,7 +20,9 @@ The reference's KUBEBATCH_* settings are keyword arguments here:
 process-wide as in the reference), ``subcycle=`` (KUBEBATCH_SUBCYCLE),
 ``slo=`` (KUBEBATCH_SLO: arms the SLO plane, obs/slo.py) and
 ``timeline_dir=`` (KUBEBATCH_TIMELINE_DIR: arms the timeline's spill,
-obs/timeline.py); the ladder's recovery probe is skipped on a CPU cache
+obs/timeline.py), ``mesh=`` (the node mesh, parallel/mesh.py, its
+allocate action shards over; the reference sees its devices); the
+ladder's recovery probe is skipped on a CPU cache
 (the reference's KUBEBATCH_NO_BACKEND_PROBE).
 ``explain_unschedulable=True`` runs the unschedulability explainer
 (obs/explain.py) after the actions, inside the session span: one
@@ -96,7 +98,8 @@ class Scheduler:
                  pipeline: Optional[bool] = None,
                  slo: Optional[bool] = None,
                  solver: Optional[str] = None,
-                 timeline_dir: Optional[str] = None):
+                 timeline_dir: Optional[str] = None,
+                 mesh=None):
         if solve_audit_every is not None:
             # the active-set engine's audit cadence (process-wide, as in
             # the reference; kernels/activeset.py owns the counter)
@@ -106,13 +109,17 @@ class Scheduler:
         self.schedule_period = schedule_period
         self.enable_preemption = enable_preemption
         self.actions, self.tiers = self._load_conf(scheduler_conf)
-        if solver is not None:
+        if solver is not None or mesh is not None:
             # the reference reads KUBEBATCH_SOLVER at every execute; here
-            # the loop owns its allocate action
+            # the loop owns its allocate action. ``mesh``: the node mesh
+            # its allocate action runs the sharded engine over
+            # (parallel/mesh.py; the reference sees its devices)
             from ..actions.allocate import AllocateAction
-            self.actions = [AllocateAction(mode=solver)
-                            if a.name == "allocate" else a
-                            for a in self.actions]
+            self.actions = [
+                AllocateAction(mode=solver or getattr(a, "mode", None),
+                               mesh=mesh)
+                if a.name == "allocate" else a for a in self.actions]
+        self.mesh = mesh
         self._stop = threading.Event()
         #: per-cycle wall budget (seconds); an overrun counts as a cycle
         #: failure for the degradation ladder. None = no budget.

@@ -1520,3 +1520,158 @@ def test_tenant_service_on_the_card_decides_as_the_cpu():
 
 def _dec(d):
     return (d.kind, d.node_name, d.order)
+
+
+# ---- the node-sharded engines (B14a, B14b) ----------------------------------
+
+def _sharded_inputs(name):
+    from kubebatch_tpu_torch.sim import ClusterSpec as Spec
+
+    specs = {
+        # contended: kills, stranded gangs, the epilogue's revivals
+        "r5": (Spec(n_nodes=48, n_groups=72, pods_per_group=8, n_queues=4,
+                    queue_weights=(1, 2, 3, 4), pod_cpu_millis=1000,
+                    pod_mem_bytes=2 * GiB, jitter=0.2, seed=5), None),
+        # nearly full with releasing capacity: pipelined placements
+        "filled": (Spec(n_nodes=16, n_groups=24, pods_per_group=4,
+                        min_member=2, running_fill=0.9, n_queues=2,
+                        queue_weights=(1, 3), pod_cpu_millis=1000,
+                        pod_mem_bytes=GiB, seed=7), "releasing"),
+        # the half-cfg5 partitioned cycle
+        "half5": (Spec(n_nodes=1250, n_groups=312, pods_per_group=8,
+                       n_queues=4, queue_weights=(1, 2, 3, 4),
+                       pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
+                       jitter=0.2), None),
+    }
+    spec, prep = specs[name]
+    sim = build_cluster(spec)
+    for pod in [p for p in sim.pods if p.name.startswith("fill-")][::2]:
+        if prep == "releasing":
+            pod.deletion_timestamp = 1.0
+    cache = SchedulerCache(async_writeback=False, incremental_snapshot=False,
+                           device="cpu")
+    sim.populate(cache)
+    return build_cycle_inputs(OpenSession(cache, shipped_tiers()))
+
+
+def _one_card_plain(node, rep, statics):
+    from kubebatch_tpu_torch.kernels.batched import CYCLE_ARGS, NODE_ARGS, \
+        arg_dtype
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(arg_dtype(k))
+         for k, v in {**node, **rep}.items()}
+    return batched_allocate_plain(**{k: t[k] for k in NODE_ARGS + CYCLE_ARGS},
+                                  compact_bucket=0, **statics)
+
+
+@pytest.mark.parametrize("name,k", [("r5", 1), ("r5", 2), ("r5", 4),
+                                    ("filled", 2), ("filled", 4),
+                                    ("half5", 4)])
+def test_sharded_round_kernels_match_plain(name, k):
+    """Every launch of csrc/sharded_round.cu on k ranks in lock step (the
+    per-block steps on column blocks, the chain on their concatenation)
+    held bitwise against the plain version on the same inputs
+    (CheckedRank), and the result bitwise the one-card plain solve."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+
+    inputs = _sharded_inputs(name)
+    node, rep, statics, n_sh = bs.prepare_sharded(k, inputs.device, inputs)
+    want = _one_card_plain(node, rep, statics)
+    _build.reset_launch_counts()
+    packed, carry, ranks = bs.solve_lockstep(node, rep, statics, n_sh, k,
+                                             "cuda", check=True)
+    torch.cuda.synchronize()
+    t_pad = inputs.task_valid.shape[0]
+    p, c = packed.cpu(), carry.cpu()
+    assert torch.equal(p[:3 * t_pad + 1], want[0][:3 * t_pad + 1])
+    assert torch.equal(p[3 * t_pad + 2:], want[0][3 * t_pad + 2:])
+    for cols, w in ((slice(0, 3), want[1]), (slice(3, 6), want[2]),
+                    (slice(7, 9), want[4])):
+        assert torch.equal(c[:, cols].contiguous().view(torch.float32), w)
+    assert torch.equal(c[:, 6], want[3])
+    launches = _build.launch_count("sharded_round")
+    assert launches == sum(r.cuda.launches for r in ranks)
+    # every launch's payload checked, the flags and the result too
+    assert all(r.compared > r.cuda.launches for r in ranks)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_sharded_scan_kernel_matches_plain(k):
+    """Every launch of csrc/sharded_scan.cu on k ranks in lock step held
+    bitwise against the plain version (ScanChecked), and the result
+    equal to the plain ranks' (a contended cluster, -0.0 scores)."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import sharded as sh
+
+    rng = np.random.default_rng(k)
+    n, t = 256, 64
+    args = dict(
+        idle=rng.uniform(20, 120, (n, 3)).astype(np.float32),
+        releasing=np.where(rng.random((n, 1)) < 0.3,
+                           rng.uniform(10, 80, (n, 3)), 0).astype(np.float32),
+        backfilled=np.where(rng.random((n, 1)) < 0.2,
+                            rng.uniform(5, 30, (n, 3)), 0).astype(np.float32),
+        max_task_num=rng.integers(1, 4, n).astype(np.int32),
+        n_tasks=rng.integers(0, 2, n).astype(np.int32),
+        node_ok=rng.random(n) < 0.9,
+        resreq=rng.uniform(10, 90, (t, 3)).astype(np.float32),
+        task_valid=rng.random(t) < 0.9,
+        scores=np.round(rng.normal(size=(t, n)) * 4).astype(np.float32),
+        pred_mask=rng.random((t, n)) < 0.7,
+        min_available=np.int32(t // 2), init_allocated=np.int32(1))
+    args["init_resreq"] = args["resreq"].copy()
+    args["scores"][:, 7] = -0.0
+    _build.reset_launch_counts()
+    got, ranks = sh.scan_lockstep(args, k, "cuda", check=True)
+    want, _ = sh.scan_lockstep(args, k, "cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert _build.launch_count("sharded_scan") == k * (t + 1)
+    # the first rows, every step's rows but the last (none), the result
+    assert all(r.compared == t + 6 for r in ranks)
+
+
+def test_sharded_two_ranks_on_one_card(tmp_path):
+    """Two ranks of a gloo group on cuda:0 (the transport the mesh
+    chooses: all-gathers staged through pinned host buffers, each stage
+    counted): AllocateAction(mode="sharded") on a CUDA cache equals the
+    one-card batched kernel's solve with compact_bucket=0, and every
+    launch on both ranks equals the plain version (check=True)."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+    from kubebatch_tpu_torch.kernels.batched import solve_batched
+    from kubebatch_tpu_torch.parallel import worker
+
+    def inputs():
+        sim = build_cluster(ClusterSpec(
+            n_nodes=600, n_groups=160, pods_per_group=4, n_queues=4,
+            queue_weights=(1, 2, 3, 4), pod_cpu_millis=1000,
+            pod_mem_bytes=2 * GiB, jitter=0.2, seed=3))
+        cache = SchedulerCache(async_writeback=False,
+                               incremental_snapshot=False, device="cuda")
+        sim.populate(cache)
+        return build_cycle_inputs(OpenSession(cache, shipped_tiers()))
+
+    with worker.launch(2, str(tmp_path / "store"), device="cuda",
+                       timeout=300) as group:
+        mesh = group.mesh
+        assert mesh.backend == "gloo" and mesh.staged["all_gather"]
+        assert not any(f["jax"] for f in worker.request_status(mesh))
+        a, b = inputs(), inputs()
+        want = solve_batched(a, compact_bucket=0)
+        rb0 = metrics.blocking_readbacks()
+        got = bs.solve_batched_sharded(mesh, b.device, b, check=True)
+        ranks = bs.last_solve["ranks"]
+        for w, g in zip(want[:3], got[:3]):
+            np.testing.assert_array_equal(w, g)
+        assert want[3] == got[3]
+        for key in ("idle", "releasing", "n_tasks", "nz_req"):
+            assert torch.equal(getattr(a.device, key),
+                               getattr(b.device, key)), key
+        assert all(r["compared"] > 0 and r["stages"] == r["collectives"]
+                   for r in ranks)
+        # the node stage, packed (1) + carry (4), one progress flag a
+        # round, the epilogue's flags, and rank 0's stages
+        assert metrics.blocking_readbacks() - rb0 >= 6 + got[3] \
+            + ranks[0]["stages"]

@@ -72,7 +72,12 @@ def test_port_imports_without_jax_or_reference_package():
                  "kubebatch_tpu_torch.tenantsvc.megasolve",
                  "kubebatch_tpu_torch.tenantsvc.service",
                  "kubebatch_tpu_torch.tenantsvc.sessions",
-                 "kubebatch_tpu_torch.sim.tenants"):
+                 "kubebatch_tpu_torch.sim.tenants",
+                 "kubebatch_tpu_torch.parallel",
+                 "kubebatch_tpu_torch.parallel.mesh",
+                 "kubebatch_tpu_torch.parallel.worker",
+                 "kubebatch_tpu_torch.kernels.batched_sharded",
+                 "kubebatch_tpu_torch.kernels.sharded"):
         assert must in mods
 
 

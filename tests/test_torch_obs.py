@@ -566,11 +566,19 @@ def test_cycle_frames_and_decisions_match_reference(mode):
 
 # ---- counters_snapshot ----------------------------------------------------------
 
-def test_counters_snapshot_keys_match_reference(tmp_path):
+def test_counters_snapshot_keys_match_reference(tmp_path, monkeypatch):
     """With a cycle run in each package under an armed SLO plane and
     timeline: the same top-level keys (the unported modules' sections
     aside), the same zero-valued keys of unported modules, the same
-    ledger, slo, timeline, tracer and telemetry sections' keys."""
+    ledger, slo, timeline, tracer and telemetry sections' keys. The
+    port's process-wide tenant-service and pipeline counters start at 0
+    here whatever test files ran before in this process."""
+    for name, zero in (("_mega_dispatches", 0), ("_mega_lanes", 0),
+                       ("_shed_level", 0), ("_load_shed", {}),
+                       ("_deferred_readbacks", 0), ("_pipeline_cycles", 0),
+                       ("_pipeline_conflicts", {}),
+                       ("_pipeline_demotions", {})):
+        monkeypatch.setattr(t_metrics, name, zero)
     out = []
     for s in SIDES:
         s["timeline"].arm(str(tmp_path / ("t" if s is T else "j")))

@@ -459,11 +459,17 @@ def test_latency_lane_arrivals_match_reference():
 
 def test_unported_options_raise():
     cache = TCache(async_writeback=False, device="cpu")
-    for mode, item in (("rpc", "A8"), ("native", "A7"), ("sharded", "B14")):
+    for mode, item in (("rpc", "A8"), ("native", "A7")):
         with pytest.raises(NotImplementedError, match=item):
             TAllocate(mode=mode)
         with pytest.raises(NotImplementedError, match=item):
             TScheduler(cache, solver=mode)
+    # the sharded engines are ported (tests/test_torch_sharded.py): the
+    # mode builds, and only an affinity cycle on it raises (B14a)
+    assert TAllocate(mode="sharded").mode == "sharded"
+    sched = TScheduler(cache, solver="sharded")
+    assert [a.mode for a in sched.actions if a.name == "allocate"] == \
+        ["sharded"]
 
 
 def test_pipeline_option_builds_the_executor():
