@@ -165,6 +165,24 @@ k = 4 the explicit-collective scan runs at T 256 x N_pad 8,192
 against the plain ranks. Per rank: launches, device ms by step,
 collectives, stages and their host ms.
 
+Phase (l) is the predicate-rich and two-level mesh, run in phase (k)'s
+groups: at k = 2, (l1) 5p cold (full width: 5,000 nodes, 10,000 pods,
+16 zones, both affinities, host ports) through ``Scheduler(mesh=...)``
+in auto, which must run the sharded engine with the affinity branch of
+csrc/sharded_round.cu, count no ("sharded", "batched") demotion and no
+host fallback, and bind and leave statuses exactly as a one-card
+``Scheduler`` whose batched solve has compact_bucket=0 (unchecked per
+launch: the plain 5p solve takes minutes on the host); (l3) cfg6 cold
+through ``hier.solve_hier_sharded`` (the two-level steps of the same
+source), equal to one launch of csrc/hier_allocate.cu with the same pool
+on the same bucket, then again with every launch on every rank held
+against the plain version; at k = 2 and 4, (l2) 3p cold through
+``solve_batched_sharded``, equal to the one-card batched kernel (its
+[P,D] carry and port claims too), then every launch on every rank held
+against the plain version. Per rank: launches, device ms by step,
+collectives, stages and their host ms; waves, rounds and the straddling
+pools met.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -4228,7 +4246,7 @@ def scan_args(n: int, t: int, seed: int) -> dict:
 
 
 def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
-                  scan_shape=(256, 8192)) -> list:
+                  scan_shape=(256, 8192), extra=None) -> list:
     """(k) the node-sharded engines: k ranks of a gloo group on the one
     card (rank 0 here, k - 1 spawned solver workers). For each k, cfg5
     cold through AllocateAction(mode="sharded", mesh=...) (binds and
@@ -4236,8 +4254,9 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
     then the same cold inputs once more with every rank holding each
     launch bitwise against the plain version; at k = 2 Scheduler(mesh=...)
     in auto, cold and two churn cycles (sharded, fused, fused); at k = 4
-    the scan at T x N_pad ``scan_shape``. Returns the kernels line's rows
-    10 and 11."""
+    the scan at T x N_pad ``scan_shape``. ``extra(k, mesh)``, when
+    given, runs last in each k's group (phase (l) reuses the groups).
+    Returns the kernels line's rows 10 and 11."""
     import tempfile
 
     import numpy as np
@@ -4468,6 +4487,8 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
                                       else b) for a, b in scan.items()})
                     + "; every launch bitwise the plain version, result "
                       "== the plain ranks'")
+            if extra is not None:
+                extra(k, mesh)
     # plain versions' times: the sharded plain ranks in lock step on the
     # host CPU at the first k, and the one-card plain's row counts (the
     # bound's work)
@@ -4526,6 +4547,453 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
                      "real nodes, every task step",
          "scan": scan},
     ]
+
+
+def rank_table(ranks) -> list:
+    """Per rank of a mesh solve: launches, device ms (all and by step),
+    collectives, stages and their host ms, the rank's wall and, for the
+    two-level solve's checked ranks, the plain rank's work counts."""
+    return [{"launches": r["launches"],
+             "kernel_ms": round(sum(r["kernel_ms"].values()), 6),
+             "by_step": {k: round(v, 6) for k, v in r["kernel_ms"].items()},
+             "collectives": r["collectives"], "stages": r["stages"],
+             "collective_ms": round(r["collective_ms"], 6),
+             "wall_ms": round(r["wall_ms"], 6),
+             **({"work": r["work"]} if "work" in r else {})}
+            for r in ranks]
+
+
+def sharded_aff_bounds(node, rep, packed, carry, stats, pipe: bool,
+                       world: int) -> dict:
+    """Rank 0's roofline in the sharded solve with the affinity
+    vocabulary, beside rank 0's kernel ms: ``sharded_bounds``' bytes (its
+    block's rows, the port rows among them, and the replicated arrays,
+    the whole ``node_dom`` and the [T,P] terms and [P,D] carry among
+    them, each read once; the packed result and its block of the carry
+    written once) and cells, plus, over its block's real nodes, the
+    predicates' integer operations on every row-pass row
+    (OPS_PER_CELL_AFF over PEAK_I32_PER_S) and the interpod score's
+    float operations on the rows that can score (``affinity_bounds``'
+    counts). ``stats``: rank 0's plain rank's counts on the same
+    inputs."""
+    base = sharded_bounds(node, rep, packed, carry, stats, pipe, world)
+    n_real = base["block_real_nodes"]
+    int_ops = stats["rows"] * n_real * OPS_PER_CELL_AFF
+    ip_ops = (stats.get("ip_terms", 0)
+              + stats.get("ip_rows", 0) * OPS_PER_IP_CELL) * n_real
+    t_bytes = base["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = ((base["ops"] + ip_ops) / PEAK_F32_PER_S
+             + int_ops / PEAK_I32_PER_S) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    return dict(base, ops=base["ops"] + ip_ops + int_ops, int_ops=int_ops,
+                ip_rows=stats.get("ip_rows", 0), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def sharded_hier_bounds(node, rep, packed, carry, work, pipe: bool,
+                        world: int) -> dict:
+    """Rank 0's roofline in the two-level solve over the mesh, beside
+    rank 0's kernel ms: its block's rows, the replicated arrays, the
+    packed result and its block of the carry, each moved once, over the
+    memory rate; against its own work, counted by its plain rank on the
+    same inputs (HierPlainRank.stats): the coarse passes' cells
+    (OPS_PER_CELL_COARSE, with pipelining its fit tests) and each
+    pass's majority score over the block's real nodes, the rounds'
+    (task row x real node) cells over its part of each pool and their
+    (pair x real node) score cells, over the float32 rate (the cells of
+    ``scale_bounds``, restricted to rank 0)."""
+    import numpy as np
+
+    n_sh = node["idle"].shape[0]
+    nb = n_sh // world
+    block = {k: (v[:, :nb] if k in ("sig_scores", "sig_pred") else v[:nb])
+             for k, v in node.items()}
+    n_real = int(np.asarray(block["node_ok"]).sum())
+    nbytes = sum(a.nbytes for a in block.values()) + sum(
+        a.nbytes for a in rep.values())
+    nbytes += packed.numel() * 4 + carry[:nb].numel() * 4
+    pipe_ops = OPS_PER_CELL_PIPE if pipe else 0
+    ops = (work["coarse_cells"] * (OPS_PER_CELL_COARSE + pipe_ops)
+           + work["coarse_passes"] * n_real * OPS_PER_PAIR_CELL
+           + work["row_cells"] * (OPS_PER_CELL_BATCHED + pipe_ops)
+           + work["pair_cells"] * OPS_PER_PAIR_CELL)
+    b_ms, b_by = bound(nbytes, ops)
+    return {"bytes": nbytes, "ops": ops, "block": nb,
+            "block_real_nodes": n_real, "bound_ms": b_ms, "bound_by": b_by}
+
+
+class MeshPhase:
+    """Phase (l): the predicate-rich and two-level mesh, run in phase
+    (k)'s k-rank groups (``sharded_phase(extra=...)``). At k = 2: (l1) 5p
+    cold through ``Scheduler(mesh=...)`` in auto at full width (sharded,
+    no ("sharded", "batched") demotion, binds and statuses equal to a
+    one-card ``Scheduler`` whose batched solve has compact_bucket=0, the
+    final state valid under the predicates; unchecked per launch: the
+    plain 5p solve takes minutes on the host) and (l3) cfg6 cold through
+    ``hier.solve_hier_sharded`` (equal to one launch of
+    csrc/hier_allocate.cu with the same pool on the same bucket, then
+    every launch on every rank checked against the plain version); at
+    k = 2 and 4: (l2) 3p cold through ``solve_batched_sharded``, equal to
+    the one-card kernel, then every launch on every rank checked. Each
+    prints per rank launches, device ms by step, collectives and stages.
+    ``entries()`` gives the kernels line's rows 10a and 8m."""
+
+    def __init__(self, dev, spec5p, spec3p, spec6):
+        self.dev = dev
+        self.specs = {"5p": spec5p, "3p": spec3p, "cfg6": spec6}
+        self.out = {"l1": None, "l2": {}, "l3": {}}
+        self.seconds = {}
+
+    def __call__(self, k, mesh):
+        t0 = time.perf_counter()
+        if k == 2:
+            self.l1(mesh)
+        self.l2(k, mesh)
+        if k == 2:
+            self.l3(k, mesh)
+        self.seconds[k] = time.perf_counter() - t0
+        log(f"(l) k={k}: {self.seconds[k]:.1f} s")
+
+    def _launched(self, what: str, ranks) -> None:
+        """Every rank launched csrc/sharded_round.cu as often as this
+        process counted since the reset (on the card: at least once)."""
+        from kubebatch_tpu_torch.kernels import _build
+
+        rank0 = _build.launch_count("sharded_round")
+        if any(r["launches"] != rank0 for r in ranks) or (
+                self.dev.type == "cuda" and not rank0):
+            raise AssertionError(f"{what} launches {rank0} here, "
+                                 f"{[r['launches'] for r in ranks]}")
+
+    @staticmethod
+    def _carry(device):
+        return [getattr(device, f) for f in ("idle", "releasing",
+                                             "n_tasks", "nz_req")]
+
+    @staticmethod
+    def _restore(device, carry):
+        for f, v in zip(("idle", "releasing", "n_tasks", "nz_req"), carry):
+            setattr(device, f, v)
+
+    def _cache(self, spec_name, binder=None, incremental=True):
+        from kubebatch_tpu_torch.cache import SchedulerCache
+        from kubebatch_tpu_torch.sim import build_cluster
+
+        sim = build_cluster(self.specs[spec_name])
+        kw = {} if binder is None else {"binder": binder}
+        cache = SchedulerCache(device=self.dev, async_writeback=False,
+                               incremental_snapshot=incremental, **kw)
+        sim.populate(cache)
+        return sim, cache
+
+    def l1(self, mesh):
+        from kubebatch_tpu_torch import metrics
+        from kubebatch_tpu_torch.actions import allocate as allocate_mod
+        from kubebatch_tpu_torch.actions import allocate_batched
+        from kubebatch_tpu_torch.kernels import _build
+        from kubebatch_tpu_torch.kernels import batched_sharded as bs
+        from kubebatch_tpu_torch.runtime.scheduler import Scheduler
+
+        def statuses(cache):
+            return {f"{t.namespace}/{t.name}": (t.status.name, t.node_name)
+                    for j in cache.jobs.values() for t in j.tasks.values()}
+
+        binder0 = RecordingBinder()
+        _, cache0 = self._cache("5p", binder0)
+        inner = allocate_batched.solve_batched
+
+        def no_compact(inputs, **kw):
+            kw["compact_bucket"] = 0
+            return inner(inputs, **kw)
+
+        allocate_batched.solve_batched = no_compact
+        try:
+            t0 = time.perf_counter()
+            if not Scheduler(cache0, schedule_period=3600.0).run_cycle():
+                raise AssertionError("(l1) the one-card 5p cycle failed")
+            cache0.drain(timeout=120.0)
+            twin_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            allocate_batched.solve_batched = inner
+        if allocate_mod.last_cycle_engine != "batched":
+            raise AssertionError(f"(l1) twin engine "
+                                 f"{allocate_mod.last_cycle_engine}")
+        twin_kernel_ms = allocate_batched.last_phases.get("kernel")
+        want_status, want_binds = statuses(cache0), list(binder0.calls)
+        cache0.stop()
+        binder = RecordingBinder()
+        _, cache = self._cache("5p", binder)
+        pairs0 = dict(metrics.engine_demotions_by_pair())
+        fb0 = metrics.affinity_host_fallback_total()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if not Scheduler(cache, schedule_period=3600.0,
+                         mesh=mesh).run_cycle():
+            raise AssertionError("(l1) the 5p cycle over the mesh failed")
+        cache.drain(timeout=120.0)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        engine = allocate_mod.last_cycle_engine
+        pairs = metrics.engine_demotions_by_pair()
+        ranks = bs.last_solve["ranks"]
+        if engine != "sharded" or pairs != pairs0 or \
+                metrics.affinity_host_fallback_total() != fb0 or \
+                _build.launch_count("batched_allocate"):
+            raise AssertionError(f"(l1) engine {engine}, demotions "
+                                 f"{pairs} (was {pairs0})")
+        if statuses(cache) != want_status or binder.calls != want_binds:
+            raise AssertionError("(l1) binds / statuses differ from the "
+                                 "one-card batched 5p cycle")
+        self._launched("(l1)", ranks)
+        valid = validate_affinity(cache)
+        bad = gang_all_or_nothing(cache)
+        if bad:
+            raise AssertionError(f"(l1) {bad} PodGroups partly placed")
+        rounds = allocate_batched.last_solve["rounds"]
+        self.out["l1"] = {
+            "binds": len(want_binds), "rounds": rounds,
+            "cycle_wall_ms": wall_ms, "twin_cycle_wall_ms": twin_ms,
+            "twin_kernel_ms": twin_kernel_ms,
+            "solve_wall_ms": bs.last_solve["wall_ms"],
+            "launches": sum(r["launches"] for r in ranks),
+            "vocabulary": bs.last_solve["vocabulary"],
+            "per_rank": rank_table(ranks), "validated": valid}
+        cache.stop()
+        log("(l1) 5p cold through Scheduler(mesh=k=2) in auto: sharded, no "
+            "demotion, no host fallback; binds and statuses == the one-card "
+            f"batched cycle (compact_bucket=0): {len(want_binds)} binds, "
+            f"{rounds} rounds; cycle wall {wall_ms:.1f} ms (one-card twin "
+            f"{twin_ms:.1f} ms, its kernel {twin_kernel_ms} ms); solve "
+            f"{bs.last_solve['wall_ms']:.1f} ms; vocabulary "
+            + json.dumps(bs.last_solve["vocabulary"]) + "; per rank "
+            + json.dumps(self.out["l1"]["per_rank"]))
+
+    def l2(self, k, mesh):
+        import numpy as np
+        import torch
+
+        from kubebatch_tpu_torch.actions.cycle_inputs import \
+            build_cycle_inputs
+        from kubebatch_tpu_torch.conf import shipped_tiers
+        from kubebatch_tpu_torch.framework import OpenSession
+        from kubebatch_tpu_torch.kernels import _build
+        from kubebatch_tpu_torch.kernels import batched_sharded as bs
+        from kubebatch_tpu_torch.kernels.batched import (
+            AFF_ARGS, AFF_OUT, CYCLE_ARGS, IP_ARG, NODE_ARGS, arg_dtype,
+            batched_allocate)
+
+        _, cache = self._cache("3p", incremental=False)
+        inputs = build_cycle_inputs(OpenSession(cache, shipped_tiers()),
+                                    allow_affinity=True)
+        device = inputs.device
+        carry0 = self._carry(device)
+        node, rep, statics, n_sh = bs.prepare_sharded(k, device, inputs)
+        t = {n: torch.from_numpy(np.array(v, copy=True)).to(arg_dtype(n))
+             .to(self.dev) for n, v in {**node, **rep}.items()}
+        aff = {n: t[n] for n in AFF_ARGS}
+        if "task_ports" in rep:
+            aff.update(task_ports=t["task_ports"], port_base=t["port_base"])
+        if IP_ARG in rep:
+            aff[IP_ARG] = t[IP_ARG].reshape(())
+        one = batched_allocate(**{n: t[n] for n in NODE_ARGS + CYCLE_ARGS},
+                               compact_bucket=0, aff=aff, **statics)
+        torch.cuda.synchronize()
+        t_pad = inputs.task_valid.shape[0]
+        one_p = one[0].cpu().numpy()
+        runs = {}
+        for check in (False, True):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = bs.solve_batched_sharded(mesh, device, inputs, check=check)
+            wall = (time.perf_counter() - t0) * 1e3
+            self._launched("(l2)", bs.last_solve["ranks"])
+            for i in range(3):
+                if not np.array_equal(one_p[i * t_pad:(i + 1) * t_pad],
+                                      res[i]):
+                    raise AssertionError(f"(l2) k={k} check={check}: "
+                                         f"decisions differ from the "
+                                         f"one-card kernel")
+            carry = self._carry(device)
+            n_pad = device.n_padded
+            for w, g in zip(one[1:5], carry):
+                if not torch.equal(w[:n_pad].cpu(), g.cpu()):
+                    raise AssertionError(f"(l2) k={k}: node carry differs")
+            got_aff = bs.last_solve["aff"]
+            for name in AFF_OUT:
+                if one[5][name] is not None and not np.array_equal(
+                        one[5][name].cpu().numpy(), got_aff[name]):
+                    raise AssertionError(f"(l2) k={k}: {name} differs")
+            ranks = bs.last_solve["ranks"]
+            runs["checked" if check else "unchecked"] = {
+                "wall_ms": wall, "rounds": res[3],
+                "launches": sum(r["launches"] for r in ranks),
+                "compared": [r["compared"] for r in ranks],
+                "per_rank": rank_table(ranks)}
+            self._restore(device, carry0)
+        entry = {"runs": runs, "n_sh": n_sh,
+                 "placed": int(np.isin(one_p[:t_pad], [1, 2, 3]).sum()),
+                 "vocabulary": bs.last_solve["vocabulary"]}
+        if k == 2:
+            t0 = time.perf_counter()
+            packed_p, carry_p, pranks = bs.solve_lockstep(
+                node, rep, statics, n_sh, k, "cpu")
+            entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(packed_p.numpy()[:3 * t_pad + 1],
+                                  one_p[:3 * t_pad + 1]):
+                raise AssertionError("(l2) the plain ranks differ")
+            entry["bound"] = sharded_aff_bounds(
+                node, rep, packed_p, carry_p, pranks[0].stats,
+                bool(statics["pipe_enabled"]), k)
+            entry["rounds_plain"] = int(packed_p[3 * t_pad])
+        self.out["l2"][k] = entry
+        cache.stop()
+        log(f"(l2) 3p cold over k={k}: the one-card kernel's decisions, "
+            f"node carry, [P,D] carry and port claims; every launch on "
+            f"every rank bitwise the plain version "
+            f"({runs['checked']['compared']} checks); "
+            + json.dumps({"unchecked": runs["unchecked"],
+                          "checked_wall_ms": runs["checked"]["wall_ms"],
+                          "plain_ms": entry.get("plain_ms"),
+                          "bound": entry.get("bound")}))
+
+    def l3(self, k, mesh):
+        import numpy as np
+        import torch
+
+        from kubebatch_tpu_torch.actions.cycle_inputs import \
+            build_cycle_inputs
+        from kubebatch_tpu_torch.conf import shipped_tiers
+        from kubebatch_tpu_torch.framework import OpenSession
+        from kubebatch_tpu_torch.kernels import _build
+        from kubebatch_tpu_torch.kernels import batched_sharded as bs
+        from kubebatch_tpu_torch.kernels import hier as hier_mod
+        from kubebatch_tpu_torch.kernels.batched import (CYCLE_ARGS,
+                                                         NODE_ARGS,
+                                                         arg_dtype)
+
+        t_start = time.perf_counter()
+        _, cache = self._cache("cfg6", incremental=False)
+        inputs = build_cycle_inputs(OpenSession(cache, shipped_tiers()))
+        device = inputs.device
+        carry0 = self._carry(device)
+        node, rep, _, n_sh = bs.prepare_sharded(k, device, inputs)
+        t_pad = inputs.task_valid.shape[0]
+        setup_s = time.perf_counter() - t_start
+        runs = {}
+        for check in (False, True):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = hier_mod.solve_hier_sharded(mesh, device, inputs,
+                                              check=check)
+            wall = (time.perf_counter() - t0) * 1e3
+            ranks = bs.last_solve["ranks"]
+            self._launched("(l3)", ranks)
+            statics = bs.last_solve["statics"]
+            runs["checked" if check else "unchecked"] = {
+                "wall_ms": wall, "rounds": res[3],
+                "launches": sum(r["launches"] for r in ranks),
+                "compared": [r["compared"] for r in ranks],
+                "per_rank": rank_table(ranks), "result": res,
+                "carry": self._carry(device)}
+            self._restore(device, carry0)
+        got, carry = runs["unchecked"].pop("result"), \
+            runs["unchecked"].pop("carry")
+        got_c = runs["checked"].pop("result")
+        runs["checked"].pop("carry")
+        for a, b in zip(got[:4], got_c[:4]):
+            if not np.array_equal(a, b):
+                raise AssertionError("(l3) the checked run differs")
+        # one launch of csrc/hier_allocate.cu with the same pool
+        t = {n: torch.from_numpy(np.array(v, copy=True)).to(arg_dtype(n))
+             .to(self.dev) for n, v in {**node, **rep}.items()}
+        one = hier_mod.hier_packed(
+            **{n: t[n] for n in NODE_ARGS + CYCLE_ARGS},
+            **{n: statics[n] for n in (
+                "job_keys", "queue_keys", "prop_overused", "dyn_enabled",
+                "pipe_enabled", "max_rounds", "pool_size", "max_waves",
+                "gang_enabled", "narrow", "narrow_gate")})
+        torch.cuda.synchronize()
+        one_p = one[0].cpu().numpy()
+        for i in range(3):
+            if not np.array_equal(one_p[i * t_pad:(i + 1) * t_pad], got[i]):
+                raise AssertionError("(l3) decisions differ from the "
+                                     "one-card hier_allocate launch")
+        if int(one_p[3 * t_pad]) != got[3] or not np.array_equal(
+                one_p[3 * t_pad + 2:], got[4][1:]) or got[4][0] != 6:
+            raise AssertionError(f"(l3) rounds / frame differ: "
+                                 f"{got[4].tolist()}")
+        n_pad = device.n_padded
+        for w, g in zip(one[1:5], carry):
+            if not torch.equal(w[:n_pad].cpu(), g.cpu()):
+                raise AssertionError("(l3) node carry differs")
+        work = runs["checked"]["per_rank"][0]["work"]
+        t0 = time.perf_counter()
+        packed_p, carry_p, _ = bs.solve_hier_lockstep(
+            node, rep, statics, n_sh, k, "cpu")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(packed_p.numpy()[:3 * t_pad + 1],
+                              one_p[:3 * t_pad + 1]):
+            raise AssertionError("(l3) the plain ranks differ")
+        hb = sharded_hier_bounds(node, rep, packed_p, carry_p, work,
+                                 bool(statics["pipe_enabled"]), k)
+        self.out["l3"][k] = {
+            "runs": runs, "n_sh": n_sh, "pool": statics["pool_size"],
+            "pools": n_sh // statics["pool_size"], "rounds": got[3],
+            "waves": work["waves"], "straddling": work["straddling"],
+            "placed": int(np.isin(got[0], [1, 2, 3]).sum()),
+            "plain_ms": plain_ms, "bound": hb, "setup_s": setup_s}
+        cache.stop()
+        log(f"(l3) cfg6 cold through solve_hier_sharded over k={k}: == one "
+            f"hier_allocate launch with pool {statics['pool_size']} on the "
+            f"{n_sh}-node bucket (decisions, nodes, seq, rounds, frame but "
+            f"its engine {got[4][0]}, carry); every launch on every rank "
+            f"bitwise the plain version ({runs['checked']['compared']} "
+            f"checks); {got[3]} rounds, {work['waves']} waves, "
+            f"{work['straddling']} straddling pools met; wall "
+            f"{runs['unchecked']['wall_ms']:.1f} ms unchecked, "
+            f"{runs['checked']['wall_ms']:.1f} ms checked; plain ranks in "
+            f"lock step {plain_ms:.0f} ms; bound {hb['bound_ms']:.6f} ms "
+            f"({hb['bound_by']}); per rank "
+            + json.dumps(runs["unchecked"]["per_rank"]))
+
+    def entries(self) -> list:
+        l1, l2, l3 = self.out["l1"], self.out["l2"][2], self.out["l3"][2]
+        r0 = l2["runs"]["unchecked"]["per_rank"][0]
+        h0 = l3["runs"]["unchecked"]["per_rank"][0]
+        return [
+            {"name": "sharded_round_affinity", "row": "10a", "route": "cuda",
+             "source": "kubebatch_tpu_torch/kernels/csrc/sharded_round.cu",
+             "replaces": "kubebatch_tpu/kernels/batched_sharded.py:74",
+             "launches": l1["launches"], "max_abs_err": 0.0,
+             "ms": r0["kernel_ms"], "plain_ms": l2["plain_ms"],
+             "plain_device": "cpu", "bound_ms": l2["bound"]["bound_ms"],
+             "bound_by": l2["bound"]["bound_by"], "library_ms": None,
+             "launches_is": "all ranks' launches in (l1), the 5p cold "
+                            "Scheduler(mesh) cycle at k=2",
+             "ms_is": "rank 0's device ms over its launches of the 3p "
+                      "cold solve at k=2 (l2, unchecked)",
+             "plain_is": "the 2 plain ranks in lock step on the host CPU, "
+                         "the whole 3p solve",
+             "bound_is": "rank 0's work in that 3p solve over its block's "
+                         "real nodes",
+             "ms_5p": l1["per_rank"][0]["kernel_ms"], "l1": l1,
+             "l2": {str(k): v for k, v in self.out["l2"].items()}},
+            {"name": "sharded_hier", "row": "8m", "route": "cuda",
+             "source": "kubebatch_tpu_torch/kernels/csrc/sharded_round.cu",
+             "replaces": "kubebatch_tpu/kernels/hier.py:504",
+             "launches": l3["runs"]["unchecked"]["launches"],
+             "max_abs_err": 0.0, "ms": h0["kernel_ms"],
+             "plain_ms": l3["plain_ms"], "plain_device": "cpu",
+             "bound_ms": l3["bound"]["bound_ms"],
+             "bound_by": l3["bound"]["bound_by"], "library_ms": None,
+             "ms_is": "rank 0's device ms over its launches of the cfg6 cold "
+                      "solve at k=2 (l3, unchecked)",
+             "plain_is": "the 2 plain ranks in lock step on the host CPU, "
+                         "the whole solve",
+             "bound_is": "rank 0's work in that solve over its block's real "
+                         "nodes",
+             "l3": {str(k): v for k, v in self.out["l3"].items()}},
+        ]
 
 
 def main() -> int:
@@ -4872,7 +5340,10 @@ def main() -> int:
         BASELINE_SPECS[5], BASELINE_SPECS["5p"], BASELINE_SPECS["3p"]))
     kernels.append(tenant_phase(dev))
     kernels.append(pipeline_phase(dev, BASELINE_SPECS[6]))
-    kernels += sharded_phase(dev, BASELINE_SPECS[5])
+    mesh_l = MeshPhase(dev, BASELINE_SPECS["5p"], BASELINE_SPECS["3p"],
+                       BASELINE_SPECS[6])
+    kernels += sharded_phase(dev, BASELINE_SPECS[5], extra=mesh_l)
+    kernels += mesh_l.entries()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -20,16 +20,14 @@ Solver modes (constructor arg; the scheduler loop's ``solver=``):
   affinity and host ports (kernels/affinity.py); "fused" does not.
 - "sharded": the round engine with its node axis split over the
   action's node mesh (kernels/batched_sharded.py; ranks > 0 serve,
-  parallel/worker.py). No mesh or a one-rank mesh demotes to "batched"
-  (counted). The sharded engine does not carry affinity yet (ROADMAP
-  queue B, B14a's affinity branch): an affinity cycle under mode
-  "sharded" raises NotImplementedError naming it; one that auto's
-  upgrade sent there runs "batched", counted as a ("sharded",
-  "batched") demotion.
+  parallel/worker.py), inter-pod affinity and host ports included (the
+  [P,D] domain carry replicated, the port claims on each node's owner).
+  No mesh or a one-rank mesh demotes to "batched" (counted).
 - "hier": the two-level engine (kernels/hier.py): the round engine run
   wave by wave on one node pool at a time, as ONE device solve. An
   affinity cycle demotes to "batched" (counted), as in the reference,
-  or with a node mesh to "sharded", and from there as above.
+  or with a node mesh of more than one rank to "sharded" (counted as
+  ("hier", "sharded")).
 - "activeset": the active-set engine (kernels/activeset.py) claims the
   cycle when its active set fits a grain, else "hier" runs.
 - "jax": one device scan per job visit (kernels/solver.py
@@ -213,8 +211,7 @@ class AllocateAction(Action):
                     ssn, hier=mode in ("hier", "activeset"),
                     activeset=(mode == "activeset"
                                or (self.mode == "auto" and mode == "hier")),
-                    sharded=mode == "sharded", mesh=self.mesh,
-                    sharded_required=self.mode == "sharded")
+                    sharded=mode == "sharded", mesh=self.mesh)
             if ran:
                 last_cycle_engine = ran
                 return

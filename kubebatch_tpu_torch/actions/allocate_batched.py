@@ -44,8 +44,7 @@ last_solve: Dict[str, object] = {}
 
 def execute_batched(ssn: Session, hier: bool = False,
                     activeset: bool = False, inputs=None,
-                    sharded: bool = False, mesh=None,
-                    sharded_required: bool = False):
+                    sharded: bool = False, mesh=None):
     """Run the whole allocate action as one solve. Returns the engine that
     ran ("activeset" / "hier" / "batched", truthy), or False — without
     consuming any state — when the snapshot has features the solves
@@ -62,16 +61,12 @@ def execute_batched(ssn: Session, hier: bool = False,
     for a cold-sized active set, inexact pairs, or once demoted.
 
     ``sharded``: the node-sharded engine over ``mesh`` (rank 0 of a
-    node mesh, parallel/mesh.py); with no mesh or a one-rank mesh it
-    demotes to batched, counted, as the reference does on one device.
-    A hier cycle with affinity keeps the sharded upgrade when a mesh of
-    more than one rank is attached (the reference's demotion goes to its
-    sharded engine there). The sharded engine does not carry affinity
-    yet (batched_sharded.AFFINITY_ITEM): an affinity cycle that reached
-    it by an upgrade (auto's, or the hier demotion's) runs batched,
-    counted as a ("sharded", "batched") demotion; one whose caller asked
-    for it (``sharded_required``, mode "sharded") raises
-    NotImplementedError naming the ROADMAP item.
+    node mesh, parallel/mesh.py), the affinity vocabulary included; with
+    no mesh or a one-rank mesh it demotes to batched, counted, as the
+    reference does on one device. A hier cycle with affinity keeps the
+    sharded upgrade when a mesh of more than one rank is attached (the
+    reference's demotion goes to its sharded engine there), counted as
+    ("hier", "sharded").
 
     ``inputs``: this session's CycleInputs when the caller built them
     already (the pipelined executor, falling back here when the
@@ -106,16 +101,13 @@ def execute_batched(ssn: Session, hier: bool = False,
         sharded = world_size(mesh) > 1
         count_engine_demotion("hier", "sharded" if sharded else "batched")
     if res is None and sharded:
-        if world_size(mesh) > 1 and (inputs.affinity is None
-                                     or sharded_required):
+        if world_size(mesh) > 1:
             t2 = time.perf_counter()
             res = solve_batched_sharded(mesh, inputs.device, inputs)
             phases["solve"] = (time.perf_counter() - t2) * 1e3
             engine = "sharded"
         else:
-            # one device (the mesh adds nothing), or an upgraded cycle
-            # with affinity the sharded engine cannot carry yet
-            # (AFFINITY_ITEM): the one-card engine runs
+            # one device: the mesh adds nothing, the one-card engine runs
             count_engine_demotion("sharded", "batched")
     if res is None:
         res = solve_batched(inputs, phases=phases)

@@ -286,38 +286,46 @@ def _distinct_rows(a: CycleArrays, rows, pair_init=None):
 
 
 def _row_pass(idle, releasing, n_tasks, a, pipe_enabled, eps, sc, mask,
-              aff=None, pair_init=None):
+              aff=None, pair_init=None, values: bool = False):
     """For every task with ``mask``: any eligible node, and the masked
     argmax of its score row over the eligible nodes (lowest index on
     ties; node 0 when none is eligible). The score row is its pair's;
     with ``aff`` (an :class:`_AffRound`) eligibility also takes the
     affinity predicates and, with an interpod score, the row adds its
-    term. Returns (any_elig, best, ip_scored). Without affinity, rows
-    that read the same predicate row, request and pair are identical,
-    so each distinct one is evaluated once (with ``pair_init``: once a
-    pair, from its representative request); with it, in chunks of task
-    rows. The kernel does one task row per warp."""
+    term. Returns (any_elig, best, ip_scored), and with ``values`` the
+    masked score at ``best`` (-inf without an eligible node) as a fourth
+    element. Without affinity, rows that read the same predicate row,
+    request and pair are identical, so each distinct one is evaluated
+    once (with ``pair_init``: once a pair, from its representative
+    request); with it, in chunks of task rows. The kernel does one task
+    row per warp."""
     t_pad = mask.shape[0]
     any_elig = torch.zeros(t_pad, dtype=torch.bool)
     best = torch.zeros(t_pad, dtype=torch.int32)
     scored = torch.zeros(t_pad, dtype=torch.bool)
+    val = torch.full((t_pad,), -torch.inf)
     rows_all = torch.nonzero(mask).flatten()
+    out = (any_elig, best, scored) + ((val,) if values else ())
+    if rows_all.numel() == 0 or idle.shape[0] == 0:
+        return out
     if aff is None:
-        if rows_all.numel() == 0:
-            return any_elig, best, scored
         inv, init, sig, pairs = _distinct_rows(a, rows_all, pair_init)
         g_any = torch.zeros(init.shape[0], dtype=torch.bool)
         g_best = torch.zeros(init.shape[0], dtype=torch.int32)
+        g_val = torch.zeros(init.shape[0])
         for c in range(0, init.shape[0], _ROW_CHUNK):
             sl = slice(c, c + _ROW_CHUNK)
             elig = _eligibility(idle, releasing, n_tasks, a, pipe_enabled,
                                 eps, init[sl], sig[sl])
             g_any[sl] = elig.any(dim=1)
             masked = torch.where(elig, sc[pairs[sl].long()], -torch.inf)
-            g_best[sl] = masked.argmax(dim=1).to(torch.int32)
+            b = masked.argmax(dim=1)
+            g_best[sl] = b.to(torch.int32)
+            g_val[sl] = masked.gather(1, b[:, None])[:, 0]
         any_elig[rows_all] = g_any[inv]
         best[rows_all] = g_best[inv]
-        return any_elig, best, scored
+        val[rows_all] = g_val[inv]
+        return out
     for c in range(0, rows_all.shape[0], _ROW_CHUNK):
         rows = rows_all[c:c + _ROW_CHUNK]
         elig = resource_eligibility(idle, releasing, n_tasks, a,
@@ -329,8 +337,10 @@ def _row_pass(idle, releasing, n_tasks, a, pipe_enabled, eps, sc, mask,
             sc_rows = sc_rows + term
         any_elig[rows] = elig.any(dim=1)
         masked = torch.where(elig, sc_rows, -torch.inf)
-        best[rows] = masked.argmax(dim=1).to(torch.int32)
-    return any_elig, best, scored
+        b = masked.argmax(dim=1)
+        best[rows] = b.to(torch.int32)
+        val[rows] = masked.gather(1, b[:, None])[:, 0]
+    return out
 
 
 def _cell_elig(idle, releasing, n_tasks, a, pipe_enabled, eps, node):
@@ -371,7 +381,8 @@ class _AffRound:
     The score's products and sums are of integer-valued floats far below
     2**24, so they are exact in any order as well."""
 
-    def __init__(self, state: RoundState, a: CycleArrays):
+    def __init__(self, state: RoundState, a: CycleArrays,
+                 present_any: Optional[torch.Tensor] = None):
         self.a = a
         has_dom, domc, gcnt, acnt = _aff_gather(state, a)
         present = has_dom & (gcnt > 0)                       # [P,N]
@@ -389,10 +400,16 @@ class _AffRound:
                            [:, None] & a.task_grp)           # [T,P]
         grp_pending = pending_members.to(torch.int32).sum(dim=0)
         others_pending = (grp_pending[None, :] - _f(pending_members)) > 0.5
-        pair_unsat = ~present.any(dim=1)                     # [P]
+        # (a node block's round, kernels/batched_sharded.py, passes the
+        # presence over the whole node axis)
+        pair_unsat = ~(present.any(dim=1) if present_any is None
+                       else present_any)                     # [P]
         self.could_wait = (a.task_req_aff & ~boot & others_pending
                            & pair_unsat[None, :]).any(dim=1)  # [T]
         self.ip = a.ip_weight is not None
+        #: per task row, the (min, max) of its counts over the real nodes
+        #: of the whole node axis, when this round sees a block of it
+        self.ip_range = None
         if self.ip:
             prefw = torch.gather(state.aff_pref_w, 1, domc)
             zero = _f32(0.0)
@@ -409,20 +426,29 @@ class _AffRound:
             ok = ok & ((_f(a.task_ports[rows]) @ self.used) < 0.5)
         return ok
 
-    def ip_rows(self, rows):
-        """([len(rows), N] interpod term, [len(rows)] scored): own
-        preferred terms weigh the group's domain counts, the symmetric
-        half the carried preferred weights; normalised over the real
-        nodes as the host does (floor(10 * (c - cmin) / (cmax - cmin))
-        times the pod_aff weight)."""
+    def ip_counts(self, rows) -> torch.Tensor:
+        """[len(rows), N]: own preferred terms weigh the group's domain
+        counts, the symmetric half the carried preferred weights."""
         a = self.a
-        counts = a.task_pref_w[rows] @ self.gview \
+        return a.task_pref_w[rows] @ self.gview \
             + _f(a.task_grp[rows]) @ self.pview
+
+    def ip_rows(self, rows):
+        """([len(rows), N] interpod term, [len(rows)] scored): the
+        counts normalised over the real nodes as the host does
+        (floor(10 * (c - cmin) / (cmax - cmin)) times the pod_aff
+        weight); with ``ip_range`` set, cmin and cmax are its."""
+        a = self.a
+        counts = self.ip_counts(rows)
         valid = a.node_ok[None, :]
-        cmin = torch.where(valid, counts, torch.inf).amin(dim=1,
-                                                         keepdim=True)
-        cmax = torch.where(valid, counts, -torch.inf).amax(dim=1,
-                                                          keepdim=True)
+        if self.ip_range is not None:
+            cmin = self.ip_range[0][rows][:, None]
+            cmax = self.ip_range[1][rows][:, None]
+        else:
+            cmin = torch.where(valid, counts, torch.inf).amin(
+                dim=1, keepdim=True)
+            cmax = torch.where(valid, counts, -torch.inf).amax(
+                dim=1, keepdim=True)
         span = cmax - cmin
         pos = span > 0
         term = torch.where(pos, torch.floor(
@@ -505,7 +531,7 @@ def _aff_serialize(state: RoundState, a: CycleArrays, accept, proposal,
                             torch.ones_like(has))
     keep = (keep & keep_boot).all(dim=0)
     if a.task_ports is not None:
-        n_pad = a.node_ok.shape[0]
+        n_pad = a.node_dom.shape[1]
         claim = accept & a.task_ports.any(dim=1)
         node_seg = torch.where(claim, proposal,
                                torch.tensor(n_pad, dtype=torch.int32)).long()
@@ -554,17 +580,24 @@ def _aff_delta(a: CycleArrays, mask, nodes, d_cap: int):
             scat(a.task_carry_w * mf), grp.sum(dim=0))
 
 
-def _port_bits(a: CycleArrays, mask, nodes) -> torch.Tensor:
-    """[N,PT]: the OR of the ports of tasks ``mask`` at their nodes."""
-    n_pad = a.node_ok.shape[0]
-    idx = torch.where(mask, nodes, torch.tensor(n_pad - 1,
-                                                dtype=torch.int32)).long()
+def _port_bits(a: CycleArrays, mask, nodes, lo: int = 0) -> torch.Tensor:
+    """[N,PT]: the OR of the ports of tasks ``mask`` at their nodes; the
+    rows are nodes lo .. lo + len(port_base) (a rank's block; the whole
+    axis by default)."""
+    n_rows = a.port_base.shape[0]
+    mask = mask & (nodes >= lo) & (nodes < lo + n_rows)
+    idx = torch.where(mask, nodes - lo,
+                      torch.tensor(n_rows - 1, dtype=torch.int32)).long()
     bits = torch.zeros(a.port_base.shape, dtype=torch.int32)
     bits.index_add_(0, idx, (a.task_ports & mask[:, None]).to(torch.int32))
     return bits > 0
 
 
-def _aff_commit(state: RoundState, a: CycleArrays, accept, proposal):
+def _aff_commit(state: RoundState, a: CycleArrays, accept, proposal,
+                lo: int = 0):
+    """The round's placements into the [P,D] carry (``a.node_dom`` over
+    the whole node axis) and the port claims of nodes lo .. lo +
+    len(port_claim)."""
     d_cap = state.aff_grp_cnt.shape[1]
     d_grp, d_anti, d_pref, d_total = _aff_delta(a, accept, proposal, d_cap)
     upd = dict(aff_grp_cnt=state.aff_grp_cnt + d_grp,
@@ -573,11 +606,11 @@ def _aff_commit(state: RoundState, a: CycleArrays, accept, proposal):
                aff_grp_total=state.aff_grp_total + d_total)
     if a.task_ports is not None:
         upd["port_claim"] = state.port_claim | _port_bits(a, accept,
-                                                          proposal)
+                                                          proposal, lo)
     return upd
 
 
-def _aff_rollback(state: RoundState, a: CycleArrays, revert):
+def _aff_rollback(state: RoundState, a: CycleArrays, revert, lo: int = 0):
     """Exact inverse of _aff_commit for the stranded-gang rollback; port
     claims are exclusive among the cycle's placements, so clearing the
     reverted tasks' bits is exact."""
@@ -589,7 +622,8 @@ def _aff_rollback(state: RoundState, a: CycleArrays, revert):
                aff_pref_w=state.aff_pref_w - d_pref,
                aff_grp_total=state.aff_grp_total - d_total)
     if a.task_ports is not None:
-        upd["port_claim"] = state.port_claim & ~_port_bits(a, revert, nodes)
+        upd["port_claim"] = state.port_claim & ~_port_bits(a, revert, nodes,
+                                                           lo)
     return upd
 
 
@@ -1054,7 +1088,7 @@ def _rollback_stranded(state: RoundState, a: CycleArrays,
     else:
         alive = state.job_alive & ~stranded
         clear = revert
-    aff_upd = (_aff_rollback(state, a, revert) if a.node_dom is not None
+    aff_upd = (_aff_rollback(state, a, revert, lo) if a.node_dom is not None
                else {})
     return state._replace(
         idle=idle, releasing=rel, n_tasks=ntasks, nz_req=nz,

@@ -99,7 +99,12 @@ struct Params {
     const uint8_t* tports; const uint8_t* pbase;  // [T,PT], [N,PT]
     const float* ipw;                      // [] pod_aff weight
     float* gcnt_out; float* acnt_out; float* prefw_out; float* gtot_out;
-    uint8_t* pclaim_out;                   // [N,PT]
+    uint8_t* pclaim_out;                   // [pnb,PT]
+    // the nodes whose host ports these parameters hold (pbase,
+    // pclaim_out and the workspace's port words, indexed from plo): the
+    // whole axis, or a rank's block of it in the node-sharded round
+    // (sharded_round.cu), whose node_dom still spans every node
+    int plo, pnb;
 };
 
 // scratch, carved from one workspace (layout() below)
@@ -138,11 +143,11 @@ struct Work {
     // views and flags, the serialization minima, the score's per-row
     // normalisation
     int32_t* gcnt; int32_t* acnt; int32_t* prefw; int32_t* gtot;
-    uint64_t* pclaim;                      // [N]
+    uint64_t* pclaim;                      // [pnb] from plo
     uint64_t* mgrp; uint64_t* mreq; uint64_t* manti; uint64_t* mself;
     uint64_t* mpref; uint64_t* mcarry;     // [T*2]
     uint64_t* mports;                      // [T]
-    uint64_t* pbase;                       // [N]
+    uint64_t* pbase;                       // [pnb] from plo
     uint64_t* present; uint64_t* symv;     // [N*2]
     uint64_t* used;                        // [N]
     float* gview; float* pview;            // [A*N]
@@ -673,7 +678,7 @@ struct Cycle {
 
     // grid, once: pack the task and node words, the int32 carry
     __device__ void aff_setup() {
-        const int A = p.A, T = p.T, N = p.N;
+        const int A = p.A, T = p.T;
         for (int t = gtid; t < T; t += gsize) {
             uint64_t g[2] = {0, 0}, r[2] = {0, 0}, a[2] = {0, 0},
                      sf[2] = {0, 0}, pf[2] = {0, 0}, cw[2] = {0, 0};
@@ -699,7 +704,7 @@ struct Cycle {
                 if (p.tports[(size_t)t * p.PT + j]) pt |= 1ull << j;
             w.mports[t] = pt;
         }
-        for (int n = gtid; n < N; n += gsize) {
+        for (int n = gtid; n < p.pnb; n += gsize) {
             uint64_t pb = 0;
             for (int j = 0; j < p.PT; ++j)
                 if (p.pbase[(size_t)n * p.PT + j]) pb |= 1ull << j;
@@ -758,7 +763,8 @@ struct Cycle {
                     w.present[n * 2 + wi] = pr[wi];
                     w.symv[n * 2 + wi] = sy[wi];
                 }
-                w.used[n] = w.pbase[n] | w.pclaim[n];
+                if (n >= p.plo && n < p.plo + p.pnb)
+                    w.used[n] = w.pbase[n - p.plo] | w.pclaim[n - p.plo];
             }
             for (int wi = 0; wi < 2; ++wi) {
                 const uint64_t o = warp_or64(pr[wi]);
@@ -961,7 +967,8 @@ struct Cycle {
     }
 
     // block 0: add (sign 1) or subtract (-1) task t's placement at node
-    // into the carry (reference _aff_delta; exact integer atomics)
+    // into the carry (reference _aff_delta; exact integer atomics); the
+    // port claim only where these parameters hold the node's ports
     __device__ void aff_apply(int t, int node, int sign) {
         const int N = p.N, D = p.D, A = p.A;
         uint64_t m[2];
@@ -980,8 +987,10 @@ struct Cycle {
                 atomicAdd(&w.prefw[i],
                           sign * (int32_t)p.tcarry[(size_t)t * A + q]);
         });
-        if (p.PT && w.mports[t]) {
-            unsigned long long* c = (unsigned long long*)&w.pclaim[node];
+        if (p.PT && w.mports[t] && node >= p.plo
+            && node < p.plo + p.pnb) {
+            unsigned long long* c =
+                (unsigned long long*)&w.pclaim[node - p.plo];
             if (sign > 0) atomicOr(c, w.mports[t]);
             else atomicAnd(c, ~w.mports[t]);
         }
@@ -1005,7 +1014,7 @@ struct Cycle {
         }
         for (int q = gtid; q < p.A; q += gsize)
             p.gtot_out[q] = (float)w.gtot[q];
-        const size_t npt = (size_t)p.N * p.PT;
+        const size_t npt = (size_t)p.pnb * p.PT;
         for (size_t i = gtid; i < npt; i += gsize)
             p.pclaim_out[i] = (w.pclaim[i / p.PT] >> (i % p.PT)) & 1ull;
     }
@@ -2058,6 +2067,8 @@ Params make_params(const uint64_t* ptrs, const int* ints) {
     p.prefw_out = (float*)ptrs[P_PREFW_OUT];
     p.gtot_out = (float*)ptrs[P_GTOT_OUT];
     p.pclaim_out = (uint8_t*)ptrs[P_PCLAIM_OUT];
+    p.plo = 0;
+    p.pnb = p.N;
     return p;
 }
 

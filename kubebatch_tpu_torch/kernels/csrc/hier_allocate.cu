@@ -37,7 +37,8 @@
 //    keeps its own copy of the parameters in shared memory, and between
 //    grid barriers thread 0 of every block points the node arrays at the
 //    winning pool (the node window) and back at the full axis;
-//  - the coarse pass: one warp per pending task row (per pair row in the
+//  - the coarse pass (hier_coarse.cuh, shared with the node-sharded
+//    kernel): one warp per pending task row (per pair row in the
 //    active set) walks each pool's nodes 32 at a time and stops at the
 //    first eligible one, recording one bit per pool (ceil(B/32) words a
 //    row); pools' candidate counts by integer atomics; the majority pair
@@ -56,7 +57,7 @@
 // later work.
 #include <initializer_list>
 
-#include "batched_round.cuh"
+#include "hier_coarse.cuh"
 
 namespace {
 
@@ -154,10 +155,10 @@ struct HierCycle {
                    : h.tbits + (size_t)t * h.BW;
     }
 
-    // the coarse pass at full width: pending tasks, per (row, pool)
-    // any-eligibility bits, candidate counts, the majority pair's pool
-    // scores; then (block 0) the winner. Leaves H_HAS_WORK / H_WINNER
-    // (and H_OCC / H_FILL) in h.hs.
+    // the coarse pass at full width (hier_coarse.cuh): pending tasks, per
+    // (row, pool) any-eligibility bits, candidate counts, the majority
+    // pair's pool scores; then (block 0) the winner. Leaves H_HAS_WORK /
+    // H_WINNER (and H_OCC / H_FILL) in h.hs.
     __device__ void coarse(bool act) {
         const Params& p = sp;
         const int T = p.T, P = p.P, B = h.B, BW = h.BW, pool = h.pool;
@@ -170,41 +171,24 @@ struct HierCycle {
         for (int q = c.gtid; q < P; q += c.gsize) h.pdem[q] = 0;
         for (int b = c.gtid; b < B; b += c.gsize) h.cand[b] = 0;
         c.sync(PH_COARSE);
-        // per row: one bit per pool, the row stopping at the first
-        // eligible node of each pool
-        const int rows = act ? P : T;
+        // per row (a pending task, or every pair in the active set): one
+        // bit per pool
         unsigned long long tested = 0, cells = 0;
-        for (int r = c.gwarp; r < rows; r += c.nwarps) {
-            if (!act && !h.pending[r]) continue;
-            float init[3];
-            int sig;
-            if (act) {
-                sig = p.pair_sig[r];
-                for (int k = 0; k < 3; ++k) init[k] = h.pair_init[r * 3 + k];
-            } else {
-                sig = p.tsig[r];
-                for (int k = 0; k < 3; ++k) init[k] = p.init[r * 3 + k];
-            }
-            uint32_t* out = (act ? h.pbits : h.tbits) + (size_t)r * BW;
-            uint32_t word = 0;
-            for (int b = 0; b < B; ++b) {
-                const int end = (b + 1) * pool;
-                bool any = false;
-                for (int n0 = b * pool; n0 < end && !any; n0 += 32) {
-                    const int n = n0 + c.lane;
-                    const uint32_t m = __ballot_sync(
-                        FULL, n < end && c.cell(sig, init, n));
-                    any = m != 0;
-                    cells += any ? __ffs(m) : min(32, end - n0);
-                }
-                if (any) word |= 1u << (b & 31);
-                if ((b & 31) == 31 || b == B - 1) {
-                    if (c.lane == 0) out[b >> 5] = word;
-                    word = 0;
-                }
-            }
-            ++tested;
-        }
+        coarse_bits(c, act ? P : T, B, BW, pool, 0, p.N,
+                    act ? h.pbits : h.tbits,
+                    [&](int r, int* sig, float* init) {
+                        if (act) {
+                            *sig = p.pair_sig[r];
+                            for (int k = 0; k < 3; ++k)
+                                init[k] = h.pair_init[r * 3 + k];
+                            return true;
+                        }
+                        if (!h.pending[r]) return false;
+                        *sig = p.tsig[r];
+                        for (int k = 0; k < 3; ++k)
+                            init[k] = p.init[r * 3 + k];
+                        return true;
+                    }, &tested, &cells);
         if (c.lane == 0 && tested) {
             atomicAdd(&h.counters[C_COARSE_ROWS], tested);
             atomicAdd(&h.counters[C_COARSE_CELLS], cells);
@@ -212,78 +196,13 @@ struct HierCycle {
         for (int t = c.gtid; t < T; t += c.gsize)
             if (h.pending[t]) atomicAdd(&h.pdem[p.tpair[t]], 1);
         c.sync(PH_COARSE);
-        // candidate counts per pool
-        for (int t = c.gtid; t < T; t += c.gsize) {
-            if (!h.pending[t]) continue;
-            const uint32_t* tb = bits(t, act);
-            for (int wi = 0; wi < BW; ++wi) {
-                uint32_t m = tb[wi];
-                while (m) {
-                    const int i = __ffs(m) - 1;
-                    m &= m - 1;
-                    atomicAdd(&h.cand[wi * 32 + i], 1);
-                }
-            }
-        }
-        // the majority pair (every block reduces it), then one warp a
-        // pool: the pair's best eligible score
-        __shared__ int s_v[NT / 32], s_i[NT / 32];
-        int bv = -1, bi = 0;
-        for (int q = threadIdx.x; q < P; q += blockDim.x) {
-            const int v = h.pdem[q];
-            if (v > bv) { bv = v; bi = q; }
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-            const int ov = __shfl_xor_sync(FULL, bv, o);
-            const int oi = __shfl_xor_sync(FULL, bi, o);
-            if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-        }
-        if (c.lane == 0) {
-            s_v[threadIdx.x >> 5] = bv;
-            s_i[threadIdx.x >> 5] = bi;
-        }
-        __syncthreads();
-        int maj = s_i[0];
-        for (int i = 1, v = s_v[0]; i < NT / 32; ++i)
-            if (s_v[i] > v || (s_v[i] == v && s_i[i] < maj)) {
-                v = s_v[i];
-                maj = s_i[i];
-            }
-        const int msig = p.pair_sig[maj];
-        const float w0 = p.dynw[0], w1 = p.dynw[1];
-        for (int b = c.gwarp; b < B; b += c.nwarps) {
-            float m = -INFINITY;
-            for (int n = b * pool + c.lane; n < (b + 1) * pool; n += 32) {
-                float v = p.sig_scores[(size_t)msig * p.NS + n];
-                if (p.dyn)
-                    v = v + kb::scan_node_score(
-                        p.nz[n * 2], p.nz[n * 2 + 1], p.pair_nz[maj * 2],
-                        p.pair_nz[maj * 2 + 1], p.cap[n * 2],
-                        p.cap[n * 2 + 1], w0, w1);
-                const bool ok = p.sig_pred[(size_t)msig * p.NS + n]
-                                && w.basep[n];
-                m = fmaxf(m, ok ? v : -3.0e38f);
-            }
-            for (int o = 16; o > 0; o >>= 1)
-                m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-            if (c.lane == 0) h.best[b] = m;
-        }
+        coarse_candidates(c, T, h.pending, BW,
+                          [&](int t) { return bits(t, act); }, h.cand);
+        coarse_best(c, p, w, coarse_majority(c, h.pdem, P), B, pool, 0,
+                    p.N, h.best);
         c.sync(PH_COARSE);
         if (c.b0 && threadIdx.x == 0) {
-            float kv = -INFINITY;
-            int win = 0, occ = 0;
-            bool work = false;
-            for (int b = 0; b < B; ++b) {
-                occ += h.cand[b] > 0;
-                const float key = (h.cand[b] > 0 && !h.blocked[b])
-                                  ? h.best[b] : -INFINITY;
-                work = work || key > -INFINITY;
-                if (key > kv) { kv = key; win = b; }
-            }
-            h.hs[H_HAS_WORK] = work;
-            h.hs[H_WINNER] = win;
-            h.hs[H_OCC] = occ;
-            h.hs[H_FILL] = h.cand[win];
+            coarse_winner(h.cand, h.blocked, h.best, B, h.hs);
             h.counters[C_PASSES] += 1;
         }
         c.sync(PH_COARSE);

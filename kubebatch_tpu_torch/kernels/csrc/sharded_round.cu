@@ -1,16 +1,20 @@
-// The node-sharded batched round: one rank's steps between the
-// collectives, each a cooperative launch on the rank's node block.
+// The node-sharded batched round and the two-level solve over the node
+// mesh: one rank's steps between the collectives, each a cooperative
+// launch on the rank's node block.
 //
 // Replaces kubebatch_tpu/kernels/batched_sharded.py:130 _sharded_entry
 // (the batched round loop of kubebatch_tpu/kernels/batched.py under
-// GSPMD with the node axis split over a mesh, compaction off) without its
-// affinity branch, with kubebatch_tpu/kernels/telemetry.py:95
-// decision_frame as the last step (ENGINE_SHARDED). The plain PyTorch
-// version is kubebatch_tpu_torch/kernels/batched_sharded.py PlainRank;
-// every float operation here is that version's (and the one-card
-// batched kernel's), in the same order, so each step's payload and the
-// node carry agree bit for bit (built with -fmad=false, IEEE division,
-// no float atomics; see batched_allocate.cu).
+// GSPMD with the node axis split over a mesh, compaction off, with its
+// affinity branch: _specs_for(affinity=True) :74) and
+// kubebatch_tpu/kernels/hier.py:504 _hier_sharded_entry (the two-level
+// wave loop under the same placement), with
+// kubebatch_tpu/kernels/telemetry.py:95 decision_frame as the last step
+// (ENGINE_SHARDED, ENGINE_HIER_SHARDED). The plain PyTorch versions are
+// kubebatch_tpu_torch/kernels/batched_sharded.py PlainRank and
+// HierPlainRank; every float operation here is theirs (and the one-card
+// kernels'), in the same order, so each step's payload and the node carry
+// agree bit for bit (built with -fmad=false, IEEE division, no float
+// atomics; see batched_allocate.cu).
 //
 // The host (kernels/batched_sharded.py CudaRank) runs a round as five
 // launches joined by all-gathers of int32 words:
@@ -39,27 +43,65 @@
 // for the whole node bucket, plus this file's SWork) lives across the
 // launches; nothing of size [T, N] is stored.
 //
+// Inter-pod affinity and host ports reuse batched_round.cuh's affinity
+// code with the port words of the block (Params plo / pnb) and node_dom
+// over the whole bucket: the views and flags are taken at the end of the
+// step that commits (finish, start, rollback), where each rank also
+// sends, with the next pool, the min and max of each scoring row's
+// interpod counts over its block's real nodes; rows1 combines them, the
+// row passes add the predicates and the score (and a "scored" word), the
+// slot owner adds the predicates at the slot, retry serializes phase 1
+// (aff_serialize, replicated: every rank has every proposal's domains)
+// and keeps involved tasks out of the retry, finish commits the carry.
+//
+// The two-level solve runs the same round in a node window (one pool;
+// each rank's part of it, possibly empty; the ints' window slots move
+// the node pointers, the window's size replaces N and placements are
+// written in global nodes), and adds coarse (hier_coarse.cuh's pass over
+// the block: pool bits of the pending tasks, each pool's best majority
+// score over the nodes here), wave (the gathered passes combined by OR
+// and max, the quarantine, the candidates, the winner and the waiting
+// rule, replicated; has-work and winner into flags[3..4]), avail (the
+// winning pool's first pool payload) and hframe.
+//
 // What bounds it on an H100: as for batched_allocate.cu, the [T, N_block]
-// row passes (~4-7 float operations a cell) and the [P, N_block] pair
+// row passes (~4-7 float operations a cell, the affinity words' integer
+// logic and the interpod sums beside them) and the [P, N_block] pair
 // scores are the operations; between them each launch runs a chain of
 // dependent block-0 steps over T (the sorts, scans and segment sums),
 // replicated on every rank, whose latency bounds it; k ranks sharing one
 // card also share its SMs (time-sliced contexts). Fewer launches a round
 // and a shorter chain are later work.
-#include "batched_round.cuh"
+#include "hier_coarse.cuh"
 
 namespace {
 
-constexpr int ENGINE_SHARDED = 5;
+constexpr int ENGINE_SHARDED = 5, ENGINE_HIER_SHARDED = 6;
 constexpr int W_AVAIL = 6, W_ROW = 10, W_PART = 13, W_COLS = 5, W_OWN = 11;
+constexpr int W_IP = 2;
+constexpr int MAX_RANKS = 16;
 
 // the steps, in kernels/batched_sharded.py SEGMENTS order
 enum { SEG_START, SEG_ROWS1, SEG_COLS, SEG_OWNER, SEG_RETRY, SEG_FINISH,
-       SEG_STRANDED, SEG_ROLLBACK, SEG_FRAME, N_SEGS };
-// int slots past the batched kernel's: the block's first node and size
-enum { I_LO = N_INTS, I_NB, N_SINTS };
+       SEG_STRANDED, SEG_ROLLBACK, SEG_FRAME, SEG_COARSE, SEG_WAVE,
+       SEG_AVAIL, SEG_HFRAME, N_SEGS };
+// int slots past the batched kernel's: the block's first node and size,
+// the ranks, the dynamic score's FMA, the pool width and count (0 in the
+// flat solve), then the node window of this launch: its first node and
+// width, and whether the tasks the last wave found eligible in another
+// pool wait
+enum { I_LO = N_INTS, I_NB, I_K, I_FMA, I_POOL, I_B, I_OFF, I_WN, I_ELSE,
+       N_SINTS };
 // pointer slots past the batched kernel's: this file's workspace, flags
 enum { P_SWS = N_PTRS, P_FLAGS, N_SPTRS };
+// the wave step's modes (kernels/batched_sharded.py WAVE_*)
+enum { WAVE_RESET = 1, WAVE_RECORD = 2, WAVE_TERMINAL = 4 };
+// the two-level scalars: has work, winner, pools with candidates and the
+// winner's candidates (hier_coarse.cuh coarse_winner), then the first
+// wave's occupancy and fill (the frame's)
+enum { HS_WORK, HS_WIN, HS_OCC, HS_FILL, HS_OCC0, HS_FILL0, HS_N };
+// the two-level phases timed after the round's (kernels/hier.py)
+enum { PH_COARSE = N_PHASES, PH_WAVES };
 
 struct SWork {
     int32_t* rows_fb;                      // [T, W_ROW] row at the argmax
@@ -67,29 +109,50 @@ struct SWork {
     int32_t* rows_r;                       // [T, W_ROW] row at the retry's
     int32_t* pw;                           // [T] waterfall slot node
     uint8_t* slot_ok;                      // [T]
+    // the two-level solve (empty in the flat one)
+    uint32_t* tbits;                       // [T, BW] gathered pool bits
+    uint8_t* pending;                      // [T]
+    uint8_t* elsewhere;                    // [T]
+    int32_t* cand;                         // [B]
+    float* best;                           // [B]
+    uint8_t* blocked;                      // [B]
+    int32_t* pdem;                         // [P]
+    int32_t* hs;                           // [HS_N]
 };
 
 struct SArgs {
-    int seg, a0, a1, a2, lo, nb;
+    int seg, a0, a1, a2;
+    int lo, nb;                            // this rank's part of the window
+    int blo, bnb;                          // this rank's block
+    int K, off, wn, B, pool;
     const int32_t* in;                     // the gathered payload
     int32_t* out;                          // this rank's payload
-    int32_t* flags;                        // progress, stranded, count
+    int32_t* flags;                        // progress, stranded, count,
+                                           // has work, winner
 };
 
-inline size_t shard_layout(const Params& p, char* base, SWork* sw) {
+inline size_t shard_layout(const Params& p, int B, char* base, SWork* sw) {
     size_t off = 0;
     auto take = [&](size_t bytes) -> char* {
         char* ptr = base ? base + off : nullptr;
         off = align_up(off + (bytes ? bytes : 1));
         return ptr;
     };
-    const size_t T = p.T;
+    const size_t T = p.T, BW = (B + 31) / 32, TB = B ? T : 0;
     SWork x;
     x.rows_fb = (int32_t*)take(T * W_ROW * 4);
     x.rows1 = (int32_t*)take(T * W_ROW * 4);
     x.rows_r = (int32_t*)take(T * W_ROW * 4);
     x.pw = (int32_t*)take(T * 4);
     x.slot_ok = (uint8_t*)take(T);
+    x.tbits = (uint32_t*)take(TB * BW * 4);
+    x.pending = (uint8_t*)take(TB);
+    x.elsewhere = (uint8_t*)take(TB);
+    x.cand = (int32_t*)take((size_t)B * 4);
+    x.best = (float*)take((size_t)B * 4);
+    x.blocked = (uint8_t*)take(B);
+    x.pdem = (int32_t*)take(B ? (size_t)p.P * 4 : 0);
+    x.hs = (int32_t*)take(HS_N * 4);
     if (sw) *sw = x;
     return off;
 }
@@ -100,15 +163,39 @@ __device__ __forceinline__ float fval(int32_t i) { return __int_as_float(i); }
 struct Shard : Cycle {
     const SWork& sw;
     const SArgs& a;
-    int lo, nb;
+    int lo, nb, g0;                        // part: window start, size; its
+                                           // first global node
+    int K, nbmax, av_stride, col_stride, wp;
+    int plo_[MAX_RANKS], pnb_[MAX_RANKS];  // every rank's part
 
     __device__ Shard(const Params& p_, const Work& w_, uint64_t* s,
                      const SWork& sw_, const SArgs& a_)
-        : Cycle(p_, w_, s), sw(sw_), a(a_), lo(a_.lo), nb(a_.nb) {}
+        : Cycle(p_, w_, s), sw(sw_), a(a_), lo(a_.lo), nb(a_.nb),
+          g0(a_.off + a_.lo), K(a_.K) {
+        nbmax = 0;
+        for (int r = 0; r < K; ++r) {
+            const int l = min(max(r * a.bnb, a.off), a.off + a.wn) - a.off;
+            const int h = min(max((r + 1) * a.bnb, a.off), a.off + a.wn)
+                          - a.off;
+            plo_[r] = l;
+            pnb_[r] = h - l;
+            nbmax = max(nbmax, h - l);
+        }
+        av_stride = nbmax * W_AVAIL + (p.ip ? p.T * W_IP : 0);
+        col_stride = nbmax * W_COLS;
+        wp = W_PART + (p.ip ? 1 : 0);
+    }
+
+    // the rank whose part holds window node n
+    __device__ int owner_of(int n) const {
+        for (int r = 0; r < K; ++r)
+            if (n >= plo_[r] && n < plo_[r] + pnb_[r]) return r;
+        return K - 1;
+    }
 
     // ---- the block -------------------------------------------------------
 
-    // grid: accp / relp / basep of the block's nodes from its carry
+    // grid: accp / relp / basep of the part's nodes from its carry
     __device__ void node_views_block() {
         for (int n = gtid; n < nb; n += gsize) {
 #pragma unroll
@@ -121,14 +208,21 @@ struct Shard : Cycle {
         }
     }
 
-    // grid: the block's [P, nb] pair scores (w.sc, row stride nb)
+    // grid: the part's [P, nb] pair scores (w.sc, row stride nb; the
+    // weighted sum as the graph evaluates it, batched_round.cuh
+    // pair_scores)
     __device__ void pair_scores_block() {
         const size_t total = (size_t)p.P * nb;
         const float w0 = p.dynw[0], w1 = p.dynw[1];
         for (size_t i = gtid; i < total; i += gsize) {
             const int q = (int)(i / nb), n = (int)(i % nb);
             float dyn = 0.0f;
-            if (p.dyn)
+            if (p.dyn && p.dyn_fma)
+                dyn = kb::scan_node_score(
+                    p.nz[n * 2], p.nz[n * 2 + 1], p.pair_nz[q * 2],
+                    p.pair_nz[q * 2 + 1], p.cap[n * 2], p.cap[n * 2 + 1],
+                    w0, w1);
+            else if (p.dyn)
                 dyn = kb::dynamic_node_score(
                     p.nz[n * 2], p.nz[n * 2 + 1], p.pair_nz[q * 2],
                     p.pair_nz[q * 2 + 1], p.cap[n * 2], p.cap[n * 2 + 1],
@@ -148,44 +242,134 @@ struct Shard : Cycle {
         d[9] = p.maxt[n] - p.ntasks[n];
     }
 
-    // grid: the block's accessible pool rows [nb, W_AVAIL]
+    // grid: the pool payload: the part's accessible pool rows [nbmax,
+    // W_AVAIL] (zero rows past the part), then with an interpod score
+    // each task row's count range over the part's real nodes
     __device__ void avail_out(int32_t* out) {
-        for (int n = gtid; n < nb; n += gsize) {
-            const bool base = p.node_ok[n] && p.ntasks[n] < p.maxt[n];
+        for (int n = gtid; n < nbmax; n += gsize) {
+            const bool in = n < nb;
+            const bool base = in && p.node_ok[n] && p.ntasks[n] < p.maxt[n];
 #pragma unroll
             for (int r = 0; r < 3; ++r) {
                 const int i = n * 3 + r;
                 out[n * W_AVAIL + r] = fbits(
                     base ? fmaxf(p.idle[i] + p.bf[i], 0.0f) : 0.0f);
-                out[n * W_AVAIL + 3 + r] = fbits(fmaxf(p.rel[i], 0.0f));
+                out[n * W_AVAIL + 3 + r] =
+                    in ? fbits(fmaxf(p.rel[i], 0.0f)) : 0;
+            }
+        }
+        if (p.aff && p.ip) ip_range(out + nbmax * W_AVAIL);
+    }
+
+    // grid, one warp per task row: for a pending valid row that can carry
+    // an interpod term at the next round's start, the min and max of its
+    // counts over the part's real nodes (+0.0 for -0.0; +inf / -inf with
+    // none); zeros for the other rows (kernels/batched_sharded.py
+    // PlainRank._ip_words)
+    __device__ void ip_range(int32_t* out) {
+        for (int t = gwarp; t < p.T; t += nwarps) {
+            bool take = false;
+            float lo_c = INFINITY, hi_c = -INFINITY;
+            if (p.tvalid[t] && p.out[t] == SKIP) {
+                const AffRow ar = aff_row(t);
+                take = ar.maybe_scored;
+                if (take) {
+                    for (int n = lane; n < nb; n += 32) {
+                        if (!p.node_ok[n]) continue;
+                        const float c = ip_counts(t, ar, g0 + n);
+                        lo_c = fminf(lo_c, c);
+                        hi_c = fmaxf(hi_c, c);
+                    }
+                    for (int o = 16; o > 0; o >>= 1) {
+                        lo_c = fminf(lo_c, __shfl_xor_sync(FULL, lo_c, o));
+                        hi_c = fmaxf(hi_c, __shfl_xor_sync(FULL, hi_c, o));
+                    }
+                }
+            }
+            if (lane == 0) {
+                out[t * W_IP] = take ? fbits(lo_c + 0.0f) : 0;
+                out[t * W_IP + 1] = take ? fbits(hi_c + 0.0f) : 0;
             }
         }
     }
 
-    // grid, one warp per task row with mask[k]: the row pass over the
-    // block (batched_round.cuh row_pass without affinity), the partial
-    // [W_PART] per task (zeros outside the mask)
+    // grid: each row's count range over the whole axis from the gathered
+    // pool payloads, rank by rank (w.ip_cmin, w.ip_span)
+    __device__ void ip_combine(const int32_t* g) {
+        const int base = nbmax * W_AVAIL;
+        for (int t = gtid; t < p.T; t += gsize) {
+            float lo_c = fval(g[base + t * W_IP]);
+            float hi_c = fval(g[base + t * W_IP + 1]);
+            for (int r = 1; r < K; ++r) {
+                const int32_t* e = g + (size_t)r * av_stride + base
+                                   + t * W_IP;
+                const float l = fval(e[0]), h = fval(e[1]);
+                if (l < lo_c) lo_c = l;
+                if (h > hi_c) hi_c = h;
+            }
+            w.ip_cmin[t] = lo_c;
+            w.ip_span[t] = hi_c - lo_c;
+        }
+    }
+
+    // the affinity views of the committed carry (batched_round.cuh
+    // aff_flags, aff_views), then the pool payload
+    __device__ void views_and_avail() {
+        if (p.aff) {
+            if (b0) aff_flags();
+            sync(PH_AFF_VIEWS);
+            aff_views();
+            sync(PH_AFF_VIEWS);
+        }
+        avail_out(a.out);
+    }
+
+    // grid, one warp per task row with mask[k]: the row pass over the part
+    // (batched_round.cuh row_pass, the interpod range from ip_combine),
+    // the partial [wp] per task (zeros outside the mask, and all zeros
+    // for an empty part; the score word +0.0 for -0.0)
     __device__ void row_pass_block(const uint8_t* mask, int32_t* out) {
         const int T = p.T;
+        const float ipw = p.ip ? p.ipw[0] : 0.0f;
         for (int k = gwarp; k < T; k += nwarps) {
-            int32_t* o = out + (size_t)k * W_PART;
-            if (!mask[k]) {
-                if (lane < W_PART) o[lane] = 0;
+            int32_t* o = out + (size_t)k * wp;
+            if (!mask[k] || nb == 0) {
+                if (lane < wp) o[lane] = 0;
                 continue;
             }
             const int t = w.tmap[k];
             float init[3];
             const int sig = task_row(t, init);
             const float* scp = w.sc + (size_t)p.tpair[t] * nb;
-            bool any = false;
+            AffRow ar;
+            if (p.aff) ar = aff_row(t);
+            const bool scoring = p.aff && ar.maybe_scored;
+            float cmin = 0.0f, span = 0.0f;
+            if (scoring) {
+                cmin = w.ip_cmin[k];
+                span = w.ip_span[k];
+            }
+            bool any = false, scored = false;
             float bv = -INFINITY;
             int bi = IMAX;
             for (int n = lane; n < nb; n += 32) {
+                float tm = 0.0f;
+                if (scoring) {
+                    // reference _ip_score, in its float order
+                    const float c = ip_counts(t, ar, g0 + n);
+                    tm = span > 0.0f ? floorf((10.0f * (c - cmin)) / span)
+                                     : 0.0f;
+                    tm = tm * ipw;
+                    scored = scored || tm != 0.0f;
+                }
                 if (!cell(sig, init, n)) continue;
-                const float v = scp[n];
+                if (p.aff && !aff_cell(ar, g0 + n)) continue;
+                float v = scp[n];
+                if (scoring && p.node_ok[n]) v = v + tm;
                 if (!any || v > bv) { bv = v; bi = n; }
                 any = true;
             }
+            if (p.aff) scored = __any_sync(FULL, scored);
             for (int o2 = 16; o2 > 0; o2 >>= 1) {
                 const float ov = __shfl_xor_sync(FULL, bv, o2);
                 const int oi = __shfl_xor_sync(FULL, bi, o2);
@@ -199,34 +383,37 @@ struct Shard : Cycle {
             if (lane == 0) {
                 const int b = any ? bi : 0;
                 o[0] = any ? 1 : 0;
-                o[1] = fbits(any ? bv : -INFINITY);
+                o[1] = fbits((any ? bv : -INFINITY) + 0.0f);
                 o[2] = b + lo;
                 write_row(o + 3, b);
+                if (p.ip) o[W_PART] = scored ? 1 : 0;
             }
         }
     }
 
-    // grid: the gathered partials [k, T, W_PART] -> any, the first
-    // maximum over the ranks in global node order (node 0 when none),
-    // its carry row
+    // grid: the gathered partials [k, T, wp] -> any, the first maximum
+    // over the ranks in global node order (node 0 when none), its carry
+    // row; with an interpod score the rows' "scored" words ORed
     __device__ void combine(const int32_t* g, uint8_t* any_out,
                             int32_t* best_out, int32_t* rows_out) {
-        const int T = p.T, K = p.N / nb;
+        const int T = p.T;
         for (int k = gtid; k < T; k += gsize) {
-            bool any = false;
+            bool any = false, scored = false;
             float bv = 0.0f;
             int br = 0;
             for (int r = 0; r < K; ++r) {
-                const int32_t* e = g + ((size_t)r * T + k) * W_PART;
+                const int32_t* e = g + ((size_t)r * T + k) * wp;
+                if (p.ip && e[W_PART]) scored = true;
                 if (!e[0]) continue;
                 const float v = fval(e[1]);
                 if (!any || v > bv) { any = true; bv = v; br = r; }
             }
-            const int32_t* e = g + ((size_t)br * T + k) * W_PART;
+            const int32_t* e = g + ((size_t)br * T + k) * wp;
             any_out[k] = any;
             best_out[k] = any ? e[2] : 0;
             for (int i = 0; i < W_ROW; ++i)
                 rows_out[(size_t)k * W_ROW + i] = e[3 + i];
+            if (p.ip) w.ip_scored[k] = scored;
         }
     }
 
@@ -247,17 +434,23 @@ struct Shard : Cycle {
 
     // ---- the replicated chain (block 0) ------------------------------------
 
-    // the demand window's pool: column sums of the gathered pool rows
-    // (batched_round.cuh order_jobs' tail) into fscal[0..3)
+    // the demand window's pool: column sums of the gathered pool rows in
+    // window order (batched_round.cuh order_jobs' tail) into fscal[0..3)
     __device__ void avail_sum(const int32_t* g) {
         const int N = p.N;
-        for (int i = threadIdx.x; i < N * 3; i += blockDim.x)
-            w.col_in[i] = fval(g[(i / 3) * W_AVAIL + i % 3]);
+        for (int i = threadIdx.x; i < N * 3; i += blockDim.x) {
+            const int n = i / 3, r = owner_of(n);
+            w.col_in[i] = fval(g[(size_t)r * av_stride
+                                 + (n - plo_[r]) * W_AVAIL + i % 3]);
+        }
         __syncthreads();
         block_column_sum(w.col_in, N, 3, w.col_a, w.col_b, w.fscal);
         if (p.pipe) {
-            for (int i = threadIdx.x; i < N * 3; i += blockDim.x)
-                w.col_in[i] = fval(g[(i / 3) * W_AVAIL + 3 + i % 3]);
+            for (int i = threadIdx.x; i < N * 3; i += blockDim.x) {
+                const int n = i / 3, r = owner_of(n);
+                w.col_in[i] = fval(g[(size_t)r * av_stride
+                                     + (n - plo_[r]) * W_AVAIL + 3 + i % 3]);
+            }
             __syncthreads();
             block_column_sum(w.col_in, N, 3, w.col_a, w.col_b, w.fscal + 3);
             if (threadIdx.x < 3)
@@ -267,20 +460,26 @@ struct Shard : Cycle {
         }
     }
 
+    // the word c of window node n's gathered waterfall column
+    __device__ int32_t col_word(const int32_t* g, int n, int c) const {
+        const int r = owner_of(n);
+        return g[(size_t)r * col_stride + (n - plo_[r]) * W_COLS + c];
+    }
+
     // the shared waterfall on the gathered columns [N, W_COLS]
     __device__ void waterfall_gathered(const int32_t* g) {
         const int N = p.N;
         uint64_t* keys = keybuf(p.MN);
         sort_keys(keys, N, p.MN, [&](int n) {
-            return ((uint64_t)ord_bits(-fval(g[(size_t)n * W_COLS])) << 32)
+            return ((uint64_t)ord_bits(-fval(col_word(g, n, 0))) << 32)
                    | (uint32_t)n;
         });
         for (int i = threadIdx.x; i < N; i += blockDim.x) {
             const int n = (int)(keys[i] & 0xffffffffu);
             w.ord_sh[i] = n;
             for (int r = 0; r < 3; ++r)
-                w.cm_in[i * 3 + r] = fval(g[(size_t)n * W_COLS + 1 + r]);
-            w.cnt_in[i] = fval(g[(size_t)n * W_COLS + 4]);
+                w.cm_in[i * 3 + r] = fval(col_word(g, n, 1 + r));
+            w.cnt_in[i] = fval(col_word(g, n, 4));
         }
         waterfall_prefixes(N);
     }
@@ -339,8 +538,9 @@ struct Shard : Cycle {
         __syncthreads();
     }
 
-    // batched_round.cuh commit_node on the owner's block: the accepted
-    // proposals to nodes lo .. lo + nb, per node in task-index order
+    // batched_round.cuh commit_node on the owner's part: the accepted
+    // proposals to window nodes lo .. lo + nb, per node in task-index
+    // order
     __device__ void commit_block(const uint8_t* acc, const int32_t* prop,
                                  const uint8_t* pa, bool fold_nz) {
         uint64_t* keys = segment_keys([&](int k) {
@@ -378,7 +578,7 @@ struct Shard : Cycle {
         __syncthreads();
     }
 
-    // ---- the steps ---------------------------------------------------------
+    // ---- the round's steps -------------------------------------------------
 
     __device__ void start() {
         for (int i = gtid; i < p.Q * 3; i += gsize)
@@ -395,8 +595,9 @@ struct Shard : Cycle {
             p.out[2 * p.T + t] = IMAX;
         }
         full_view();
+        if (p.aff) aff_setup();
         sync(PH_SETUP);
-        avail_out(a.out);
+        views_and_avail();
     }
 
     __device__ void rows1() {
@@ -416,6 +617,7 @@ struct Shard : Cycle {
         }
         node_views_block();
         pair_scores_block();
+        if (p.aff && p.ip) ip_combine(a.in);
         sync(PH_SCORES);
         if (b0) rank_tasks();
         row_pass_block(w.part, a.out);
@@ -434,8 +636,12 @@ struct Shard : Cycle {
         const int maj = w.iscal[S_MAJ];
         const float* shared_sc = w.sc + (size_t)maj * nb;
         const uint8_t* maj_pred = p.sig_pred + (size_t)p.pair_sig[maj] * p.NS;
-        for (int n = gtid; n < nb; n += gsize) {
+        for (int n = gtid; n < nbmax; n += gsize) {
             int32_t* o = a.out + (size_t)n * W_COLS;
+            if (n >= nb) {
+                for (int i = 0; i < W_COLS; ++i) o[i] = 0;
+                continue;
+            }
             const bool ok = maj_pred[n] && w.basep[n];
             o[0] = fbits(shared_sc[n]);
             for (int r = 0; r < 3; ++r)
@@ -473,7 +679,9 @@ struct Shard : Cycle {
             }
             float init[3];
             const int sig = task_row(t, init);
-            o[0] = cell(sig, init, pw - lo) ? 1 : 0;
+            bool ok = cell(sig, init, pw - lo);
+            if (p.aff) ok = ok && aff_cell(aff_row(t), g0 + pw - lo);
+            o[0] = ok ? 1 : 0;
             write_row(o + 1, pw - lo);
         }
         sync(PH_PROPOSE);
@@ -484,10 +692,13 @@ struct Shard : Cycle {
         for (int k = gtid; k < T; k += gsize) {
             if (!w.part2[k]) continue;
             const int pw = sw.pw[k];
-            const int32_t* e = a.in + ((size_t)(pw / nb) * T + k) * W_OWN;
-            const bool water = e[0] && sw.slot_ok[k];
+            const int32_t* e = a.in + ((size_t)owner_of(pw) * T + k) * W_OWN;
+            bool water = e[0] && sw.slot_ok[k];
+            // interpod-scored tasks leave the shared waterfall
+            if (p.ip) water = water && !w.ip_scored[k];
             w.prop1[k] = water ? pw : w.fb[k];
-            const int32_t* src = water ? e + 1 : sw.rows_fb + (size_t)k * W_ROW;
+            const int32_t* src = water ? e + 1
+                                       : sw.rows_fb + (size_t)k * W_ROW;
             for (int i = 0; i < W_ROW; ++i)
                 sw.rows1[(size_t)k * W_ROW + i] = src[i];
         }
@@ -496,12 +707,15 @@ struct Shard : Cycle {
         sync(PH_FIT1);
         if (b0) {
             accept_rows(w.prop1, w.part2, w.pa1, sw.rows1, w.acc1, w.ob1);
+            // remove in-round affinity / port races before the commit
+            if (p.aff) aff_serialize();
             commit_block(w.acc1, w.prop1, w.pa1, true);
         }
         sync(PH_ACCEPT1);
         node_views_block();
         for (int k = gtid; k < T; k += gsize)
-            w.mask[k] = w.part2[k] && !w.acc1[k];
+            w.mask[k] = w.part2[k] && !w.acc1[k]
+                        && !(p.aff && involved(w.tmap[k]));
         sync(PH_VIEWS2);
         row_pass_block(w.mask, a.out);
         sync(PH_ROWS2);
@@ -519,10 +733,11 @@ struct Shard : Cycle {
             accept_rows(w.fbr, w.retry, w.par, sw.rows_r, w.accr, w.obr);
             commit_block(w.accr, w.fbr, w.par, false);
             commit_round(a.a0);
+            if (p.aff) aff_commit();
             if (threadIdx.x == 0) a.flags[0] = w.iscal[S_PROGRESS];
         }
         sync(PH_ACCEPT2);
-        avail_out(a.out);
+        views_and_avail();
     }
 
     __device__ void stranded() {
@@ -536,12 +751,106 @@ struct Shard : Cycle {
     __device__ void rollback_step() {
         if (b0) {
             rollback_mask(a.a0 != 0);
-            rollback_nodes(lo, nb);
+            rollback_nodes(g0, nb);
             rollback_jobs(a.a0 != 0);
             if (threadIdx.x == 0) a.flags[2] = w.iscal[S_STRANDED];
         }
         sync(PH_EPILOGUE);
-        avail_out(a.out);
+        views_and_avail();
+    }
+
+    // ---- the two-level steps -----------------------------------------------
+
+    // the coarse pass over the block (hier_coarse.cuh): the pending tasks'
+    // pool bits [T, BW] then each pool's best majority score [B] (+0.0
+    // for -0.0; -inf for a pool with no node here)
+    __device__ void coarse() {
+        const int T = p.T, P = p.P, B = a.B, BW = (B + 31) / 32;
+        for (int t = gtid; t < T; t += gsize) {
+            const int j = max(p.tjob[t], 0);
+            sw.pending[t] = p.tvalid[t] && p.out[t] == SKIP && w.alive[j]
+                            && p.jvalid[j];
+        }
+        for (int i = gtid; i < T * BW; i += gsize) a.out[i] = 0;
+        for (int q = gtid; q < P; q += gsize) sw.pdem[q] = 0;
+        node_views_block();
+        sync(PH_COARSE);
+        unsigned long long tested = 0, cells = 0;
+        coarse_bits(*this, T, B, BW, a.pool, g0, nb, (uint32_t*)a.out,
+                    [&](int r, int* sig, float* init) {
+                        if (!sw.pending[r]) return false;
+                        *sig = p.tsig[r];
+                        for (int k = 0; k < 3; ++k)
+                            init[k] = p.init[r * 3 + k];
+                        return true;
+                    }, &tested, &cells);
+        for (int t = gtid; t < T; t += gsize)
+            if (sw.pending[t]) atomicAdd(&sw.pdem[p.tpair[t]], 1);
+        sync(PH_COARSE);
+        coarse_best(*this, p, w, coarse_majority(*this, sw.pdem, P), B,
+                    a.pool, g0, nb, sw.best);
+        sync(PH_COARSE);
+        for (int b = gtid; b < B; b += gsize)
+            a.out[T * BW + b] = fbits(sw.best[b] + 0.0f);
+    }
+
+    // the gathered coarse passes [K, T * BW + B] combined (bits by OR,
+    // pool scores by max, rank by rank), the quarantine updated for the
+    // last wave (a1: it progressed), the candidates, the winner (block
+    // 0; flags[3..4]) and the waiting rule (sw.elsewhere)
+    __device__ void wave() {
+        const int T = p.T, B = a.B, BW = (B + 31) / 32;
+        const int mode = a.a0, stride = T * BW + B;
+        for (int i = gtid; i < T * BW; i += gsize) {
+            uint32_t v = 0;
+            for (int r = 0; r < K; ++r)
+                v |= (uint32_t)a.in[(size_t)r * stride + i];
+            sw.tbits[i] = v;
+        }
+        for (int b = gtid; b < B; b += gsize) {
+            float m = fval(a.in[T * BW + b]);
+            for (int r = 1; r < K; ++r) {
+                const float v = fval(a.in[(size_t)r * stride + T * BW + b]);
+                if (v > m) m = v;
+            }
+            sw.best[b] = m;
+            sw.cand[b] = 0;
+            if ((mode & WAVE_RESET) || a.a1) sw.blocked[b] = 0;
+            else if (b == sw.hs[HS_WIN]) sw.blocked[b] = 1;
+        }
+        sync(PH_WAVES);
+        coarse_candidates(*this, T, sw.pending, BW,
+                          [&](int t) { return sw.tbits + (size_t)t * BW; },
+                          sw.cand);
+        sync(PH_WAVES);
+        if (b0 && threadIdx.x == 0) {
+            if (mode & WAVE_TERMINAL) {
+                sw.hs[HS_WORK] = 0;
+                sw.hs[HS_WIN] = 0;
+            } else {
+                coarse_winner(sw.cand, sw.blocked, sw.best, B, sw.hs);
+                if (mode & WAVE_RECORD) {
+                    sw.hs[HS_OCC0] = sw.hs[HS_OCC];
+                    sw.hs[HS_FILL0] = sw.hs[HS_FILL];
+                }
+            }
+            a.flags[3] = sw.hs[HS_WORK];
+            a.flags[4] = sw.hs[HS_WIN];
+        }
+        sync(PH_WAVES);
+        const int win = sw.hs[HS_WIN];
+        for (int t = gtid; t < T; t += gsize) {
+            bool e = false;
+            if (sw.pending[t]) {
+                for (int wi = 0; wi < BW; ++wi) {
+                    uint32_t m = sw.tbits[(size_t)t * BW + wi];
+                    if (!(mode & WAVE_TERMINAL) && wi == (win >> 5))
+                        m &= ~(1u << (win & 31));
+                    e = e || m;
+                }
+            }
+            sw.elsewhere[t] = e;
+        }
     }
 
     __device__ void run() {
@@ -557,6 +866,15 @@ struct Shard : Cycle {
             case SEG_ROLLBACK: rollback_step(); break;
             case SEG_FRAME:
                 if (b0) frame(a.a0, a.a1, a.a2, ENGINE_SHARDED);
+                if (p.aff) aff_write_out();
+                break;
+            case SEG_COARSE: coarse(); break;
+            case SEG_WAVE: wave(); break;
+            case SEG_AVAIL: avail_out(a.out); break;
+            case SEG_HFRAME:
+                if (b0)
+                    frame(a.a0, a.a1, a.a2, ENGINE_HIER_SHARDED,
+                          sw.hs[HS_OCC0], sw.hs[HS_FILL0]);
                 break;
         }
     }
@@ -572,9 +890,14 @@ sharded_round_kernel(const __grid_constant__ Params p,
     s.run();
 }
 
+// the parameters over the whole bucket (the workspaces' sizes): the node
+// pointers at the rank's block, its port words, the dynamic score's FMA
 Params shard_params(const uint64_t* ptrs, const int* ints) {
     Params p = make_params(ptrs, ints);
     p.NS = ints[I_NB];                     // the [S, N_block] rows' stride
+    p.plo = ints[I_LO];
+    p.pnb = ints[I_NB];
+    p.dyn_fma = ints[I_FMA];
     return p;
 }
 
@@ -589,40 +912,76 @@ extern "C" int kb_sharded_workspace(const int* ints, int n_ints,
     uint64_t ptrs[N_SPTRS] = {0};
     const Params p = shard_params(ptrs, ints);
     *ws_bytes = (long long)layout(p, nullptr, nullptr);
-    *sws_bytes = (long long)shard_layout(p, nullptr, nullptr);
+    *sws_bytes = (long long)shard_layout(p, ints[I_B], nullptr, nullptr);
     return 0;
 }
 
 // Launch step ``seg`` (SEG_*) with its arguments a0..a2 (the round, the
-// revive flag, or the frame's rounds / retries / stranded). ptrs:
-// N_SPTRS device addresses in the P_* order (the affinity slots null,
-// then the two workspaces and the flags); ints: N_SINTS (the batched
-// kernel's, the node bucket in I_N, then the block's first node and
-// size); in / out: the gathered payload and this rank's (either may be
-// null for a step without one); info (host, 3 ints): grid, threads and
-// dynamic shared bytes. Returns the cudaError_t of the setup and launch.
+// revive flag, a wave's mode and progress, or the frame's rounds /
+// retries / stranded). ptrs: N_SPTRS device addresses in the P_* order
+// (the affinity slots null without the vocabulary: node_dom over the
+// whole bucket, port_base and the claims out over the rank's block; then
+// the two workspaces and the flags); ints: N_SINTS (the batched
+// kernel's, the node bucket in I_N, then the block, the ranks, the FMA
+// flag, the pools and the launch's node window); in / out: the gathered
+// payload and this rank's (either may be null for a step without one);
+// info (host, 3 ints): grid, threads and dynamic shared bytes. Returns
+// the cudaError_t of the setup and launch.
 extern "C" int kb_sharded_round(const unsigned long long* ptrs, int n_ptrs,
                                 const int* ints, int n_ints, int seg, int a0,
                                 int a1, int a2, void* in, void* out,
                                 int* info, void* stream) {
     if (n_ptrs != N_SPTRS || n_ints != N_SINTS || seg < 0 || seg >= N_SEGS)
         return (int)cudaErrorInvalidValue;
-    const Params p = shard_params((const uint64_t*)ptrs, ints);
-    const int lo = ints[I_LO], nb = ints[I_NB];
-    if (p.T >= (1 << 20) || p.J >= (1 << 24) || p.njk > 3 || p.aff
-        || nb < 1 || p.N % nb || lo % nb || lo + nb > p.N)
+    Params p = shard_params((const uint64_t*)ptrs, ints);
+    const int blo = ints[I_LO], bnb = ints[I_NB], K = ints[I_K];
+    const int off = ints[I_OFF], wn = ints[I_WN], B = ints[I_B];
+    const int pool = ints[I_POOL];
+    const bool two_level = seg >= SEG_COARSE;
+    if (p.T >= (1 << 20) || p.J >= (1 << 24) || p.njk > 3 || bnb < 1
+        || K < 1 || K > MAX_RANKS || bnb * K != p.N || blo % bnb
+        || blo + bnb > p.N || off < 0 || wn < 1 || off + wn > p.N
+        || (p.aff && (off != 0 || wn != p.N || B))
+        || (two_level && (B < 1 || pool * B != p.N))
+        || (ints[I_ELSE] && !B))
         return (int)cudaErrorInvalidValue;
     Work w;
     layout(p, (char*)ptrs[P_WS], &w);
     SWork sw;
-    shard_layout(p, (char*)ptrs[P_SWS], &sw);
+    shard_layout(p, B, (char*)ptrs[P_SWS], &sw);
+    // the window: this rank's part of [off, off + wn), its node pointers
+    // moved to the part's first node (sig rows keep the block's stride)
+    const int a_g = std::min(std::max(blo, off), off + wn);
+    const int b_g = std::min(std::max(blo + bnb, off), off + wn);
+    const int s0 = a_g - blo;
+    p.idle += (size_t)s0 * 3;
+    p.rel += (size_t)s0 * 3;
+    p.ntasks += s0;
+    p.nz += (size_t)s0 * 2;
+    p.bf += (size_t)s0 * 3;
+    p.cap += (size_t)s0 * 2;
+    p.maxt += s0;
+    p.node_ok += s0;
+    p.sig_scores += s0;
+    p.sig_pred += s0;
+    p.N = wn;
+    p.MN = pow2_at_least(wn);
+    p.noff = off;
+    p.elsewhere = ints[I_ELSE] ? sw.elsewhere : nullptr;
     SArgs a;
     a.seg = seg;
     a.a0 = a0;
     a.a1 = a1;
     a.a2 = a2;
-    a.lo = lo;
-    a.nb = nb;
+    a.lo = a_g - off;
+    a.nb = b_g - a_g;
+    a.blo = blo;
+    a.bnb = bnb;
+    a.K = K;
+    a.off = off;
+    a.wn = wn;
+    a.B = B;
+    a.pool = pool;
     a.in = (const int32_t*)in;
     a.out = (int32_t*)out;
     a.flags = (int32_t*)ptrs[P_FLAGS];

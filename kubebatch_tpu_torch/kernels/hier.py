@@ -50,7 +50,14 @@ the readback deferred to the next cycle.
 
 Inter-pod affinity and host ports are not expressible here (their
 domain carries are cluster-global): the action layer demotes such a
-cycle to the batched engine, counted.
+cycle to the batched engine, or with a node mesh to the sharded one,
+counted.
+
+:func:`solve_hier_sharded` runs the same wave loop over a node mesh
+(the reference's ``_hier_sharded_entry``): each rank's steps on its node
+block (kernels/batched_sharded.py ``HierPlainRank`` / ``CudaHierRank``,
+``csrc/sharded_round.cu``, whose coarse pass is this kernel's
+``csrc/hier_coarse.cuh``).
 """
 from __future__ import annotations
 
@@ -118,11 +125,13 @@ def _block_arrays(a: CycleArrays, off: int, pool: int) -> CycleArrays:
 
 
 def _merge_block(state: RoundState, bfinal: RoundState, off: int,
-                 pool: int) -> RoundState:
+                 pool: int, node_off: Optional[int] = None) -> RoundState:
     """Fold a finished wave's pool state back into the full-width state:
     the node carry into its window, task / job / queue state whole, and
     the pool-local nodes of this wave's new placements remapped to
-    global rows."""
+    global rows (``node_off`` added: ``off`` by default; a rank of the
+    node mesh holds the rows of its part of the pool, whose nodes are
+    the pool's)."""
     w = slice(off, off + pool)
     carry = {}
     for f in ("idle", "releasing", "n_tasks", "nz_req"):
@@ -132,7 +141,8 @@ def _merge_block(state: RoundState, bfinal: RoundState, off: int,
     st = bfinal.task_state
     newly = st != state.task_state
     placed = (st == ALLOC) | (st == ALLOC_OB) | (st == PIPELINE)
-    task_node = torch.where(newly & placed, bfinal.task_node + off,
+    task_node = torch.where(newly & placed, bfinal.task_node
+                            + (off if node_off is None else node_off),
                             state.task_node)
     return bfinal._replace(task_node=task_node, **carry)
 
@@ -779,3 +789,44 @@ def solve_hier(inputs, phases=None):
         phases["upload"] = (time.perf_counter() - t0) * 1e3
     return run_solve(inputs.device, inputs.task_valid.shape[0],
                      lambda: hier_packed(**args, **statics), phases)
+
+
+def solve_hier_sharded(mesh, device, inputs, max_rounds: int = 0,
+                       pool_size: int = 0, check: bool = False):
+    """The two-level solve over a node mesh (reference
+    ``solve_hier_sharded`` :529, ``_hier_sharded_entry`` :504) on rank 0
+    of ``mesh`` (the other ranks serve: parallel/worker.py): the inputs
+    placed as the flat sharded solve places them
+    (batched_sharded.prepare_sharded), the pool ``hier_pool_size(N_sh,
+    pool_size)`` of the shard bucket, the narrow words by the whole
+    bucket, and the wave loop of :func:`hier_allocate` with each rank's
+    steps on its node block (batched_sharded.HierPlainRank /
+    CudaHierRank): the coarse pass per block, gathered and combined
+    (pool bits by OR, pool scores by max), the winner replicated, the
+    pool's rounds as the sharded round on the pool's window. The frame
+    carries ENGINE_HIER_SHARDED. Returns (task_state, task_node,
+    task_seq, rounds, telemetry) as numpy and writes the node carry back
+    to the DeviceSession, as solve_batched_sharded does. ``check``: every
+    rank holds each launch against the plain version. Affinity cycles
+    never reach it, as in the reference."""
+    from .batched_sharded import run_sharded
+    from .narrow import narrow_enabled
+
+    if inputs.affinity is not None:
+        raise ValueError("hier requires an affinity-free cycle")
+    t_pad = int(inputs.task_valid.shape[0])
+
+    def extra(n_sh: int) -> dict:
+        pool = hier_pool_size(n_sh, pool_size)
+        narrow = narrow_enabled(
+            n_sh, t_pad, static_scores=inputs.sig_scores,
+            dyn_weights=(inputs.dyn_weights if inputs.dyn_enabled
+                         else None))
+        return dict(pool_size=pool,
+                    max_waves=(t_pad + 8) * (n_sh // pool + 1),
+                    narrow=narrow,
+                    narrow_gate=(not narrow and narrow_enabled(n_sh,
+                                                               t_pad)))
+
+    return run_sharded(mesh, device, inputs, "hier", extra, max_rounds,
+                       check, span="hier_allocate_sharded")

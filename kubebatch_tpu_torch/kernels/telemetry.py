@@ -20,8 +20,9 @@ import torch
 
 __all__ = ["TELEM_WIDTH", "WAVE_SLOTS", "FIELDS", "ENGINE_NAMES",
            "ENGINE_BATCHED", "ENGINE_FUSED", "ENGINE_HIER", "ENGINE_SHARDED",
-           "ENGINE_ACTIVESET", "ENGINE_VICTIM_WAVE", "ENGINE_VICTIM_VISIT",
-           "decision_frame", "host_frame", "victim_frames"]
+           "ENGINE_HIER_SHARDED", "ENGINE_ACTIVESET", "ENGINE_VICTIM_WAVE",
+           "ENGINE_VICTIM_VISIT", "decision_frame", "host_frame",
+           "victim_frames"]
 
 #: frame width in int32 words
 TELEM_WIDTH = 20
@@ -61,6 +62,7 @@ ENGINE_BATCHED = 2
 ENGINE_FUSED = 3
 ENGINE_HIER = 4
 ENGINE_SHARDED = 5
+ENGINE_HIER_SHARDED = 6
 ENGINE_VICTIM_WAVE = 7
 ENGINE_VICTIM_VISIT = 8
 ENGINE_ACTIVESET = 9
@@ -68,6 +70,7 @@ ENGINE_ACTIVESET = 9
 ENGINE_NAMES = {ENGINE_VISIT: "visit", ENGINE_BATCHED: "batched",
                 ENGINE_FUSED: "fused", ENGINE_HIER: "hier",
                 ENGINE_SHARDED: "sharded",
+                ENGINE_HIER_SHARDED: "hier_sharded",
                 ENGINE_VICTIM_WAVE: "victim_wave",
                 ENGINE_VICTIM_VISIT: "victim_visit",
                 ENGINE_ACTIVESET: "activeset"}

@@ -45,9 +45,11 @@ import torch
 #: graphs (``_hier_packed``, ``_activeset_packed``,
 #: ``_activeset_audit_packed``) contract it in their coarse pass and in
 #: their rounds alike, unlike the flat batched graph
-#: (tests/test_torch_hier.py, tests/test_torch_activeset.py).
+#: (tests/test_torch_hier.py, tests/test_torch_activeset.py); so does the
+#: two-level graph over the mesh (``_hier_sharded_entry``, probed on the
+#: reference's 8-device CPU mesh: tests/test_torch_sharded.py).
 WEIGHTED_SUM_FMA = {"batched": False, "allocate_scan": True, "hier": True,
-                    "activeset": True}
+                    "activeset": True, "hier_sharded": True}
 
 #: tile width of the cumulative-sum rewrite
 SCAN_TILE = 16

@@ -2,9 +2,9 @@
 
 Rank 0 is the scheduler process: it holds the session and the
 DeviceSession and calls the sharded engines
-(kernels/batched_sharded.py ``solve_batched_sharded``,
-kernels/sharded.py ``build_sharded_allocate``). Every other rank runs
-:func:`serve`: it waits for a solve header from rank 0, receives its
+(kernels/batched_sharded.py ``solve_batched_sharded``, kernels/hier.py
+``solve_hier_sharded``, kernels/sharded.py ``build_sharded_allocate``).
+Every other rank runs :func:`serve`: it waits for a solve header from rank 0, receives its
 node block and the replicated arrays, runs its part of the solve on its
 own device, replies with its counts, and returns on a shutdown message.
 
@@ -42,10 +42,11 @@ def serve(mesh) -> int:
             return served
         if op == "status":
             mesh.gather_objects(status())
-        elif op == "batched":
-            _, _, stats = batched_sharded.solve_rank(
-                mesh, block, header["rep"], header["statics"],
-                header["n_sh"], header["check"])
+        elif op in ("batched", "hier"):
+            solve = (batched_sharded.solve_hier_rank if op == "hier"
+                     else batched_sharded.solve_rank)
+            stats = solve(mesh, block, header["rep"], header["statics"],
+                          header["n_sh"], header["check"])[3]
             mesh.gather_objects(stats)
         elif op == "scan":
             mesh.gather_objects(sharded.scan_worker(mesh, header, block))

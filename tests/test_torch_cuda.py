@@ -1675,3 +1675,142 @@ def test_sharded_two_ranks_on_one_card(tmp_path):
         # round, the epilogue's flags, and rank 0's stages
         assert metrics.blocking_readbacks() - rb0 >= 6 + got[3] \
             + ranks[0]["stages"]
+
+
+# ---- the affinity branch over the mesh (B14a) and the two-level solve
+# over it (B14c) ---------------------------------------------------------
+
+def _tensor_args(node, rep, device="cpu"):
+    from kubebatch_tpu_torch.kernels.batched import arg_dtype
+
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(arg_dtype(k))
+            .to(device) for k, v in {**node, **rep}.items()}
+
+
+def _sharded_aff_inputs(name):
+    """A cycle carrying the affinity vocabulary: "3p" (the 3p mix cut to
+    100 nodes and 800 pods: zones, anti-affinity, preferred terms with
+    the interpod score, host ports) or "ports" (anti-affine gangs on four
+    hostnames, preferred co-location and a host port: stranded gangs)."""
+    import dataclasses
+
+    cache = SchedulerCache(async_writeback=False, incremental_snapshot=False,
+                           device="cpu")
+    if name == "3p":
+        build_cluster(dataclasses.replace(BASELINE_SPECS["3p"], n_nodes=100,
+                                          n_groups=200)).populate(cache)
+    else:
+        from kubebatch_tpu_torch import objects
+
+        w = AffWorld(objects)
+        cache.add_queue(w.queue())
+        aff_rollback_build(cache, w)
+    inputs = build_cycle_inputs(OpenSession(cache, shipped_tiers()),
+                                allow_affinity=True)
+    assert inputs.affinity is not None
+    return inputs
+
+
+@pytest.mark.parametrize("name,k", [("3p", 2), ("3p", 4), ("ports", 2),
+                                    ("ports", 4)])
+def test_sharded_affinity_kernels_match_plain(name, k):
+    """The affinity branch of csrc/sharded_round.cu on k ranks in lock
+    step: every launch held bitwise against the plain version
+    (CheckedRank), the result (decisions, nodes, sequence numbers,
+    rounds, node carry, [P,D] carry, port claims) bitwise the one-card
+    plain solve and the one-card kernel (csrc/batched_allocate.cu's
+    affinity branch) on the same bucket."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+    from kubebatch_tpu_torch.kernels.batched import (AFF_ARGS, AFF_OUT,
+                                                     CYCLE_ARGS, IP_ARG,
+                                                     NODE_ARGS)
+
+    inputs = _sharded_aff_inputs(name)
+    node, rep, statics, n_sh = bs.prepare_sharded(k, inputs.device, inputs)
+    _build.reset_launch_counts()
+    packed, carry, ranks = bs.solve_lockstep(node, rep, statics, n_sh, k,
+                                             "cuda", check=True)
+    torch.cuda.synchronize()
+    got_aff = bs.last_solve["aff"]
+    t_pad = inputs.task_valid.shape[0]
+    p, c = packed.cpu(), carry.cpu()
+    for dev in ("cpu", "cuda"):
+        t = _tensor_args(node, rep, dev)
+        aff = {kk: t[kk] for kk in AFF_ARGS}
+        if "task_ports" in rep:
+            aff.update(task_ports=t["task_ports"], port_base=t["port_base"])
+        if IP_ARG in rep:
+            aff[IP_ARG] = t[IP_ARG].reshape(())
+        args = {kk: t[kk] for kk in NODE_ARGS + CYCLE_ARGS}
+        want = (batched_allocate_plain if dev == "cpu" else batched_allocate)(
+            **args, compact_bucket=0, aff=aff, **statics)
+        want = [w.cpu() for w in want[:5]] + [
+            {kk: (v.cpu() if v is not None else None)
+             for kk, v in want[5].items()}]
+        assert torch.equal(p[:3 * t_pad + 1], want[0][:3 * t_pad + 1]), dev
+        assert torch.equal(p[3 * t_pad + 2:], want[0][3 * t_pad + 2:]), dev
+        for cols, w in ((slice(0, 3), want[1]), (slice(3, 6), want[2]),
+                        (slice(7, 9), want[4])):
+            assert torch.equal(c[:, cols].contiguous().view(torch.float32),
+                               w), dev
+        assert torch.equal(c[:, 6], want[3]), dev
+        for kk in AFF_OUT:
+            if want[5][kk] is None:
+                assert got_aff[kk] is None
+            else:
+                assert np.array_equal(want[5][kk].numpy(), got_aff[kk]), kk
+    assert _build.launch_count("sharded_round") == sum(
+        r.cuda.launches for r in ranks)
+    assert all(r.compared > r.cuda.launches for r in ranks)
+
+
+@pytest.mark.parametrize("k,seed,pool", [(4, 1, 32), (3, 0, 8), (2, 0, 8)])
+def test_hier_sharded_kernels_match_plain(k, seed, pool):
+    """The two-level steps of csrc/sharded_round.cu on k ranks in lock
+    step (pools straddling the ranks' blocks at k = 4 and 3): every
+    launch held bitwise against the plain version, the result bitwise the
+    one-card plain two-level solve and one launch of
+    csrc/hier_allocate.cu with the same pool on the same bucket."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+    from kubebatch_tpu_torch.kernels import hier as th
+    from kubebatch_tpu_torch.kernels.batched import CYCLE_ARGS, NODE_ARGS
+
+    sim = build_cluster(ClusterSpec(
+        n_nodes=48, n_groups=72, pods_per_group=8, n_queues=4,
+        queue_weights=(1, 2, 3, 4), pod_cpu_millis=1000,
+        pod_mem_bytes=2 * GiB, jitter=0.2, min_member=6, seed=seed))
+    cache = SchedulerCache(async_writeback=False, incremental_snapshot=False,
+                           device="cpu")
+    sim.populate(cache)
+    inputs = build_cycle_inputs(OpenSession(cache, shipped_tiers()))
+    node, rep, statics, n_sh = bs.prepare_sharded(k, inputs.device, inputs)
+    t_pad = inputs.task_valid.shape[0]
+    p_w = th.hier_pool_size(n_sh, pool)
+    statics.update(pool_size=p_w, max_waves=(t_pad + 8) * (n_sh // p_w + 1))
+    _build.reset_launch_counts()
+    packed, carry, ranks = bs.solve_hier_lockstep(node, rep, statics, n_sh,
+                                                  k, "cuda", check=True)
+    torch.cuda.synchronize()
+    p, c = packed.cpu(), carry.cpu()
+    one = {kk: statics[kk] for kk in (
+        "job_keys", "queue_keys", "prop_overused", "dyn_enabled",
+        "pipe_enabled", "max_rounds", "pool_size", "max_waves",
+        "gang_enabled", "narrow", "narrow_gate")}
+    for dev in ("cpu", "cuda"):
+        t = _tensor_args(node, rep, dev)
+        want = [w.cpu() for w in th.hier_packed(
+            **{kk: t[kk] for kk in NODE_ARGS + CYCLE_ARGS}, **one)]
+        assert torch.equal(p[:3 * t_pad + 1], want[0][:3 * t_pad + 1]), dev
+        assert torch.equal(p[3 * t_pad + 2:], want[0][3 * t_pad + 2:]), dev
+        assert int(p[3 * t_pad + 1]) == 6 and int(want[0][3 * t_pad + 1]) \
+            == 4
+        for cols, w in ((slice(0, 3), want[1]), (slice(3, 6), want[2]),
+                        (slice(7, 9), want[4])):
+            assert torch.equal(c[:, cols].contiguous().view(torch.float32),
+                               w), dev
+        assert torch.equal(c[:, 6], want[3]), dev
+    assert all(r.compared > r.cuda.launches for r in ranks)
+    if k == 4:
+        assert ranks[0].plain.stats["straddling"] > 0

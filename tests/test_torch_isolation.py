@@ -77,7 +77,9 @@ def test_port_imports_without_jax_or_reference_package():
                  "kubebatch_tpu_torch.parallel.mesh",
                  "kubebatch_tpu_torch.parallel.worker",
                  "kubebatch_tpu_torch.kernels.batched_sharded",
-                 "kubebatch_tpu_torch.kernels.sharded"):
+                 "kubebatch_tpu_torch.kernels.sharded",
+                 "kubebatch_tpu_torch.kernels.hier",
+                 "kubebatch_tpu_torch.kernels.telemetry"):
         assert must in mods
 
 

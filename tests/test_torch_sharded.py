@@ -14,7 +14,14 @@ sys.modules``). Exactness, tolerance 0:
 - against the reference's GSPMD ``solve_batched_sharded`` on its 8-device
   CPU mesh: decisions, sequence numbers and the nodes of placed tasks (as
   the reference's own tests/test_sharded_batched.py compares them);
-- the scan bitwise against the reference's ``build_sharded_allocate``.
+- the scan bitwise against the reference's ``build_sharded_allocate``;
+- with the inter-pod affinity / host-port vocabulary (B14a's affinity
+  branch): bitwise against the one-card plain solve with its [P,D] carry
+  and port claims, and decisions against the reference's GSPMD solve;
+- the two-level solve over the mesh (``hier.solve_hier_sharded``, B14c):
+  bitwise against the one-card plain two-level solve on the same bucket
+  and pool, pools straddling ranks, and against the reference's
+  ``solve_hier_sharded``; the reference graph's weighted-sum FMA probed.
 
 One default process group at a time: the module's ``meshes`` fixture
 launches the k it is asked for and closes the previous one, and the
@@ -31,6 +38,7 @@ import kubebatch_tpu_torch.plugins  # noqa: F401  (registers plugins)
 from kubebatch_tpu_torch import faults as t_faults
 from kubebatch_tpu_torch import metrics as t_metrics
 from kubebatch_tpu_torch.actions import allocate as t_allocate_mod
+from kubebatch_tpu_torch.actions import allocate_batched as t_allocate_batched
 from kubebatch_tpu_torch.actions.allocate import AllocateAction
 from kubebatch_tpu_torch.actions.cycle_inputs import build_cycle_inputs
 from kubebatch_tpu_torch.cache import SchedulerCache
@@ -38,6 +46,7 @@ from kubebatch_tpu_torch.conf import shipped_tiers
 from kubebatch_tpu_torch.framework import CloseSession, OpenSession
 from kubebatch_tpu_torch.kernels import batched as t_batched
 from kubebatch_tpu_torch.kernels import batched_sharded as bs
+from kubebatch_tpu_torch.kernels import hier as t_hier
 from kubebatch_tpu_torch.kernels import sharded as t_sharded
 from kubebatch_tpu_torch.objects import (GROUP_NAME_ANNOTATION, Container,
                                          Node, Pod, PodGroup, PodPhase, Queue,
@@ -93,8 +102,147 @@ def _cache(seed):
     return cache
 
 
-def _inputs(cache):
-    return build_cycle_inputs(OpenSession(cache, shipped_tiers()))
+def _inputs(cache, affinity=False):
+    return build_cycle_inputs(OpenSession(cache, shipped_tiers()),
+                              allow_affinity=affinity)
+
+
+def port_affinity_cluster(cache, n_nodes=12, n_groups=10, seed=0):
+    """tests/test_sharded_batched.py ``build_affinity_cluster`` in the
+    port's objects (the same draws from the same seed): anti-affinity
+    spread, zone co-location (zones z0-z2 cycle over the nodes, so every
+    domain straddles the ranks' blocks), preferred steering toward a
+    running pod, host ports."""
+    from kubebatch_tpu_torch.objects import Affinity, PodAffinityTerm
+
+    rng = np.random.default_rng(seed)
+    cache.add_queue(Queue(name="default", weight=1))
+    for i in range(n_nodes):
+        alloc = _rl(8000, 16 * GiB, pods=110)
+        cache.add_node(Node(name=f"n{i:03d}", allocatable=dict(alloc),
+                            capacity=dict(alloc),
+                            labels={"kubernetes.io/hostname": f"n{i:03d}",
+                                    "zone": f"z{i % 3}"}))
+
+    def pod(name, node, phase, req, group, labels, ts=0.0):
+        return Pod(uid=f"ns-{name}", name=name, namespace="ns",
+                   node_name=node, phase=phase,
+                   containers=[Container(requests=dict(req))],
+                   labels=dict(labels),
+                   annotations={GROUP_NAME_ANNOTATION: group},
+                   creation_timestamp=ts)
+
+    cache.add_pod_group(PodGroup(name="db", namespace="ns", min_member=1,
+                                 queue=""))
+    cache.add_pod(pod("db-0", "n002", PodPhase.RUNNING, _rl(500, GiB), "db",
+                      {"app": "db"}))
+    apps = ["red", "blue", "green"]
+    for g in range(n_groups):
+        app = apps[int(rng.integers(len(apps)))]
+        size = int(rng.integers(2, 5))
+        cache.add_pod_group(PodGroup(name=f"g{g:03d}", namespace="ns",
+                                     min_member=size, queue="",
+                                     creation_timestamp=float(g)))
+        for p in range(size):
+            pd = pod(f"g{g:03d}-{p}", "", PodPhase.PENDING,
+                     _rl(400, GiB // 2), f"g{g:03d}", {"app": app},
+                     float(g * 100 + p))
+            roll = rng.random()
+            if roll < 0.3:
+                pd.affinity = Affinity(pod_anti_affinity_required=[
+                    PodAffinityTerm(match_labels={"app": app},
+                                    topology_key="kubernetes.io/hostname")])
+            elif roll < 0.5:
+                pd.affinity = Affinity(pod_affinity_required=[
+                    PodAffinityTerm(match_labels={"app": app},
+                                    topology_key="zone")])
+            elif roll < 0.7:
+                pd.affinity = Affinity(pod_affinity_preferred=[
+                    (50, PodAffinityTerm(match_labels={"app": "db"},
+                                         topology_key="kubernetes.io/"
+                                                      "hostname"))])
+            elif roll < 0.8:
+                pd.containers[0].ports = [8080]
+            cache.add_pod(pd)
+
+
+#: a predicate-rich sim mix (tests/test_sharded_batched.py's end-to-end
+#: spec's fractions) at test scale
+_AFF_SPEC = dict(n_queues=4, queue_weights=(1, 2, 3, 4), pod_cpu_millis=800,
+                 pod_mem_bytes=GiB, n_zones=8, selector_frac=0.15,
+                 taint_frac=0.1, toleration_frac=0.15,
+                 anti_affinity_frac=0.08, zone_affinity_frac=0.05,
+                 pref_affinity_frac=0.08, hostport_frac=0.04)
+
+
+def _aff_case_cache(case):
+    """A cycle carrying the vocabulary: "rollback" (anti-affine gangs on
+    four hostnames, preferred co-location and a host port: partial gangs
+    strand and the epilogue subtracts their carry), "interpod" (the
+    reference's affinity cluster, seed 5: the interpod score and zone
+    domains straddling every block) or "sim" (the predicate-rich sim mix,
+    contended)."""
+    if case == "rollback":
+        return _aff_cache()
+    cache = SchedulerCache(binder=_Binder(), async_writeback=False,
+                           incremental_snapshot=False, device="cpu")
+    if case == "interpod":
+        port_affinity_cluster(cache, seed=5)
+    else:
+        build_cluster(ClusterSpec(n_nodes=24, n_groups=40, pods_per_group=4,
+                                  seed=2, **_AFF_SPEC)).populate(cache)
+    return cache
+
+
+def _tensor_args(node, rep):
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(
+        t_batched.arg_dtype(k)) for k, v in {**node, **rep}.items()}
+
+
+def _check_affinity_bitwise(mesh, case):
+    """The sharded solve of ``case`` over ``mesh`` bitwise against the
+    one-card plain batched solve (compact_bucket=0) on the same bucket:
+    decisions, nodes, sequence numbers, rounds, the frame but its engine
+    and narrow words, the node carry, the [P,D] carry and the port
+    claims. Returns the one-card frame."""
+    want_in = _inputs(_aff_case_cache(case), affinity=True)
+    got_in = _inputs(_aff_case_cache(case), affinity=True)
+    assert want_in.affinity is not None
+    node, rep, statics, n_sh = bs.prepare_sharded(mesh.world,
+                                                  want_in.device, want_in)
+    t = _tensor_args(node, rep)
+    aff = {k: t[k] for k in t_batched.AFF_ARGS}
+    if "task_ports" in rep:
+        aff.update(task_ports=t["task_ports"], port_base=t["port_base"])
+    if t_batched.IP_ARG in rep:
+        aff[t_batched.IP_ARG] = t[t_batched.IP_ARG].reshape(())
+    want = t_batched.batched_allocate_plain(
+        **{k: t[k] for k in t_batched.NODE_ARGS + t_batched.CYCLE_ARGS},
+        compact_bucket=0, aff=aff, **statics)
+    got = bs.solve_batched_sharded(mesh, got_in.device, got_in)
+    t_pad = got_in.task_valid.shape[0]
+    packed = want[0].numpy()
+    for k in range(3):
+        np.testing.assert_array_equal(packed[k * t_pad:(k + 1) * t_pad],
+                                      got[k])
+    assert int(packed[3 * t_pad]) == got[3]
+    frame = packed[3 * t_pad + 1:]
+    np.testing.assert_array_equal(frame[1:12], got[4][1:12])
+    np.testing.assert_array_equal(frame[14:], got[4][14:])
+    n_pad = got_in.device.n_padded
+    for w, g in zip(want[1:5], _carry(got_in.device)):
+        assert torch.equal(w[:n_pad], g)
+    res = bs.last_solve["aff"]
+    for name in ("aff_grp_cnt", "aff_anti_cnt", "aff_pref_w",
+                 "aff_grp_total"):
+        assert np.array_equal(want[5][name].numpy().view(np.uint32),
+                              res[name].view(np.uint32)), name
+    if want[5]["port_claim"] is None:
+        assert res["port_claim"] is None
+    else:
+        np.testing.assert_array_equal(want[5]["port_claim"].numpy(),
+                                      res["port_claim"])
+    return frame
 
 
 def _carry(device):
@@ -167,6 +315,64 @@ def test_sharded_against_reference_k4(meshes):
     assert telem[0] == 5                     # ENGINE_SHARDED
 
 
+@pytest.mark.parametrize("seed", [0, 5])
+def test_sharded_affinity_against_reference(meshes, seed):
+    """With the affinity vocabulary: decisions, sequence numbers and
+    placed nodes equal to the reference's GSPMD solve on its 8-device
+    CPU mesh (tests/test_sharded_batched.py
+    test_sharded_affinity_decisions_match_single_device's cluster)."""
+    from kubebatch_tpu.actions.cycle_inputs import (
+        build_cycle_inputs as j_build_inputs)
+    from kubebatch_tpu.kernels.batched_sharded import (
+        node_mesh as j_node_mesh, solve_batched_sharded as j_solve)
+
+    from .test_sharded_batched import _open_affinity
+
+    j_inputs = j_build_inputs(_open_affinity(seed), allow_affinity=True)
+    st_j, nd_j, seq_j, _ = j_solve(j_node_mesh(), j_inputs.device, j_inputs)
+    cache = SchedulerCache(binder=_Binder(), async_writeback=False,
+                           device="cpu")
+    port_affinity_cluster(cache, seed=seed)
+    inputs = _inputs(cache, affinity=True)
+    assert inputs.affinity is not None
+    st, nd, seq, _, telem = bs.solve_batched_sharded(meshes(4),
+                                                     inputs.device, inputs)
+    np.testing.assert_array_equal(st, np.asarray(st_j))
+    np.testing.assert_array_equal(seq, np.asarray(seq_j))
+    placed = np.isin(st, [1, 2, 3])
+    assert placed.sum() > 0
+    np.testing.assert_array_equal(nd[placed], np.asarray(nd_j)[placed])
+    assert telem[0] == 5
+
+
+def test_hier_sharded_against_reference(meshes):
+    """The two-level solve over the mesh: decisions, nodes and sequence
+    numbers equal to the reference's solve_hier_sharded on its 8-device
+    CPU mesh (tests/test_zscale_hier.py
+    test_hier_mesh_1d_and_2d_match_single_chip's cluster, pools of 8);
+    the frame carries ENGINE_HIER_SHARDED."""
+    from kubebatch_tpu.actions.cycle_inputs import (
+        build_cycle_inputs as j_build_inputs)
+    from kubebatch_tpu.kernels.batched_sharded import (
+        node_mesh as j_node_mesh)
+    from kubebatch_tpu.kernels.hier import solve_hier_sharded as j_solve
+
+    from .test_zscale_hier import _open as j_open
+
+    j_inputs = j_build_inputs(j_open(n_nodes=24, n_groups=12,
+                                     pods_per_group=4, seed=3))
+    st_j, nd_j, sq_j, _ = j_solve(j_node_mesh(), j_inputs.device, j_inputs,
+                                  pool_size=8)
+    inputs = _inputs(_cache(3))
+    st, nd, sq, rounds, telem = t_hier.solve_hier_sharded(
+        meshes(4), inputs.device, inputs, pool_size=8)
+    np.testing.assert_array_equal(st, np.asarray(st_j))
+    np.testing.assert_array_equal(nd, np.asarray(nd_j))
+    np.testing.assert_array_equal(sq, np.asarray(sq_j))
+    assert np.isin(st, [1, 2, 3]).sum() > 0
+    assert telem[0] == 6                     # ENGINE_HIER_SHARDED
+
+
 def test_sharded_half_cfg5_places_every_task(meshes):
     """The reference's half-cfg5 partitioned cycle (1,250 nodes, ~2.5k
     pods) over 4 ranks: every task placed, bitwise the one-card plain
@@ -218,12 +424,31 @@ def test_sharded_mode_end_to_end(meshes):
 
 
 def test_affinity_cycle_raises(meshes):
-    """A cycle carrying the affinity vocabulary under mode "sharded" does
-    not run batched in hiding: the sharded engine raises, naming the
-    ROADMAP item."""
-    ssn = OpenSession(_aff_cache(), shipped_tiers())
-    with pytest.raises(NotImplementedError, match="B14a"):
-        AllocateAction(mode="sharded", mesh=meshes(4)).execute(ssn)
+    """A cycle carrying the affinity vocabulary under mode "sharded" runs
+    the sharded engine (it raised before the affinity branch came), with
+    no engine demotion and no affinity host fallback, and leaves the
+    session as mode="batched" does (the reference's
+    test_sharded_mode_affinity_end_to_end_no_demotion: the cfg5p mix at
+    test scale)."""
+    spec = ClusterSpec(n_nodes=64, n_groups=48, pods_per_group=4, **_AFF_SPEC)
+    results = {}
+    for mode in ("batched", "sharded"):
+        cache = SchedulerCache(binder=_Binder(), async_writeback=False,
+                               device="cpu")
+        build_cluster(spec).populate(cache)
+        ssn = OpenSession(cache, shipped_tiers())
+        d0 = t_metrics.engine_demotions_total()
+        f0 = t_metrics.affinity_host_fallback_total()
+        AllocateAction(mode=mode, mesh=meshes(4)).execute(ssn)
+        assert t_metrics.engine_demotions_total() == d0, mode
+        assert t_metrics.affinity_host_fallback_total() == f0, mode
+        assert t_allocate_mod.last_cycle_engine == mode
+        assert t_allocate_batched.last_solve["affinity"]
+        results[mode] = {f"{t.namespace}/{t.name}": (t.status, t.node_name)
+                         for j in ssn.jobs.values()
+                         for t in j.tasks.values()}
+        CloseSession(ssn)
+    assert results["sharded"] == results["batched"]
 
 
 def _aff_cache():
@@ -240,10 +465,11 @@ def _aff_cache():
 
 def test_upgraded_affinity_cycle_runs_batched_counted(meshes, monkeypatch):
     """An affinity cycle that auto's sharded upgrade (or the hier
-    demotion's, with a mesh) sends to the sharded engine runs batched,
-    counted as a ("sharded", "batched") demotion, and leaves the session
-    as mode="batched" does; Scheduler(mesh=...) keeps binding such
-    cycles."""
+    demotion's, with a mesh) sends to the sharded engine runs sharded,
+    with no ("sharded", "batched") demotion (the hier demotion counted
+    as ("hier", "sharded"), as the reference counts it), and leaves the
+    session as mode="batched" does; Scheduler(mesh=...) binds such
+    cycles on the sharded engine."""
     monkeypatch.setattr(t_allocate_mod, "AUTO_BATCHED_MIN", 1)
     monkeypatch.setattr(t_allocate_mod, "AUTO_SHARDED_MIN_NODES", 4)
     mesh = meshes(4)
@@ -261,14 +487,14 @@ def test_upgraded_affinity_cycle_runs_batched_counted(meshes, monkeypatch):
         AllocateAction(mode=mode, mesh=mesh).execute(ssn)
         CloseSession(ssn)
         pairs = t_metrics.engine_demotions_by_pair()
-        assert t_allocate_mod.last_cycle_engine == "batched", mode
-        for pair, n in {key: 1, **extra}.items():
+        assert t_allocate_mod.last_cycle_engine == "sharded", mode
+        for pair, n in {key: 0, **extra}.items():
             assert pairs.get(pair, 0) - pairs0.get(pair, 0) == n, (mode, pair)
         assert _statuses(cache) == want, mode
     cache = _aff_cache()
     sched = Scheduler(cache, schedule_period=3600.0, mesh=mesh)
     assert sched.run_cycle()
-    assert t_allocate_mod.last_cycle_engine == "batched"
+    assert t_allocate_mod.last_cycle_engine == "sharded"
 
 
 @pytest.mark.parametrize("side", ["cpu mesh, card session",
@@ -338,6 +564,80 @@ def test_scan_against_reference_k4(meshes):
     assert len(set(np.asarray(want[0]).tolist())) > 1
 
 
+#: the two-level cases: (spec seed, pool) — "contended" revives
+#: stranded gangs through the epilogue over many waves, "straddle" takes
+#: pools wider than a rank's block at k = 4
+_HIER_CASES = {"contended": (0, 8), "straddle": (1, 32)}
+
+
+def _hier_cache(seed):
+    cache = SchedulerCache(binder=_Binder(), async_writeback=False,
+                           incremental_snapshot=False, device="cpu")
+    build_cluster(ClusterSpec(
+        n_nodes=48, n_groups=72, pods_per_group=8, n_queues=4,
+        queue_weights=(1, 2, 3, 4), pod_cpu_millis=1000,
+        pod_mem_bytes=2 * GiB, jitter=0.2, min_member=6,
+        seed=seed)).populate(cache)
+    return cache
+
+
+def _check_hier_bitwise(mesh, seed, pool):
+    """solve_hier_sharded over ``mesh`` bitwise against the one-card
+    plain two-level solve on the same bucket and pool: decisions, nodes,
+    sequence numbers, rounds, the frame but its engine id, the node
+    carry. Returns (frame, rank 0's work counts)."""
+    got_in, want_in = _inputs(_hier_cache(seed)), _inputs(_hier_cache(seed))
+    got = t_hier.solve_hier_sharded(mesh, got_in.device, got_in,
+                                    pool_size=pool)
+    st = bs.last_solve["statics"]
+    node, rep, _, n_sh = bs.prepare_sharded(mesh.world, want_in.device,
+                                            want_in)
+    t = _tensor_args(node, rep)
+    want = t_hier.hier_allocate_plain(
+        **{k: t[k] for k in t_batched.NODE_ARGS + t_batched.CYCLE_ARGS},
+        **{k: st[k] for k in ("job_keys", "queue_keys", "prop_overused",
+                              "dyn_enabled", "pipe_enabled", "max_rounds",
+                              "pool_size", "max_waves", "gang_enabled",
+                              "narrow", "narrow_gate")})
+    t_pad = got_in.task_valid.shape[0]
+    packed = want[0].numpy()
+    for k in range(3):
+        np.testing.assert_array_equal(packed[k * t_pad:(k + 1) * t_pad],
+                                      got[k])
+    assert int(packed[3 * t_pad]) == got[3]
+    frame = packed[3 * t_pad + 1:]
+    np.testing.assert_array_equal(frame[1:], got[4][1:])
+    assert frame[0] == 4 and got[4][0] == 6
+    n_pad = got_in.device.n_padded
+    for w, g in zip(want[1:5], _carry(got_in.device)):
+        assert torch.equal(w[:n_pad], g)
+    return frame, bs.last_solve["ranks"][0]["work"]
+
+
+@pytest.mark.parametrize("case", ["rollback", "interpod", "sim"])
+def test_sharded_affinity_bitwise_k4(meshes, case):
+    """B14a's affinity branch over 4 ranks, bitwise the one-card plain
+    solve with its [P,D] carry and port claims (host ports, the
+    interpod score, the stranded-gang rollback, domains straddling the
+    blocks)."""
+    frame = _check_affinity_bitwise(meshes(4), case)
+    if case == "rollback":
+        assert frame[14] > 0                 # the epilogue revived gangs
+
+
+@pytest.mark.parametrize("case", sorted(_HIER_CASES))
+def test_hier_sharded_bitwise_k4(meshes, case):
+    """The two-level solve over 4 ranks bitwise the one-card plain
+    two-level solve: pools straddling two ranks' blocks, and a contended
+    multi-wave cycle through the epilogue."""
+    seed, pool = _HIER_CASES[case]
+    frame, work = _check_hier_bitwise(meshes(4), seed, pool)
+    assert frame[14] > 0                     # the epilogue ran
+    if case == "straddle":
+        assert work["straddling"] > 0
+    assert work["waves"] > 1 and work["rounds"] == frame[1]
+
+
 @pytest.mark.parametrize("k,seed", [(4, 0), (4, 7), (2, 0), (2, 7)])
 def test_sharded_bitwise_against_one_card(meshes, k, seed):
     """tests/test_sharded_batched.py's 24-node fixture over k ranks:
@@ -384,6 +684,18 @@ def test_auto_picks_sharded_with_a_mesh(meshes, monkeypatch):
     assert alloc and alloc[0].mesh is mesh and alloc[0].mode == "auto"
 
 
+@pytest.mark.parametrize("k,case", [(k, c) for k in (2, 3)
+                                    for c in ("rollback", "interpod",
+                                              "sim")])
+def test_sharded_affinity_bitwise_against_one_card(meshes, k, case):
+    """B14a's affinity branch at k = 2 and 3 (the bucket padded to a
+    multiple of 3 with inert nodes: no domain, no ports), bitwise the
+    one-card plain solve on the same bucket."""
+    frame = _check_affinity_bitwise(meshes(k), case)
+    if case == "rollback":
+        assert frame[14] > 0
+
+
 def test_non_pow2_bucket_k3(meshes):
     """k = 3 pads the node bucket to a multiple of 3 (32 -> 33, not a
     power of two): bitwise the one-card plain solve over that bucket,
@@ -408,6 +720,14 @@ def test_non_pow2_bucket_k3(meshes):
         assert torch.equal(w[:32], g)
     one = t_batched.solve_batched(_inputs(_cache(0)), compact_bucket=0)
     np.testing.assert_array_equal(one[0], got[0])
+
+
+def test_hier_sharded_bitwise_k3(meshes):
+    """The two-level solve over 3 ranks (bucket 66, pools of 6: pools
+    straddle the 22-node blocks) bitwise the one-card plain two-level
+    solve, through the epilogue."""
+    frame, work = _check_hier_bitwise(meshes(3), 0, 8)
+    assert frame[14] > 0 and work["straddling"] > 0
 
 
 def test_one_rank_mesh_and_no_mesh_demote_counted(meshes):
@@ -534,3 +854,80 @@ def test_cap_engine_sharded_matches_reference_ladder(on_card):
     lad = t_faults.DegradationLadder()
     lad.level = 1
     assert lad.cap_engine("sharded", on_card=on_card) == "batched"
+
+
+@pytest.mark.parametrize("other", [8, 1], ids=["coarse_pass", "round"])
+def test_hier_sharded_weighted_sum_fma(other):
+    """The float order of the reference's two-level graph over the mesh
+    (``_hier_sharded_entry``), probed on its 8-device CPU mesh with
+    fractional nodeorder weights where fma(balanced, w1, least * w0)
+    differs from the two rounded products' sum (tests/test_torch_hier.py
+    test_weighted_sum_edge's cycle: in another pool the coarse pass's
+    pool score decides, in the same pool the round's waterfall order):
+    the graph contracts the sum, xla_order.WEIGHTED_SUM_FMA
+    ["hier_sharded"] says so, and the port's two-level solve over two
+    ranks places as the reference does."""
+    import jax
+    from jax.sharding import NamedSharding
+    from kubebatch_tpu.kernels import hier as j_hier
+    from kubebatch_tpu.kernels.batched import (CycleArrays as JArrays,
+                                               RoundState as JState)
+    from kubebatch_tpu.kernels.batched_sharded import (
+        _specs_for, node_mesh as j_node_mesh)
+    from kubebatch_tpu.kernels.fused import (K_DRF_SHARE, K_GANG_READY,
+                                             K_PRIORITY, K_PROP_SHARE)
+    from kubebatch_tpu_torch.kernels.xla_order import WEIGHTED_SUM_FMA
+
+    from .test_torch_hier import _synthetic, weighted_edges
+
+    mesh = j_node_mesh()
+    array_specs, state_specs = _specs_for(mesh)
+    statics = dict(job_keys=(K_PRIORITY, K_GANG_READY, K_DRF_SHARE),
+                   queue_keys=(K_PROP_SHARE,), prop_overused=True,
+                   dyn_enabled=True, pipe_enabled=False, max_rounds=16,
+                   gang_enabled=True, narrow=False, narrow_gate=False)
+
+    def put(tree, specs):
+        return type(tree)(**{k: jax.device_put(getattr(tree, k),
+                                               NamedSharding(mesh, sp))
+                             for k, sp in specs.items()})
+
+    def reference(a, node):
+        t_pad = a["task_valid"].shape[0]
+        arrays = JArrays(**{k: a[k] if k in a else node[k]
+                            for k in JArrays._fields
+                            if k in a or k in node})
+        state = JState(
+            idle=node["idle"], releasing=node["releasing"],
+            n_tasks=node["n_tasks"], nz_req=node["nz_req"],
+            q_allocated=a["q_alloc0"], j_allocated=a["j_alloc0"],
+            alloc_cnt=a["init_allocated"], job_alive=a["job_valid"],
+            task_state=np.zeros(t_pad, np.int32),
+            task_node=np.full(t_pad, -1, np.int32),
+            task_seq=np.full(t_pad, np.iinfo(np.int32).max, np.int32))
+        _, packed = j_hier._hier_sharded_entry(
+            put(state, state_specs), put(arrays, array_specs), pool_size=8,
+            **statics)
+        return int(np.asarray(packed)[t_pad])
+
+    def port(a, node):
+        n = node["node_ok"].shape[0]
+        nd = dict(node, sig_scores=a["sig_scores"], sig_pred=a["sig_pred"])
+        rep = {k: a[k] for k in bs.REP_ARGS}
+        st = dict(statics, pool_size=8, max_waves=(8 + 8) * (n // 8 + 1))
+        packed, _, _ = bs.solve_hier_lockstep(nd, rep, st, n, 2, "cpu")
+        return int(packed[a["task_valid"].shape[0]])
+
+    assert WEIGHTED_SUM_FMA["hier_sharded"]
+    cap, nz, edges = weighted_edges(3)
+    for w, two, fma in edges:
+        a, node = _synthetic()
+        a["dyn_weights"][:] = w
+        node["node_ok"][[0, other]] = True
+        node["nz_req"][0] = nz
+        node["allocatable_cm"][0] = cap
+        node["allocatable_cm"][other] = 0.0
+        a["sig_scores"][0, other] = max(fma, two)
+        want = 0 if fma >= two else other
+        assert reference(a, node) == want
+        assert port(a, node) == want
