@@ -183,6 +183,16 @@ against the plain version. Per rank: launches, device ms by step,
 collectives, stages and their host ms; waves, rounds and the straddling
 pools met.
 
+Last, csrc/chain_probe.cu's grid probe times a grid barrier of the
+round kernels' cooperative grid (one 512-thread block per SM), and the
+round kernels' launches named in DIGEST_LAUNCHES (cfg5, 5p, 3p, cfg6
+and cfg7 cold) are held to the digests in
+kubebatch_tpu_torch/kernels/round_digests.json, recorded from an earlier
+build of the kernels: the same inputs must give the same packed result
+and carries word for word. That is how cfg7, whose plain solve is left
+out, is held to the earlier kernels. The per-phase device timers of
+those launches print with the chain phases' share.
+
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -487,6 +497,126 @@ def assert_bitwise(want, got, what: str) -> None:
                 g.contiguous().view(torch.uint8)):
             raise AssertionError(f"{what}: output {k} differs from the "
                                  f"plain version")
+
+
+#: digests of the round kernels' results on the launches named in
+#: DIGEST_LAUNCHES, recorded from an earlier build of the kernels; every
+#: run must reproduce them (the same inputs, the same decisions and
+#: carries word for word), which is how launches no plain comparison
+#: reaches (cfg7) are held to the earlier kernels. The cold launches
+#: only: a churn cycle's fresh pods take uids from a process-wide counter
+#: that the earlier phases advance by a count that varies run to run, so
+#: its inputs do not repeat (the churn launches are held to their plain
+#: versions in every run instead)
+ROUND_DIGESTS = os.path.join(HERE, "kubebatch_tpu_torch", "kernels",
+                             "round_digests.json")
+DIGEST_LAUNCHES = ("cfg5 cold", "5p cold", "3p cold", "cfg6 cold",
+                   "cfg7 cold")
+#: this run's digests, by launch label (written to build/)
+DIGESTS: dict = {}
+
+
+def tensor_digest(obj) -> str:
+    """sha256 (32 hex digits) of the tensors in ``obj`` (a tensor, a list
+    or tuple, a dict by sorted key, None): dtype, shape and bytes; other
+    values by repr."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous().reshape(-1)
+            h.update(f"{t.dtype}{tuple(x.shape)}".encode())
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                feed(x[k])
+        elif isinstance(x, (list, tuple)):
+            h.update(b"[")
+            for v in x:
+                feed(v)
+            h.update(b"]")
+        else:
+            h.update(repr(x).encode())
+
+    feed(obj)
+    return h.hexdigest()[:32]
+
+
+def record_digest(label: str, inputs, outputs) -> None:
+    DIGESTS[label] = {"inputs": tensor_digest(inputs),
+                      "outputs": tensor_digest(outputs)}
+
+
+def check_digests() -> None:
+    """Write this run's digests to build/round_digests.json and hold the
+    launches of ROUND_DIGESTS to it: the same inputs must give the same
+    results."""
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "round_digests.json"), "w") as f:
+        json.dump({"launches": DIGESTS}, f, indent=1, sort_keys=True)
+    with open(ROUND_DIGESTS) as f:
+        ref = json.load(f)["launches"]
+    for label in DIGEST_LAUNCHES:
+        want, got = ref.get(label), DIGESTS.get(label)
+        if want is None or got is None:
+            raise AssertionError(f"round digests: launch {label!r} missing "
+                                 f"(recorded {want is not None}, this run "
+                                 f"{got is not None})")
+        if got["inputs"] != want["inputs"]:
+            raise AssertionError(f"round digests: {label}: inputs differ "
+                                 f"from the recorded launch's")
+        if got["outputs"] != want["outputs"]:
+            raise AssertionError(f"round digests: {label}: results differ "
+                                 f"from the recorded launch's")
+    log(f"round digests: {len(DIGEST_LAUNCHES)} launches ("
+        + ", ".join(DIGEST_LAUNCHES) + ") reproduce the recorded inputs "
+        f"and results word for word")
+
+
+#: the round's ordering phases (kernels/batched.py PHASES names): the
+#: chain the grid chain took off block 0
+CHAIN_PHASES = ("order_jobs", "window", "waterfall", "accept_commit",
+                "retry_accept_commit", "aff_serialize")
+
+
+def chain_share(phase_ms: dict) -> str:
+    """The chain phases' ms and share of a launch's phase timers."""
+    chain = sum(phase_ms.get(k, 0.0) for k in CHAIN_PHASES)
+    total = sum(phase_ms.values())
+    return (f"chain phases {chain:.3f} ms, "
+            f"{chain / total if total else 0.0:.4f} of it")
+
+
+def grid_barrier_us(iters: int = 4000) -> dict:
+    """csrc/chain_probe.cu's grid probe: us per grid.sync() of the round
+    kernels' cooperative grid (one 512-thread block per SM), beside a
+    block barrier's."""
+    import ctypes
+
+    import torch
+
+    from kubebatch_tpu_torch.kernels import _build
+
+    lib = _build.library("chain_probe.cu")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    info = (ctypes.c_int * 2)()
+    best = None
+    for _ in range(3):
+        err = lib.kb_grid_probe(iters, out.data_ptr(), info,
+                                torch.cuda.current_stream().cuda_stream)
+        _build.check_launch("grid_probe", err)
+        torch.cuda.synchronize()
+        ns = out.cpu().tolist()
+        if best is None or ns[0] < best[0]:
+            best = ns
+    return {"grid": info[0], "threads": info[1], "iters": iters,
+            "grid_sync_us": best[0] / iters / 1e3,
+            "block_sync_us": best[1] / iters / 1e3}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1502,6 +1632,7 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
         log(f"(e) {label}: {len(wrec.calls)} victim_wave launches (affinity "
             f"masks folded in) bitwise equal to plain on CPU copies")
         bkw, bgot = brec.calls[0]
+        record_digest(f"{label} cold", bkw, bgot)
         aff = bkw["aff"]
         kw = {k: v for k, v in bkw.items() if k != "aff"}
         stats = {}
@@ -1572,7 +1703,8 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
     log(f"(e) batched_allocate 5p cold, main-path launch, device ms per "
         f"phase (sum {total_ms:.3f}; affinity phases {aff_ms:.3f}, "
         f"{aff_ms / total_ms:.4f} of it; the predicates and the score also "
-        f"run inside rank_and_rows and retry_rows): "
+        f"run inside rank_and_rows and retry_rows; "
+        f"{chain_share(phase_ms)}): "
         + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
     r3 = config_cycles("3p", spec3p)
     return {
@@ -2391,6 +2523,8 @@ def scale_phase(dev, spec6, spec7) -> list:
                                  f"{want_binds}), gangs broken {bad_gangs}, "
                                  f"nodes over capacity {over}")
         call = calls[0]
+        record_digest(label, {"args": call["args"], "kw": call["kw"]},
+                      call["out"])
         counters = dict(zip(hier_mod.COUNTERS,
                             call["counters"].cpu().tolist()))
         t = (call["args"][2] if call["kind"] == "audit"
@@ -2551,17 +2685,18 @@ def scale_phase(dev, spec6, spec7) -> list:
             f"{prof} ms device time (profiler)")
     from kubebatch_tpu_torch.kernels.batched import PHASES
 
-    for e, _ in results["hier"] + results["activeset"][:1]:
+    # the cold launches, the first audit and the first steady active set
+    for e, _ in results["hier"] + results["activeset"][:2]:
         phase_ms = {k: v / 1e6 for k, v in zip(
             PHASES + hier_mod.HIER_PHASES, e["phase_ns"].cpu().tolist())
             if v}
         e["phase_ms"] = phase_ms
         log(f"(g) {e['label']}, main-path launch, device ms per phase "
-            f"(block 0's thread 0 between grid barriers; sum "
-            f"{sum(phase_ms.values()):.3f}): "
+            f"(thread 0 between grid barriers; sum "
+            f"{sum(phase_ms.values()):.3f}; {chain_share(phase_ms)}): "
             + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
         del e["phase_ns"]
-    for e, _ in results["activeset"][1:]:
+    for e, _ in results["activeset"][2:]:
         del e["phase_ns"]
 
     c6 = results["hier"][0][0]
@@ -5172,6 +5307,7 @@ def main() -> int:
 
     # every main-path solve against the plain version on its own inputs
     bkw, bgot = brec.calls[0]
+    record_digest("cfg5 cold", bkw, bgot)
     t_pad = bkw["task_valid"].shape[0]
     stats = {}
     t0 = time.perf_counter()
@@ -5292,8 +5428,8 @@ def main() -> int:
         f"{bb['bound_ms']:.6f} ms ({bb['bound_by']}: {bb['bytes']} B, "
         f"{bb['ops']} float32 operations)")
     log(f"batched_allocate cfg5 cold, main-path launch, device ms per phase "
-        f"(block 0's thread 0 between grid barriers; sum "
-        f"{sum(phase_ms.values()):.3f}): "
+        f"(thread 0 between grid barriers; sum "
+        f"{sum(phase_ms.values()):.3f}; {chain_share(phase_ms)}): "
         + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
     log(f"fused_allocate cfg5 cold: kernel {fused_event_ms:.3f} ms per "
         f"launch (CUDA events, 3 launches), {fused_prof_ms} ms device time "
@@ -5344,6 +5480,12 @@ def main() -> int:
                        BASELINE_SPECS[6])
     kernels += sharded_phase(dev, BASELINE_SPECS[5], extra=mesh_l)
     kernels += mesh_l.entries()
+    gp = grid_barrier_us()
+    log(f"grid barrier (csrc/chain_probe.cu): {gp['grid_sync_us']:.4f} us "
+        f"per grid.sync() on {gp['grid']} x {gp['threads']} threads, "
+        f"{gp['block_sync_us']:.4f} us per block barrier ({gp['iters']} "
+        f"back to back, best of 3)")
+    check_digests()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -66,6 +66,7 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     },
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
+        "kb_grid_probe": "ippp",
     },
     "sharded_round.cu": {
         "kb_sharded_workspace": "pipp",

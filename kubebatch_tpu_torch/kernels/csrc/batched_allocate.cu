@@ -29,7 +29,8 @@
 // the node state, [S,N] predicates and [P,N] scores it reads (~70 MB,
 // ~0.02 ms at 3.35 TB/s). Between those passes the round is a chain of
 // dependent steps over T (sorts, scans, segment sums) that each need every
-// earlier result: their latency, not bytes or operations, bounds it.
+// earlier result: their latency (grid barriers, L2 round trips), not bytes
+// or operations, bounds it.
 // Design:
 //  - one cooperative launch (grid.sync() between phases, the grid no
 //    larger than what is co-resident) runs the whole cycle, so no round
@@ -38,15 +39,26 @@
 //    the nodes, keeping eligibility, any-eligible and the (score, lowest
 //    index) argmax in registers; nothing of size [T,N] is stored. The
 //    waterfall slot's eligibility is one cell per task;
-//  - the ordering steps (sorts of jobs, tasks, nodes and proposers; the
-//    scans; the per-node acceptance; the segment sums) run in block 0,
-//    sorting 64-bit composite keys with a bitonic sort in shared memory
-//    (the job order with a comparator over its float keys); the other
-//    blocks wait at the next grid barrier;
+//  - the grid chain (batched_round.cuh): on a task view past
+//    GRID_CHAIN_MIN the ordering steps run across the whole grid (the
+//    waterfall's node order past GRID_CHAIN_MIN nodes, the job order past
+//    GRID_JOBS_MIN jobs, each sorting counting passes over its keys'
+//    order-preserving bits). Their
+//    sorts are stable LSD counting sorts (at most 8 bits a pass: each
+//    block counts the digits of a contiguous chunk, a grid barrier, each
+//    block finds its digit bases and scatters its chunk with ranks from
+//    __match_any_sync), each sized to the key's range (nodes, jobs,
+//    queues, task ranks), the secondary key free from the iteration
+//    order; per-segment sums take one thread a segment across the grid
+//    (bounds by binary search of the sorted keys); the segmented scan's
+//    and the tiled cumsum's long levels run across the grid, the short
+//    ones in block 0. Every key ends in an index, so any correct sort
+//    gives the permutation the bitonic sort gave, and no addition
+//    changes its operands or order. On smaller views block 0 runs the
+//    same steps with the bitonic sort in shared memory. The epilogue's
+//    stranded-job pass and the compaction stay in block 0;
 //  - scalars shared across the grid sit in a small global array that
 //    every thread reads after the barrier.
-// Making the block-0 chain shorter (a counting sort per round, fewer
-// barriers) is later work.
 //
 // Affinity (when the cycle carries kernels/affinity.py's vocabulary; A
 // affinity pairs <= 128, PT ports <= 64, D domain slots):
@@ -74,11 +86,12 @@
 //    any order), their min / max over the real nodes, then the
 //    reference's floor(10 * (c - cmin) / span) * weight in its float
 //    order; such tasks leave the shared waterfall;
-//  - phase-1 serialization is integer work in block 0: atomicMin of
-//    ranks into an [A, D+1] workspace per (pair, domain) and into [N+1]
-//    per node for port claimants, the bootstrap domain by atomicMax;
-//    then each accepted task keeps or drops. Integer atomics are exact
-//    and order-free; float atomics stay out.
+//  - phase-1 serialization is integer work across the grid (a team step
+//    of the chain): atomicMin of ranks into an [A, D+1] workspace per
+//    (pair, domain) and into [N+1] per node for port claimants, the
+//    bootstrap domain by atomicMax, a grid barrier, then each accepted
+//    task keeps or drops. Integer atomics are exact and order-free;
+//    float atomics stay out.
 #include "batched_round.cuh"
 
 namespace {
@@ -141,6 +154,7 @@ extern "C" int kb_batched_allocate(const unsigned long long* ptrs,
         return (int)err;
     if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
     const int grid = sms * per_sm;
+    if (grid > MAX_GRID) return (int)cudaErrorInvalidConfiguration;
     info[0] = grid;
     info[1] = NT;
     info[2] = (int)smem;

@@ -31,6 +31,33 @@ constexpr int ENGINE_BATCHED = 2;
 constexpr float WINDOW_SLACK = 0.85f;
 constexpr uint64_t NONE = ~0ull;           // sorts after every real key
 constexpr unsigned FULL = 0xffffffffu;
+// the grid chain: counting-sort digits (RADIX_BITS a pass), the most
+// blocks the per-block digit counts have room for
+constexpr int RADIX_BITS = 8;
+constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int MAX_GRID = 1024;
+// task views and node windows larger than this run the round's ordering
+// steps across the grid; at or below it block 0 runs them with the
+// shared-memory bitonic sort. chain_timing.py set it on the H100,
+// building a copy with every view on the grid beside this one (PERF.md
+// §6, the round chain): block 0 was faster on the active set's views of
+// 256 and 1,024 tasks (2.8 / 3.9 ms a launch against 3.6 / 4.6), the
+// grid on cfg5's compacted views of 2,048 and on 4,096 (5.9 ms against
+// 6.3) and more
+constexpr int GRID_CHAIN_MIN = 1024;
+// job axes larger than this take the grid's job order: its counting
+// passes run over up to 24 bytes of float keys, so block 0's comparator
+// sort stays ahead longer (faster on 1,000 and 1,250 jobs, 3p and 5p;
+// the grid on cfg6's 6,250; PERF.md §6)
+constexpr int GRID_JOBS_MIN = 4096;
+// levels of the segmented scan and of the tiled cumsum longer than this
+// run across the grid, the shorter ones in block 0
+constexpr int SCAN_BLOCK_MAX = 4096;
+// the counting sort's shared scratch (ints): per-warp digit counts, the
+// block's histogram, the digit bases, the warp sums of a block scan
+constexpr int RADIX_SMEM_INTS = (NT / 32) * RADIX + 2 * RADIX + 32;
+// a sort key that sorts after every real one (block composite keys)
+constexpr int KEY_EXCLUDED = 0xffffff;
 
 enum { SKIP = 0, ALLOC = 1, ALLOC_OB = 2, PIPELINE = 3, FAIL = 4 };
 enum { K_PRIORITY = 0, K_GANG_READY = 1, K_DRF_SHARE = 2 };
@@ -138,6 +165,13 @@ struct Work {
     float* rv; int32_t* rcnt; uint8_t* rflag;
     float* tscr;                           // tiled-cumsum level scratch
     uint64_t* gkeys;                       // sort keys past SMEM_KEYS
+    // the grid chain's sorts: sorted items and keys (two pairs), the
+    // counting passes' ping-pong positions, per-block digit counts
+    int32_t* perm; int32_t* skey; int32_t* perm_b; int32_t* skey_b;
+    int32_t* rk_a; int32_t* rk_b; int32_t* rk_cnt;
+    float* gval;                           // [T,3] requests in sorted order
+    uint32_t* jbits;                       // [12] OR, AND of the job keys'
+                                           // order bits
     int32_t* iscal; float* fscal;
     // affinity: the int32 carry, packed task / node words, per-round
     // views and flags, the serialization minima, the score's per-row
@@ -164,7 +198,7 @@ struct Work {
 enum { F_BOOT, F_SAT, F_CARRIER, F_PREF, F_N };
 
 enum { S_PROGRESS, S_MAJ, S_CNT, S_ANY_STRANDED, S_STRANDED, S_TCUR,
-       S_NSCAL };
+       S_TRMAX, S_NSCAL };
 
 // phases timed between grid barriers (kernels/batched.py PHASES names
 // them in this order): the interval that ends at each barrier is added
@@ -260,6 +294,13 @@ inline size_t layout(const Params& p, char* base, Work* w) {
     x.tscr = (float*)take((TJ + N) * 3 * 4);
     x.gkeys = (uint64_t*)take((size_t)std::max(p.MT, std::max(p.MJ, p.MN))
                               * 8);
+    const size_t TJN = std::max(TJ, N);
+    int32_t** sorts[] = {&x.perm, &x.skey, &x.perm_b, &x.skey_b, &x.rk_a,
+                         &x.rk_b};
+    for (int32_t** f : sorts) *f = (int32_t*)take(TJN * 4);
+    x.rk_cnt = (int32_t*)take((size_t)MAX_GRID * RADIX * 4);
+    x.gval = (float*)take(T * 3 * 4);
+    x.jbits = (uint32_t*)take(12 * 4);
     x.iscal = (int32_t*)take(S_NSCAL * 4);
     x.fscal = (float*)take(8 * 4);
     // affinity (zero-sized without the vocabulary)
@@ -551,6 +592,375 @@ struct Cycle {
     }
 
     __device__ int tcur() const { return w.iscal[S_TCUR]; }
+
+    // ---- the grid chain -------------------------------------------------
+    //
+    // The round's ordering steps (window, rank_tasks, accept_phase,
+    // commit_node, commit_round, the affinity serialization and commit,
+    // the rollback's segment sums) are written once against a team: the
+    // whole grid (GridTeam: its barrier is the grid barrier, timed into
+    // the caller's phase) or block 0 alone (BlockTeam: the other blocks
+    // skip the step and wait at the caller's next grid barrier). Every
+    // block calls chain(); a view above GRID_CHAIN_MIN tasks takes the
+    // grid. Which thread adds two floats never matters, only the operands
+    // and their order, so both teams give the same bits.
+
+    struct BlockTeam {
+        static constexpr bool grid = false;
+        int tid, n;
+        __device__ BlockTeam() : tid(threadIdx.x), n(blockDim.x) {}
+        __device__ void sync() const { __syncthreads(); }
+    };
+
+    struct GridTeam {
+        static constexpr bool grid = true;
+        Cycle* c;
+        int ph, tid, n;
+        __device__ GridTeam(Cycle* c_, int ph_)
+            : c(c_), ph(ph_), tid(c_->gtid), n(c_->gsize) {}
+        __device__ void sync() const { c->sync(ph); }
+    };
+
+    // step f(team) on the grid when ``size`` (grid-uniform) is above
+    // GRID_CHAIN_MIN, else in block 0; every block calls it
+    template <class F>
+    __device__ void chain_n(int size, int ph, F f) {
+        if (size > GRID_CHAIN_MIN) f(GridTeam(this, ph));
+        else if (b0) f(BlockTeam());
+    }
+
+    template <class F>
+    __device__ void chain(int ph, F f) { chain_n(tcur(), ph, f); }
+
+    static __device__ __forceinline__ int bits_for(int r) {
+        return r <= 1 ? 0 : 32 - __clz(r - 1);
+    }
+
+    // Stable sort of the positions i < n by (key1(i), key2(i)), ties in
+    // position order: perm[j] = item(i) and skey[j] = key1(i) for the j-th
+    // smallest. key1 is in [0, r1) or -1 (excluded: sorted after every
+    // real key, its skey past r1 - 1), key2 in [0, r2) (r2 1: none). The
+    // grid team sorts more than GRID_CHAIN_MIN positions with stable
+    // counting passes (radix_sort); otherwise block 0 sorts composite
+    // 64-bit keys with the bitonic sort. Ends at the team's barrier.
+    template <class Team, class K1, class K2, class Item>
+    __device__ void sort_pos(Team tm, int n, int r1, K1 key1, int r2,
+                             K2 key2, Item item, int32_t* perm,
+                             int32_t* skey) {
+        if constexpr (Team::grid) {
+            if (n > GRID_CHAIN_MIN) {
+                radix_sort(tm, n, r1, key1, r2, key2, item, perm, skey);
+                return;
+            }
+            if (b0) block_sort_pos(n, r2, key1, key2, item, perm, skey);
+        } else {
+            block_sort_pos(n, r2, key1, key2, item, perm, skey);
+        }
+        tm.sync();
+    }
+
+    // block: sort_pos by composite keys (key1 | key2 | position)
+    template <class K1, class K2, class Item>
+    __device__ void block_sort_pos(int n, int r2, K1& key1, K2& key2,
+                                   Item& item, int32_t* perm,
+                                   int32_t* skey) {
+        const int bi = bits_for(n), b2 = bits_for(r2);
+        const int m = pow2_at_least(n);
+        uint64_t* keys = keybuf(m);
+        sort_keys(keys, n, m, [&](int i) -> uint64_t {
+            const int k1 = key1(i);
+            const uint32_t h = k1 < 0 ? (uint32_t)KEY_EXCLUDED : (uint32_t)k1;
+            return ((uint64_t)h << (b2 + bi))
+                   | ((uint64_t)(uint32_t)key2(i) << bi) | (uint64_t)i;
+        });
+        const uint64_t mi = (1ull << bi) - 1;
+        for (int j = threadIdx.x; j < n; j += blockDim.x) {
+            const uint64_t k = keys[j];
+            perm[j] = item((int)(k & mi));
+            skey[j] = (int)(k >> (b2 + bi));
+        }
+    }
+
+    // grid: LSD counting passes of at most RADIX_BITS each over key2's
+    // bits, then key1's (the excluded as r1), each stable, so the
+    // position order breaks the remaining ties
+    template <class K1, class K2, class Item>
+    __device__ void radix_sort(const GridTeam& tm, int n, int r1, K1& key1,
+                               int r2, K2& key2, Item& item, int32_t* perm,
+                               int32_t* skey) {
+        const int b1 = max(1, bits_for(r1 + 1)), b2 = bits_for(r2);
+        const int p1 = (b1 + RADIX_BITS - 1) / RADIX_BITS;
+        const int p2 = (b2 + RADIX_BITS - 1) / RADIX_BITS;
+        const int d1 = (b1 + p1 - 1) / p1;
+        const int d2 = p2 ? (b2 + p2 - 1) / p2 : 0;
+        const int np = p1 + p2;
+        bool on2 = false, last = false;
+        int shift = 0, db = 1;
+        int32_t* dst = nullptr;
+        auto k1 = [&](int i) {
+            const int v = key1(i);
+            return v < 0 ? r1 : min(v, r1 - 1);
+        };
+        auto digit = [&](int i) {
+            return ((on2 ? key2(i) : k1(i)) >> shift) & ((1 << db) - 1);
+        };
+        auto emit = [&](int pos, int i) {
+            if (last) {
+                perm[pos] = item(i);
+                skey[pos] = k1(i);
+            } else {
+                dst[pos] = i;
+            }
+        };
+        const int32_t* src = nullptr;
+        for (int q = 0; q < np; ++q) {
+            on2 = q < p2;
+            db = on2 ? d2 : d1;
+            shift = (on2 ? q : q - p2) * db;
+            last = q == np - 1;
+            dst = (q & 1) ? w.rk_b : w.rk_a;
+            radix_pass(tm, n, src, db, digit, emit);
+            src = dst;
+        }
+    }
+
+    // block: in-place exclusive scan of a[0..r) (r <= NT) in shared memory
+    __device__ void block_excl_scan(int* a, int r, int* wsum) {
+        const int tid = threadIdx.x, wp = tid >> 5;
+        const int v = tid < r ? a[tid] : 0;
+        int x = v;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(FULL, x, o);
+            if (lane >= o) x += y;
+        }
+        if (lane == 31) wsum[wp] = x;
+        __syncthreads();
+        if (tid == 0) {
+            int run = 0;
+            for (int q = 0; q < NT / 32; ++q) {
+                const int s = wsum[q];
+                wsum[q] = run;
+                run += s;
+            }
+        }
+        __syncthreads();
+        if (tid < r) a[tid] = x - v + wsum[wp];
+        __syncthreads();
+    }
+
+    // grid: one stable counting pass of the positions src[0..n) (src null:
+    // 0..n-1) by digit(i) < 2^db. Each block takes a contiguous chunk: it
+    // counts its digits; after a grid barrier it finds each digit's base
+    // (the counts of lower digits everywhere, of this digit in lower
+    // blocks) and scatters its chunk 512 positions at a time, a
+    // position's rank among equal digits from its warp's
+    // __match_any_sync and the per-warp digit counts in shared memory:
+    // emit(pos, i) for each. Ends at a grid barrier.
+    template <class Digit, class Emit>
+    __device__ void radix_pass(const GridTeam& tm, int n, const int32_t* src,
+                               int db, Digit& digit, Emit& emit) {
+        int* wc = (int*)skeys;                  // [NT/32][R]
+        int* hist = wc + (NT / 32) * RADIX;     // [R]
+        int* base = hist + RADIX;               // [R]
+        int* wsum = base + RADIX;               // [NT/32]
+        const int R = 1 << db, G = gridDim.x, b = blockIdx.x;
+        const int tid = threadIdx.x, wp = tid >> 5;
+        const int chunk = (n + G - 1) / G;
+        const int lo = min(n, b * chunk), hi = min(n, lo + chunk);
+        __syncthreads();
+        for (int d = tid; d < R; d += NT) hist[d] = 0;
+        for (int d = tid; d < (NT / 32) * R; d += NT) wc[d] = 0;
+        __syncthreads();
+        for (int j = lo + tid; j < hi; j += NT)
+            atomicAdd(&hist[digit(src ? src[j] : j)], 1);
+        __syncthreads();
+        for (int d = tid; d < R; d += NT) w.rk_cnt[d * G + b] = hist[d];
+        tm.sync();
+        // a warp a digit, its lanes over the blocks' counts (coalesced)
+        for (int d = wp; d < R; d += NT / 32) {
+            int tot = 0, pre = 0;
+            for (int bb = lane; bb < G; bb += 32) {
+                const int v = w.rk_cnt[d * G + bb];
+                tot += v;
+                pre += bb < b ? v : 0;
+            }
+            tot = __reduce_add_sync(FULL, tot);
+            pre = __reduce_add_sync(FULL, pre);
+            if (lane == 0) {
+                hist[d] = tot;
+                base[d] = pre;
+            }
+        }
+        __syncthreads();
+        block_excl_scan(hist, R, wsum);
+        for (int d = tid; d < R; d += NT) base[d] += hist[d];
+        __syncthreads();
+        const unsigned lt = (1u << lane) - 1u;
+        for (int t0 = lo; t0 < hi; t0 += NT) {
+            const int j = t0 + tid;
+            const bool valid = j < hi;
+            const int i = valid ? (src ? src[j] : j) : 0;
+            const int d = valid ? digit(i) : R;
+            const unsigned peers = __match_any_sync(FULL, d);
+            const int rank = __popc(peers & lt);
+            if (valid && rank == 0) wc[wp * R + d] = __popc(peers);
+            __syncthreads();
+            for (int dd = tid; dd < R; dd += NT) {
+                int run = 0;
+                for (int q = 0; q < NT / 32; ++q) {
+                    const int v = wc[q * R + dd];
+                    wc[q * R + dd] = run;
+                    run += v;
+                }
+                hist[dd] = run;
+            }
+            __syncthreads();
+            if (valid) emit(base[d] + wc[wp * R + d] + rank, i);
+            __syncthreads();
+            for (int dd = tid; dd < R; dd += NT) {
+                base[dd] += hist[dd];
+                for (int q = 0; q < NT / 32; ++q) wc[q * R + dd] = 0;
+            }
+            __syncthreads();
+        }
+        tm.sync();
+    }
+
+    // kb::SegScan<NV> over the workspace's level arrays (n elements): on
+    // the grid its long levels (over SCAN_BLOCK_MAX) run across the grid
+    // and the rest in block 0, the same tree and combinations either way
+    template <int NV, class Team>
+    __device__ void seg_scan(Team tm, int n) {
+        const SegScan<NV> s{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag};
+        if constexpr (!Team::grid) {
+            s.run(n);
+        } else {
+            int ns[32], off[32];
+            int L = 0;
+            ns[0] = n;
+            off[0] = 0;
+            while (ns[L] >= 2) {
+                off[L + 1] = off[L] + ns[L];
+                ns[L + 1] = ns[L] / 2;
+                ++L;
+            }
+            int S = 0;
+            while (S < L && ns[S] > SCAN_BLOCK_MAX) ++S;
+            auto up = [&](int l, int i0, int stride) {
+                for (int i = i0; i < ns[l + 1]; i += stride) {
+                    const int a = off[l] + 2 * i, bq = a + 1;
+                    const int o = off[l + 1] + i;
+                    s.comb(s.sv + (size_t)a * NV, s.sc[a], s.sf[a],
+                           s.sv + (size_t)bq * NV, s.sc[bq], s.sf[bq],
+                           s.sv + (size_t)o * NV, s.sc + o, s.sf + o);
+                }
+            };
+            auto down = [&](int l, int i0, int stride) {
+                for (int i = i0; i < ns[l]; i += stride) {
+                    const int o = off[l] + i;
+                    if (i & 1) {
+                        const int q = off[l + 1] + i / 2;
+                        for (int v = 0; v < NV; ++v)
+                            s.rv[(size_t)o * NV + v] = s.rv[(size_t)q * NV + v];
+                        s.rc[o] = s.rc[q];
+                        s.rf[o] = s.rf[q];
+                    } else if (i == 0) {
+                        for (int v = 0; v < NV; ++v)
+                            s.rv[(size_t)o * NV + v] = s.sv[(size_t)o * NV + v];
+                        s.rc[o] = s.sc[o];
+                        s.rf[o] = s.sf[o];
+                    } else {
+                        const int q = off[l + 1] + i / 2 - 1;
+                        s.comb(s.rv + (size_t)q * NV, s.rc[q], s.rf[q],
+                               s.sv + (size_t)o * NV, s.sc[o], s.sf[o],
+                               s.rv + (size_t)o * NV, s.rc + o, s.rf + o);
+                    }
+                }
+            };
+            for (int l = 0; l < S; ++l) {
+                up(l, gtid, gsize);
+                tm.sync();
+            }
+            if (b0) {
+                for (int l = S; l < L; ++l) {
+                    up(l, threadIdx.x, blockDim.x);
+                    __syncthreads();
+                }
+                for (int i = threadIdx.x; i < ns[L]; i += blockDim.x) {
+                    const int q = off[L] + i;
+                    for (int v = 0; v < NV; ++v)
+                        s.rv[(size_t)q * NV + v] = s.sv[(size_t)q * NV + v];
+                    s.rc[q] = s.sc[q];
+                    s.rf[q] = s.sf[q];
+                }
+                __syncthreads();
+                for (int l = L - 1; l >= S; --l) {
+                    down(l, threadIdx.x, blockDim.x);
+                    __syncthreads();
+                }
+            }
+            tm.sync();
+            for (int l = S - 1; l >= 0; --l) {
+                down(l, gtid, gsize);
+                tm.sync();
+            }
+        }
+    }
+
+    // block_tiled_cumsum of x[n, ncol] into y: on the grid, when n is past
+    // SCAN_BLOCK_MAX, the 16-wide tiles of the first level run across the
+    // grid, block 0 scans their totals (the same recursion, from the
+    // second level) and the grid adds each tile's carry
+    template <class Team>
+    __device__ void tiled_cumsum(Team tm, const float* x, float* y, int n,
+                                 int ncol) {
+        if constexpr (!Team::grid) {
+            block_tiled_cumsum(x, y, n, ncol, w.tscr);
+        } else {
+            if (n <= SCAN_BLOCK_MAX) {
+                if (b0) block_tiled_cumsum(x, y, n, ncol, w.tscr);
+                tm.sync();
+                return;
+            }
+            const int tiles = (n + 15) / 16;
+            float* tot = w.tscr;
+            float* tscan = tot + (size_t)tiles * ncol;
+            for (int q = gtid; q < tiles * ncol; q += gsize) {
+                const int tile = q / ncol, c = q % ncol;
+                const int i0 = tile * 16, i1 = min(i0 + 16, n);
+                float acc = x[(size_t)i0 * ncol + c];
+                y[(size_t)i0 * ncol + c] = acc;
+                for (int i = i0 + 1; i < i1; ++i) {
+                    acc = acc + x[(size_t)i * ncol + c];
+                    y[(size_t)i * ncol + c] = acc;
+                }
+                tot[(size_t)tile * ncol + c] = acc;
+            }
+            tm.sync();
+            if (b0)
+                block_tiled_cumsum(tot, tscan, tiles, ncol,
+                                   tscan + (size_t)tiles * ncol);
+            tm.sync();
+            for (int q = gtid; q < n * ncol; q += gsize) {
+                const int tile = (q / ncol) / 16, c = q % ncol;
+                const float carry = tile > 0
+                    ? tscan[(size_t)(tile - 1) * ncol + c] : 0.0f;
+                y[q] = y[q] + carry;
+            }
+            tm.sync();
+        }
+    }
+
+    // first index of a sorted int array holding a value >= q
+    static __device__ __forceinline__ int lower_bound_i32(const int32_t* a,
+                                                          int n, int q) {
+        int lo = 0, hi = n;
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (a[mid] < q) lo = mid + 1; else hi = mid;
+        }
+        return lo;
+    }
 
     // the predicate row and request row task t is tested with: its own,
     // or with pair_init (the active set's exact pairs) its pair's
@@ -900,12 +1310,15 @@ struct Cycle {
         return inv;
     }
 
-    // block 0: phase-1 acceptances whose co-placement is sequentially
-    // legal (reference _aff_serialize); integer atomics only
-    __device__ void aff_serialize() {
+    // team: phase-1 acceptances whose co-placement is sequentially legal
+    // (reference _aff_serialize); integer atomics only, exact in any
+    // order: atomicMin of ranks per (pair, domain) and per port node, the
+    // bootstrap domain by atomicMax, then each accepted task keeps or drops
+    template <class Team>
+    __device__ void aff_serialize(Team tm) {
         const int tc = tcur(), N = p.N, D = p.D;
         const uint64_t* boot = w.fl + F_BOOT * 2;
-        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+        for (int k = tm.tid; k < tc; k += tm.n) {
             if (!w.acc1[k]) continue;
             const int t = w.tmap[k], node = w.prop1[k], rank = w.grank[k];
             uint64_t m[2];
@@ -925,8 +1338,8 @@ struct Cycle {
             });
             if (p.PT && w.mports[t]) atomicMin(&w.pmin[node], rank);
         }
-        __syncthreads();
-        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+        tm.sync();
+        for (int k = tm.tid; k < tc; k += tm.n) {
             if (!w.acc1[k]) continue;
             const int t = w.tmap[k], node = w.prop1[k], rank = w.grank[k];
             for_bits(w.mreq + t * 2, [&](int q) {
@@ -936,8 +1349,8 @@ struct Cycle {
                 }
             });
         }
-        __syncthreads();
-        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+        tm.sync();
+        for (int k = tm.tid; k < tc; k += tm.n) {
             if (!w.acc1[k]) continue;
             const int t = w.tmap[k], node = w.prop1[k], rank = w.grank[k];
             uint64_t m[2];
@@ -963,11 +1376,11 @@ struct Cycle {
             if (p.PT && w.mports[t]) keep = keep && rank == w.pmin[node];
             w.acc1[k] = keep;
         }
-        __syncthreads();
+        tm.sync();
     }
 
-    // block 0: add (sign 1) or subtract (-1) task t's placement at node
-    // into the carry (reference _aff_delta; exact integer atomics); the
+    // add (sign 1) or subtract (-1) task t's placement at node into the
+    // carry (reference _aff_delta; exact integer atomics); the
     // port claim only where these parameters hold the node's ports
     __device__ void aff_apply(int t, int node, int sign) {
         const int N = p.N, D = p.D, A = p.A;
@@ -996,12 +1409,13 @@ struct Cycle {
         }
     }
 
-    // block 0: the round's accepted placements into the carry
-    __device__ void aff_commit() {
+    // team: the round's accepted placements into the carry
+    template <class Team>
+    __device__ void aff_commit(Team tm) {
         const int tc = tcur();
-        for (int k = threadIdx.x; k < tc; k += blockDim.x)
+        for (int k = tm.tid; k < tc; k += tm.n)
             if (w.accept[k]) aff_apply(w.tmap[k], w.prop1[k], 1);
-        __syncthreads();
+        tm.sync();
     }
 
     // grid, at the end: the float carry and the claim matrix
@@ -1021,8 +1435,9 @@ struct Cycle {
 
     // ---- per-segment sums in task-index order (block 0) ---------------
 
-    // Sort (segment << 32 | k) for the tasks ``seg(k) >= 0`` of the view;
-    // returns the key array (sorted, NONE past the included ones).
+    // block 0 (the node-sharded round's commit_block): sort (segment << 32
+    // | k) for the tasks ``seg(k) >= 0`` of the view; returns the key
+    // array (sorted, NONE past the included ones).
     template <class Seg>
     __device__ uint64_t* segment_keys(Seg seg) {
         const int tc = tcur(), m = p.MT;
@@ -1036,9 +1451,13 @@ struct Cycle {
 
     // ---- round phases ---------------------------------------------------
 
-    // block 0: queue overuse / shares, the job order, the demand window
+    // every block: the job order (on the grid past GRID_JOBS_MIN jobs,
+    // else in block 0), then block 0: the demand window's pool sums
     __device__ void order_jobs() {
-        job_order();
+        const bool grid_jobs = p.J > GRID_JOBS_MIN;
+        if (grid_jobs) job_order_grid();
+        if (!b0) return;
+        if (!grid_jobs) job_order();
         // avail_pool: column sums over the nodes of the accessible pool
         for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
             const bool base = p.node_ok[n] && p.ntasks[n] < p.maxt[n];
@@ -1061,11 +1480,9 @@ struct Cycle {
         }
     }
 
-    // block 0: queue overuse / shares and the job order (job_order,
-    // job_rank; fail_rank and pair_demand reset)
-    __device__ void job_order() {
-        const int J = p.J, Q = p.Q;
-        for (int q = threadIdx.x; q < Q; q += blockDim.x) {
+    // the queues' overuse and shares, threads tid, tid + n, ...
+    __device__ void queue_state(int tid, int n) {
+        for (int q = tid; q < p.Q; q += n) {
             bool over = p.prop_overused;
             for (int r = 0; r < 3 && over; ++r)
                 over = p.qdes[q * 3 + r] < w.q_alloc[q * 3 + r] + p.eps[r];
@@ -1073,22 +1490,34 @@ struct Cycle {
             w.q_share[q] = p.qshare ? share3(w.q_alloc + q * 3, p.qdes + q * 3)
                                     : 0.0f;
         }
+    }
+
+    // job j's sort keys k[0..3 + njk): its queue's share and creation
+    // rank, the job-order plugins' keys, its creation rank
+    __device__ void job_keys(int j, float* k) const {
+        const int q = p.jqueue[j];
+        k[0] = w.q_share[q];
+        k[1] = (float)p.qcrank[q];
+        for (int i = 0; i < p.njk; ++i) {
+            const int code = p.jk[i];
+            k[2 + i] = code == K_PRIORITY ? -p.jprio[j]
+                     : code == K_GANG_READY
+                         ? (w.alloc_cnt[j] >= p.omin[j] ? 1.0f : 0.0f)
+                         : share3(w.j_alloc + (size_t)j * 3, p.ctotal);
+        }
+        k[2 + p.njk] = (float)p.jcrank[j];
+    }
+
+    // block 0: queue overuse / shares and the job order (job_order,
+    // job_rank; fail_rank and pair_demand reset): a bitonic sort of the
+    // job indices by a comparator over their float keys
+    __device__ void job_order() {
+        const int J = p.J;
+        queue_state(threadIdx.x, blockDim.x);
         __syncthreads();
         const int nk = 3 + p.njk;
-        for (int j = threadIdx.x; j < J; j += blockDim.x) {
-            float* k = w.jkey + (size_t)j * 6;
-            const int q = p.jqueue[j];
-            k[0] = w.q_share[q];
-            k[1] = (float)p.qcrank[q];
-            for (int i = 0; i < p.njk; ++i) {
-                const int code = p.jk[i];
-                k[2 + i] = code == K_PRIORITY ? -p.jprio[j]
-                         : code == K_GANG_READY
-                             ? (w.alloc_cnt[j] >= p.omin[j] ? 1.0f : 0.0f)
-                             : share3(w.j_alloc + (size_t)j * 3, p.ctotal);
-            }
-            k[2 + p.njk] = (float)p.jcrank[j];
-        }
+        for (int j = threadIdx.x; j < J; j += blockDim.x)
+            job_keys(j, w.jkey + (size_t)j * 6);
         for (int i = threadIdx.x; i < p.MJ; i += blockDim.x) w.jidx[i] = i;
         __syncthreads();
         const float* jkey = w.jkey;
@@ -1112,31 +1541,121 @@ struct Cycle {
             w.pair_demand[q] = 0;
     }
 
-    // grid: engaged tasks
+    // grid: job_order with its comparator sort as stable LSD counting
+    // passes over the keys' order-preserving bits (ord_bits: -0.0 reads
+    // as +0.0, as the comparator and the plain _lexsort have it), the
+    // least significant key first, the job index from the iteration
+    // order; a byte that every job shares is skipped (the OR and AND of
+    // each key's bits over the jobs say which)
+    __device__ void job_order_grid() {
+        const int J = p.J, nk = 3 + p.njk;
+        uint32_t* jb = w.jbits;
+        queue_state(gtid, gsize);
+        for (int q = gtid; q < p.P; q += gsize) w.pair_demand[q] = 0;
+        if (gtid < 6) {
+            jb[gtid] = 0u;
+            jb[6 + gtid] = ~0u;
+        }
+        sync(PH_ORDER);
+        uint32_t lor[6], land[6];
+        for (int i = 0; i < 6; ++i) {
+            lor[i] = 0u;
+            land[i] = ~0u;
+        }
+        for (int j = gtid; j < J; j += gsize) {
+            float* k = w.jkey + (size_t)j * 6;
+            job_keys(j, k);
+            for (int i = 0; i < nk; ++i) {
+                const uint32_t u = ord_bits(k[i]);
+                lor[i] |= u;
+                land[i] &= u;
+            }
+            w.fail_rank[j] = IMAX;
+        }
+        for (int i = 0; i < nk; ++i) {
+            const uint32_t o = __reduce_or_sync(FULL, lor[i]);
+            const uint32_t a = __reduce_and_sync(FULL, land[i]);
+            if (lane == 0) {
+                atomicOr(&jb[i], o);
+                atomicAnd(&jb[6 + i], a);
+            }
+        }
+        sync(PH_ORDER);
+        int np = 0;
+        for (int i = 0; i < nk; ++i)
+            for (int by = 0; by < 4; ++by)
+                np += ((jb[i] ^ jb[6 + i]) >> (8 * by)) & 255u ? 1 : 0;
+        if (np == 0) {
+            for (int j = gtid; j < J; j += gsize) {
+                w.job_order[j] = j;
+                w.job_rank[j] = j;
+            }
+            return;
+        }
+        const float* jkey = w.jkey;
+        int key = 0, shift = 0, q = 0;
+        int32_t* dst = nullptr;
+        auto digit = [&](int j) {
+            return (int)((ord_bits(jkey[(size_t)j * 6 + key]) >> shift)
+                         & 255u);
+        };
+        auto emit = [&](int pos, int j) {
+            if (q == np - 1) {
+                w.job_order[pos] = j;
+                w.job_rank[j] = pos;
+            } else {
+                dst[pos] = j;
+            }
+        };
+        const int32_t* src = nullptr;
+        const GridTeam tm(this, PH_ORDER);
+        for (int i = nk - 1; i >= 0; --i) {
+            for (int by = 0; by < 4; ++by) {
+                if (!(((jb[i] ^ jb[6 + i]) >> (8 * by)) & 255u)) continue;
+                key = i;
+                shift = 8 * by;
+                dst = (q & 1) ? w.rk_b : w.rk_a;
+                radix_pass(tm, J, src, RADIX_BITS, digit, emit);
+                src = dst;
+                ++q;
+            }
+        }
+    }
+
+    // grid: engaged tasks; the view's largest task rank into
+    // iscal[S_TRMAX] (rank_tasks' secondary key range)
     __device__ void engage() {
         const int tc = tcur();
+        int rmax = 0;
         for (int k = gtid; k < tc; k += gsize) {
             const int t = w.tmap[k];
             const int j = wrap_job(p.tjob[t], p.J);
             w.engaged[k] = w.vvalid[k] && p.out[t] == SKIP && w.alive[j]
                            && p.jvalid[j] && !w.overused[p.jqueue[j]];
+            rmax = max(rmax, p.trank[t]);
         }
+        rmax = __reduce_max_sync(FULL, rmax);
+        if (lane == 0 && rmax > w.iscal[S_TRMAX])
+            atomicMax(&w.iscal[S_TRMAX], rmax);
     }
 
-    // block 0: the demand window and the per-queue budgets -> admitted
-    __device__ void window() {
-        const int J = p.J;
+    // team: the demand window and the per-queue budgets -> admitted
+    template <class Team>
+    __device__ void window(Team tm) {
+        const int J = p.J, Q = p.Q, tc = tcur();
         // job_demand: per job, engaged requests in task-index order
-        uint64_t* keys = segment_keys([&](int k) {
-            return w.engaged[k] ? max(p.tjob[w.tmap[k]], 0) : -1;
-        });
-        for (int j = threadIdx.x; j < J; j += blockDim.x) {
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)j << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(j + 1) << 32);
+        sort_pos(tm, tc, J,
+                 [&](int k) {
+                     return w.engaged[k] ? max(p.tjob[w.tmap[k]], 0) : -1;
+                 },
+                 1, [](int) { return 0; }, [](int k) { return k; }, w.perm,
+                 w.skey);
+        for (int j = tm.tid; j < J; j += tm.n) {
+            const int lo = lower_bound_i32(w.skey, tc, j);
+            const int hi = lower_bound_i32(w.skey, tc, j + 1);
             float s[3] = {0.0f, 0.0f, 0.0f};
             for (int i = lo; i < hi; ++i) {
-                const int t = w.tmap[(int)(keys[i] & 0xffffffffu)];
+                const int t = w.tmap[w.perm[i]];
                 for (int r = 0; r < 3; ++r) s[r] = s[r] + p.resreq[t * 3 + r];
             }
             bool eng = false;
@@ -1151,84 +1670,73 @@ struct Cycle {
             w.eng_job[j] = eng;
             w.norm[j] = nm;
         }
-        __syncthreads();
-        for (int k = threadIdx.x; k < J; k += blockDim.x)
+        tm.sync();
+        for (int k = tm.tid; k < J; k += tm.n) {
             w.norm_ord[k] = w.norm[w.job_order[k]];
-        __syncthreads();
-        if (p.prop_overused) {
-            for (int j = threadIdx.x; j < J; j += blockDim.x) {
-                const int q = p.jqueue[j];
+            if (p.prop_overused) {
+                const int q = p.jqueue[k];
                 float nm = 0.0f;
                 for (int r = 0; r < 3; ++r) {
                     const float rem = fmaxf(p.qdes[q * 3 + r]
                                             - w.q_alloc[q * 3 + r], 0.0f);
                     const float f = rem > 0.0f
-                        ? w.job_demand[j * 3 + r] / fmaxf(rem, 1e-9f) : 0.0f;
+                        ? w.job_demand[k * 3 + r] / fmaxf(rem, 1e-9f) : 0.0f;
                     nm = r == 0 ? f : fmaxf(nm, f);
                 }
-                w.qn[j] = nm;
+                w.qn[k] = nm;
+            } else {
+                w.q_ok[k] = 1;
             }
+        }
+        if (p.prop_overused) {
             // jobs grouped by queue, rank order inside each queue
-            uint64_t* jk = keybuf(p.MJ);
-            sort_keys(jk, J, p.MJ, [&](int j) {
-                return ((uint64_t)(uint32_t)p.jqueue[j] << 32)
-                       | (uint32_t)w.job_rank[j];
-            });
-            for (int k = threadIdx.x; k < J; k += blockDim.x) {
-                const int j = w.job_order[(int)(jk[k] & 0xffffffffu)];
-                w.qperm[k] = j;
-                w.qj[k] = p.jqueue[j];
-            }
-            __syncthreads();
-            for (int k = threadIdx.x; k < J; k += blockDim.x) {
-                const int st = search_left(w.qj, 1, J, w.qj[k]);
+            sort_pos(tm, J, Q, [&](int k) { return p.jqueue[w.job_order[k]]; },
+                     1, [](int) { return 0; },
+                     [&](int k) { return w.job_order[k]; }, w.qperm, w.qj);
+            for (int k = tm.tid; k < J; k += tm.n) {
                 const int j = w.qperm[k];
                 w.sv[k * 2] = w.qn[j];
                 w.sv[k * 2 + 1] = w.eng_job[j] ? 1.0f : 0.0f;
                 w.scnt[k] = 0;
-                w.sflag[k] = k == st;
+                w.sflag[k] = k == 0 || w.qj[k] != w.qj[k - 1];
             }
-            __syncthreads();
-            SegScan<2>{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag}.run(J);
-            for (int k = threadIdx.x; k < J; k += blockDim.x) {
+            tm.sync();
+            seg_scan<2>(tm, J);
+            for (int k = tm.tid; k < J; k += tm.n) {
                 const float qp = w.rv[k * 2] - w.sv[k * 2];
                 const float ec = w.rv[k * 2 + 1] - w.sv[k * 2 + 1];
                 const int j = w.qperm[k];
                 const bool first = w.eng_job[j] && ec == 0.0f;
                 w.q_ok[j] = qp <= 1.0f || first;
             }
-            __syncthreads();
-            for (int k = threadIdx.x; k < J; k += blockDim.x)
+            tm.sync();
+            for (int k = tm.tid; k < J; k += tm.n)
                 w.norm_ord[k] = w.norm_ord[k]
                                 * (w.q_ok[w.job_order[k]] ? 1.0f : 0.0f);
-            __syncthreads();
-        } else {
-            for (int j = threadIdx.x; j < J; j += blockDim.x) w.q_ok[j] = 1;
         }
-        block_tiled_cumsum(w.norm_ord, w.cum_j, J, 1, w.tscr);
-        for (int k = threadIdx.x; k < J; k += blockDim.x) {
+        tm.sync();
+        tiled_cumsum(tm, w.norm_ord, w.cum_j, J, 1);
+        for (int k = tm.tid; k < J; k += tm.n) {
             const float excl = w.cum_j[k] - w.norm_ord[k];
             const int j = w.job_order[k];
             w.admitted[j] = (excl <= WINDOW_SLACK) && w.q_ok[j];
         }
     }
 
-    // block 0: the global task rank (job order, task rank, index)
-    __device__ void rank_tasks() {
-        const int tc = tcur(), m = p.MT;
-        uint64_t* keys = keybuf(m);
-        sort_keys(keys, tc, m, [&](int k) {
-            const int t = w.tmap[k];
-            const uint64_t jr = w.part[k]
-                ? (uint64_t)w.job_rank[wrap_job(p.tjob[t], p.J)] : 0xffffffull;
-            return (jr << 40) | ((uint64_t)(uint32_t)p.trank[t] << 20)
-                   | (uint64_t)k;
-        });
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            const int k = (int)(keys[i] & 0xfffffu);
-            w.order[i] = k;
-            w.grank[k] = i;
-        }
+    // team: the global task rank (job order, task rank, index); the
+    // non-participants last
+    template <class Team>
+    __device__ void rank_tasks(Team tm) {
+        const int tc = tcur(), J = p.J;
+        sort_pos(tm, tc, J,
+                 [&](int k) {
+                     return w.part[k]
+                         ? w.job_rank[wrap_job(p.tjob[w.tmap[k]], J)] : -1;
+                 },
+                 w.iscal[S_TRMAX] + 1,
+                 [&](int k) { return p.trank[w.tmap[k]]; },
+                 [](int k) { return k; }, w.order, w.skey);
+        for (int i = tm.tid; i < tc; i += tm.n) w.grank[w.order[i]] = i;
     }
 
     // grid: [P,N] pair scores against the round-start nz carry
@@ -1280,20 +1788,86 @@ struct Cycle {
         }
     }
 
+    // every block: the shared waterfall. A node window past
+    // GRID_CHAIN_MIN is ordered across the grid (every block finds the
+    // majority pair; the counting passes sort (ord_bits(-score), node) as
+    // two 16-bit keys) and its cumsums taken there; a view past it takes
+    // the task-axis prefixes across the grid; the rest runs in block 0
+    __device__ void waterfall_chain() {
+        const int tc = tcur(), N = p.N;
+        const bool grid_nodes = N > GRID_CHAIN_MIN;
+        const bool grid_tasks = tc > GRID_CHAIN_MIN;
+        if (!grid_nodes && !grid_tasks) {
+            if (b0) waterfall();
+            return;
+        }
+        const GridTeam tm(this, PH_WATERFALL);
+        if (grid_nodes) {
+            maj_pair();
+            const float* sc = w.sc + (size_t)w.iscal[S_MAJ] * N;
+            sort_pos(tm, N, 1 << 16,
+                     [&](int n) { return (int)(ord_bits(-sc[n]) >> 16); },
+                     1 << 16,
+                     [&](int n) { return (int)(ord_bits(-sc[n]) & 0xffffu); },
+                     [](int n) { return n; }, w.ord_sh, w.skey);
+            node_rows(gtid, gsize);
+        } else if (b0) {
+            waterfall_nodes();
+        }
+        if (grid_tasks) task_mass(gtid, gsize);
+        else if (b0) task_mass(threadIdx.x, blockDim.x);
+        sync(PH_WATERFALL);
+        if (grid_nodes) {
+            tiled_cumsum(tm, w.cm_in, w.cum_mass, N, 3);
+            tiled_cumsum(tm, w.cnt_in, w.cum_cnt, N, 1);
+        } else {
+            if (b0) {
+                block_tiled_cumsum(w.cm_in, w.cum_mass, N, 3, w.tscr);
+                block_tiled_cumsum(w.cnt_in, w.cum_cnt, N, 1, w.tscr);
+            }
+            sync(PH_WATERFALL);
+        }
+        if (grid_tasks) {
+            tiled_cumsum(tm, w.mass_in, w.mass_cum, tc, 3);
+            tiled_cumsum(tm, w.cnt_in_t, w.cnt_cum_t, tc, 1);
+            task_prefix(gtid, gsize);
+        } else if (b0) {
+            block_tiled_cumsum(w.mass_in, w.mass_cum, tc, 3, w.tscr);
+            block_tiled_cumsum(w.cnt_in_t, w.cnt_cum_t, tc, 1, w.tscr);
+            task_prefix(threadIdx.x, blockDim.x);
+        }
+    }
+
     // block 0: the shared waterfall's cumulative capacity and task prefixes
     __device__ void waterfall() {
+        waterfall_nodes();
+        waterfall_prefixes(p.N);
+    }
+
+    // block 0: maj_pair, the nodes by the majority pair's score (highest
+    // first, lowest index on ties), their capacity and count rows
+    __device__ void waterfall_nodes() {
         maj_pair();
         const int N = p.N;
         const int maj = w.iscal[S_MAJ];
         const float* shared_sc = w.sc + (size_t)maj * N;
-        const uint8_t* maj_pred = p.sig_pred + (size_t)p.pair_sig[maj] * p.NS;
         uint64_t* keys = keybuf(p.MN);
         sort_keys(keys, N, p.MN, [&](int n) {
             return ((uint64_t)ord_bits(-shared_sc[n]) << 32) | (uint32_t)n;
         });
-        for (int i = threadIdx.x; i < N; i += blockDim.x) {
-            const int n = (int)(keys[i] & 0xffffffffu);
-            w.ord_sh[i] = n;
+        for (int i = threadIdx.x; i < N; i += blockDim.x)
+            w.ord_sh[i] = (int)(keys[i] & 0xffffffffu);
+        __syncthreads();
+        node_rows(threadIdx.x, blockDim.x);
+    }
+
+    // the sorted nodes' capacity and count rows for the majority pair
+    __device__ void node_rows(int tid, int n_threads) {
+        const int N = p.N;
+        const uint8_t* maj_pred = p.sig_pred
+            + (size_t)p.pair_sig[w.iscal[S_MAJ]] * p.NS;
+        for (int i = tid; i < N; i += n_threads) {
+            const int n = w.ord_sh[i];
             const bool ok = maj_pred[n] && w.basep[n];
             for (int r = 0; r < 3; ++r)
                 w.cm_in[i * 3 + r] = ok ? fmaxf(p.idle[n * 3 + r]
@@ -1301,14 +1875,25 @@ struct Cycle {
                                         : 0.0f;
             w.cnt_in[i] = ok ? (float)max(p.maxt[n] - p.ntasks[n], 0) : 0.0f;
         }
-        waterfall_prefixes(N);
     }
 
     // block 0: the node cumsums of the sorted cm_in / cnt_in (N of them)
     // and the task mass / count prefixes in global-rank order
     __device__ void waterfall_prefixes(int N) {
         const int tc = tcur();
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+        task_mass(threadIdx.x, blockDim.x);
+        __syncthreads();
+        block_tiled_cumsum(w.cm_in, w.cum_mass, N, 3, w.tscr);
+        block_tiled_cumsum(w.cnt_in, w.cum_cnt, N, 1, w.tscr);
+        block_tiled_cumsum(w.mass_in, w.mass_cum, tc, 3, w.tscr);
+        block_tiled_cumsum(w.cnt_in_t, w.cnt_cum_t, tc, 1, w.tscr);
+        task_prefix(threadIdx.x, blockDim.x);
+    }
+
+    // the part2 tasks' requests and counts in global-rank order
+    __device__ void task_mass(int tid, int n) {
+        const int tc = tcur();
+        for (int i = tid; i < tc; i += n) {
             const int k = w.order[i];
             const int t = w.tmap[k];
             const float one = w.part2[k] ? 1.0f : 0.0f;
@@ -1316,12 +1901,12 @@ struct Cycle {
                 w.mass_in[i * 3 + r] = one * p.resreq[t * 3 + r];
             w.cnt_in_t[i] = one;
         }
-        __syncthreads();
-        block_tiled_cumsum(w.cm_in, w.cum_mass, N, 3, w.tscr);
-        block_tiled_cumsum(w.cnt_in, w.cum_cnt, N, 1, w.tscr);
-        block_tiled_cumsum(w.mass_in, w.mass_cum, tc, 3, w.tscr);
-        block_tiled_cumsum(w.cnt_in_t, w.cnt_cum_t, tc, 1, w.tscr);
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+    }
+
+    // each task's exclusive mass / count prefix from the cumsums
+    __device__ void task_prefix(int tid, int n) {
+        const int tc = tcur();
+        for (int i = tid; i < tc; i += n) {
             const int k = w.order[i];
             for (int r = 0; r < 3; ++r)
                 w.prefix[k * 3 + r] = w.mass_cum[i * 3 + r]
@@ -1405,23 +1990,22 @@ struct Cycle {
         }
     }
 
-    // block 0: per node, proposers in global-rank order while the
-    // segmented prefix of accepted requests fits (reference accept_phase)
-    __device__ void accept_phase(const int32_t* prop, const uint8_t* mask,
-                                 const uint8_t* pa, uint8_t* acc,
-                                 uint8_t* ob) {
-        const int tc = tcur(), m = p.MT, N = p.N;
-        uint64_t* keys = keybuf(m);
-        sort_keys(keys, tc, m, [&](int k) {
-            const uint32_t node = mask[k] ? (uint32_t)prop[k] : (uint32_t)N;
-            return ((uint64_t)node << 32) | (uint32_t)w.grank[k];
-        });
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            w.perm2[i] = w.order[(int)(keys[i] & 0xffffffffu)];
-            w.nid[i] = (int)(keys[i] >> 32);
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+    // team: per node, proposers in global-rank order while the segmented
+    // prefix of accepted requests fits (reference accept_phase)
+    template <class Team>
+    __device__ void accept_phase(Team tm, const int32_t* prop,
+                                 const uint8_t* mask, const uint8_t* pa,
+                                 uint8_t* acc, uint8_t* ob) {
+        const int tc = tcur(), N = p.N;
+        // (node, global rank): the positions in rank order, by node
+        sort_pos(tm, tc, N,
+                 [&](int g) {
+                     const int k = w.order[g];
+                     return mask[k] ? prop[k] : -1;
+                 },
+                 1, [](int) { return 0; }, [&](int g) { return w.order[g]; },
+                 w.perm2, w.nid);
+        for (int i = tm.tid; i < tc; i += tm.n) {
             const int k = w.perm2[i];
             const int t = w.tmap[k];
             const bool part = mask[k], al = pa[k];
@@ -1431,11 +2015,11 @@ struct Cycle {
                 w.sv[i * 6 + 3 + r] = (!al && part) ? v : 0.0f;
             }
             w.scnt[i] = part ? 1 : 0;
-            w.sflag[i] = i == search_left(w.nid, 1, tc, w.nid[i]);
+            w.sflag[i] = i == 0 || w.nid[i] != w.nid[i - 1];
         }
-        __syncthreads();
-        SegScan<6>{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag}.run(tc);
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+        tm.sync();
+        seg_scan<6>(tm, tc);
+        for (int i = tm.tid; i < tc; i += tm.n) {
             const int k = w.perm2[i];
             const int t = w.tmap[k];
             const int nc = min(w.nid[i], N - 1);
@@ -1457,28 +2041,30 @@ struct Cycle {
             acc[k] = ok_alloc || ok_pipe;
             ob[k] = ok_alloc && !fi;
         }
-        __syncthreads();
+        tm.sync();
     }
 
-    // block 0: capacity commit of accepted proposals, per node in
-    // task-index order (idle/rel: sum then subtract; nz: onto the carry
-    // with ``fold_nz`` — phase 1, whose ``nz + segment_sum`` XLA folds
-    // into the scatter — else summed, then added: the retry's)
-    __device__ void commit_node(const uint8_t* acc, const int32_t* prop,
-                                const uint8_t* pa, bool fold_nz) {
-        uint64_t* keys = segment_keys([&](int k) {
-            return acc[k] ? prop[k] : -1;
-        });
-        for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)n << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(n + 1) << 32);
+    // team: capacity commit of accepted proposals, per node in task-index
+    // order, one thread a node (idle/rel: sum then subtract; nz: onto the
+    // carry with ``fold_nz`` — phase 1, whose ``nz + segment_sum`` XLA
+    // folds into the scatter — else summed, then added: the retry's)
+    template <class Team>
+    __device__ void commit_node(Team tm, const uint8_t* acc,
+                                const int32_t* prop, const uint8_t* pa,
+                                bool fold_nz) {
+        const int tc = tcur(), N = p.N;
+        sort_pos(tm, tc, N, [&](int k) { return acc[k] ? prop[k] : -1; }, 1,
+                 [](int) { return 0; }, [](int k) { return k; }, w.perm,
+                 w.skey);
+        for (int n = tm.tid; n < N; n += tm.n) {
+            const int lo = lower_bound_i32(w.skey, tc, n);
+            const int hi = lower_bound_i32(w.skey, tc, n + 1);
             if (lo == hi) continue;
             float sa[3] = {0.0f, 0.0f, 0.0f}, sp[3] = {0.0f, 0.0f, 0.0f};
             float z0 = fold_nz ? p.nz[n * 2] : 0.0f;
             float z1 = fold_nz ? p.nz[n * 2 + 1] : 0.0f;
             for (int i = lo; i < hi; ++i) {
-                const int k = (int)(keys[i] & 0xffffffffu);
+                const int k = w.perm[i];
                 const int t = w.tmap[k];
                 const bool al = pa[k];
                 for (int r = 0; r < 3; ++r) {
@@ -1497,13 +2083,16 @@ struct Cycle {
             p.nz[n * 2] = fold_nz ? z0 : p.nz[n * 2] + z0;
             p.nz[n * 2 + 1] = fold_nz ? z1 : p.nz[n * 2 + 1] + z1;
         }
-        __syncthreads();
+        tm.sync();
     }
 
-    // block 0: merge the phases, job / queue commits, decisions
-    __device__ void commit_round(int round_idx) {
-        const int tc = tcur();
-        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+    // team: merge the phases, job / queue commits (one thread a segment,
+    // in task-index order), decisions; progress into iscal[S_PROGRESS]
+    template <class Team>
+    __device__ void commit_round(Team tm, int round_idx) {
+        const int tc = tcur(), J = p.J, Q = p.Q;
+        if (tm.tid == 0) w.iscal[S_PROGRESS] = 0;
+        for (int k = tm.tid; k < tc; k += tm.n) {
             const bool ar = w.accr[k];
             w.accept[k] = w.acc1[k] || ar;
             if (ar) {
@@ -1512,18 +2101,20 @@ struct Cycle {
                 w.pa1[k] = w.par[k];
             }
         }
-        __syncthreads();
+        tm.sync();
         // j_allocated / alloc_cnt per job, onto the carry in index order
-        uint64_t* keys = segment_keys([&](int k) {
-            return w.accept[k] ? p.tjob[w.tmap[k]] : -1;
-        });
-        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)j << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(j + 1) << 32);
+        sort_pos(tm, tc, J,
+                 [&](int k) {
+                     return w.accept[k] ? p.tjob[w.tmap[k]] : -1;
+                 },
+                 1, [](int) { return 0; }, [](int k) { return k; }, w.perm,
+                 w.skey);
+        for (int j = tm.tid; j < J; j += tm.n) {
+            const int lo = lower_bound_i32(w.skey, tc, j);
+            const int hi = lower_bound_i32(w.skey, tc, j + 1);
             int cnt = 0;
             for (int i = lo; i < hi; ++i) {
-                const int k = (int)(keys[i] & 0xffffffffu);
+                const int k = w.perm[i];
                 const int t = w.tmap[k];
                 for (int r = 0; r < 3; ++r)
                     w.j_alloc[j * 3 + r] = w.j_alloc[j * 3 + r]
@@ -1533,31 +2124,34 @@ struct Cycle {
             w.alloc_cnt[j] += cnt;
             w.alive[j] = w.alive[j] && !(w.fail_rank[j] < IMAX);
         }
-        __syncthreads();
-        keys = segment_keys([&](int k) {
-            return w.accept[k] ? p.jqueue[p.tjob[w.tmap[k]]] : -1;
-        });
-        for (int q = threadIdx.x; q < p.Q; q += blockDim.x) {
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)q << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(q + 1) << 32);
+        sort_pos(tm, tc, Q,
+                 [&](int k) {
+                     return w.accept[k] ? p.jqueue[p.tjob[w.tmap[k]]] : -1;
+                 },
+                 1, [](int) { return 0; }, [](int k) { return k; }, w.perm_b,
+                 w.skey_b);
+        // a queue's segment is long (a quarter of the round's placements):
+        // its requests gathered contiguous first, then summed in order
+        for (int i = tm.tid; i < tc; i += tm.n) {
+            const int t = w.tmap[w.perm_b[i]];
+            for (int r = 0; r < 3; ++r) w.gval[i * 3 + r] = p.resreq[t * 3 + r];
+        }
+        tm.sync();
+        for (int q = tm.tid; q < Q; q += tm.n) {
+            const int lo = lower_bound_i32(w.skey_b, tc, q);
+            const int hi = lower_bound_i32(w.skey_b, tc, q + 1);
             float s[3] = {w.q_alloc[q * 3], w.q_alloc[q * 3 + 1],
                           w.q_alloc[q * 3 + 2]};
-            for (int i = lo; i < hi; ++i) {
-                const int t = w.tmap[(int)(keys[i] & 0xffffffffu)];
-                for (int r = 0; r < 3; ++r) s[r] = s[r] + p.resreq[t * 3 + r];
-            }
+            for (int i = lo; i < hi; ++i)
+                for (int r = 0; r < 3; ++r) s[r] = s[r] + w.gval[i * 3 + r];
             for (int r = 0; r < 3; ++r) w.q_alloc[q * 3 + r] = s[r];
         }
-        __shared__ int s_changed;
-        if (threadIdx.x == 0) s_changed = 0;
-        __syncthreads();
-        int changed = 0;
-        for (int k = threadIdx.x; k < tc; k += blockDim.x) {
+        bool changed = false;
+        for (int k = tm.tid; k < tc; k += tm.n) {
             const int t = w.tmap[k];
             const bool acc = w.accept[k], ff = w.fail_first[k];
             if (!acc && !ff) continue;
-            changed = 1;
+            changed = true;
             int d;
             if (ff) d = FAIL;
             else if (!w.pa1[k]) d = PIPELINE;
@@ -1566,21 +2160,18 @@ struct Cycle {
             if (acc) p.out[p.T + t] = w.prop1[k] + p.noff;
             p.out[2 * p.T + t] = round_idx * p.T + w.grank[k];
         }
-        if (changed) s_changed = 1;
-        __syncthreads();
-        if (threadIdx.x == 0) w.iscal[S_PROGRESS] = s_changed;
+        if (__any_sync(FULL, changed) && lane == 0)
+            atomicOr(&w.iscal[S_PROGRESS], 1);
     }
 
     // one round; returns progress (grid-uniform)
     __device__ bool run_round(int round_idx) {
-        if (b0) {
-            order_jobs();
-            if (p.aff) aff_flags();
-        }
+        order_jobs();
+        if (b0 && p.aff) aff_flags();
         sync(PH_ORDER);
         engage();
         sync(PH_ENGAGE);
-        if (b0) window();
+        chain(PH_WINDOW, [&](auto tm) { window(tm); });
         sync(PH_WINDOW);
         {
             const int tc = tcur();
@@ -1596,31 +2187,31 @@ struct Cycle {
             aff_views();
             sync(PH_AFF_VIEWS);
         }
-        if (b0) rank_tasks();
+        chain(PH_ROWS1, [&](auto tm) { rank_tasks(tm); });
         row_pass(w.part, w.any_elig, w.fb, true);
         sync(PH_ROWS1);
         fail_and_kill();
         sync(PH_FAIL);
         settle_part2();
         sync(PH_PART2);
-        if (b0) waterfall();
+        waterfall_chain();
         sync(PH_WATERFALL);
         propose();
         sync(PH_PROPOSE);
         fit_kind(w.part2, w.prop1, w.pa1);
         sync(PH_FIT1);
-        if (b0) {
-            accept_phase(w.prop1, w.part2, w.pa1, w.acc1, w.ob1);
-            if (!p.aff) commit_node(w.acc1, w.prop1, w.pa1, true);
-        }
+        chain(PH_ACCEPT1, [&](auto tm) {
+            accept_phase(tm, w.prop1, w.part2, w.pa1, w.acc1, w.ob1);
+            if (!p.aff) commit_node(tm, w.acc1, w.prop1, w.pa1, true);
+        });
         sync(PH_ACCEPT1);
         if (p.aff) {
             // remove in-round affinity / port races before the capacity
             // commit
-            if (b0) {
-                aff_serialize();
-                commit_node(w.acc1, w.prop1, w.pa1, true);
-            }
+            chain(PH_AFF_SERIALIZE, [&](auto tm) {
+                aff_serialize(tm);
+                commit_node(tm, w.acc1, w.prop1, w.pa1, true);
+            });
             sync(PH_AFF_SERIALIZE);
         }
         // retry: rejected tasks re-propose their argmax against the
@@ -1644,14 +2235,14 @@ struct Cycle {
         sync(PH_RETRY);
         fit_kind(w.retry, w.fbr, w.par);
         sync(PH_FIT2);
-        if (b0) {
-            accept_phase(w.fbr, w.retry, w.par, w.accr, w.obr);
-            commit_node(w.accr, w.fbr, w.par, false);
-            commit_round(round_idx);
-        }
+        chain(PH_ACCEPT2, [&](auto tm) {
+            accept_phase(tm, w.fbr, w.retry, w.par, w.accr, w.obr);
+            commit_node(tm, w.accr, w.fbr, w.par, false);
+            commit_round(tm, round_idx);
+        });
         sync(PH_ACCEPT2);
         if (p.aff) {
-            if (b0) aff_commit();
+            chain(PH_AFF_COMMIT, [&](auto tm) { aff_commit(tm); });
             sync(PH_AFF_COMMIT);
         }
         return w.iscal[S_PROGRESS] != 0;
@@ -1674,7 +2265,10 @@ struct Cycle {
             w.tmap[k] = k;
             w.vvalid[k] = p.tvalid[k];
         }
-        if (gtid == 0) w.iscal[S_TCUR] = p.T;
+        if (gtid == 0) {
+            w.iscal[S_TCUR] = p.T;
+            w.iscal[S_TRMAX] = 0;
+        }
     }
 
     // block 0: after round 0, the tasks that can still resolve; returns
@@ -1774,10 +2368,15 @@ struct Cycle {
         __syncthreads();
     }
 
-    __device__ void rollback(bool revive) {
-        rollback_mask(revive);
-        rollback_nodes(0, p.N);
-        rollback_jobs(revive);
+    // every block: the stranded-gang rollback (block 0 finds the stranded
+    // jobs and the placements to revert, then the team reverts them)
+    __device__ void rollback(bool revive, int ph) {
+        if (b0) rollback_mask(revive);
+        sync(ph);
+        chain_n(p.T, ph, [&](auto tm) {
+            rollback_nodes(tm, 0, p.N);
+            rollback_jobs(tm, revive);
+        });
     }
 
     // block 0: the stranded jobs and the placements to revert (w.mask)
@@ -1788,19 +2387,23 @@ struct Cycle {
         __syncthreads();
     }
 
-    // block 0: the reverted placements off the node carry of global
-    // nodes [n0, n0 + nn), held at p.idle[(n - n0) * 3] and so on:
-    // idle / rel onto the carry, nz summed then subtracted
-    __device__ void rollback_nodes(int n0, int nn) {
+    // team: the reverted placements off the node carry of global nodes
+    // [n0, n0 + nn), held at p.idle[(n - n0) * 3] and so on: idle / rel
+    // onto the carry, nz summed then subtracted
+    template <class Team>
+    __device__ void rollback_nodes(Team tm, int n0, int nn) {
         const int T = p.T;
-        uint64_t* keys = segment_keys([&](int t) {
-            return w.mask[t] ? p.out[T + t] : -1;
-        });
-        for (int m = threadIdx.x; m < nn; m += blockDim.x) {
+        sort_pos(tm, T, n0 + nn,
+                 [&](int t) {
+                     const int n = p.out[T + t];
+                     return w.mask[t] && n < n0 + nn ? n : -1;
+                 },
+                 1, [](int) { return 0; }, [](int t) { return t; }, w.perm,
+                 w.skey);
+        for (int m = tm.tid; m < nn; m += tm.n) {
             const int n = n0 + m;
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)n << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(n + 1) << 32);
+            const int lo = lower_bound_i32(w.skey, T, n);
+            const int hi = lower_bound_i32(w.skey, T, n + 1);
             if (lo == hi) continue;
             float id[3], rl[3], z[2] = {0.0f, 0.0f};
             for (int r = 0; r < 3; ++r) {
@@ -1808,7 +2411,7 @@ struct Cycle {
                 rl[r] = p.rel[m * 3 + r];
             }
             for (int i = lo; i < hi; ++i) {
-                const int t = (int)(keys[i] & 0xffffffffu);
+                const int t = w.perm[i];
                 const bool pipe = p.out[t] == PIPELINE;
                 for (int r = 0; r < 3; ++r) {
                     const float v = p.resreq[t * 3 + r];
@@ -1826,26 +2429,26 @@ struct Cycle {
             p.nz[m * 2] = p.nz[m * 2] - z[0];
             p.nz[m * 2 + 1] = p.nz[m * 2 + 1] - z[1];
         }
-        __syncthreads();
+        tm.sync();
     }
 
-    // block 0: the reverted placements off the job / queue carry (and
-    // the affinity carry), the tasks cleared to SKIP
-    __device__ void rollback_jobs(bool revive) {
+    // team: the reverted placements off the job / queue carry (and the
+    // affinity carry), the tasks cleared to SKIP
+    template <class Team>
+    __device__ void rollback_jobs(Team tm, bool revive) {
         const int T = p.T;
         // jobs: j_allocated summed then subtracted, alloc_cnt
-        uint64_t* keys = segment_keys([&](int t) {
-            return w.mask[t] ? p.tjob[t] : -1;
-        });
-        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)j << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(j + 1) << 32);
+        sort_pos(tm, T, p.J, [&](int t) { return w.mask[t] ? p.tjob[t] : -1; },
+                 1, [](int) { return 0; }, [](int t) { return t; }, w.perm,
+                 w.skey);
+        for (int j = tm.tid; j < p.J; j += tm.n) {
+            const int lo = lower_bound_i32(w.skey, T, j);
+            const int hi = lower_bound_i32(w.skey, T, j + 1);
             if (lo < hi) {
                 float s[3] = {0.0f, 0.0f, 0.0f};
                 int cnt = 0;
                 for (int i = lo; i < hi; ++i) {
-                    const int t = (int)(keys[i] & 0xffffffffu);
+                    const int t = w.perm[i];
                     for (int r = 0; r < 3; ++r) s[r] = s[r]
                                                        + p.resreq[t * 3 + r];
                     cnt += p.out[t] != ALLOC_OB;
@@ -1857,37 +2460,36 @@ struct Cycle {
             w.alive[j] = revive ? (w.alive[j] || w.stranded[j])
                                 : (w.alive[j] && !w.stranded[j]);
         }
-        __syncthreads();
-        keys = segment_keys([&](int t) {
-            return w.mask[t] ? p.jqueue[p.tjob[t]] : -1;
-        });
-        for (int q = threadIdx.x; q < p.Q; q += blockDim.x) {
-            const int lo = lower_bound_u64(keys, p.MT, (uint64_t)q << 32);
-            const int hi = lower_bound_u64(keys, p.MT,
-                                           (uint64_t)(q + 1) << 32);
+        sort_pos(tm, T, p.Q,
+                 [&](int t) { return w.mask[t] ? p.jqueue[p.tjob[t]] : -1; },
+                 1, [](int) { return 0; }, [](int t) { return t; }, w.perm_b,
+                 w.skey_b);
+        for (int q = tm.tid; q < p.Q; q += tm.n) {
+            const int lo = lower_bound_i32(w.skey_b, T, q);
+            const int hi = lower_bound_i32(w.skey_b, T, q + 1);
             if (lo == hi) continue;
             float s[3] = {0.0f, 0.0f, 0.0f};
             for (int i = lo; i < hi; ++i) {
-                const int t = (int)(keys[i] & 0xffffffffu);
+                const int t = w.perm_b[i];
                 for (int r = 0; r < 3; ++r) s[r] = s[r] + p.resreq[t * 3 + r];
             }
             for (int r = 0; r < 3; ++r)
                 w.q_alloc[q * 3 + r] = w.q_alloc[q * 3 + r] - s[r];
         }
-        __syncthreads();
+        tm.sync();
         if (p.aff) {
             // the carry's exact inverse (reference _aff_rollback)
-            for (int t = threadIdx.x; t < T; t += blockDim.x)
+            for (int t = tm.tid; t < T; t += tm.n)
                 if (w.mask[t]) aff_apply(t, max(p.out[T + t], 0), -1);
-            __syncthreads();
+            tm.sync();
         }
-        for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        for (int t = tm.tid; t < T; t += tm.n) {
             const bool strand = w.stranded[max(p.tjob[t], 0)];
             const bool clear = w.mask[t]
                 || (revive && p.out[t] == FAIL && strand);
             if (clear) p.out[t] = SKIP;
         }
-        __syncthreads();
+        tm.sync();
     }
 
     // block 0: the telemetry frame after the round count; the two-level
@@ -1979,12 +2581,12 @@ struct Cycle {
                 if (b0) stranded_jobs(true);
                 sync(PH_EPILOGUE);
                 if (retries >= 3 || !w.iscal[S_ANY_STRANDED]) break;
-                if (b0) rollback(true);
+                rollback(true, PH_EPILOGUE);
                 sync(PH_EPILOGUE);
                 rounds = rounds_loop(rounds);
                 ++retries;
             }
-            if (b0) rollback(false);
+            rollback(false, PH_EPILOGUE);
             sync(PH_EPILOGUE);
             stranded = w.iscal[S_STRANDED];
         }
@@ -2074,7 +2676,8 @@ Params make_params(const uint64_t* ptrs, const int* ints) {
 
 size_t smem_bytes(const Params& p) {
     const int m = std::max(p.MT, std::max(p.MJ, p.MN));
-    return (size_t)std::min(m, SMEM_KEYS) * sizeof(uint64_t);
+    return std::max((size_t)std::min(m, SMEM_KEYS) * sizeof(uint64_t),
+                    (size_t)RADIX_SMEM_INTS * sizeof(int));
 }
 
 }  // namespace

@@ -14,6 +14,12 @@
 // With words = 0 the time is the dependence chain alone (barriers and the
 // reduction); with words > 0 it adds one SM streaming the node state from
 // L2 every iteration.
+//
+// A second probe times the grid barrier of the round kernels' cooperative
+// grid (one 512-thread block per SM): ``iters`` grid.sync() back to back,
+// then as many block barriers, each span read from the global timer by
+// block 0's thread 0.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,7 +81,54 @@ __global__ void __launch_bounds__(NT, 1) chain_probe_kernel(
     if (tid == 0) out[0] = best;
 }
 
+constexpr int GRID_NT = 512;
+
+__device__ __forceinline__ unsigned long long probe_now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+__global__ void __launch_bounds__(GRID_NT, 1) grid_probe_kernel(
+        int iters, unsigned long long* out) {
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    const bool t0 = blockIdx.x == 0 && threadIdx.x == 0;
+    grid.sync();
+    const unsigned long long a = probe_now();
+    for (int i = 0; i < iters; ++i) grid.sync();
+    const unsigned long long b = probe_now();
+    for (int i = 0; i < iters; ++i) __syncthreads();
+    const unsigned long long c = probe_now();
+    if (t0) {
+        out[0] = b - a;
+        out[1] = c - b;
+    }
+}
+
 }  // namespace
+
+// The grid-barrier probe: a cooperative launch of one GRID_NT-thread block
+// per SM; out (2 uint64 on the device): ns of ``iters`` grid barriers,
+// then of ``iters`` block barriers; info (host, 2 ints): grid, threads.
+// Returns the cudaError_t of the launch.
+extern "C" int kb_grid_probe(int iters, void* out, int* info, void* stream) {
+    if (iters < 1) return (int)cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+        return (int)err;
+    info[0] = sms;
+    info[1] = GRID_NT;
+    unsigned long long* o = (unsigned long long*)out;
+    void* args[] = {&iters, &o};
+    err = cudaLaunchCooperativeKernel((const void*)grid_probe_kernel,
+                                      dim3(sms), dim3(GRID_NT), args, 0,
+                                      (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
 
 // Plain C entry point for ctypes: buf holds words * n_nodes float32 on
 // the device, out one int32. Returns cudaGetLastError() after the launch.

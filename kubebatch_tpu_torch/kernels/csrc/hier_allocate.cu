@@ -28,15 +28,21 @@
 // cells twice). At cfg6 cold that is ~1e9-1e10 operations and the node
 // state, [S,N] predicates and scores (~tens of MB): well under a
 // millisecond of the card's rates. As in the batched kernel the rounds'
-// block-0 chains (sorts of T keys, scans, segment sums: each step needs
-// the last) bound it, times the rounds of every wave.
+// chains (sorts of T keys, scans, segment sums: each step needs the last)
+// bound it, times the rounds of every wave: their grid barriers and L2
+// round trips, now that the chain runs across the grid.
 // Design:
 //  - one cooperative launch runs every wave, so no wave and no round
 //    returns to the host; the host reads the packed result once;
-//  - the rounds are the batched kernel's (batched_round.cuh): each block
-//    keeps its own copy of the parameters in shared memory, and between
-//    grid barriers thread 0 of every block points the node arrays at the
-//    winning pool (the node window) and back at the full axis;
+//  - the rounds are the batched kernel's (batched_round.cuh), their
+//    ordering steps on the grid chain past GRID_CHAIN_MIN tasks (the
+//    two-level solves of cfg6 / cfg7, the active set's grain of 4,096;
+//    its grains of 256 and 1,024 in block 0, the pool's node order on the
+//    grid): each block keeps its own copy of the parameters in shared
+//    memory, and between grid barriers thread 0 of every block points the
+//    node arrays at the winning pool (the node window) and back at the
+//    full axis, so the grid-wide steps read the window from the block's
+//    copy;
 //  - the coarse pass (hier_coarse.cuh, shared with the node-sharded
 //    kernel): one warp per pending task row (per pair row in the
 //    active set) walks each pool's nodes 32 at a time and stops at the
@@ -53,8 +59,6 @@
 //    into fma(balanced, w1, least * w0) in the coarse pass and in the
 //    rounds (kernels/xla_order.py WEIGHTED_SUM_FMA): kb::scan_node_score
 //    in both, where the batched kernel rounds both products.
-// Correct and simple first: wgmma, TMA and a shorter block-0 chain are
-// later work.
 #include <initializer_list>
 
 #include "hier_coarse.cuh"
@@ -316,13 +320,13 @@ struct HierCycle {
                 if (c.b0) c.stranded_jobs(true);
                 c.sync(PH_EPILOGUE);
                 if (retries >= 3 || !w.iscal[S_ANY_STRANDED]) break;
-                if (c.b0) c.rollback(true);
+                c.rollback(true, PH_EPILOGUE);
                 c.sync(PH_EPILOGUE);
                 int o2, f2;
                 waves(base, act, rounds, blocks, o2, f2);
                 ++retries;
             }
-            if (c.b0) c.rollback(false);
+            c.rollback(false, PH_EPILOGUE);
             c.sync(PH_EPILOGUE);
             stranded = w.iscal[S_STRANDED];
         }
@@ -514,6 +518,7 @@ extern "C" int kb_hier_allocate(const unsigned long long* ptrs_f,
         return (int)err;
     if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
     const int grid = sms * per_sm;
+    if (grid > MAX_GRID) return (int)cudaErrorInvalidConfiguration;
     info[0] = grid;
     info[1] = NT;
     info[2] = (int)smem;

@@ -68,10 +68,14 @@
 // row passes (~4-7 float operations a cell, the affinity words' integer
 // logic and the interpod sums beside them) and the [P, N_block] pair
 // scores are the operations; between them each launch runs a chain of
-// dependent block-0 steps over T (the sorts, scans and segment sums),
-// replicated on every rank, whose latency bounds it; k ranks sharing one
-// card also share its SMs (time-sliced contexts). Fewer launches a round
-// and a shorter chain are later work.
+// dependent steps over T (the sorts, scans and segment sums), replicated
+// on every rank, whose latency bounds it; k ranks sharing one card also
+// share its SMs (time-sliced contexts). The batched round's grid chain
+// (batched_round.cuh) runs window, rank_tasks, commit_round and the
+// affinity serialization and commit across the grid past GRID_CHAIN_MIN
+// tasks; this file's own steps (the gathered waterfall, accept_rows,
+// commit_block, the rollback) stay in block 0. Fewer launches a round
+// are later work.
 #include "hier_coarse.cuh"
 
 namespace {
@@ -601,15 +605,17 @@ struct Shard : Cycle {
     }
 
     __device__ void rows1() {
+        const bool grid_jobs = p.J > GRID_JOBS_MIN;
+        if (grid_jobs) job_order_grid();
         if (b0) {
-            job_order();
+            if (!grid_jobs) job_order();
             __syncthreads();
             avail_sum(a.in);
         }
         sync(PH_ORDER);
         engage();
         sync(PH_ENGAGE);
-        if (b0) window();
+        chain(PH_WINDOW, [&](auto tm) { window(tm); });
         sync(PH_WINDOW);
         for (int k = gtid; k < p.T; k += gsize) {
             const int j = wrap_job(p.tjob[w.tmap[k]], p.J);
@@ -619,7 +625,7 @@ struct Shard : Cycle {
         pair_scores_block();
         if (p.aff && p.ip) ip_combine(a.in);
         sync(PH_SCORES);
-        if (b0) rank_tasks();
+        chain(PH_ROWS1, [&](auto tm) { rank_tasks(tm); });
         row_pass_block(w.part, a.out);
         sync(PH_ROWS1);
     }
@@ -705,12 +711,12 @@ struct Shard : Cycle {
         sync(PH_PROPOSE);
         fit_rows(w.part2, sw.rows1, w.pa1);
         sync(PH_FIT1);
-        if (b0) {
+        if (b0)
             accept_rows(w.prop1, w.part2, w.pa1, sw.rows1, w.acc1, w.ob1);
-            // remove in-round affinity / port races before the commit
-            if (p.aff) aff_serialize();
-            commit_block(w.acc1, w.prop1, w.pa1, true);
-        }
+        sync(PH_ACCEPT1);
+        // remove in-round affinity / port races before the commit
+        if (p.aff) chain(PH_ACCEPT1, [&](auto tm) { aff_serialize(tm); });
+        if (b0) commit_block(w.acc1, w.prop1, w.pa1, true);
         sync(PH_ACCEPT1);
         node_views_block();
         for (int k = gtid; k < T; k += gsize)
@@ -732,11 +738,14 @@ struct Shard : Cycle {
         if (b0) {
             accept_rows(w.fbr, w.retry, w.par, sw.rows_r, w.accr, w.obr);
             commit_block(w.accr, w.fbr, w.par, false);
-            commit_round(a.a0);
-            if (p.aff) aff_commit();
-            if (threadIdx.x == 0) a.flags[0] = w.iscal[S_PROGRESS];
         }
         sync(PH_ACCEPT2);
+        chain(PH_ACCEPT2, [&](auto tm) {
+            commit_round(tm, a.a0);
+            if (p.aff) aff_commit(tm);
+        });
+        sync(PH_ACCEPT2);
+        if (gtid == 0) a.flags[0] = w.iscal[S_PROGRESS];
         views_and_avail();
     }
 
@@ -751,8 +760,8 @@ struct Shard : Cycle {
     __device__ void rollback_step() {
         if (b0) {
             rollback_mask(a.a0 != 0);
-            rollback_nodes(g0, nb);
-            rollback_jobs(a.a0 != 0);
+            rollback_nodes(BlockTeam(), g0, nb);
+            rollback_jobs(BlockTeam(), a.a0 != 0);
             if (threadIdx.x == 0) a.flags[2] = w.iscal[S_STRANDED];
         }
         sync(PH_EPILOGUE);
@@ -1004,6 +1013,7 @@ extern "C" int kb_sharded_round(const unsigned long long* ptrs, int n_ptrs,
         return (int)err;
     if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
     const int grid = sms * per_sm;
+    if (grid > MAX_GRID) return (int)cudaErrorInvalidConfiguration;
     info[0] = grid;
     info[1] = NT;
     info[2] = (int)smem;

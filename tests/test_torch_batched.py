@@ -301,6 +301,23 @@ def _compact_shape():
     return nodes, groups, pods
 
 
+#: the round chain's edge shapes at small widths (tests/test_torch_cuda.py
+#: holds the kernel to the plain version on them past the grid chain's
+#: threshold): one job, one task. The other two edges there, every
+#: task's round-0 argmax on one node (uniform nodes, no jitter) and a
+#: single queue, are cfg2's shape, checked above
+CHAIN_EDGES = [ClusterSpec(n_nodes=8, n_groups=1, pods_per_group=40,
+                           min_member=1),
+               ClusterSpec(n_nodes=4, n_groups=1, pods_per_group=1)]
+CHAIN_EDGE_IDS = ["single_job", "t1"]
+
+
+@pytest.mark.parametrize("spec", CHAIN_EDGES, ids=CHAIN_EDGE_IDS)
+def test_batched_solve_matches_reference_on_chain_edges(spec):
+    _, (state, _, _, _, _), _ = _check_solve(_sim_cache(spec))
+    assert (state != 0).any()
+
+
 @pytest.mark.parametrize("cfg", [2, 3])
 def test_batched_solve_matches_reference_on_baseline(cfg):
     statics, (state, _, _, rounds, telem), _ = _check_solve(

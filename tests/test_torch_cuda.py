@@ -177,14 +177,39 @@ REDUCED5_B = ClusterSpec(n_nodes=48, n_groups=72, pods_per_group=8,
                          n_queues=4, queue_weights=(1, 2, 3, 4),
                          pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
                          jitter=0.2, seed=5)
+#: the round chain's stress shapes: task views past the grid chain's
+#: threshold (csrc/batched_round.cuh GRID_CHAIN_MIN, 1,024 tasks), so the
+#: sorts and segment passes run across the whole grid, with T_pad never a
+#: multiple of the grid's 132 blocks (uneven chunks): uniform nodes (every
+#: task's round-0 argmax is node 0, 6,000 tasks on 16 nodes: contended),
+#: one job of 6,000 tasks (its task ranks take two counting passes), one
+#: queue (two priority classes), one task, and T_pad 32,768 on 64 nodes
+ARGMAX_ONE_NODE = ClusterSpec(n_nodes=16, n_groups=1500, pods_per_group=4)
+SINGLE_JOB = ClusterSpec(n_nodes=32, n_groups=1, pods_per_group=6000,
+                         min_member=1)
+SINGLE_QUEUE = ClusterSpec(n_nodes=48, n_groups=1200, pods_per_group=4,
+                           min_member=2, seed=2,
+                           priority_classes=(("low", 10), ("high", 1000)))
+ONE_TASK = ClusterSpec(n_nodes=4, n_groups=1, pods_per_group=1)
+WIDE = ClusterSpec(n_nodes=64, node_cpu_millis=1000000,
+                   node_mem_bytes=4096 * GiB, node_pods=1000,
+                   n_groups=7500, pods_per_group=4, n_queues=4,
+                   queue_weights=(1, 2, 3, 4), seed=3)
+CHAIN_SPECS = [ARGMAX_ONE_NODE, SINGLE_JOB, SINGLE_QUEUE, ONE_TASK, WIDE]
+CHAIN_IDS = ["argmax_one_node", "single_job", "single_queue", "t1",
+             "t32768_n64"]
+#: their pool widths in the two-level kernel (0: the default)
+CHAIN_POOLS = [4, 8, 8, 0, 8]
+
 #: (case, compact bucket: None = the automatic size, 0 = full width)
 BATCHED_CASES = [((BASELINE_SPECS[2], None), None),
                  ((BASELINE_SPECS[3], None), None),
                  ((BASELINE_SPECS[3], None), 0),
                  ((REDUCED3, None), None), ((REDUCED5_B, None), None),
-                 ((FILLED, "releasing"), None), ((FILLED, "backfill"), None)]
+                 ((FILLED, "releasing"), None), ((FILLED, "backfill"), None)
+                 ] + [((spec, None), None) for spec in CHAIN_SPECS]
 BATCHED_IDS = ["cfg2", "cfg3", "cfg3_full_width", "reduced3", "reduced5",
-               "pipelined", "over_backfill"]
+               "pipelined", "over_backfill"] + CHAIN_IDS
 
 
 @pytest.mark.parametrize("case,bucket", BATCHED_CASES, ids=BATCHED_IDS)
@@ -1030,8 +1055,11 @@ def test_visit_cycle_on_the_card_binds_what_the_cpu_binds(case, mode,
 #: (reduced5), pipelined and over-backfill fits, cfg3 at the default pool
 HIER_CASES = [((REDUCED5_B, None), 8), ((REDUCED3, None), 8),
               ((BASELINE_SPECS[3], None), 0), ((FILLED, "releasing"), 4),
-              ((FILLED, "backfill"), 4)]
-HIER_IDS = ["reduced5", "reduced3", "cfg3", "pipelined", "over_backfill"]
+              ((FILLED, "backfill"), 4)] + [
+                  ((spec, None), pool)
+                  for spec, pool in zip(CHAIN_SPECS, CHAIN_POOLS)]
+HIER_IDS = ["reduced5", "reduced3", "cfg3", "pipelined",
+            "over_backfill"] + CHAIN_IDS
 
 
 def _hier_inputs(case):
@@ -1083,6 +1111,22 @@ def test_activeset_kernels_match_plain(case, grain):
     """The active-set mode and the audit mode of the kernel against
     their plain versions: packed result, frame and node carry; the audit
     reports no divergence."""
+    _check_activeset(case, grain, 8)
+
+
+@pytest.mark.parametrize("spec,pool", list(zip(CHAIN_SPECS, CHAIN_POOLS)),
+                         ids=CHAIN_IDS)
+def test_activeset_kernels_match_plain_on_chain_shapes(spec, pool):
+    """The same on the round chain's stress shapes, the grain forced to
+    the task bucket: active-set views past the grid chain's threshold
+    (one task: a grain of 8)."""
+    _need_cuda()
+    inputs = _hier_inputs((spec, None))
+    grain = max(8, int(inputs.task_valid.shape[0]))
+    _check_activeset((spec, None), grain, pool, inputs=inputs)
+
+
+def _check_activeset(case, grain, pool, inputs=None):
     from kubebatch_tpu_torch.kernels.activeset import (
         activeset_allocate_plain, activeset_audit_packed,
         activeset_audit_plain, activeset_packed, prepare_activeset,
@@ -1090,8 +1134,9 @@ def test_activeset_kernels_match_plain(case, grain):
     from kubebatch_tpu_torch.kernels.telemetry import F_ACT_DEMOTED
 
     _need_cuda()
-    inputs = _hier_inputs(case)
-    args, statics, g = prepare_activeset(inputs, grain=grain, pool_size=8)
+    inputs = inputs if inputs is not None else _hier_inputs(case)
+    args, statics, g = prepare_activeset(inputs, grain=grain,
+                                         pool_size=pool)
     n0 = _build.launch_count("activeset_allocate")
     got = activeset_packed(**args, **statics)
     torch.cuda.synchronize()
@@ -1100,7 +1145,7 @@ def test_activeset_kernels_match_plain(case, grain):
     _assert_bitwise(want, [x.cpu() for x in got], "activeset_allocate")
     assert counters == _plain_counters(stats)
     node, act, full, statics, _ = prepare_activeset_audit(
-        inputs, grain=grain, pool_size=8)
+        inputs, grain=grain, pool_size=pool)
     got = activeset_audit_packed(node, act, full, **statics)
     torch.cuda.synchronize()
     assert _build.launch_count("activeset_allocate") == n0 + 2

@@ -47,7 +47,8 @@ from kubebatch_tpu_torch.kernels.telemetry import (F_ACT_DEMOTED,  # noqa: E402
                                                    F_POOL_OCC, F_RETRIES)
 
 from .fixtures import build_group, build_node, build_pod, build_queue, rl  # noqa: E402
-from .test_torch_batched import _assert_bitwise, _prep_fill  # noqa: E402
+from .test_torch_batched import (CHAIN_EDGE_IDS, CHAIN_EDGES,  # noqa: E402
+                                _assert_bitwise, _prep_fill)
 from .test_zscale_hier import _B, _open  # noqa: E402
 
 GiB = 1024 ** 3
@@ -146,8 +147,10 @@ def test_hier_matches_reference_on_its_cases(seed, uniform_cpu, groups,
 
 @pytest.mark.parametrize("case,pool", [
     ((REDUCED5, None), 8), ((FILLED, "releasing"), 4),
-    ((FILLED, "backfill"), 4), ((REDUCED3, None), 0)],
-    ids=["epilogue", "pipelined", "over_backfill", "default_pool"])
+    ((FILLED, "backfill"), 4), ((REDUCED3, None), 0)]
+    + [((spec, None), 4) for spec in CHAIN_EDGES],
+    ids=["epilogue", "pipelined", "over_backfill", "default_pool"]
+    + CHAIN_EDGE_IDS)
 def test_hier_matches_reference_on_sim_clusters(case, pool):
     packed, t = check_session(_sim_session(*case), pool_size=pool)
     frame = packed[3 * t + 1:]
