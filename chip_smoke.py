@@ -30,7 +30,14 @@ filter kind and the visit kernel on 8 lanes (the shapes a contended cfg5
 cycle dispatches), checked and timed. Last, a saturated cfg4 (2,000
 nodes, running fill 0.95) runs one four-action cycle in which preempt
 evicts and pipelines through the victim kernels; a fixed sample of its
-launches is held against the plain versions. Phases (a)-(c) run on
+launches is held against the plain versions, its counts (9 full waves,
+4,191 single-lane refreshes, 4,200 evictions, 4,200 pipelined, none left
+pending) must be the ones the port has always made, and it prints a
+refresh launch's shape and cluster, the kernels' per-phase device times
+and the preempt span beside its launches' device total (the host's
+share). The victim kernels run one lane over a thread-block cluster of
+8 CTAs, the per-visit scan one visit over a cluster; the kernels line
+gives each its cluster shape and per-phase device ms. Phases (a)-(c) run on
 incremental caches, the default (the allocate-only cfg5 cycles above
 stay snapshot-primary).
 
@@ -714,6 +721,46 @@ class Recorder:
         setattr(self.mod, self.name, self.inner)
 
 
+class PhaseRecorder(Recorder):
+    """A Recorder that also keeps each launch's per-phase device ns
+    (``last_launch["phase_ns"]`` of ``launch_mod``, a tensor on the card:
+    no sync until they are summed)."""
+
+    def __init__(self, mod, name, launch_mod=None):
+        super().__init__(mod, name)
+        self.launch_mod = launch_mod or mod
+        self.phase_ns = []
+
+    def __call__(self, **kw):
+        out = super().__call__(**kw)
+        ns = self.launch_mod.last_launch.get("phase_ns")
+        if ns is not None:
+            self.phase_ns.append(ns)
+        return out
+
+    def total_ms(self, names) -> dict:
+        """Per-phase device ms summed over the recorded launches."""
+        import torch
+
+        if not self.phase_ns:
+            return {n: 0.0 for n in names}
+        tot = torch.stack(self.phase_ns).sum(0).cpu().tolist()
+        return {n: v / 1e6 for n, v in zip(names, tot)}
+
+
+def phase_ms(last_launch, names) -> dict:
+    """The per-phase device ms of the latest launch of a kernel whose
+    wrapper keeps ``last_launch["phase_ns"]``."""
+    return {n: v / 1e6 for n, v in zip(
+        names, last_launch["phase_ns"].cpu().tolist())}
+
+
+def cluster_shape(last_launch) -> dict:
+    """The scalar launch entries (grid, cluster, threads...) of a cluster
+    kernel's last launch."""
+    return {k: v for k, v in last_launch.items() if k != "phase_ns"}
+
+
 def build_session_inputs(cfg, device):
     """The port's host path for one config up to the solve's arguments."""
     from kubebatch_tpu_torch.actions.allocate_fused import prepare_fused
@@ -789,6 +836,13 @@ def batched_placed(packed, t_pad: int) -> int:
     return int(((state >= 1) & (state <= 3)).sum())
 
 
+#: the saturated cfg4 preempt cycle's counts (phase (c)), unchanged since
+#: the victim path was ported: the kernels' results decide them, so a
+#: kernel that changed a decision would change them
+CFG4_COUNTS = {"full_waves": 9, "refreshes": 4191, "evictions": 4200,
+               "pipelined": 4200, "pending": 0}
+
+
 def victim_phases(dev, spec5, spec4, churn: int = 256):
     """The shipped four-action policy on ``dev``: (a) ``spec5`` cold +
     two skewed churn cycles of ``churn`` pods, (b) the victim kernels at
@@ -856,7 +910,7 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
                 "syncs": metrics.blocking_readbacks() - rb0,
                 "binds": binding_count(cache) - b0,
                 "evictions": len(evictor.evicted) - ev0,
-                "waves": [victims.last_launch.copy()]
+                "waves": [cluster_shape(victims.last_launch)]
                 if len(wrec.calls) > n_rec else [],
                 "frames": [{f: int(v) for f, v in zip(
                     telemetry.FIELDS, frame) if v}
@@ -907,6 +961,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
     log(f"(a) {len(wrec.calls)} victim_wave launches bitwise equal to the "
         f"plain version on CPU copies of their inputs")
     wave_main_ms = cuda_ms(lambda: victims.victim_wave(**main_kw), reps=20)
+    wave_main_phase = phase_ms(victims.last_launch, victims.PHASES)
+    wave_main_shape = cluster_shape(victims.last_launch)
     wave_main_plain_ms = cuda_ms(
         lambda: victims.wave_plain(**main_kw), reps=3)
     wb = victim_bounds(main_kw, main_out, visit=False)
@@ -943,7 +999,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
                 "plain_ms": cuda_ms(
                     lambda: victims.wave_plain(**kw, **cfg), reps=2),
                 "plain_cpu_ms": cpu_ms, "max_abs_err": err,
-                "launch": victims.last_launch.copy(),
+                "launch": cluster_shape(victims.last_launch),
+                "phase_ms": phase_ms(victims.last_launch, victims.PHASES),
                 **victim_bounds({**kw, **cfg}, out, visit=False)}
             wave_err = max(wave_err, err)
     visit_err, visit_calls = 0.0, []
@@ -958,6 +1015,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
         visit_calls.append((kw, cfg, out))
     kw, cfg, out = visit_calls[0]
     visit_ms = cuda_ms(lambda: victims.victim_visit(**kw, **cfg), reps=20)
+    visit_phase = phase_ms(victims.last_launch, victims.PHASES)
+    visit_shape = cluster_shape(victims.last_launch)
     visit_plain_ms = cuda_ms(lambda: victims.visit_plain(**kw, **cfg),
                              reps=3)
     vb = victim_bounds({**kw, **cfg}, out, visit=True)
@@ -975,7 +1034,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
     log(f"(b) victim_visit, 8 lanes bitwise equal to plain; one visit "
         f"{visit_ms:.4f} ms (CUDA events, 20 launches), plain "
         f"{visit_plain_ms:.3f} ms on the card, bound {vb['bound_ms']:.6f} "
-        f"ms ({vb['bound_by']})")
+        f"ms ({vb['bound_by']}); launch {json.dumps(visit_shape)}, phases "
+        f"ms {json.dumps(visit_phase)}")
 
     # ---- (c) saturated cfg4: preemption under contention ----------------
     t0 = time.perf_counter()
@@ -988,7 +1048,7 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
         f"{len(cache4.nodes)} nodes, {len(sim4.pods)} pods populated in "
         f"{time.perf_counter() - t0:.1f} s")
     rb0 = metrics.blocking_readbacks()
-    with Recorder(victims, "victim_wave") as crec, \
+    with PhaseRecorder(victims, "victim_wave") as crec, \
             Recorder(victims, "victim_visit") as vrec:
         _build.reset_launch_counts()
         ms4, statuses4, before4 = run_cycle(cache4, shipped_tiers())
@@ -1008,6 +1068,10 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
         + json.dumps({p: round(v, 3) for p, v in ms4.items()}))
     if evictions4 == 0 or piped == 0:
         raise AssertionError("the saturated cfg4 cycle did not preempt")
+    counts4 = {"full_waves": full4, "refreshes": single4,
+               "evictions": evictions4, "pipelined": piped, "pending": left}
+    if counts4 != CFG4_COUNTS:
+        raise AssertionError(f"cfg4 counts {counts4}, not {CFG4_COUNTS}")
     if piped + left != len(preemptors):
         raise AssertionError("a preemptor ended neither pipelined nor "
                              "pending")
@@ -1034,6 +1098,23 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
                        if kw["p_job"].shape[0] == 1), None)
     refresh_ms = (cuda_ms(lambda: victims.victim_wave(**refresh_kw),
                           reps=20) if refresh_kw is not None else None)
+    refresh_phase = refresh_shape = None
+    if refresh_kw is not None:
+        refresh_phase = phase_ms(victims.last_launch, victims.PHASES)
+        refresh_shape = cluster_shape(victims.last_launch)
+        log(f"(c) a single-lane refresh: V_pad {refresh_shape['v_pad']}, "
+            f"N_pad {refresh_shape['n_pad']}, {refresh_shape['cluster']} "
+            f"CTAs a lane ({refresh_shape['grid']} CTAs of "
+            f"{refresh_shape['threads']} threads); {refresh_ms:.4f} ms a "
+            f"launch (CUDA events, 20 back to back), phases ms "
+            f"{json.dumps(refresh_phase)}")
+    dev_ms = crec.total_ms(victims.PHASES)
+    dev_total = sum(dev_ms.values())
+    by_phase = {k: round(v, 3) for k, v in dev_ms.items()}
+    log(f"(c) preempt span {ms4['preempt']:.1f} ms host; its {n} wave "
+        f"launches' device total {dev_total:.1f} ms (their phase timers, "
+        f"CTA 0's view: {json.dumps(by_phase)}), so the host holds "
+        f"{100.0 * (1.0 - dev_total / ms4['preempt']):.1f}% of the span")
     cache4.stop()
 
     return [
@@ -1050,7 +1131,13 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
          "cfg4_launches": launches4["victim_wave"],
          "cfg4_full_waves": full4, "cfg4_refreshes": single4,
          "cfg4_refresh_ms": refresh_ms,
-         "cfg4_checked": len(sample)},
+         "cfg4_refresh_phase_ms": refresh_phase,
+         "cfg4_refresh_launch": refresh_shape,
+         "cfg4_preempt_ms": ms4["preempt"],
+         "cfg4_wave_device_ms": dev_total,
+         "cfg4_checked": len(sample),
+         "phase_ms": wave_main_phase, "cluster": wave_main_shape["cluster"],
+         "launch": wave_main_shape},
         {"name": "victim_visit", "route": "cuda",
          "source": "kubebatch_tpu_torch/kernels/csrc/victims.cu",
          "replaces": "kubebatch_tpu/kernels/victims.py:324",
@@ -1060,6 +1147,8 @@ def victim_phases(dev, spec5, spec4, churn: int = 256):
          "bound_ms": vb["bound_ms"], "bound_by": vb["bound_by"],
          "library_ms": None, "lanes": 1, "rows": vb["v_pad"],
          "nodes": vb["n_pad"], "checked_lanes": len(visit_calls),
+         "phase_ms": visit_phase, "cluster": visit_shape["cluster"],
+         "launch": visit_shape,
          "cfg4_launches": launches4["victim_visit"],
          "note": "the shipped policy dispatches waves (the host chooses "
                  "nodes from the cached lanes), so the per-visit kernel "
@@ -1717,6 +1806,7 @@ def affinity_phase(dev, spec5p, spec3p, churn: int = 256) -> dict:
         "bound_ms": ab["bound_ms"], "bound_by": ab["bound_by"],
         "library_ms": None, "pairs": ab["pairs"], "ports": ab["ports"],
         "interpod_score": ab["ip"], "rounds": r5["stats"]["rounds"],
+        "plain_counts": {k: int(v) for k, v in r5["stats"].items()},
         "rows": ab["rows"], "ip_rows": ab["ip_rows"],
         "bound_bytes_ms": ab["bytes_ms"], "bound_ops_ms": ab["ops_ms"],
         "reference_macs": ab["reference_macs"],
@@ -2238,13 +2328,16 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
     event_ms = cuda_ms(lambda: solver.allocate_scan(**run_kw), reps=200)
     prof_ms = profiled_ms(lambda: solver.allocate_scan(**run_kw),
                           "allocate_scan_kernel", reps=50)
+    scan_phase = phase_ms(solver.last_launch, solver.SCAN_PHASES)
+    scan_shape = cluster_shape(solver.last_launch)
     plain_ms = cuda_ms(lambda: solver.allocate_scan_plain(**run_kw), reps=5)
     sb = scan_bounds(run_kw, main_out)
     log(f"allocate_scan T_pad {sb['t_pad']}, N_pad {sb['n_pad']}: "
         f"{event_ms:.4f} ms per launch back to back (events, 200 launches), "
         f"{prof_ms} ms device time (profiler); plain {plain_ms:.3f} ms on "
         f"the card; bound {sb['bound_ms']:.6f} ms ({sb['bound_by']}: "
-        f"{sb['bytes']} B, {sb['ops']} float32 operations)")
+        f"{sb['bytes']} B, {sb['ops']} float32 operations); launch "
+        f"{json.dumps(scan_shape)}, phases ms {json.dumps(scan_phase)}")
     launches = sum(p["allocate_scan"] for p in paths.values())
     return {"name": "allocate_scan", "route": "cuda",
             "source": "kubebatch_tpu_torch/kernels/csrc/allocate_scan.cu",
@@ -2257,6 +2350,8 @@ def scheduler_phase(dev, spec5, spec3, binds_a, churn: int = 256) -> dict:
             "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
             "library_ms": None, "library_call": "none",
             "t_pad": sb["t_pad"], "n_pad": sb["n_pad"],
+            "phase_ms": scan_phase, "cluster": scan_shape["cluster"],
+            "launch": scan_shape,
             "jax_cold_wall_ms": card["wall_ms"],
             "subcycle_arrival_ms_p50": arrivals.subcycle_percentile(50),
             "subcycle_arrival_ms_max": arrivals.subcycle_max_ms(),
@@ -4774,9 +4869,12 @@ class MeshPhase:
     prints per rank launches, device ms by step, collectives and stages.
     ``entries()`` gives the kernels line's rows 10a and 8m."""
 
-    def __init__(self, dev, spec5p, spec3p, spec6):
+    def __init__(self, dev, spec5p, spec3p, spec6, counts_5p=None):
         self.dev = dev
         self.specs = {"5p": spec5p, "3p": spec3p, "cfg6": spec6}
+        #: the plain engine's work counts of the 5p cold solve (phase
+        #: (e), the same inputs): (l1)'s bound
+        self.counts_5p = counts_5p
         self.out = {"l1": None, "l2": {}, "l3": {}}
         self.seconds = {}
 
@@ -4885,6 +4983,7 @@ class MeshPhase:
         if bad:
             raise AssertionError(f"(l1) {bad} PodGroups partly placed")
         rounds = allocate_batched.last_solve["rounds"]
+        bound5 = self._bound_5p() if self.counts_5p else None
         self.out["l1"] = {
             "binds": len(want_binds), "rounds": rounds,
             "cycle_wall_ms": wall_ms, "twin_cycle_wall_ms": twin_ms,
@@ -4892,8 +4991,17 @@ class MeshPhase:
             "solve_wall_ms": bs.last_solve["wall_ms"],
             "launches": sum(r["launches"] for r in ranks),
             "vocabulary": bs.last_solve["vocabulary"],
-            "per_rank": rank_table(ranks), "validated": valid}
+            "per_rank": rank_table(ranks), "validated": valid,
+            "bound": bound5}
         cache.stop()
+        if bound5:
+            log(f"(l1) rank 0's bound on the 5p solve: "
+                f"{bound5['bound_ms']:.6f} ms ({bound5['bound_by']}: "
+                f"{bound5['rows']} row-pass rows, {bound5['ip_rows']} of them "
+                f"scoring, {bound5['rounds_run']} rounds over its "
+                f"{bound5['block_real_nodes']} real nodes; {bound5['bytes']} "
+                f"B, {bound5['ops']:.4g} operations) beside its launches' "
+                f"{self.out['l1']['per_rank'][0]['kernel_ms']:.3f} ms")
         log("(l1) 5p cold through Scheduler(mesh=k=2) in auto: sharded, no "
             "demotion, no host fallback; binds and statuses == the one-card "
             f"batched cycle (compact_bucket=0): {len(want_binds)} binds, "
@@ -4902,6 +5010,33 @@ class MeshPhase:
             f"{bs.last_solve['wall_ms']:.1f} ms; vocabulary "
             + json.dumps(bs.last_solve["vocabulary"]) + "; per rank "
             + json.dumps(self.out["l1"]["per_rank"]))
+
+    def _bound_5p(self) -> dict:
+        """Rank 0's roofline on the 5p cold solve at k = 2 (row 10a), from
+        the plain engine's counts of the same solve (phase (e)): the
+        sharded inputs of a fresh 5p cache, its packed result and its
+        block's carry words by size."""
+        import torch
+
+        from kubebatch_tpu_torch.actions.cycle_inputs import \
+            build_cycle_inputs
+        from kubebatch_tpu_torch.conf import shipped_tiers
+        from kubebatch_tpu_torch.framework import OpenSession
+        from kubebatch_tpu_torch.kernels import batched_sharded as bs
+        from kubebatch_tpu_torch.kernels.telemetry import TELEM_WIDTH
+
+        _, cache = self._cache("5p", incremental=False)
+        inputs = build_cycle_inputs(OpenSession(cache, shipped_tiers()),
+                                    allow_affinity=True)
+        node, rep, statics, n_sh = bs.prepare_sharded(2, inputs.device,
+                                                      inputs)
+        cache.stop()
+        t_pad = inputs.task_valid.shape[0]
+        ports = rep["task_ports"].shape[1] if "task_ports" in rep else 0
+        packed = torch.empty(3 * t_pad + 1 + TELEM_WIDTH, dtype=torch.int32)
+        carry = torch.empty((n_sh, bs.W_CARRY + ports), dtype=torch.int32)
+        return sharded_aff_bounds(node, rep, packed, carry, self.counts_5p,
+                                  bool(statics["pipe_enabled"]), 2)
 
     def l2(self, k, mesh):
         import numpy as np
@@ -5111,7 +5246,10 @@ class MeshPhase:
                          "the whole 3p solve",
              "bound_is": "rank 0's work in that 3p solve over its block's "
                          "real nodes",
-             "ms_5p": l1["per_rank"][0]["kernel_ms"], "l1": l1,
+             "ms_5p": l1["per_rank"][0]["kernel_ms"],
+             "bound_ms_5p": (l1["bound"] or {}).get("bound_ms"),
+             "bound_by_5p": (l1["bound"] or {}).get("bound_by"),
+             "l1": l1,
              "l2": {str(k): v for k, v in self.out["l2"].items()}},
             {"name": "sharded_hier", "row": "8m", "route": "cuda",
              "source": "kubebatch_tpu_torch/kernels/csrc/sharded_round.cu",
@@ -5466,8 +5604,9 @@ def main() -> int:
         dataclasses.replace(BASELINE_SPECS[4], running_fill=0.95))
     kernels += victim_entries
     kernels.append(fold_phase(dev, BASELINE_SPECS[5]))
-    kernels.append(affinity_phase(dev, BASELINE_SPECS["5p"],
-                                  BASELINE_SPECS["3p"]))
+    aff_entry = affinity_phase(dev, BASELINE_SPECS["5p"],
+                               BASELINE_SPECS["3p"])
+    kernels.append(aff_entry)
     kernels.insert(3, scheduler_phase(dev, BASELINE_SPECS[5],
                                       BASELINE_SPECS[3], binds_a))
     kernels += scale_phase(dev, BASELINE_SPECS[6], BASELINE_SPECS[7])
@@ -5477,7 +5616,8 @@ def main() -> int:
     kernels.append(tenant_phase(dev))
     kernels.append(pipeline_phase(dev, BASELINE_SPECS[6]))
     mesh_l = MeshPhase(dev, BASELINE_SPECS["5p"], BASELINE_SPECS["3p"],
-                       BASELINE_SPECS[6])
+                       BASELINE_SPECS[6],
+                       counts_5p=aff_entry["plain_counts"])
     kernels += sharded_phase(dev, BASELINE_SPECS[5], extra=mesh_l)
     kernels += mesh_l.entries()
     gp = grid_barrier_us()

@@ -55,18 +55,21 @@ EXPORTS: Dict[str, Dict[str, str]] = {
         "kb_hier_allocate": "pppppppp",
     },
     "victims.cu": {
-        "kb_victims_workspace": "ii",
+        "kb_victims_workspace": "iii",
+        "kb_victims_resident": "iii",
         "kb_victims": "ppp",
     },
     "scatter_rows.cu": {
         "kb_scatter_rows": "pii" + "p" * 9,
     },
     "allocate_scan.cu": {
-        "kb_allocate_scan": "p" * 21 + "i" * 5 + "p",
+        "kb_allocate_scan": "p" * 21 + "i" * 5 + "pp",
+        "kb_allocate_scan_shape": "ip",
     },
     "chain_probe.cu": {
         "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
         "kb_grid_probe": "ippp",
+        "kb_cluster_probe": "iippp",
     },
     "sharded_round.cu": {
         "kb_sharded_workspace": "pipp",

@@ -17,6 +17,7 @@ off that node.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -261,6 +262,15 @@ def allocate_scan_plain(idle, releasing, backfilled, allocatable_cm, nz_req,
     return packed, idle, rel, n_tasks, nz
 
 
+#: phases of csrc/allocate_scan.cu timed by CTA 0's thread 0
+SCAN_PHASES = ("prologue", "rows", "epilogue")
+
+#: the latest allocate_scan launch: shape, cluster (CTAs, nodes a CTA,
+#: whether the carry sat in shared memory) and per-phase device ns
+#: (``phase_ns``: an int64 tensor on the card, SCAN_PHASES order)
+last_launch: dict = {}
+
+
 def allocate_scan(idle, releasing, backfilled, allocatable_cm, nz_req,
                   max_task_num, n_tasks, node_ok, resreq, init_resreq,
                   task_nz, task_valid, scores, pred_mask,
@@ -305,6 +315,7 @@ def allocate_scan(idle, releasing, backfilled, allocatable_cm, nz_req,
     packed = torch.empty(2 * t_pad + 1 + TELEM_WIDTH, dtype=torch.int32,
                          device=dev)
     eps = torch.from_numpy(VEC_EPS).to(dev)
+    phase_ns = torch.empty(len(SCAN_PHASES), dtype=torch.int64, device=dev)
     lib = _build.library("allocate_scan.cu")
     err = lib.kb_allocate_scan(
         *(c[k].data_ptr() for k in SCAN_NODE_ARGS + SCAN_TASK_ARGS),
@@ -312,10 +323,16 @@ def allocate_scan(idle, releasing, backfilled, allocatable_cm, nz_req,
         out_idle.data_ptr(), out_rel.data_ptr(), out_nt.data_ptr(),
         out_nz.data_ptr(), packed.data_ptr(),
         n, t_pad, int(min_available), int(init_allocated),
-        int(bool(dyn_enabled)),
+        int(bool(dyn_enabled)), phase_ns.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("allocate_scan", err)
     _build.count_launch("allocate_scan")
+    shape = (ctypes.c_int * 3)()
+    lib.kb_allocate_scan_shape(n, shape)
+    last_launch.clear()
+    last_launch.update(n_pad=n, t_pad=t_pad, cluster=shape[0],
+                       nodes_per_cta=shape[1], smem_state=bool(shape[2]),
+                       phase_ns=phase_ns)
     return packed, out_idle, out_rel, out_nt, out_nz
 
 

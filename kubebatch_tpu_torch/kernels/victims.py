@@ -376,13 +376,42 @@ def visit_plain(*, tiers, veto_critical: bool, filter_kind: str,
 # ---------------------------------------------------------------------
 
 #: scalar description of the latest kernel launch (lanes, rows, nodes,
-#: grid, workspace bytes)
-last_launch: Dict[str, int] = {}
+#: grid, cluster, workspace bytes) and its per-phase device ns
+#: (``phase_ns``: an int64 tensor on the card, PHASES order, taken by CTA 0's
+#: thread 0 over the lanes its cluster ran)
+last_launch: Dict[str, object] = {}
 
-#: threads per block and the most blocks resident at once (the lanes past
-#: them loop); each resident block owns one lane's workspace
+#: phases of csrc/victims.cu timed between its barriers
+PHASES = ("filter", "drf_scan", "prop_scan", "node_pass", "visit")
+
+#: threads per CTA, and the most CTAs a wave's grid holds: a wave takes
+#: as many clusters as the card holds at once, at most MAX_BLOCKS CTAs (the
+#: lanes past its clusters loop; each cluster owns one lane's workspace)
 NT = 512
 MAX_BLOCKS = 264
+#: CTAs of the thread-block cluster that runs each lane (the portable
+#: size). Clusters win at every wave size the solver dispatches: on an
+#: H100 80GB HBM3 at 700 W, 256-lane waves take 0.305-0.313 ms over
+#: clusters against 0.461 at one CTA a lane, the 512-lane cfg4 wave 0.763
+#: against 1.125 (cluster_timing.py, PERF.md row 7)
+CLUSTER = 8
+
+
+#: (v_pad, cluster) -> clusters the card holds at once (the library's
+#: occupancy query, asked once a shape)
+_resident: Dict[Tuple[int, int], int] = {}
+
+
+def _slots(lib, lanes: int, v_pad: int, cluster: int) -> int:
+    key = (v_pad, cluster)
+    if key not in _resident:
+        n = lib.kb_victims_resident(v_pad, cluster, NT)
+        if n <= 0:
+            raise RuntimeError(f"victims.cu: no cluster of {cluster} CTAs "
+                               f"fits the card at V_pad {v_pad} (CUDA error "
+                               f"{-n})")
+        _resident[key] = n
+    return min(lanes, _resident[key], MAX_BLOCKS // cluster)
 
 
 def _config_ints(tiers, veto_critical, filter_kind, dyn_enabled,
@@ -460,11 +489,13 @@ def _launch(kw, config, visit: bool):
     for n in ("node_ok", "v_critical", "nj_head", "nq_head", "q_prop_ok",
               "v_live", "sig_pred") + (("visited",) if visit else ()):
         t[n] = t[n].view(torch.uint8)
-    blocks = 1 if visit else min(lanes, MAX_BLOCKS)
+    cluster = CLUSTER
     lib = _build.library("victims.cu")
-    ws_bytes = lib.kb_victims_workspace(v_pad, n_pad)
-    ws = torch.empty(max(1, ws_bytes * blocks), dtype=torch.uint8,
+    slots = _slots(lib, lanes, v_pad, cluster)
+    ws_bytes = lib.kb_victims_workspace(v_pad, n_pad, cluster)
+    ws = torch.empty(max(1, ws_bytes * slots), dtype=torch.uint8,
                      device=dev)
+    phase_ns = torch.empty(len(PHASES), dtype=torch.int64, device=dev)
     tiers_t = torch.tensor(tier_masks or [0], dtype=torch.int32, device=dev)
     eps = torch.as_tensor(VEC_EPS, dtype=torch.float32, device=dev)
     if visit:
@@ -481,11 +512,12 @@ def _launch(kw, config, visit: bool):
         "dyn_weights", "n_tasks", "nz_req", "v_live", "ready_cnt",
         "j_alloc", "q_alloc", "node_rows", "node_off")]
     ptrs += [t["visited"].data_ptr() if visit else 0, tiers_t.data_ptr(),
-             eps.data_ptr(), ws.data_ptr(), out.data_ptr()]
+             eps.data_ptr(), ws.data_ptr(), out.data_ptr(),
+             phase_ns.data_ptr()]
     ints = [lanes, n_pad, v_pad, len(tier_masks),
             int(bool(has & TIER_BITS["drf"])),
             int(bool(has & TIER_BITS["proportion"])), *flags, int(visit),
-            blocks, NT, ws_bytes]
+            slots, NT, ws_bytes, cluster]
     name = "victim_visit" if visit else "victim_wave"
     err = lib.kb_victims((ctypes.c_void_p * len(ptrs))(*ptrs),
                          (ctypes.c_int * len(ints))(*ints),
@@ -494,8 +526,8 @@ def _launch(kw, config, visit: bool):
     _build.count_launch(name)
     last_launch.clear()
     last_launch.update(kernel=name, lanes=lanes, v_pad=v_pad, n_pad=n_pad,
-                       grid=blocks, threads=NT,
-                       workspace_bytes=ws_bytes * blocks)
+                       grid=slots * cluster, cluster=cluster, threads=NT,
+                       workspace_bytes=ws_bytes * slots, phase_ns=phase_ns)
     return out
 
 

@@ -538,12 +538,42 @@ PREEMPT_TIERS = (("gang", "conformance"), ("drf",))
 RECLAIM_TIERS = (("gang", "conformance"), ("proportion",))
 
 #: (filter_kind, tiers, veto_critical, dyn_enabled, score_nodes,
-#: room_check, guard_heavy)
+#: room_check, guard_heavy[, shape]): shape, where given, is
+#: random_problem's sizes plus "ties" (every node one score and one host
+#: rank, so the lowest index wins across the cluster's CTAs) and "masked"
+#: (every node not ok)
 VICTIM_CASES = [
     ("inter_queue", PREEMPT_TIERS, True, True, True, True, False),
     ("intra_job", PREEMPT_TIERS, True, True, True, True, False),
     ("other_queue", RECLAIM_TIERS, True, False, False, True, False),
     ("other_queue", RECLAIM_TIERS, False, False, False, False, True),
+    # the cluster design's edges: V below the cluster size, V not a
+    # multiple of the tile, V_pad 20,480 (five tiles of 4,096), tiles
+    # past the shared-memory levels (V_pad 40,960), one node, N not a
+    # multiple of the cluster, one lane, 256 lanes, more lanes than
+    # the card holds clusters (the lanes loop)
+    ("inter_queue", PREEMPT_TIERS, True, True, True, True, False,
+     dict(n_pad=8, n_real=6, v_pad=5, n_jobs=4, lanes=4)),
+    ("other_queue", RECLAIM_TIERS, True, False, False, True, False,
+     dict(v_pad=1000)),
+    ("inter_queue", PREEMPT_TIERS, True, True, True, True, False,
+     dict(n_pad=8192, n_real=8000, v_pad=20480, n_jobs=60, lanes=3)),
+    ("other_queue", RECLAIM_TIERS, True, False, False, True, True,
+     dict(n_pad=8192, n_real=8000, v_pad=40960, n_jobs=60, lanes=3)),
+    ("intra_job", PREEMPT_TIERS, True, True, True, True, False,
+     dict(n_pad=1, n_real=1, v_pad=16, n_jobs=4)),
+    ("inter_queue", PREEMPT_TIERS, True, True, True, True, False,
+     dict(n_pad=100, n_real=90, v_pad=512)),
+    ("inter_queue", PREEMPT_TIERS, True, False, True, True, False,
+     dict(ties=True)),
+    ("other_queue", RECLAIM_TIERS, True, False, True, True, False,
+     dict(masked=True)),
+    ("inter_queue", PREEMPT_TIERS, True, True, True, True, False,
+     dict(lanes=3)),
+    ("other_queue", RECLAIM_TIERS, True, False, False, True, False,
+     dict(lanes=256)),
+    ("inter_queue", PREEMPT_TIERS, True, True, True, True, False,
+     dict(lanes=300)),
 ]
 
 
@@ -555,32 +585,56 @@ def _victim_tensors(problem, device, visited=None):
                                     visited=visited)
 
 
+def _victim_problem(seed, guard_heavy, shape):
+    shape = dict(shape)
+    ties = shape.pop("ties", False)
+    masked = shape.pop("masked", False)
+    problem = random_problem(seed, **{"lanes": 40, **shape},
+                             guard_heavy=guard_heavy)
+    static, mutable, sig, lanes = problem
+    if ties:
+        sig[0][:] = 1.0                  # sig_scores
+        static[3][:] = 7                 # host_rank
+    if masked:
+        static[0][:] = False             # node_ok
+    return problem
+
+
 @pytest.mark.parametrize("case", VICTIM_CASES,
                          ids=[f"{c[0]}-{k}" for k, c in
                               enumerate(VICTIM_CASES)])
-def test_victim_kernels_match_plain(case):
+def test_victim_kernels_match_plain(case, monkeypatch):
+    """Waves over clusters of 8 (the default), 1 and 4 CTAs, and six
+    visits, bitwise equal to the plain versions on CPU copies."""
     _need_cuda()
     from kubebatch_tpu_torch.kernels import victims
 
-    fk, tiers, veto, dyn, score, room, guard_heavy = case
+    fk, tiers, veto, dyn, score, room, guard_heavy, *shape = case
     cfg = dict(tiers=tiers, veto_critical=veto, filter_kind=fk,
                dyn_enabled=dyn, score_nodes=score, room_check=room)
-    problem = random_problem(VICTIM_CASES.index(case), lanes=40,
-                             guard_heavy=guard_heavy)
+    problem = _victim_problem(VICTIM_CASES.index(case), guard_heavy,
+                              shape[0] if shape else {})
     kw = _victim_tensors(problem, "cuda")
-    _build.reset_launch_counts()
-    got = victims.victim_wave(**kw, **cfg)
-    torch.cuda.synchronize()
-    assert _build.launch_count("victim_wave") == 1
     want = victims.wave_plain(**_victim_tensors(problem, "cpu"), **cfg)
-    _assert_bitwise([want], [got.cpu()], f"victim_wave {fk}")
+    lanes = kw["p_job"].shape[0]
+    for cluster in (victims.CLUSTER, 1, 4):
+        monkeypatch.setattr(victims, "CLUSTER", cluster)
+        _build.reset_launch_counts()
+        got = victims.victim_wave(**kw, **cfg)
+        torch.cuda.synchronize()
+        assert _build.launch_count("victim_wave") == 1
+        assert victims.last_launch["cluster"] == cluster
+        _assert_bitwise([want], [got.cpu()],
+                        f"victim_wave {fk} cluster {cluster}")
+    monkeypatch.undo()
     n_pad = problem[0][0].shape[0]
     rng = np.random.default_rng(1)
+    _build.reset_launch_counts()
     for i in range(6):
         visited = rng.random(n_pad) < 0.3
         if i == 3:
             visited[:] = True                    # not found
-        one = tuple(tuple(a[i:i + 1] for a in problem[3]))
+        one = tuple(tuple(a[i % lanes:i % lanes + 1] for a in problem[3]))
         prob = problem[:3] + (one,)
         got = victims.victim_visit(**_victim_tensors(prob, "cuda", visited),
                                    **cfg)
@@ -899,11 +953,14 @@ def test_batched_affinity_kernel_matches_plain(case):
 # the per-visit allocate scan (csrc/allocate_scan.cu)
 # ---------------------------------------------------------------------
 
-def _scan_inputs(seed: int, n: int, t: int, edge: bool = False):
+def _scan_inputs(seed: int, n: int, t: int, edge=False):
     """allocate_scan arguments on the card from a numpy seed: a partly
     used cluster (the last tenth padding when n > 64) with releasing and
-    lendable capacity; ``edge`` adds -0.0 rows and ties, an all-masked
-    task row and an unfittable task."""
+    lendable capacity; ``edge`` True adds -0.0 rows and ties, an
+    all-masked task row and an unfittable task; "masked" takes every node
+    out (each row's argmax is node 0, the first valid row fails); "ready"
+    lets every task fit anywhere and sets min_available to 2, so the job
+    crosses readiness mid-scan and the later rows skip."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     idle = np.stack([rng.uniform(0, 4000, n), rng.uniform(0, 8192, n),
@@ -941,20 +998,40 @@ def _scan_inputs(seed: int, n: int, t: int, edge: bool = False):
           "task_nz": req[:, :2].copy(), "task_valid": valid,
           "scores": scores, "pred_mask": pred,
           "dyn_weights": np.array([1.0, 1.0], f32)}
+    if edge == "masked":
+        kw["node_ok"][:] = False
+    if edge == "ready":
+        kw["idle"][:] = 1e6
+        kw["node_ok"][:] = True
+        kw["max_task_num"][:] = 1000
+        kw["pred_mask"][:] = True
+        kw["task_valid"][:] = True
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
            for k, v in kw.items()}
     out["min_available"] = int(rng.integers(0, t + 2))
     out["init_allocated"] = int(rng.integers(0, 3))
+    if edge == "ready":
+        out["min_available"], out["init_allocated"] = 2, 0
     return out
 
 
+#: the last cases are the cluster design's edges: one node, N not a
+#: multiple of the cluster (2,049 over four CTAs; 9,000 over eight, two
+#: nodes a thread), the carry past shared memory (32,768), T_pad 1 and
+#: 64 at N_pad 8,192, every node masked, and readiness crossed mid-scan
 SCAN_CASES = [(8, 1, False), (64, 8, False), (1000, 33, False),
               (1000, 8, True), (8192, 8, False), (8192, 8, True),
-              (5000, 64, False)]
+              (5000, 64, False),
+              (1, 1, False), (1, 8, True), (2049, 8, False),
+              (9000, 8, True), (32768, 8, False), (8192, 1, False),
+              (8192, 64, True), (8192, 8, "masked"), (1000, 8, "ready"),
+              (8192, 8, "ready")]
 
 
 @pytest.mark.parametrize("n,t,edge", SCAN_CASES,
-                         ids=[f"N{n}-T{t}{'-edge' if e else ''}"
+                         ids=[f"N{n}-T{t}"
+                              + ("-edge" if e is True else f"-{e}" if e
+                                 else "")
                               for n, t, e in SCAN_CASES])
 @pytest.mark.parametrize("dyn", [False, True], ids=["static", "dyn"])
 def test_allocate_scan_kernel_matches_plain(n, t, edge, dyn):
@@ -974,8 +1051,13 @@ def test_allocate_scan_kernel_matches_plain(n, t, edge, dyn):
         assert _build.launch_count("allocate_scan") == n0 + 1
         for k, v in before.items():
             assert torch.equal(kw[k], v), k
-        _assert_bitwise(allocate_scan_plain(**kw, dyn_enabled=dyn), got,
-                        "allocate_scan")
+        want = allocate_scan_plain(**kw, dyn_enabled=dyn)
+        _assert_bitwise(want, got, "allocate_scan")
+        if edge == "masked":
+            assert want[0][:t].tolist() == [4] + [0] * (t - 1)
+            assert want[0][t:2 * t].tolist() == [0] * t
+        if edge == "ready":
+            assert want[0][2].item() == 0 and want[0][2 * t].item() == 1
 
 
 class FifoOrder:

@@ -261,6 +261,22 @@ def test_wave_plain_matches_reference(case):
         assert want[:, n_pad:2 * n_pad].any(), "proportion guard never trips"
 
 
+def test_wave_plain_matches_reference_at_v_pad_20480():
+    """A row bucket past LARGE_BUCKET (a multiple of 4,096, not a power of
+    two): the scan tree's odd level counts, as the card's cluster scan
+    splits them into five tiles of 4,096."""
+    case = WAVE_CASES[0]
+    static, mutable, sig, lanes = random_problem(
+        11, n_pad=1024, n_real=1000, v_pad=20480, n_jobs=60, lanes=2)
+    cfg = _config(case)
+    want = np.asarray(jv.run_wave_kernel(static, mutable, sig, *lanes,
+                                         **cfg))
+    kw = interop.victim_inputs_from_numpy(static, mutable, sig, lanes, "cpu")
+    got = tv.victim_wave(**kw, **cfg)
+    _assert_bitwise(want, got.numpy(), "wave at V_pad 20,480")
+    assert want[:, 2 * 1024:].any()
+
+
 @pytest.mark.parametrize("case", WAVE_CASES,
                          ids=[f"{c[0]}-{k}" for k, c in enumerate(WAVE_CASES)])
 def test_visit_plain_matches_reference(case):
