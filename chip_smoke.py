@@ -16,9 +16,11 @@ engine runs on CPU copies of the kernel's inputs); on cfg2 the fused
 cycle must also bind exactly what the host oracle binds. The fused
 kernel, no longer the cold path, stays held against its plain version on
 a cfg5 cold solve. It then times the kernels at the main path's shapes,
-with beside each its roofline bound and, for the fused solve, the
-node-state re-read at the memory rate and two floors of the one-block
-design measured with csrc/chain_probe.cu.
+with beside each its roofline bound and, for the fused solve (one
+thread-block cluster: csrc/fused_body.cuh), its cluster shape, the
+residency of its state, its phase timers and the floor of its design:
+node solves x (one cluster barrier + the block barriers left), measured
+with csrc/chain_probe.cu's cluster probe.
 
 The shipped policy's four actions (reclaim, allocate, backfill, preempt)
 then run on a fresh cfg5 cache: a cold cycle (no victim work), and two
@@ -127,7 +129,7 @@ cycle each (10,000 pending: a single, one batched_allocate launch), then
 three churn-256 cycles whose fused lanes coalesce as they come; the end
 states of tenants 0 and 1 equal dedicated in-process auto runs. Each
 steady cycle's eight requests then go through ``solve_many``: one 8-lane
-launch of csrc/mega_fused.cu (one block per lane, N_pad 8,192), bitwise
+launch of csrc/mega_fused.cu (one cluster per lane, N_pad 8,192), bitwise
 equal to the plain version and to eight single fused_allocate launches,
 its decisions equal to ``solve_snapshot``'s; the launch is timed against
 the eight single launches back to back. A 3p tenant's cold request takes
@@ -223,15 +225,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: kernels/csrc/fused_allocate.cu eval_node and node_score.cuh
 OPS_PER_NODE_FUSED = 90
 OPS_PER_NODE_SCORE = 68
-#: bytes of node state one node-pass evaluation reads (eval_node): idle,
-#: backfilled and releasing (3 x f32 each), n_tasks and max_task_num
-#: (i32), node_ok and the sig_pred byte, the sig_scores f32, nz_req and
-#: allocatable_cm (2 x f32 each)
-NODE_PASS_BYTES = 66
-#: block barriers of a node-solve iteration that resumes a visit
-#: (fused_allocate.cu: loop top, job resume, task pick, block_argmax's
-#: three, loop end); an iteration that pops a queue and picks a job adds 16
-BARRIERS_PER_SOLVE = 7
+#: barriers of a node solve of the cluster design (csrc/fused_body.cuh)
+#: besides its one cluster barrier (a block barrier at C = 1): the block
+#: barrier before a CTA publishes its candidate; a pass that pops a queue
+#: adds two more (the loop top's and the job pick's)
+BLOCK_BARRIERS_PER_SOLVE = 1
 #: float32 operations per task x node cell of a batched row pass (three
 #: fit compares and the score compare; three more with pipelining) and per
 #: pair x node cell of the pair scores (the dynamic score and the add) —
@@ -294,15 +292,11 @@ def bound(nbytes: int, ops: float):
 
 
 def fused_bounds(kw, out) -> dict:
-    """The fused solve's bounds for one run, from its inputs and results.
-
-    ``bound_ms`` is the roofline: each input read once and each output
-    written once over the memory rate, against the node passes' float
-    operations over the float32 rate, counted over the real nodes
-    (``node_ok``), not the padded axis. ``reread_ms`` counts what the
-    node pass moves instead: the node state read again by every node
-    solve, over the memory rate (a floor for a design that streams it
-    from memory each time; the one-block kernel streams it from L2)."""
+    """The fused solve's roofline for one run, from its inputs and
+    results: each input read once and each output written once over the
+    memory rate, against the node passes' float operations over the
+    float32 rate, counted over the real nodes (``node_ok``), not the
+    padded axis."""
     frame = out[0][0, -20:].tolist()
     iters, n_solves = frame[1], frame[2] + frame[3]     # placed + failed
     n_pad = kw["idle"].shape[0]
@@ -312,9 +306,7 @@ def fused_bounds(kw, out) -> dict:
     nbytes += sum(t.numel() * t.element_size() for t in out)
     b_ms, b_by = bound(nbytes, n_solves * n_real * OPS_PER_NODE_FUSED)
     return {"iters": iters, "n_solves": n_solves, "n_pad": n_pad,
-            "n_real": n_real, "bound_ms": b_ms, "bound_by": b_by,
-            "reread_ms": n_solves * n_real * NODE_PASS_BYTES
-            / PEAK_BYTES_PER_S * 1e3}
+            "n_real": n_real, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def batched_bounds(kw, out, stats, pipe: bool) -> dict:
@@ -460,27 +452,59 @@ class CountingEvictor:
         pod.deletion_timestamp = 1.0
 
 
-def probe_ms(n_pad: int, words: int, iters: int) -> float:
-    """Device ms of csrc/chain_probe.cu: ``iters`` dependent iterations of
-    one 1024-thread block, each with BARRIERS_PER_SOLVE barriers and an
-    argmax over what a pass reading ``words`` words per node returns."""
+def cluster_barrier_us(cluster: int, threads: int,
+                       iters: int = 4000) -> dict:
+    """csrc/chain_probe.cu's cluster probe on one cluster of ``cluster``
+    CTAs of ``threads`` threads: us per cluster barrier, per dependent
+    DSMEM load and per block barrier (each the best of three launches)."""
+    import ctypes
+
     import torch
 
     from kubebatch_tpu_torch.kernels import _build
 
     lib = _build.library("chain_probe.cu")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    buf = torch.rand(max(words, 1) * n_pad, generator=gen, device="cuda")
-    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    out = torch.zeros(4, dtype=torch.int64, device="cuda")
+    best = None
+    for _ in range(3):
+        info = (ctypes.c_int * 2)(threads, 0)
+        _build.check_launch("cluster_probe", lib.kb_cluster_probe(
+            cluster, iters, out.data_ptr(), info,
+            torch.cuda.current_stream().cuda_stream))
+        torch.cuda.synchronize()
+        ns = out.cpu().tolist()
+        best = ns if best is None else [min(a, b) for a, b in zip(best, ns)]
+    return {"cluster": cluster, "threads": threads, "iters": iters,
+            "cluster_sync_us": best[0] / iters / 1e3,
+            "dsmem_load_us": best[1] / iters / 1e3,
+            "block_sync_us": best[2] / iters / 1e3}
 
-    def run():
-        err = lib.kb_chain_probe(buf.data_ptr(), n_pad, words, iters,
-                                 BARRIERS_PER_SOLVE, out.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
-        _build.check_launch("chain_probe", err)
-        _build.count_launch("chain_probe")
 
-    return cuda_ms(run, reps=2)
+def fused_floor(b: dict, launch: dict) -> dict:
+    """The cluster design's floor for one fused run: its node solves x
+    (one cluster barrier, a block barrier at C = 1, + the
+    BLOCK_BARRIERS_PER_SOLVE left), from the cluster probe at the
+    launch's shape."""
+    probe = cluster_barrier_us(launch["cluster"], launch["threads"])
+    sync = (probe["cluster_sync_us"] if launch["cluster"] > 1
+            else probe["block_sync_us"])
+    per = sync + BLOCK_BARRIERS_PER_SOLVE * probe["block_sync_us"]
+    return {"floor_ms": b["n_solves"] * per / 1e3, "probe": probe}
+
+
+def launch_phases(launch: dict) -> dict:
+    """A fused launch's shape, its phase timers in device ms and its
+    counters (kernels/fused.py last_launch)."""
+    from kubebatch_tpu_torch.kernels import fused
+
+    out = {k: v for k, v in launch.items() if k != "phase_ns"}
+    if launch.get("phase_ns") is not None:
+        ns = launch["phase_ns"].cpu().tolist()
+        k = len(fused.FUSED_PHASES)
+        out["phase_ms"] = {p: v / 1e6 for p, v in
+                           zip(fused.FUSED_PHASES, ns[:k])}
+        out["counts"] = dict(zip(fused.FUSED_COUNTS, ns[k:]))
+    return out
 
 
 def max_abs_err(want, got) -> float:
@@ -3408,6 +3432,7 @@ def tenant_phase(dev, churn: int = 256, n_tenants: int = 8,
     from kubebatch_tpu_torch import faults, metrics
     from kubebatch_tpu_torch.actions import allocate as allocate_mod
     from kubebatch_tpu_torch.kernels import _build
+    from kubebatch_tpu_torch.kernels import fused as fused_mod
     from kubebatch_tpu_torch.kernels.fused import fused_allocate
     from kubebatch_tpu_torch.kernels.mega import mega_fused, mega_fused_plain
     from kubebatch_tpu_torch.rpc.client import set_tenant
@@ -3654,6 +3679,17 @@ def tenant_phase(dev, churn: int = 256, n_tenants: int = 8,
     singles_event_ms = cuda_ms(singles, reps=3)
     mega_prof_ms = profiled_ms(lambda: mega_fused(*args, **statics),
                                "mega_fused_kernel", reps=2)
+    mega_launch = launch_phases(dict(fused_mod.last_launch))
+    # the largest opportunistic (i1) launch, timed on its own inputs
+    timed = [("(i2)", mega_event_ms, mega_launch)]
+    i1_event_ms, i1_launch = None, None
+    if n_i1:
+        i1_args, i1_statics, _ = max(rec.calls[:n_i1],
+                                     key=lambda c: c[0][0].shape[0])
+        i1_event_ms = cuda_ms(lambda: mega_fused(*i1_args, **i1_statics),
+                              reps=3)
+        i1_launch = launch_phases(dict(fused_mod.last_launch))
+        timed.append(("(i1)", i1_event_ms, i1_launch))
     single_prof_ms = profiled_ms(singles, "fused_allocate_kernel", reps=1)
     mega_ms = mega_prof_ms if mega_prof_ms is not None else mega_event_ms
     # one lane alone: the lane launch (kb_mega_fused, b = 1) against the
@@ -3683,6 +3719,16 @@ def tenant_phase(dev, churn: int = 256, n_tenants: int = 8,
         f"{mb['n_solves']} node solves over each lane's real nodes "
         f"{mb['n_real']} (N_pad {mb['n_pad']}), {mb['ops']} float32 "
         f"operations); iterations per lane {mb['iters']}")
+    for what, ms, launch in timed:
+        log(f"{what} {launch['lanes']} lanes: {ms:.4f} ms per launch "
+            f"(events, 3 launches); "
+            f"clusters of {launch['cluster']} CTAs, "
+            f"{launch['resident_clusters']} resident, {launch['waves']} "
+            f"wave(s); in shared memory {json.dumps(launch['shared'])}; "
+            f"lane 0's phases (device ms) "
+            + json.dumps({k: round(v, 4) for k, v in
+                          (launch.get("phase_ms") or {}).items()})
+            + f", counts {json.dumps(launch.get('counts'))}")
     # ---- (i3) an affinity single: a 3p tenant's cold request -------------
     b0 = _build.launch_count("batched_allocate")
     n0 = len(svc.calls)
@@ -3757,6 +3803,12 @@ def tenant_phase(dev, churn: int = 256, n_tenants: int = 8,
         "singles_event_ms": singles_event_ms,
         "single_profiler_ms": single_prof_ms,
         "lane0_single_ms": b1["single"], "lane0_mega_ms": b1["mega"],
+        "cluster": mega_launch["cluster"],
+        "resident_clusters": mega_launch["resident_clusters"],
+        "waves": mega_launch["waves"], "shared": mega_launch["shared"],
+        "phase_ms": mega_launch.get("phase_ms"),
+        "counts": mega_launch.get("counts"),
+        "i1_event_ms": i1_event_ms, "i1_launch": i1_launch,
         "n_real": mb["n_real"], "n_pad": mb["n_pad"],
         "phase_launches": launches, "i1_launches": i1_launches,
         "i1_mega_dispatches": i1_mega[0], "i1_mega_lanes": i1_mega[1],
@@ -5288,6 +5340,7 @@ def main() -> int:
     from kubebatch_tpu_torch.framework import CloseSession, OpenSession
     from kubebatch_tpu_torch.kernels import _build
     from kubebatch_tpu_torch.kernels import batched as batched_mod
+    from kubebatch_tpu_torch.kernels import fused as fused_mod
     from kubebatch_tpu_torch.kernels.batched import (batched_allocate,
                                                      batched_allocate_plain)
     from kubebatch_tpu_torch.kernels.fused import (fused_allocate,
@@ -5412,6 +5465,8 @@ def main() -> int:
         recycled = sim.churn_tick(cache, 256)
         c2 = drive("auto")
         launches = {n: _build.launch_count(n) for n in names}
+        # the main-path fused launch's shape and phase timers
+        churn_launch = dict(fused_mod.last_launch)
     cycles = [c1, c2]
     for k, c in enumerate(cycles, 1):
         log(f"cycle {k}: engine {c['engine']}, binds {c['binds']}, counted "
@@ -5480,6 +5535,7 @@ def main() -> int:
     kw1, statics1 = build_session_inputs(5, dev)
     out1 = fused_allocate(**kw1, **statics1)
     torch.cuda.synchronize()
+    cold_launch = dict(fused_mod.last_launch)
     t0 = time.perf_counter()
     want1 = fused_allocate_plain(**kw1, **statics1)
     torch.cuda.synchronize()
@@ -5496,10 +5552,9 @@ def main() -> int:
                                 "fused_allocate_kernel", reps=2)
     fused_ms = fused_prof_ms if fused_prof_ms is not None else fused_event_ms
     fb = [fused_bounds(kw1, out1), fused_bounds(*frec.calls[0])]
-    words = NODE_PASS_BYTES // 4          # rounded down: a floor
-    for b in fb:
-        b["chain_ms"] = probe_ms(b["n_pad"], 0, b["iters"])
-        b["stream_ms"] = probe_ms(b["n_pad"], words, b["n_solves"])
+    shapes = [launch_phases(cold_launch), launch_phases(churn_launch)]
+    for b, shape in zip(fb, shapes):
+        b.update(fused_floor(b, shape))
     n_pad = fb[0]["n_pad"]
 
     batched_event_ms = cuda_ms(lambda: batched_allocate(**bkw), reps=3)
@@ -5543,11 +5598,17 @@ def main() -> int:
          "launches": launches["fused_allocate"], "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": fb[0]["bound_ms"], "bound_by": fb[0]["bound_by"],
-         "library_ms": None, "reread_ms": fb[0]["reread_ms"],
-         "chain_floor_ms": fb[0]["chain_ms"],
-         "stream_floor_ms": fb[0]["stream_ms"],
+         "library_ms": None, "floor_ms": fb[0]["floor_ms"],
          "churn_ms": c2["phases"]["kernel"],
-         "churn_plain_ms": churn_plain_ms},
+         "churn_plain_ms": churn_plain_ms,
+         "churn_bound_ms": fb[1]["bound_ms"],
+         "churn_floor_ms": fb[1]["floor_ms"],
+         "cluster": shapes[1]["cluster"], "threads": shapes[1]["threads"],
+         "nodes_per_cta": shapes[1]["nodes_per_cta"],
+         "shared": shapes[1]["shared"],
+         "phase_ms": shapes[1].get("phase_ms"),
+         "counts": shapes[1].get("counts"),
+         "cold_launch": shapes[0], "cluster_probe": fb[0]["probe"]},
         {"name": "dynamic_node_score", "route": "cuda",
          "source": "kubebatch_tpu_torch/kernels/csrc/node_score.cu",
          "replaces": "kubebatch_tpu/kernels/solver.py:67",
@@ -5573,16 +5634,24 @@ def main() -> int:
         f"launch (CUDA events, 3 launches), {fused_prof_ms} ms device time "
         f"(profiler); plain {fused_plain_ms:.1f} ms; churn cycle plain "
         f"{churn_plain_ms:.1f} ms")
-    for name, b in zip(("cold solve", "cycle 2 (churn)"), fb):
+    for name, b, shape in zip(("cold solve", "cycle 2 (churn, main path)"),
+                              fb, shapes):
         log(f"fused_allocate {name}: {b['iters']} iterations, "
             f"{b['n_solves']} node solves over {b['n_real']} real nodes "
-            f"(N_pad {b['n_pad']}); roofline "
-            f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}); node state "
-            f"re-read per solve at the memory rate {b['reread_ms']:.3f} ms; "
-            f"one-block floors (chain_probe.cu): {BARRIERS_PER_SOLVE} "
-            f"barriers + argmax per iteration {b['chain_ms']:.3f} ms, plus "
-            f"streaming {words * 4} B/node per solve {b['stream_ms']:.3f} "
-            f"ms")
+            f"(N_pad {b['n_pad']}); roofline bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}); cluster of {shape['cluster']} CTAs x "
+            f"{shape['threads']} threads, {shape['nodes_per_cta']} nodes a "
+            f"CTA, in shared memory {json.dumps(shape['shared'])}; phases "
+            f"(CTA 0's thread 0, device ms) "
+            + json.dumps({k: round(v, 4) for k, v in
+                          (shape.get("phase_ms") or {}).items()})
+            + f", counts {json.dumps(shape.get('counts'))}; the design's "
+            f"floor (chain_probe.cu cluster probe: "
+            f"{b['probe']['cluster_sync_us']:.4f} us a cluster barrier, "
+            f"{b['probe']['block_sync_us']:.4f} us a block barrier) "
+            f"{b['n_solves']} solves x (one cluster barrier + "
+            f"{BLOCK_BARRIERS_PER_SOLVE} block barrier) "
+            f"{b['floor_ms']:.3f} ms")
     log(f"dynamic_node_score N={n_pad}: {score_event_ms:.4f} ms per launch "
         f"back to back (CUDA events, 200 launches), {score_prof_ms} ms "
         f"device time (profiler); plain {score_plain_ms:.4f} ms")

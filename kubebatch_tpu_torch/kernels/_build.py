@@ -41,10 +41,12 @@ EXPORTS: Dict[str, Dict[str, str]] = {
         "kb_dynamic_node_score": "p" * 5 + "i" + "p",
     },
     "fused_allocate.cu": {
-        "kb_fused_allocate": "p" * 35 + "i" * 15 + "p",
+        "kb_fused_allocate": "p" * 35 + "i" * 16 + "p",
+        "kb_fused_shape": "i" * 5 + "p",
     },
     "mega_fused.cu": {
-        "kb_mega_fused": "p" * 35 + "i" * 17 + "p",
+        "kb_mega_fused": "p" * 35 + "i" * 18 + "p",
+        "kb_mega_shape": "i" * 6 + "p",
     },
     "batched_allocate.cu": {
         "kb_batched_workspace": "pip",
@@ -67,7 +69,6 @@ EXPORTS: Dict[str, Dict[str, str]] = {
         "kb_allocate_scan_shape": "ip",
     },
     "chain_probe.cu": {
-        "kb_chain_probe": "p" + "i" * 4 + "p" * 2,
         "kb_grid_probe": "ippp",
         "kb_cluster_probe": "iippp",
     },

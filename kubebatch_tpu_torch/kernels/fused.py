@@ -12,8 +12,10 @@ Two implementations of one function, chosen by the tensors' device:
 - :func:`fused_allocate_plain` — plain PyTorch, a Python loop of tensor
   ops (reads its scalars with ``.item()``; these reads are not counted as
   readbacks). The CPU path, and the yardstick for the kernel.
-- the CUDA kernel ``csrc/fused_allocate.cu`` — one persistent thread block
-  runs the whole loop on the card.
+- the CUDA kernel ``csrc/fused_allocate.cu`` — one thread-block cluster
+  runs the whole loop on the card (``csrc/fused_body.cuh``: the nodes
+  spread over the cluster's CTAs, the selection replicated in each, one
+  cluster barrier a node solve).
 
 :func:`fused_allocate` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other.
@@ -40,6 +42,8 @@ and the host oracle):
 from __future__ import annotations
 
 from typing import Tuple
+
+import ctypes
 
 import numpy as np
 import torch
@@ -332,6 +336,51 @@ def key_codes(job_keys, queue_keys):
     return [JOB_KEY_CODES[k] for k in job_keys] + [0] * (3 - len(job_keys))
 
 
+#: phases timed by CTA 0's thread 0 of the (first) problem on the global
+#: timer (csrc/fused_body.cuh), then its counters: loop passes, node
+#: solves, job-less runs and the iterations they consumed
+FUSED_PHASES = ("prologue", "top", "job_pick", "task_pick", "node_pass",
+                "exchange", "update", "epilogue")
+FUSED_COUNTS = ("passes", "solves", "runs", "run_iters")
+#: the kernels' state groups, each in shared memory when it fits
+FUSED_GROUPS = ("node_carries", "node_inputs", "queues", "job_pick",
+                "job_updates")
+#: CTAs a problem; 0 lets the kernel choose (fused_allocate by the node
+#: count, mega_fused by the lane count and the clusters the card keeps
+#: resident)
+CLUSTER = 0
+#: threads a CTA (csrc/fused_body.cuh NT)
+FUSED_THREADS = 512
+#: the phase timers run when True (the main path keeps them on)
+PHASE_TIMERS = True
+#: the last launch's shape and phase timers (``phase_ns``: an int64 tensor
+#: on the card, FUSED_PHASES then FUSED_COUNTS)
+last_launch: dict = {}
+_shapes: dict = {}
+
+
+def launch_shape(n: int, t: int, j: int, q: int, lanes=None) -> dict:
+    """The cluster shape the kernel takes for ``lanes`` problems (None:
+    ``fused_allocate``'s one) of n nodes, t tasks, j jobs and q queues."""
+    key = (n, t, j, q, lanes, CLUSTER)
+    if key not in _shapes:
+        info = (ctypes.c_int * 11)()
+        if lanes is None:
+            err = _build.library("fused_allocate.cu").kb_fused_shape(
+                n, t, j, q, CLUSTER, info)
+        else:
+            err = _build.library("mega_fused.cu").kb_mega_shape(
+                n, t, j, q, lanes, CLUSTER, info)
+        _build.check_launch("fused shape", err)
+        _shapes[key] = {
+            "cluster": info[0], "nodes_per_cta": info[1],
+            "shared": {g: bool(info[2 + k])
+                       for k, g in enumerate(FUSED_GROUPS)},
+            "smem_bytes": info[7], "ws_bytes": info[8],
+            "resident_clusters": info[9], "waves": info[10]}
+    return _shapes[key]
+
+
 #: the pointer arguments of kb_fused_allocate / kb_mega_fused after the
 #: four node carries, in order
 KERNEL_INPUTS = (
@@ -352,7 +401,7 @@ def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
     """One launch of the fused loop on the bound CUDA arguments ``a``:
     ``csrc/fused_allocate.cu`` on one problem (``lanes`` None), or
     ``csrc/mega_fused.cu`` on ``lanes`` problems stacked over a leading
-    axis, one block each. Results as fused_allocate's, stacked over the
+    axis, one cluster each. Results as fused_allocate's, stacked over the
     lanes when there are lanes."""
     lead = () if lanes is None else (lanes,)
     if lead and lanes < 1:
@@ -367,21 +416,23 @@ def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
     n_tasks = c["n_tasks"].clone()
     nz = c["nz_req0"].clone()
     b = lanes or 1
+    shape = launch_shape(n, t, j, q, lanes)
     host_block = torch.empty(lead + (3, t + 1 + TELEM_WIDTH),
                              dtype=torch.int32, device=dev)
-    ws_i32 = torch.empty(b * (q + 4 * j + 1 + t), dtype=torch.int32,
-                         device=dev)
-    ws_f32 = torch.empty(b * (3 * q + 3 * j), dtype=torch.float32,
-                         device=dev)
+    ws = torch.empty(b * shape["ws_bytes"], dtype=torch.uint8, device=dev)
+    phase_ns = torch.empty(len(FUSED_PHASES) + len(FUSED_COUNTS),
+                           dtype=torch.int64, device=dev)
     eps = torch.from_numpy(VEC_EPS).to(dev)
     args = (idle.data_ptr(), releasing.data_ptr(), n_tasks.data_ptr(),
             nz.data_ptr(), *(c[k].data_ptr() for k in KERNEL_INPUTS),
-            eps.data_ptr(), ws_i32.data_ptr(), ws_f32.data_ptr(),
+            eps.data_ptr(), ws.data_ptr(),
+            phase_ns.data_ptr() if PHASE_TIMERS else None,
             host_block.data_ptr(),
             n, t, j, q, codes[0], codes[1], codes[2], len(job_keys),
             len(queue_keys), int(bool(gang_enabled)),
             int(bool(prop_overused)), int(bool(dyn_enabled)),
-            int(max_iters), int(bool(narrow)), int(bool(narrow_gate)))
+            int(max_iters), int(bool(narrow)), int(bool(narrow_gate)),
+            shape["cluster"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     if lead:
         name = "mega_fused"
@@ -393,4 +444,8 @@ def _fused_allocate_cuda(a, *, job_keys=(K_PRIORITY, K_GANG_READY,
             *args, stream)
     _build.check_launch(name, err)
     _build.count_launch(name)
+    last_launch.clear()
+    last_launch.update(kernel=name, lanes=b, n_pad=n, t_pad=t, j_pad=j,
+                       q_pad=q, threads=FUSED_THREADS, **shape,
+                       phase_ns=phase_ns if PHASE_TIMERS else None)
     return host_block, idle, releasing, n_tasks, nz

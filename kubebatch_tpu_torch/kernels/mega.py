@@ -10,10 +10,13 @@ chosen by the tensors' device:
 - :func:`mega_fused_plain` — ``fused_allocate_plain`` lane by lane. The
   reference documents its vmapped lanes as bit-identical to the
   dedicated dispatch; the plain version is that dedicated solve per lane.
-- the CUDA kernel ``csrc/mega_fused.cu`` — one block of 1,024 threads per
+- the CUDA kernel ``csrc/mega_fused.cu`` — one thread-block cluster per
   lane, each running the fused loop of ``csrc/fused_body.cuh`` (the code
-  ``csrc/fused_allocate.cu`` launches on one block) on its lane's slice,
-  so a lane's result is bitwise a single fused launch's.
+  ``csrc/fused_allocate.cu`` launches on one cluster) on its lane's
+  slice, so a lane's result is bitwise a single fused launch's. The
+  cluster size comes from the lane count (kernels/fused.py
+  ``launch_shape``): the largest whose clusters the card keeps resident
+  all at once; more lanes run in waves.
 
 :func:`mega_fused` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other,

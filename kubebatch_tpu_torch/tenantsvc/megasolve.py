@@ -2,12 +2,12 @@
 mega-solve (ref: kubebatch_tpu/tenantsvc/megasolve.py).
 
 A pool service serving N schedulers sees N concurrent small steady
-solves a period, each one a fused solve on one block of the card. The
+solves a period, each one a fused solve on one cluster of the card. The
 fused solve is a pure function of its arguments, the wire decode pads
 every tenant's snapshot with the same ``pad_to_bucket``, and tenants
 running one cluster class therefore arrive with the same (shapes x
 statics) signature — so their lanes ride one launch of
-``kernels/mega.py`` ``mega_fused`` (``csrc/mega_fused.cu``: one block per
+``kernels/mega.py`` ``mega_fused`` (``csrc/mega_fused.cu``: one cluster per
 lane), with one counted device->host copy for the group and the
 per-tenant host blocks scattered back. A lane's result is bitwise a
 single fused solve's.

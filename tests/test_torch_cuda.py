@@ -171,6 +171,207 @@ def test_cycle_on_the_card_binds_what_the_cpu_binds(case):
     assert calls["cuda"] == calls["cpu"]
 
 
+# ---- the fused loop over a thread-block cluster (csrc/fused_body.cuh) -------
+
+def fused_edge_case(seed, kind="drain", n=48, t=160, j=40, q=4, s=5):
+    """A hand-built fused problem: numpy arrays by fused_allocate argument
+    name, and the statics. Every kind has jobs of 1-8 tasks laid out
+    shuffled, task ranks with ties, integer scores with ties, pipelined
+    and backfill capacity, padded nodes, jobs and tasks, a task of an
+    out-of-range job, and an overused queue (queue 0's deserved share is
+    tiny); "drain" adds 20-59 entries past each queue's jobs (long
+    job-less runs); "keys" gives job priorities -0.0 beside +0.0 and NaN,
+    every job one DRF share, and node scores NaN and -0.0 (jnp.argmax
+    takes the first NaN; -0.0 ties +0.0); "big" gives queue 1's jobs priority -inf
+    (a key above _lex_argmin's BIG) and the last queue an infinite share.
+    Used by the CPU parity tests too (tests/test_torch_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    f32, i32 = np.float32, np.int32
+    cap = np.stack([rng.choice([4000.0, 8000.0, 16000.0], n),
+                    rng.choice([8192.0, 16384.0, 65536.0], n),
+                    rng.choice([0.0, 0.0, 4.0], n)], axis=1).astype(f32)
+    used = (cap * rng.uniform(0.0, 0.9, (n, 3))).astype(f32)
+    n_real = n - n // 8
+    node = dict(
+        idle=(cap - used).astype(f32),
+        releasing=(used * rng.choice([0.0, 0.5], (n, 1))).astype(f32),
+        backfilled=(used * rng.choice([0.0, 0.25], (n, 1))).astype(f32),
+        allocatable_cm=cap[:, :2].copy(), nz_req0=used[:, :2].copy(),
+        max_task_num=rng.choice([3, 8, 110], n).astype(i32),
+        n_tasks=rng.integers(0, 3, n).astype(i32),
+        node_ok=(rng.random(n) < 0.9) & (np.arange(n) < n_real))
+    j_real = j - 3
+    owner = np.repeat(np.arange(j_real), rng.integers(1, 9, j_real))[:t - 4]
+    task_job = np.full(t, -1, i32)
+    task_job[rng.permutation(t - 4)[:len(owner)]] = owner
+    task_job[t - 2] = j + 5
+    req = np.stack([rng.choice([250.0, 500.0, 1000.0, 2000.0], t),
+                    rng.choice([512.0, 1024.0, 4096.0], t),
+                    rng.choice([0.0, 0.0, 0.0, 1.0], t)],
+                   axis=1).astype(f32)
+    init = req.copy()
+    init[::7] *= f32(1.5)
+    job_queue = rng.integers(0, q, j).astype(i32)
+    job_valid = np.arange(j) < j_real
+    prio = rng.choice([0.0, 1.0, 10.0], j).astype(f32)
+    j_alloc0 = (rng.integers(0, 3, (j, 1))
+                * np.asarray([[500.0, 1024.0, 0.0]])).astype(f32)
+    if kind == "keys":
+        prio[rng.random(j) < 0.5] = -0.0
+        prio[rng.random(j) < 0.1] = np.nan
+        j_alloc0[:] = j_alloc0[0]
+    if kind == "big":
+        prio[job_queue == 1] = -np.inf
+    min_av = np.minimum(rng.integers(1, 5, j),
+                        np.bincount(owner, minlength=j)).astype(i32)
+    entries = np.bincount(job_queue[job_valid], minlength=q).astype(i32)
+    if kind == "drain":
+        entries += rng.integers(20, 60, q).astype(i32)
+    total = cap[:n_real].sum(axis=0).astype(f32)
+    deserved = np.tile(total / q, (q, 1)).astype(f32)
+    deserved[0] = np.asarray([1500.0, 3000.0, 0.0], f32)
+    q_alloc0 = np.zeros((q, 3), f32)
+    if kind == "big":
+        deserved[q - 1] = f32(1e-35)
+        q_alloc0[q - 1] = f32(1e9)
+    cyc = dict(
+        resreq=req, init_resreq=init, task_nz=req[:, :2].copy(),
+        task_job=task_job, task_rank=rng.integers(0, 4, t).astype(i32),
+        task_sig=rng.integers(0, s, t).astype(i32),
+        task_valid=(task_job != -1) & (rng.random(t) < 0.95),
+        sig_scores=rng.integers(0, 6, (s, n)).astype(f32),
+        sig_pred=rng.random((s, n)) < 0.85,
+        min_available=min_av, order_min_available=min_av.copy(),
+        init_allocated=rng.choice([0, 0, 1], j).astype(i32),
+        job_queue=job_queue, job_priority=prio,
+        job_create_rank=rng.permutation(j).astype(i32), job_valid=job_valid,
+        q_weight=np.ones(q, f32), q_entries=entries,
+        q_create_rank=np.arange(q).astype(i32), q_deserved=deserved,
+        q_alloc0=q_alloc0, j_alloc0=j_alloc0, cluster_total=total,
+        dyn_weights=np.asarray([1.0, 1.0], f32))
+    if kind == "keys":
+        cyc["sig_scores"][rng.random((s, n)) < 0.05] = np.nan
+        cyc["sig_scores"][rng.random((s, n)) < 0.2] = -0.0
+    statics = dict(job_keys=("priority", "gang_ready", "drf_share"),
+                   queue_keys=("prop_share",), gang_enabled=True,
+                   prop_overused=True, dyn_enabled=kind != "big",
+                   max_iters=int(t + 3 * j + q + 8 + entries.sum()),
+                   narrow=False, narrow_gate=False)
+    return {**node, **cyc}, statics
+
+
+def _edge_tensors(arrays, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _fused_run(args, statics, monkeypatch, cluster):
+    """One counted fused_allocate launch at ``cluster`` CTAs (0: the
+    kernel's choice), held bitwise against the plain version; returns
+    the launch's shape and counters."""
+    from kubebatch_tpu_torch.kernels import fused
+
+    monkeypatch.setattr(fused, "CLUSTER", cluster)
+    n0 = _build.launch_count("fused_allocate")
+    got = fused_allocate(**args, **statics)
+    torch.cuda.synchronize()
+    assert _build.launch_count("fused_allocate") == n0 + 1
+    launch = dict(fused.last_launch)
+    _assert_bitwise(fused_allocate_plain(**args, **statics), got,
+                    f"fused_allocate C={cluster}")
+    counts = dict(zip(fused.FUSED_COUNTS,
+                      launch["phase_ns"].tolist()[len(fused.FUSED_PHASES):]))
+    return launch, counts, got
+
+
+@pytest.mark.parametrize("cluster", [0, 2, 8, 16])
+@pytest.mark.parametrize("kind,seed", [("drain", 0), ("drain", 1),
+                                       ("keys", 0), ("keys", 1),
+                                       ("big", 0), ("big", 2)])
+def test_fused_kernel_matches_plain_on_edge_cases(kind, seed, cluster,
+                                                  monkeypatch):
+    """Hand-built problems at C = 1 (the node count's choice), 2, 8 and
+    16 (past the portable cluster size):
+    long job-less runs with max_iters ending inside the last one, NaN /
+    -0.0 / equal keys, keys above BIG; every output bitwise the plain
+    version's, and the runs consumed a run at a time."""
+    _need_cuda()
+    arrays, statics = fused_edge_case(seed, kind)
+    args = _edge_tensors(arrays, "cuda")
+    if kind == "drain":
+        whole = fused_allocate_plain(**args, **statics)
+        iters = int(whole[0][0, -21])
+        statics = dict(statics, max_iters=iters - 5)
+    launch, counts, got = _fused_run(args, statics, monkeypatch, cluster)
+    assert launch["cluster"] == (cluster or 1)
+    if kind == "drain":
+        # the last five iterations were job-less pops: cutting them leaves
+        # every decision as it was, and the kernel took them as runs
+        assert int(got[0][0, -21]) == iters - 5
+        assert torch.equal(got[0][:, :-21], whole[0][:, :-21])
+        assert counts["runs"] >= 1 and counts["passes"] < iters - 5
+
+
+@pytest.mark.parametrize("n,j,shared", [
+    (32768, 4096, {"node_carries": True, "node_inputs": False,
+                   "job_pick": False, "job_updates": False}),
+    (65536, 3000, {"node_carries": False, "node_inputs": True,
+                   "job_pick": False, "job_updates": False})])
+def test_fused_kernel_past_the_shared_budget(n, j, shared, monkeypatch):
+    """Shapes whose state does not fit beside the node slice keep those
+    groups in their global replicas (L2): the same kernel, bitwise the
+    plain version's."""
+    _need_cuda()
+    arrays, statics = fused_edge_case(3, "drain", n=n, t=2 * j, j=j, q=8)
+    launch, _, _ = _fused_run(_edge_tensors(arrays, "cuda"), statics,
+                              monkeypatch, 0)
+    assert launch["cluster"] == 8
+    assert {k: launch["shared"][k] for k in shared} == shared
+
+
+def test_fused_kernel_one_cta_at_n512(monkeypatch):
+    """N_pad 512 takes a cluster of one CTA (block barriers, no DSMEM)
+    with every group in shared memory."""
+    _need_cuda()
+    arrays, statics = fused_edge_case(4, "drain", n=512, t=1024, j=200)
+    launch, counts, _ = _fused_run(_edge_tensors(arrays, "cuda"), statics,
+                                   monkeypatch, 0)
+    assert launch["cluster"] == 1 and all(launch["shared"].values())
+    assert counts["runs"] >= 1
+
+
+def test_mega_fused_waves_past_the_resident_clusters(monkeypatch):
+    """A mega launch of more lanes than the card keeps clusters of 8
+    resident: the clusters run in waves, every lane bitwise its plain
+    solve."""
+    from kubebatch_tpu_torch.kernels import fused
+    from kubebatch_tpu_torch.kernels.mega import (ARG_NAMES, mega_fused,
+                                                  mega_fused_plain)
+
+    _need_cuda()
+    monkeypatch.setattr(fused, "CLUSTER", 8)
+    kinds = [(0, "drain"), (1, "keys"), (2, "big")]
+    cases = [fused_edge_case(seed, kind) for seed, kind in kinds]
+    statics = dict(cases[0][1], dyn_enabled=True,
+                   max_iters=max(c[1]["max_iters"] for c in cases))
+    one = cases[0][0]
+    resident = fused.launch_shape(
+        one["idle"].shape[0], one["task_valid"].shape[0],
+        one["job_valid"].shape[0], one["q_entries"].shape[0],
+        lanes=1)["resident_clusters"]
+    b = resident + 3
+    stacked = [torch.from_numpy(np.stack(
+        [cases[i % 3][0][k] for i in range(b)])).cuda() for k in ARG_NAMES]
+    got = mega_fused(*stacked, **statics)
+    torch.cuda.synchronize()
+    assert fused.last_launch["cluster"] == 8
+    assert fused.last_launch["waves"] >= 2
+    want = [mega_fused_plain(*(a[i:i + 1] for a in stacked), **statics)
+            for i in range(3)]
+    for i in range(b):
+        _assert_bitwise([w[0] for w in want[i % 3]], [g[i] for g in got],
+                        f"lane {i}")
+
+
 #: cfg5's shape cut to 48 nodes with 72 gangs x 8 pods: 576 pending (the
 #: batched regime), contended (the stranded-gang epilogue revives)
 REDUCED5_B = ClusterSpec(n_nodes=48, n_groups=72, pods_per_group=8,

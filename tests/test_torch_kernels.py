@@ -214,6 +214,42 @@ def test_fused_allocate_rejects_mixed_devices():
         fused_allocate(**args, **statics)
 
 
+def test_fused_plain_matches_reference_on_a_drain_case():
+    """The yardstick in the regime the cluster kernel collapses: a tiny
+    hand-built problem (tests/test_torch_cuda.py fused_edge_case) whose
+    queues end in long job-less runs, queue 0 overused, max_iters cut
+    five iterations inside the last run; the plain version bitwise the
+    reference's."""
+    from kubebatch_tpu.kernels.fused import fused_allocate as j_fused
+    from kubebatch_tpu_torch.kernels.fused import fused_allocate_plain
+
+    from .test_torch_cuda import fused_edge_case
+
+    arrays, statics = fused_edge_case(0, "drain", n=24, t=64, j=16, q=3)
+    args = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    whole = fused_allocate_plain(**args, **statics)
+    iters = int(whole[0][0, -21])
+    statics = dict(statics, max_iters=iters - 5)
+    got = fused_allocate_plain(**args, **statics)
+    ref = j_fused(**{k: jnp.asarray(v) for k, v in arrays.items()},
+                  **statics)
+    for r, g, name in zip(ref, got, ("host_block", "idle", "releasing",
+                                     "n_tasks", "nz_req")):
+        _assert_bitwise(np.asarray(r), g.numpy(), name)
+    state, _, _, it, _ = unpack_host_block(got[0].numpy())
+    assert it == iters - 5
+    # the cut fell inside a run: every decision is the uncut loop's
+    assert np.array_equal(got[0].numpy()[:, :-21], whole[0].numpy()[:, :-21])
+    # queue 0 ended past its tiny deserved share: its pops were overused
+    placed = (state >= 1) & (state <= 3)
+    tj = arrays["task_job"]
+    q0 = np.zeros_like(placed)
+    mine = (tj >= 0) & (tj < 16)
+    q0[mine] = arrays["job_queue"][tj[mine]] == 0
+    taken = arrays["resreq"][placed & q0].sum(axis=0)
+    assert (taken > arrays["q_deserved"][0]).any()
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     """No nvcc, no silent fallback: building the kernels raises."""
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
