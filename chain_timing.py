@@ -1,25 +1,45 @@
 """Times the round kernels' chain on one NVIDIA GPU against another
 build of the same kernels, on the same inputs.
 
-    python3 chain_timing.py --before DIR [--out build/chain_timing/report.json]
+    python3 chain_timing.py --before DIR [--set small|round|small,round]
+        [--only-before] [--out build/chain_timing/report.json]
 
 DIR is an unpacked checkout of an earlier commit; its
 kubebatch_tpu_torch/kernels/csrc/batched_allocate.cu and hier_allocate.cu
 are built into build/chain_timing/before/, beside this checkout's sources
-built as the port builds them and once more from a copy whose
-batched_round.cuh sets GRID_CHAIN_MIN and GRID_JOBS_MIN to 0, so every
-task view, job axis and node window takes the grid chain
-(build/chain_timing/grid/). The launch
-inputs are recorded once from the port's own allocate cycles on the card
-(cfg5 cold through prepare_batched; 5p and 3p cold, the batched kernel
-with the affinity carry; cfg6 cold, three cfg6 churn cycles on the active
-set at grains 256, 1,024 and 4,096, cfg7 cold, the two-level kernel), then each
-launch runs with each build in the order before, after, after, before:
-every build's results must equal the earlier build's word for word, and
-each is timed with CUDA events (best of its runs) beside its per-phase
-device timers. The grid-barrier probe of csrc/chain_probe.cu runs last.
-Prints one JSON line and writes it to --out. Needs torch with CUDA and
-nvcc; imports nothing of jax or the reference package.
+built as the port builds them. The launch inputs are recorded once from
+the port's own allocate cycles on the card, then each launch runs with
+each build in turns; every build's results (packed result, frame, node
+carry) must equal the earlier build's word for word, and each is timed
+with CUDA events (best of its runs) and the profiler (device ms) beside
+its per-phase device timers and the barriers it passed (hier_allocate's
+last phase_ns word; an earlier build without that word reads 0).
+
+The sets:
+
+- ``round`` (the round chain): cfg5 cold through prepare_batched, 5p and
+  3p cold (the batched kernel with the affinity carry), cfg6 and cfg7
+  cold (the two-level kernel), in the order before, after, after,
+  before, then a copy whose batched_round.cuh sets GRID_CHAIN_MIN and
+  GRID_JOBS_MIN to 0 (every task view, job axis and node window on the
+  grid chain; build/chain_timing/grid/);
+- ``small`` (the small-view launches of csrc/hier_allocate.cu): cfg6
+  cold, then six skewed churn cycles at grains 256, 256, 1,024, 1,024,
+  4,096 and 4,096 with the audit on cycles 0 and 3 (chip_smoke.py phase
+  (g)'s cycles), the in-place twin of each active-set launch
+  (``activeset_packed_inplace`` on a copy of the carry, put back before
+  each launch), and cfg7 cold and one churn-256 cycle (the coarse pass
+  over 100,000 nodes). Each runs before, after, after, before, then this
+  build with the route forced to the grid (``launch(route="grid")``),
+  to the cluster and to a cluster of 8 CTAs, then the variants of VARIANTS
+  (hier_allocate.cu rebuilt with other settings).
+
+``--only-before`` times the earlier build and this build's grid route
+alone (the parent's design, its phases and barriers), no cluster launch.
+The barrier probes of csrc/chain_probe.cu run last (the grid barrier,
+the cluster barrier at 8 and 16 CTAs). Prints one JSON line and writes
+it to --out. Needs torch with CUDA and nvcc; imports nothing of jax or
+the reference package.
 """
 from __future__ import annotations
 
@@ -36,36 +56,58 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("batched_allocate.cu", "hier_allocate.cu")
 
+#: builds of csrc/hier_allocate.cu beside this one, each from a copy with
+#: one of the cluster route's settings (a ``constexpr`` of that name) set
+#: to another value, timed on the cluster route: "rollback_cta0" keeps the
+#: epilogue's rollback in CTA 0, "scan4096" keeps scans of up to 4,096
+#: elements in CTA 0, "row1" / "row4" test one / four nodes a lane a
+#: row-pass step
+VARIANTS = {
+    "row1": {"CLUSTER_ROW_UNROLL": 1},
+    "row4": {"CLUSTER_ROW_UNROLL": 4},
+    "rollback_cta0": {"CLUSTER_ROLLBACK_MIN": 1024},
+    "scan4096": {"CLUSTER_SCAN_MAX": 4096},
+}
+
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def patched_sources(csrc: str, tag: str, source: str, values: dict) -> str:
+    """A copy of csrc/ (build/chain_timing/<tag>_src/) whose ``source``
+    sets each ``constexpr`` named in ``values`` to its value."""
+    out = os.path.join(HERE, "build", "chain_timing", f"{tag}_src")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc, out)
+    path = os.path.join(out, source)
+    with open(path) as f:
+        text = f.read()
+    for name, value in values.items():
+        text, n = re.subn(rf"constexpr (int|bool) {name} = \w+;",
+                          rf"constexpr \1 {name} = {value};", text)
+        if n != 1:
+            raise RuntimeError(f"{source}: {name} not found once")
+    with open(path, "w") as f:
+        f.write(text)
+    return out
 
 
 def grid_sources(csrc: str) -> str:
     """A copy of csrc/ with the round chain's thresholds (batched_round.cuh
     GRID_CHAIN_MIN, GRID_JOBS_MIN) set to 0: every task view, job axis and
     node window on the grid chain."""
-    out = os.path.join(HERE, "build", "chain_timing", "grid_src")
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(csrc, out)
-    path = os.path.join(out, "batched_round.cuh")
-    with open(path) as f:
-        text, n = re.subn(r"constexpr int (GRID_CHAIN_MIN|GRID_JOBS_MIN) = "
-                          r"\d+;", r"constexpr int \1 = 0;", f.read())
-    if n != 2:
-        raise RuntimeError("batched_round.cuh: the thresholds not found")
-    with open(path, "w") as f:
-        f.write(text)
-    return out
+    return patched_sources(csrc, "grid", "batched_round.cuh",
+                           {"GRID_CHAIN_MIN": 0, "GRID_JOBS_MIN": 0})
 
 
-def start_builds(csrc: str, tag: str) -> list:
+def start_builds(csrc: str, tag: str, sources=SOURCES) -> list:
     from kubebatch_tpu_torch.kernels import _build
 
     out_dir = os.path.join(HERE, "build", "chain_timing", tag)
     os.makedirs(out_dir, exist_ok=True)
     procs = []
-    for src in SOURCES:
+    for src in sources:
         target = os.path.join(out_dir, f"lib{src[:-3]}.so")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", target,
                os.path.join(csrc, src)]
@@ -75,7 +117,29 @@ def start_builds(csrc: str, tag: str) -> list:
     return procs
 
 
-def finish_builds(procs) -> dict:
+class EarlierHier:
+    """An earlier build of csrc/hier_allocate.cu as kernels/hier.py
+    calls it: a build from before the routes leaves the info array's
+    route word 0, which reads back as the grid route it took."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def kb_hier_allocate(self, *args):
+        err = self.lib.kb_hier_allocate(*args)
+        info = ctypes.cast(args[6], ctypes.POINTER(ctypes.c_int))
+        if info[3] == 0:
+            info[3] = 1
+        return err
+
+
+def finish_builds(procs, earlier=False) -> dict:
+    """The built libraries, their exports typed as the port types them
+    (an earlier build may lack some; ``earlier`` wraps its
+    hier_allocate.cu in EarlierHier)."""
     from kubebatch_tpu_torch.kernels import _build
 
     libs = {}
@@ -88,22 +152,24 @@ def finish_builds(procs) -> dict:
                 log(f"  ptxas {target}: {line.strip()}")
         lib = ctypes.CDLL(target)
         for fn, kinds in _build.EXPORTS[src].items():
-            f = getattr(lib, fn)
+            f = getattr(lib, fn, None)
+            if f is None and earlier:
+                continue
             f.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
                           for k in kinds]
             f.restype = ctypes.c_int
-        libs[src] = lib
+        libs[src] = (EarlierHier(lib) if earlier
+                     and src == "hier_allocate.cu" else lib)
     return libs
 
 
-def record_inputs(dev) -> list:
-    """(label, kind, kwargs) of each launch, from the port's own cycles."""
+def record_round(dev) -> list:
+    """(label, kind, kw) of the round set's cold launches."""
     import chip_smoke as cs
     from kubebatch_tpu_torch.actions.allocate import AllocateAction
     from kubebatch_tpu_torch.cache import NullBinder, SchedulerCache
     from kubebatch_tpu_torch.conf import CONFIG_ACTIONS, shipped_tiers
     from kubebatch_tpu_torch.framework import CloseSession, OpenSession
-    from kubebatch_tpu_torch.kernels import activeset
     from kubebatch_tpu_torch.kernels import batched as batched_mod
     from kubebatch_tpu_torch.sim import BASELINE_SPECS, build_cluster
 
@@ -122,42 +188,102 @@ def record_inputs(dev) -> list:
         kw, _ = cs.copy_call(*rec.calls[0])
         calls.append((f"{label} cold", "batched", kw))
         cache.stop()
-    activeset.reset()
-    activeset.set_audit_every(0)
     tiers, actions = shipped_tiers(), CONFIG_ACTIONS[6]
     for label in (6, 7):
         sim = build_cluster(BASELINE_SPECS[label])
-        binder = cs.FreshBinder()
-        cache = SchedulerCache(binder=binder, async_writeback=False,
+        cache = SchedulerCache(binder=cs.FreshBinder(), async_writeback=False,
                                device=dev)
         sim.populate(cache)
         with cs.SolveRecorder() as rec:
             cs.run_cycle(cache, tiers, actions)
-            churns = (256, 1024, 4096) if label == 6 else ()
-            for k, n in enumerate(churns):
-                binder.kubelet_tick(cache)
-                sim.churn_tick(cache, n, arrival_queue=(0, 3)[k % 2])
-                cs.run_cycle(cache, tiers, actions)
-        names = [f"cfg{label} cold"] + [f"cfg{label} churn {n}"
-                                          for n in churns]
-        for name, c in zip(names, rec.calls):
-            kw, _ = cs.copy_call(c["kw"], c["out"])
-            calls.append((name, c["kind"], kw))
+        kw, _ = cs.copy_call(rec.calls[0]["kw"], rec.calls[0]["out"])
+        calls.append((f"cfg{label} cold", "hier", kw))
         cache.stop()
-    activeset.set_audit_every(16)
     return calls
 
 
-def launch(kind, kw):
+def record_small(dev) -> list:
+    """(label, kind, kw) of the small set: cfg6's six churn cycles (the
+    audit on cycles 0 and 3) and the in-place twin of each active-set
+    launch, cfg7's churn-256 active-set launch. An audit's kw holds its
+    three argument dicts under "node", "act" and "full"."""
+    import chip_smoke as cs
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import CONFIG_ACTIONS, shipped_tiers
     from kubebatch_tpu_torch.kernels import activeset
-    from kubebatch_tpu_torch.kernels import batched as batched_mod
-    from kubebatch_tpu_torch.kernels import hier as hier_mod
+    from kubebatch_tpu_torch.sim import BASELINE_SPECS, build_cluster
 
-    if kind == "batched":
-        out = batched_mod.batched_allocate(**kw)
-        return out, batched_mod.last_launch
-    fn = hier_mod.hier_packed if kind == "hier" else activeset.activeset_packed
-    return fn(**kw), hier_mod.last_launch
+    calls = []
+    tiers, actions = shipped_tiers(), CONFIG_ACTIONS[6]
+    try:
+        for label, churns, audit_every in (
+                (6, (256, 256, 1024, 1024, 4096, 4096), 3), (7, (256,), 0)):
+            activeset.reset()
+            activeset.set_audit_every(audit_every)
+            sim = build_cluster(BASELINE_SPECS[label])
+            binder = cs.FreshBinder()
+            cache = SchedulerCache(binder=binder, async_writeback=False,
+                                   device=dev)
+            sim.populate(cache)
+            cs.run_cycle(cache, tiers, actions)
+            with cs.SolveRecorder() as rec:
+                for k, n in enumerate(churns):
+                    binder.kubelet_tick(cache)
+                    sim.churn_tick(cache, n, arrival_queue=(0, 3)[k % 2])
+                    cs.run_cycle(cache, tiers, actions)
+            for k, (n, c) in enumerate(zip(churns, rec.calls)):
+                name = f"cfg{label} churn {k} ({n})"
+                kw, _ = cs.copy_call(c["kw"], None)
+                if c["kind"] == "audit":
+                    node, act, full = cs.copy_call(c["args"], None)[0]
+                    calls.append((name + " audit", "audit",
+                                  {"node": node, "act": act, "full": full,
+                                   "statics": kw}))
+                    continue
+                calls.append((name, c["kind"], kw))
+                if c["kind"] == "activeset":
+                    calls.append((name + " in place", "inplace", kw))
+            cache.stop()
+    finally:
+        activeset.reset()
+        activeset.set_audit_every(activeset.DEFAULT_AUDIT_EVERY)
+    return calls
+
+
+class Launcher:
+    """Runs one recorded launch with the loaded build; an in-place launch
+    first puts its carry back from the recorded copy."""
+
+    CARRY = ("idle", "releasing", "n_tasks", "nz_req")
+
+    def __init__(self, kind, kw):
+        self.kind, self.kw = kind, kw
+        if kind == "inplace":
+            self.mine = dict(kw, **{k: kw[k].clone() for k in self.CARRY})
+
+    def reset(self):
+        if self.kind == "inplace":
+            for k in self.CARRY:
+                self.mine[k].copy_(self.kw[k])
+
+    def __call__(self, **opts):
+        from kubebatch_tpu_torch.kernels import activeset
+        from kubebatch_tpu_torch.kernels import batched as batched_mod
+        from kubebatch_tpu_torch.kernels import hier as hier_mod
+
+        kind, kw = self.kind, self.kw
+        if kind == "batched":
+            return batched_mod.batched_allocate(**kw), batched_mod.last_launch
+        if kind == "hier":
+            out = hier_mod.hier_packed(**kw, **opts)
+        elif kind == "activeset":
+            out = activeset.activeset_packed(**kw, **opts)
+        elif kind == "inplace":
+            out = activeset.activeset_packed_inplace(**self.mine, **opts)
+        else:
+            out = activeset.activeset_audit_packed(
+                kw["node"], kw["act"], kw["full"], **kw["statics"], **opts)
+        return out, hier_mod.last_launch
 
 
 def flat(out) -> list:
@@ -170,37 +296,123 @@ def flat(out) -> list:
     return [g.detach().cpu().contiguous() for g in got]
 
 
+def t_pad(kind, kw):
+    if kind == "audit":
+        return {"act": kw["act"]["task_valid"].shape[0],
+                "full": kw["full"]["task_valid"].shape[0]}
+    return kw["task_valid"].shape[0]
+
+
+def run_launch(label, kind, kw, configs, use, cs) -> dict:
+    """Each config (name, build, launch options) in turn: results, events
+    ms (every run), profiler device ms (one config run each), phases,
+    barriers, route."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import batched as batched_mod
+    from kubebatch_tpu_torch.kernels import hier as hier_mod
+
+    run = Launcher(kind, kw)
+    keys = (batched_mod.PHASES if kind == "batched"
+            else batched_mod.PHASES + hier_mod.HIER_PHASES)
+    res, times, info = {}, {}, {}
+    for name, build, opts in configs:
+        use(build)
+        run.reset()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, last = run(**opts)
+        end.record()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(start.elapsed_time(end))
+        if name in res:
+            continue
+        res[name] = flat(out)
+        pn = last["phase_ns"].cpu().tolist()
+        info[name] = {
+            "phase_ms": {k: v / 1e6 for k, v in zip(keys, pn) if v},
+            "barriers": pn[len(keys)] if len(pn) > len(keys) else None,
+            "route": last.get("route", "grid"),
+            "ctas": last.get("grid"), "cluster": last.get("cluster", 0)}
+        if "counters" in last:
+            info[name]["counters"] = dict(zip(
+                hier_mod.COUNTERS, last["counters"].cpu().tolist()))
+
+        def again(opts=opts):
+            run.reset()
+            run(**opts)
+        info[name]["profiler_ms"] = cs.profiled_ms(
+            again, "batched_allocate_kernel" if kind == "batched"
+            else "hier_allocate_kernel", reps=2)
+    ref = res[configs[0][0]]
+    equal = {}
+    for name in res:
+        equal[name] = len(res[name]) == len(ref) and all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(res[name], ref))
+    row = {"label": label, "kind": kind, "t_pad": t_pad(kind, kw),
+           "ms": {k: min(v) for k, v in times.items()}, "runs_ms": times,
+           "equal_to_before": equal, "configs": info}
+    log(f"{label} ({kind}, T_pad {row['t_pad']}): events ms "
+        + json.dumps({k: round(v, 3) for k, v in row["ms"].items()})
+        + "; profiler ms "
+        + json.dumps({k: (round(v["profiler_ms"], 4)
+                          if v["profiler_ms"] else None)
+                      for k, v in info.items()})
+        + f"; equal to before {json.dumps(equal)}")
+    for name, v in info.items():
+        log(f"  {name}: route {v['route']} ({v['ctas']} CTAs), barriers "
+            f"{v['barriers']}, counters {json.dumps(v.get('counters'))}, "
+            f"phases "
+            + json.dumps({k: round(x, 3) for k, x in v["phase_ms"].items()}))
+    return row
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--before", required=True)
+    ap.add_argument("--set", default="small,round")
+    ap.add_argument("--only-before", action="store_true")
     ap.add_argument("--out", default=os.path.join(
         HERE, "build", "chain_timing", "report.json"))
     args = ap.parse_args()
+    sets = args.set.split(",")
     if not torch.cuda.is_available():
         log("chain_timing: torch.cuda.is_available() is False")
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    import cluster_timing
     import kubebatch_tpu_torch.actions  # noqa: F401
     import kubebatch_tpu_torch.plugins  # noqa: F401
     from kubebatch_tpu_torch.kernels import _build
-    from kubebatch_tpu_torch.kernels import batched as batched_mod
-    from kubebatch_tpu_torch.kernels import hier as hier_mod
 
     dev = torch.device("cuda")
-    report = {"card": cs.card_line(), "kind": torch.cuda.get_device_name(0)}
+    report = {"card": cs.card_line(), "kind": torch.cuda.get_device_name(0),
+              "sets": sets, "only_before": args.only_before}
     t0 = time.perf_counter()
-    before = start_builds(os.path.join(os.path.abspath(args.before),
-                                       "kubebatch_tpu_torch", "kernels",
-                                       "csrc"), "before")
-    grid = start_builds(grid_sources(str(_build.CSRC)), "grid")
+    pending = {"before": start_builds(os.path.join(
+        os.path.abspath(args.before), "kubebatch_tpu_torch", "kernels",
+        "csrc"), "before")}
+    if "round" in sets and not args.only_before:
+        pending["grid"] = start_builds(grid_sources(str(_build.CSRC)), "grid")
+    if "small" in sets and not args.only_before:
+        for name, values in VARIANTS.items():
+            pending[name] = start_builds(
+                patched_sources(str(_build.CSRC), name, "hier_allocate.cu",
+                                values), name, ("hier_allocate.cu",))
     _build.build_all()
     for src in SOURCES:
         _build.library(src)
-    libs = {"after": {s: _build._libs[s] for s in SOURCES},
-            "before": finish_builds(before), "grid": finish_builds(grid)}
+    libs = {"after": {s: _build._libs[s] for s in SOURCES}}
+    for name, procs in pending.items():
+        libs[name] = {**libs["after"],
+                      **finish_builds(procs, earlier=name == "before")}
     report["build_s"] = time.perf_counter() - t0
     log(f"builds {report['build_s']:.1f} s; {report['card']}")
 
@@ -210,55 +422,45 @@ def main() -> int:
 
     use("after")
     t0 = time.perf_counter()
-    calls = record_inputs(dev)
+    calls = []
+    if "small" in sets:
+        calls += record_small(dev)
+    if "round" in sets:
+        calls += record_round(dev)
     log(f"inputs recorded in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(c[0] for c in calls))
-    names = {"batched": batched_mod.PHASES,
-             "hier": batched_mod.PHASES + hier_mod.HIER_PHASES}
     rows = []
     for label, kind, kw in calls:
-        res, times, phases = {}, {}, {}
-        order = ["before", "after", "after", "before", "grid", "grid"]
-        for which in order:
-            use(which)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out, last = launch(kind, kw)
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end)
-            times.setdefault(which, []).append(ms)
-            got = flat(out)
-            if which not in res:
-                res[which] = got
-                pn = last["phase_ns"].cpu().tolist()
-                keys = names["batched" if kind == "batched" else "hier"]
-                phases[which] = {k: v / 1e6 for k, v in zip(keys, pn) if v}
-        equal = {}
-        for which in ("after", "grid"):
-            equal[which] = len(res[which]) == len(res["before"]) and all(
-                a.dtype == b.dtype and a.shape == b.shape
-                and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                for a, b in zip(res[which], res["before"]))
-        t = kw["task_valid"].shape[0] if "task_valid" in kw else None
-        row = {"label": label, "kind": kind, "t_pad": t,
-               "ms": {k: min(v) for k, v in times.items()},
-               "runs_ms": times, "equal_to_before": equal,
-               "phase_ms": phases}
-        rows.append(row)
-        log(f"{label} ({kind}, T_pad {t}): ms "
-            + json.dumps({k: round(v, 3) for k, v in row["ms"].items()})
-            + f"; equal to before {json.dumps(equal)}")
-        for which in ("before", "after", "grid"):
-            log(f"  {which} phases: "
-                + json.dumps({k: round(v, 3)
-                              for k, v in phases[which].items()}))
+        grid = {"route": "grid"}
+        if args.only_before:
+            configs = [("before", "before", {}), ("grid", "after", grid),
+                       ("grid", "after", grid), ("before", "before", {})]
+        elif kind == "batched" or (kind == "hier" and "grid" in libs):
+            configs = [("before", "before", {}), ("after", "after", {}),
+                       ("after", "after", {}), ("before", "before", {}),
+                       ("grid", "grid", {}), ("grid", "grid", {})]
+        else:
+            configs = [("before", "before", {}), ("after", "after", {}),
+                       ("after", "after", {}), ("before", "before", {}),
+                       ("after grid", "after", grid),
+                       ("after grid", "after", grid),
+                       ("after cluster", "after", {"route": "cluster"}),
+                       ("after cluster", "after", {"route": "cluster"}),
+                       ("after C8", "after", {"route": "cluster",
+                                              "cluster": 8}),
+                       ("after C8", "after", {"route": "cluster",
+                                              "cluster": 8})]
+            for name in VARIANTS:
+                configs += [(name, name, {"route": "cluster"})] * 2
+        rows.append(run_launch(label, kind, kw, configs, use, cs))
     use("after")
     report["launches"] = rows
     report["grid_barrier"] = cs.grid_barrier_us()
-    log(f"grid barrier: {json.dumps(report['grid_barrier'])}")
+    report["cluster_barrier"] = [
+        p for p in cluster_timing.cluster_probe()["probes"]
+        if p["threads"] == 512 and p["cluster"] in (8, 16)]
+    log(f"grid barrier: {json.dumps(report['grid_barrier'])}; cluster "
+        f"barrier: {json.dumps(report['cluster_barrier'])}")
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -2491,7 +2491,9 @@ class SolveRecorder:
             out = inner(*args, **kw)
             self.calls.append({"kind": kind, "args": args, "kw": kw,
                                "out": out,
-                               "counters": hier.last_launch["counters"]})
+                               "counters": hier.last_launch["counters"],
+                               "route": hier.last_launch.get("route"),
+                               "cluster": hier.last_launch.get("cluster")})
             return out
         return call
 
@@ -2654,6 +2656,8 @@ def scale_phase(dev, spec6, spec7) -> list:
         entry = {"label": label, "kind": call["kind"], "t_pad": t,
                  "rounds": int(packed[3 * t]), "frame": frame,
                  "counters": counters, "kernel_ms": phases["kernel"],
+                 "launch_route": call["route"],
+                 "cluster_ctas": call["cluster"],
                  "phase_ns": hier_mod.last_launch["phase_ns"],
                  "host_ms": {**{k: round(v, 3) for k, v in ms.items()},
                              **{k: round(v, 3) for k, v in phases.items()},
@@ -2671,7 +2675,9 @@ def scale_phase(dev, spec6, spec7) -> list:
         results["hier" if call["kind"] == "hier"
                 else "activeset"].append((entry, call))
         log(f"(g) {label}: engine {engine}, {entry['rounds']} rounds, "
-            f"kernel {entry['kernel_ms']:.3f} ms (events), "
+            f"{call['route']} route"
+            + (f" ({call['cluster']} CTAs)" if call['cluster'] else "")
+            + f", kernel {entry['kernel_ms']:.3f} ms (events), "
             f"{'bitwise equal to plain (' + format(entry['plain_ms'], '.0f') + ' ms on the host CPU)' if check else 'plain comparison left out'}; "
             f"binds {binds}; frame "
             + json.dumps({k: frame[k] for k in (
@@ -2804,19 +2810,18 @@ def scale_phase(dev, spec6, spec7) -> list:
             f"{prof} ms device time (profiler)")
     from kubebatch_tpu_torch.kernels.batched import PHASES
 
-    # the cold launches, the first audit and the first steady active set
-    for e, _ in results["hier"] + results["activeset"][:2]:
-        phase_ms = {k: v / 1e6 for k, v in zip(
-            PHASES + hier_mod.HIER_PHASES, e["phase_ns"].cpu().tolist())
-            if v}
+    # the cold launches and every active-set launch: phases and barriers
+    keys = PHASES + hier_mod.HIER_PHASES
+    for e, _ in results["hier"] + results["activeset"]:
+        pn = e.pop("phase_ns").cpu().tolist()
+        phase_ms = {k: v / 1e6 for k, v in zip(keys, pn) if v}
         e["phase_ms"] = phase_ms
-        log(f"(g) {e['label']}, main-path launch, device ms per phase "
-            f"(thread 0 between grid barriers; sum "
-            f"{sum(phase_ms.values()):.3f}; {chain_share(phase_ms)}): "
+        e["barriers"] = pn[len(keys)]
+        log(f"(g) {e['label']}, main-path launch ({e['launch_route']} "
+            f"route), device ms per phase (thread 0 between barriers; sum "
+            f"{sum(phase_ms.values()):.3f}; {chain_share(phase_ms)}; "
+            f"{e['barriers']} barriers): "
             + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
-        del e["phase_ns"]
-    for e, _ in results["activeset"][2:]:
-        del e["phase_ns"]
 
     c6 = results["hier"][0][0]
     acts = [e for e, _ in results["activeset"]]
@@ -2857,11 +2862,18 @@ def scale_phase(dev, spec6, spec7) -> list:
         "library_ms": None, "library_call": "none",
         "per_cycle": [{"label": e["label"], "kind": e["kind"],
                        "t_pad": e["t_pad"], "rounds": e["rounds"],
+                       "launch_route": e["launch_route"],
+                       "cluster_ctas": e["cluster_ctas"],
+                       "barriers": e["barriers"],
                        "event_ms": e["kernel_ms"], "plain_ms": e["plain_ms"],
                        "bound_ms": ab[e["label"]]["bound_ms"],
                        "bound_by": ab[e["label"]]["bound_by"]}
                       for e in acts],
-        "rerun_ms": {str(k): v for k, v in act_t.items()}}
+        "rerun_ms": {str(k): v for k, v in act_t.items()},
+        "launch_routes": sorted({
+            f"{e['launch_route']}" + (f" ({e['cluster_ctas']} CTAs)"
+                                         if e["cluster_ctas"] else "")
+            for e in acts})}
     return [hier_entry, act_entry]
 
 
@@ -3935,7 +3947,9 @@ class InplaceRecorder:
             self.calls.append({"kind": "activeset", "args": args,
                                "kw": kin, "out": list(out),
                                "counters": hier.last_launch.get(
-                                   "counters")})
+                                   "counters"),
+                               "route": hier.last_launch.get("route"),
+                               "cluster": hier.last_launch.get("cluster")})
             return out
 
         def consume(pend, *args, **kw):
@@ -4348,11 +4362,13 @@ def pipeline_phase(dev, spec6, churns=(256,) * 8 + (1024,) * 2) -> dict:
         t = call["kw"]["task_valid"].shape[0]
         checks.append({"t_pad": t, "plain_ms": chk["plain_ms"],
                        "err": chk["err"], "counters": counters,
-                       "rounds": int(call["out"][0][3 * t])})
+                       "rounds": int(call["out"][0][3 * t]),
+                       "launch_route": call["route"],
+                       "cluster_ctas": call["cluster"]})
     log(f"(j) {len(rec.calls)} in-place launches bitwise equal to "
         f"activeset_allocate_plain on CPU copies (packed result, frame, "
         f"carry) and their work counters to the plain version's; grains "
-        + ", ".join(str(c["t_pad"]) for c in checks))
+        + ", ".join(f"{c['t_pad']} ({c['launch_route']})" for c in checks))
 
     # ---- timings: in place against cloning at each grain ----------------
     by_grain = {}
@@ -4432,7 +4448,11 @@ def pipeline_phase(dev, spec6, churns=(256,) * 8 + (1024,) * 2) -> dict:
             "consume_wait_ms": med([r["consume_wait_ms"] for r in steady]),
             "kernel_ms": med([r["kernel_ms"] for r in steady])},
         "syncs": report, "syncs_in_flight": in_flight,
-        "checked_launches": len(checks)}
+        "checked_launches": len(checks),
+        "launch_routes": sorted({
+            f"{c['launch_route']}" + (f" ({c['cluster_ctas']} CTAs)"
+                                         if c["cluster_ctas"] else "")
+            for c in checks})}
 
 
 def sharded_bounds(node, rep, packed, carry, stats, pipe: bool,

@@ -55,6 +55,7 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     "hier_allocate.cu": {
         "kb_hier_workspace": "pppp",
         "kb_hier_allocate": "pppppppp",
+        "kb_hier_route_limits": "p",
     },
     "victims.cu": {
         "kb_victims_workspace": "iii",

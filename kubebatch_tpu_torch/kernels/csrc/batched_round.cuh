@@ -9,6 +9,7 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -53,6 +54,23 @@ constexpr int GRID_JOBS_MIN = 4096;
 // levels of the segmented scan and of the tiled cumsum longer than this
 // run across the grid, the shorter ones in block 0
 constexpr int SCAN_BLOCK_MAX = 4096;
+// A launch's barrier and the settings in which its routes differ.
+// GridBar: one cooperative grid over the card (the batched and
+// node-sharded kernels, the two-level kernel's grid route);
+// hier_allocate.cu's cluster route gives its own, whose barrier is the
+// cluster barrier. count_slot: the phase_ns word thread 0 adds one to at
+// every barrier (-1: none); rollback_min: the task views past which the
+// whole launch reverts a stranded gang's placements; scan_block_max: the
+// scan levels longer than this run across the launch.
+struct GridBar {
+    static constexpr bool cluster = false;
+    static constexpr int count_slot = -1;
+    static constexpr int rollback_min = GRID_CHAIN_MIN;
+    // nodes a lane of the row pass tests a step without affinity (their
+    // cells' loads in flight together, the argmax taken in node order)
+    static constexpr int row_unroll = 1;
+    static constexpr int scan_block_max = SCAN_BLOCK_MAX;
+};
 // the counting sort's shared scratch (ints): per-warp digit counts, the
 // block's histogram, the digit bases, the warp sums of a block scan
 constexpr int RADIX_SMEM_INTS = (NT / 32) * RADIX + 2 * RADIX + 32;
@@ -551,17 +569,27 @@ using kb::SegScan;
 
 // ---- the cycle -------------------------------------------------------------
 
-struct Cycle {
+template <class Bar>
+struct CycleT {
+    using BarT = Bar;
+    // the launch's CTAs: the cooperative grid, or the one cluster
+    using Group = std::conditional_t<Bar::cluster, cg::cluster_group,
+                                     cg::grid_group>;
     const Params& p;
     const Work& w;
     uint64_t* skeys;                       // shared-memory sort keys
-    cg::grid_group grid;
+    Group grid;
     int gtid, gsize, lane, gwarp, nwarps;
     bool b0;
     unsigned long long t_last;             // thread 0's last barrier time
 
-    __device__ Cycle(const Params& p_, const Work& w_, uint64_t* s)
-        : p(p_), w(w_), skeys(s), grid(cg::this_grid()) {
+    static __device__ Group group() {
+        if constexpr (Bar::cluster) return cg::this_cluster();
+        else return cg::this_grid();
+    }
+
+    __device__ CycleT(const Params& p_, const Work& w_, uint64_t* s)
+        : p(p_), w(w_), skeys(s), grid(group()) {
         gtid = blockIdx.x * blockDim.x + threadIdx.x;
         gsize = gridDim.x * blockDim.x;
         lane = threadIdx.x & 31;
@@ -576,14 +604,17 @@ struct Cycle {
         return t;
     }
 
-    // grid barrier closing phase ``ph``; thread 0 adds the interval since
-    // the previous barrier to that phase's device time
+    // the launch's barrier (the grid's, or the cluster's) closing phase
+    // ``ph``; thread 0 adds the interval since the previous barrier to
+    // that phase's device time (and counts the barrier where Bar says)
     __device__ void sync(int ph) {
         grid.sync();
         if (gtid == 0) {
             const unsigned long long t = now_ns();
             p.phase_ns[ph] += t - t_last;
             t_last = t;
+            if constexpr (Bar::count_slot >= 0)
+                p.phase_ns[Bar::count_slot] += 1;
         }
     }
 
@@ -597,13 +628,14 @@ struct Cycle {
     //
     // The round's ordering steps (window, rank_tasks, accept_phase,
     // commit_node, commit_round, the affinity serialization and commit,
-    // the rollback's segment sums) are written once against a team: the
-    // whole grid (GridTeam: its barrier is the grid barrier, timed into
-    // the caller's phase) or block 0 alone (BlockTeam: the other blocks
-    // skip the step and wait at the caller's next grid barrier). Every
-    // block calls chain(); a view above GRID_CHAIN_MIN tasks takes the
-    // grid. Which thread adds two floats never matters, only the operands
-    // and their order, so both teams give the same bits.
+    // the rollback's segment sums) are written once against a team: every
+    // CTA of the launch (GridTeam: its barrier is the launch's, the grid
+    // barrier or in a cluster launch the cluster barrier, timed into the
+    // caller's phase) or block 0 alone (BlockTeam: the other blocks skip
+    // the step and wait at the caller's next barrier). Every block calls
+    // chain(); a view above GRID_CHAIN_MIN tasks takes the whole launch.
+    // Which thread adds two floats never matters, only the operands and
+    // their order, so both teams give the same bits.
 
     struct BlockTeam {
         static constexpr bool grid = false;
@@ -614,18 +646,20 @@ struct Cycle {
 
     struct GridTeam {
         static constexpr bool grid = true;
-        Cycle* c;
+        CycleT* c;
         int ph, tid, n;
-        __device__ GridTeam(Cycle* c_, int ph_)
+        __device__ GridTeam(CycleT* c_, int ph_)
             : c(c_), ph(ph_), tid(c_->gtid), n(c_->gsize) {}
         __device__ void sync() const { c->sync(ph); }
     };
 
-    // step f(team) on the grid when ``size`` (grid-uniform) is above
-    // GRID_CHAIN_MIN, else in block 0; every block calls it
+    // step f(team) on the whole launch when ``size`` (launch-uniform) is
+    // above ``above`` (GRID_CHAIN_MIN by default), else in block 0; every
+    // block calls it
     template <class F>
-    __device__ void chain_n(int size, int ph, F f) {
-        if (size > GRID_CHAIN_MIN) f(GridTeam(this, ph));
+    __device__ void chain_n(int size, int ph, F f,
+                            int above = GRID_CHAIN_MIN) {
+        if (size > above) f(GridTeam(this, ph));
         else if (b0) f(BlockTeam());
     }
 
@@ -640,7 +674,7 @@ struct Cycle {
     // position order: perm[j] = item(i) and skey[j] = key1(i) for the j-th
     // smallest. key1 is in [0, r1) or -1 (excluded: sorted after every
     // real key, its skey past r1 - 1), key2 in [0, r2) (r2 1: none). The
-    // grid team sorts more than GRID_CHAIN_MIN positions with stable
+    // launch's team sorts more than GRID_CHAIN_MIN positions with stable
     // counting passes (radix_sort); otherwise block 0 sorts composite
     // 64-bit keys with the bitonic sort. Ends at the team's barrier.
     template <class Team, class K1, class K2, class Item>
@@ -827,8 +861,9 @@ struct Cycle {
     }
 
     // kb::SegScan<NV> over the workspace's level arrays (n elements): on
-    // the grid its long levels (over SCAN_BLOCK_MAX) run across the grid
-    // and the rest in block 0, the same tree and combinations either way
+    // the launch's team its long levels (over Bar::scan_block_max) run
+    // across the team and the rest in block 0, the same tree and
+    // combinations either way
     template <int NV, class Team>
     __device__ void seg_scan(Team tm, int n) {
         const SegScan<NV> s{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag};
@@ -845,7 +880,7 @@ struct Cycle {
                 ++L;
             }
             int S = 0;
-            while (S < L && ns[S] > SCAN_BLOCK_MAX) ++S;
+            while (S < L && ns[S] > Bar::scan_block_max) ++S;
             auto up = [&](int l, int i0, int stride) {
                 for (int i = i0; i < ns[l + 1]; i += stride) {
                     const int a = off[l] + 2 * i, bq = a + 1;
@@ -907,17 +942,18 @@ struct Cycle {
         }
     }
 
-    // block_tiled_cumsum of x[n, ncol] into y: on the grid, when n is past
-    // SCAN_BLOCK_MAX, the 16-wide tiles of the first level run across the
-    // grid, block 0 scans their totals (the same recursion, from the
-    // second level) and the grid adds each tile's carry
+    // block_tiled_cumsum of x[n, ncol] into y: on the launch's team, when
+    // n is past Bar::scan_block_max, the 16-wide tiles of the first level
+    // run across the launch, block 0 scans their totals (the same
+    // recursion, from the second level) and the launch adds each tile's
+    // carry
     template <class Team>
     __device__ void tiled_cumsum(Team tm, const float* x, float* y, int n,
                                  int ncol) {
         if constexpr (!Team::grid) {
             block_tiled_cumsum(x, y, n, ncol, w.tscr);
         } else {
-            if (n <= SCAN_BLOCK_MAX) {
+            if (n <= Bar::scan_block_max) {
                 if (b0) block_tiled_cumsum(x, y, n, ncol, w.tscr);
                 tm.sync();
                 return;
@@ -988,6 +1024,23 @@ struct Cycle {
         return fit;
     }
 
+    // cell() with every load made, whatever the earlier tests say (n must
+    // be a node of the window): the same truth value, and the loads of
+    // several nodes can be in flight together
+    __device__ __forceinline__ bool cell_all(int sig, const float* init,
+                                             int n) const {
+        const bool base = (p.sig_pred[(size_t)sig * p.NS + n] != 0)
+                          & (w.basep[n] != 0);
+        const float* a = w.accp + (size_t)n * 3;
+        bool fit = (init[0] <= a[0]) & (init[1] <= a[1]) & (init[2] <= a[2]);
+        if (p.pipe) {
+            const float* r = w.relp + (size_t)n * 3;
+            fit = fit | ((init[0] <= r[0]) & (init[1] <= r[1])
+                         & (init[2] <= r[2]));
+        }
+        return base & fit;
+    }
+
     // grid: accp / relp / basep from the current node carry
     __device__ void node_views() {
         for (int n = gtid; n < p.N; n += gsize) {
@@ -1047,7 +1100,27 @@ struct Cycle {
             bool any = false, scored = false;
             float bv = -INFINITY;
             int bi = IMAX;
-            for (int n = lane; n < p.N; n += 32) {
+            constexpr int U = Bar::row_unroll;
+            const bool unrolled = U > 1 && !p.aff;
+            for (int n0 = lane; unrolled && n0 < p.N; n0 += 32 * U) {
+                bool ok[U];
+                float v[U];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int n = min(n0 + 32 * u, p.N - 1);
+                    ok[u] = (n0 + 32 * u < p.N) & cell_all(sig, init, n);
+                    v[u] = scp[n];
+                }
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    if (ok[u] && (!any || v[u] > bv)) {
+                        bv = v[u];
+                        bi = n0 + 32 * u;
+                    }
+                    any = any || ok[u];
+                }
+            }
+            for (int n = lane; !unrolled && n < p.N; n += 32) {
                 float tm = 0.0f;
                 if (scoring) {
                     // reference _ip_score, in its float order
@@ -1451,8 +1524,8 @@ struct Cycle {
 
     // ---- round phases ---------------------------------------------------
 
-    // every block: the job order (on the grid past GRID_JOBS_MIN jobs,
-    // else in block 0), then block 0: the demand window's pool sums
+    // every block: the job order (on the whole launch past GRID_JOBS_MIN
+    // jobs, else in block 0), then block 0: the demand window's pool sums
     __device__ void order_jobs() {
         const bool grid_jobs = p.J > GRID_JOBS_MIN;
         if (grid_jobs) job_order_grid();
@@ -1789,10 +1862,10 @@ struct Cycle {
     }
 
     // every block: the shared waterfall. A node window past
-    // GRID_CHAIN_MIN is ordered across the grid (every block finds the
+    // GRID_CHAIN_MIN is ordered across the launch (every block finds the
     // majority pair; the counting passes sort (ord_bits(-score), node) as
     // two 16-bit keys) and its cumsums taken there; a view past it takes
-    // the task-axis prefixes across the grid; the rest runs in block 0
+    // the task-axis prefixes across the launch; the rest runs in block 0
     __device__ void waterfall_chain() {
         const int tc = tcur(), N = p.N;
         const bool grid_nodes = N > GRID_CHAIN_MIN;
@@ -2369,14 +2442,16 @@ struct Cycle {
     }
 
     // every block: the stranded-gang rollback (block 0 finds the stranded
-    // jobs and the placements to revert, then the team reverts them)
+    // jobs and the placements to revert, then the team reverts them: the
+    // whole launch past Bar::rollback_min tasks; its passes walk the full
+    // node and job axes)
     __device__ void rollback(bool revive, int ph) {
         if (b0) rollback_mask(revive);
         sync(ph);
         chain_n(p.T, ph, [&](auto tm) {
             rollback_nodes(tm, 0, p.N);
             rollback_jobs(tm, revive);
-        });
+        }, Bar::rollback_min);
     }
 
     // block 0: the stranded jobs and the placements to revert (w.mask)
@@ -2594,6 +2669,9 @@ struct Cycle {
         if (p.aff) aff_write_out();
     }
 };
+
+// the cycle of a cooperative grid (the batched and node-sharded kernels)
+using Cycle = CycleT<GridBar>;
 
 Params make_params(const uint64_t* ptrs, const int* ints) {
     Params p;

@@ -1,5 +1,7 @@
 // The two-level allocate cycle and the active-set cycle — every wave,
-// coarse pass, round and epilogue pass — as one cooperative grid.
+// coarse pass, round and epilogue pass — as one launch: one cooperative
+// grid over the card (the grid route), or, for task views of at most
+// CLUSTER_VIEW_MAX tasks, one thread-block cluster (the cluster route).
 //
 // Replaces kubebatch_tpu/kernels/hier.py:368 _hier_packed (with :160
 // _coarse_pass, :208 hier_allocate, :109 _block_state, :120
@@ -31,28 +33,44 @@
 // chains (sorts of T keys, scans, segment sums: each step needs the last)
 // bound it, times the rounds of every wave: their grid barriers and L2
 // round trips, now that the chain runs across the grid.
+// On the active set's views (256 to 4,096 tasks, a 4,096-node pool) the
+// work is small (the bound is ~2 us): a launch is block 0's chain steps,
+// one-warp passes and the barriers between them (136 grid barriers at
+// 1.1 us are 0.15 of 2.4 ms at grain 256, chain_timing.py on the H100).
 // Design:
-//  - one cooperative launch runs every wave, so no wave and no round
-//    returns to the host; the host reads the packed result once;
+//  - one launch runs every wave, so no wave and no round returns to the
+//    host; the host reads the packed result once. The route comes from
+//    the sizes alone (launch_grid, launch_cluster): views of at most
+//    CLUSTER_VIEW_MAX tasks take one cluster of CLUSTER_CTAS CTAs, larger
+//    ones (the two-level solves of cfg6 / cfg7) the cooperative grid. A
+//    cluster the card refuses raises in the wrapper; nothing falls back.
+//    Both routes run the same code (batched_round.cuh CycleT, templated
+//    on the barrier: HierGridBar, HierClusterBar), so they give the same
+//    bits. The cluster route's own settings (each chosen by measurement,
+//    PERF.md row 9): its barrier is the cluster barrier (0.7 us); the
+//    stranded-gang rollback, whose passes walk the full node and job
+//    axes, runs across the cluster at every view size; scans of more
+//    than 512 elements take their first level across it; a lane of the
+//    row pass tests two nodes a step; the other chain steps of views of
+//    up to 1,024 tasks, and sorts of up to 1,024 keys, stay in CTA 0;
 //  - the rounds are the batched kernel's (batched_round.cuh), their
-//    ordering steps on the grid chain past GRID_CHAIN_MIN tasks (the
-//    two-level solves of cfg6 / cfg7, the active set's grain of 4,096;
-//    its grains of 256 and 1,024 in block 0, the pool's node order on the
-//    grid): each block keeps its own copy of the parameters in shared
-//    memory, and between grid barriers thread 0 of every block points the
-//    node arrays at the winning pool (the node window) and back at the
-//    full axis, so the grid-wide steps read the window from the block's
-//    copy;
+//    ordering steps on the launch's team past its chain size (views past
+//    1,024 tasks, the pool's node order) and in block 0 below it: each
+//    block keeps its own copy of the parameters in shared memory, and
+//    between barriers thread 0 of every block points the node arrays at
+//    the winning pool (the node window) and back at the full axis, so
+//    the team's steps read the window from the block's copy;
 //  - the coarse pass (hier_coarse.cuh, shared with the node-sharded
-//    kernel): one warp per pending task row (per pair row in the
-//    active set) walks each pool's nodes 32 at a time and stops at the
-//    first eligible one, recording one bit per pool (ceil(B/32) words a
-//    row); pools' candidate counts by integer atomics; the majority pair
-//    (argmax of pending tasks per pair, lowest index on ties) is reduced
-//    in every block, its masked score maximum per pool by one warp a
-//    pool (max is exact in any order); the winner, the quarantine and
-//    the wave counters in block 0, in integer and comparison arithmetic,
-//    lowest index on ties;
+//    kernel): one warp per pending task row (per pair row in the active
+//    set; on the cluster route one per (row, pool), OR-ing its bit by an
+//    integer atomic) walks each pool's nodes 32 at a time and stops at
+//    the first eligible one, recording one bit per pool (ceil(B/32)
+//    words a row); pools' candidate counts by integer atomics;
+//    the majority pair (argmax of pending tasks per pair, lowest index on
+//    ties) is reduced in every block, its masked score maximum per pool
+//    by several warps a pool, folded in block 0 (max is exact in any
+//    order); the winner, the quarantine and the wave counters in block
+//    0, in integer and comparison arithmetic, lowest index on ties;
 //  - loop state (has_work, winner, occupancy, fill) sits in a small
 //    global scalar array every thread reads after a barrier;
 //  - the reference's two-level graphs contract nodeorder's weighted sum
@@ -67,17 +85,70 @@ namespace {
 
 enum { MODE_HIER = 0, MODE_ACT = 1, MODE_AUDIT = 2 };
 enum { ENGINE_HIER = 4, ENGINE_ACTIVESET = 9 };
-// the hier phases timed after the round's (kernels/hier.py HIER_PHASES)
-enum { PH_COARSE = N_PHASES, PH_WAVES, N_HIER_PHASES };
+// the hier phases timed after the round's (kernels/hier.py HIER_PHASES):
+// the coarse pass's set-up and winner, the waves' own steps, the coarse
+// pass's row walks and its pool scores
+enum { PH_COARSE = N_PHASES, PH_WAVES, PH_COARSE_ROWS, PH_COARSE_BEST,
+       N_HIER_PHASES };
 // loop scalars
 enum { H_HAS_WORK, H_WINNER, H_OCC, H_FILL, H_N };
 // counters (int64): coarse passes, rows they tested, round rows, waves,
 // the coarse cells the rows needed (per row and pool: up to and including
 // the first eligible node, or the whole pool)
 enum { C_PASSES, C_COARSE_ROWS, C_ROUND_ROWS, C_WAVES, C_COARSE_CELLS, C_N };
+// hints: mode, pool width, wave cap, route, cluster CTAs
+enum { HINT_MODE, HINT_POOL, HINT_WAVES, HINT_ROUTE, HINT_CLUSTER, N_HINTS };
+enum { ROUTE_AUTO = 0, ROUTE_GRID = 1, ROUTE_CLUSTER = 2 };
+
+// Launches whose largest task view (both halves of an audit) is at most
+// this take the cluster route; larger ones the grid. Set on the H100 by
+// chain_timing.py (PERF.md §6, row 9): the cluster won at every grain of
+// the active set, 4,096 included (4.70 ms against the grid's 5.52).
+constexpr int CLUSTER_VIEW_MAX = 4096;
+// the cluster route's CTAs by default: 16, past the portable cluster size
+// of 8 (ahead of 8 at every grain; a launch may ask for fewer, and the
+// runtime refuses more)
+constexpr int CLUSTER_CTAS = 16;
+
+// The grid route: today's cooperative grid over every SM, the barriers
+// counted into phase_ns[N_HIER_PHASES]. coarse_split: whether the coarse
+// pass walks each (row, pool) with a warp of its own (else a warp walks a
+// row's pools in turn). The grid keeps a warp a row: its cold passes have
+// 8-17x more pending rows than warps, and the split's per-pool row reads
+// and bit atomics cost more than they spread (cfg6 / cfg7 cold row walks
+// 1.29 / 13.62 ms with a warp a row, 1.86 / 15.43 split; chain_timing.py
+// on the H100, PERF.md row 8); the cluster's passes have 4-45 rows for
+// 256 warps, and there the split wins (PERF.md row 9).
+struct HierGridBar : GridBar {
+    static constexpr int count_slot = N_HIER_PHASES;
+    static constexpr bool coarse_split = false;
+};
+
+// The cluster route's settings, each chosen on the H100 against the
+// values chain_timing.py's VARIANTS give them: scan levels longer than
+// CLUSTER_SCAN_MAX and the rollbacks of views past CLUSTER_ROLLBACK_MIN
+// tasks run across the cluster's CTAs, the rest in CTA 0 while the others
+// wait at the cluster barrier (the other ordering steps keep the grid
+// route's sizes, batched_round.cuh GRID_CHAIN_MIN and GRID_JOBS_MIN).
+constexpr int CLUSTER_SCAN_MAX = 512;
+constexpr int CLUSTER_ROLLBACK_MIN = 0;
+// the row pass's nodes a lane tests a step (their loads made together:
+// batched_round.cuh cell_all)
+constexpr int CLUSTER_ROW_UNROLL = 2;
+
+// The cluster route: one thread-block cluster is the whole launch, every
+// barrier the cluster barrier.
+struct HierClusterBar {
+    static constexpr bool cluster = true;
+    static constexpr int count_slot = N_HIER_PHASES;
+    static constexpr bool coarse_split = true;
+    static constexpr int row_unroll = CLUSTER_ROW_UNROLL;
+    static constexpr int rollback_min = CLUSTER_ROLLBACK_MIN;
+    static constexpr int scan_block_max = CLUSTER_SCAN_MAX;
+};
 
 struct Hier {
-    int mode, pool, B, BW, max_waves;
+    int mode, pool, B, BW, max_waves, route, ctas;
     const float* pair_init;                // the active-set half's [P,3]
     uint32_t* tbits;                       // [T*BW] task pool bits
     uint32_t* pbits;                       // [P*BW] pair pool bits
@@ -85,6 +156,7 @@ struct Hier {
     uint8_t* elsewhere;                    // [T]
     int32_t* cand;                         // [B] pending candidates
     float* best;                           // [B] majority pool score
+    float* part;                           // [B * pool / 32] its segments'
     uint8_t* blocked;                      // [B] quarantine
     int32_t* pdem;                         // [P] pending tasks per pair
     int32_t* hs;                           // [H_N]
@@ -105,6 +177,7 @@ inline size_t hier_layout(size_t off, int T, int P, int B, int BW,
     x.elsewhere = (uint8_t*)take(T);
     x.cand = (int32_t*)take((size_t)B * 4);
     x.best = (float*)take((size_t)B * 4);
+    x.part = (float*)take((size_t)B * (x.pool / 32 + 1) * 4);
     x.blocked = (uint8_t*)take(B);
     x.pdem = (int32_t*)take((size_t)P * 4);
     x.hs = (int32_t*)take(H_N * 4);
@@ -112,16 +185,17 @@ inline size_t hier_layout(size_t off, int T, int P, int B, int BW,
     return off;
 }
 
+template <class Cy>
 struct HierCycle {
     Params& sp;                            // this block's parameters
     const Params& pf;                      // the primary (committed) half
     const Params& pa;                      // the audit's active-set half
     const Work& w;
     const Hier& h;
-    Cycle& c;
+    Cy& c;
 
     __device__ HierCycle(Params& sp_, const Params& pf_, const Params& pa_,
-                         const Work& w_, const Hier& h_, Cycle& c_)
+                         const Work& w_, const Hier& h_, Cy& c_)
         : sp(sp_), pf(pf_), pa(pa_), w(w_), h(h_), c(c_) {}
 
     // point this block's parameters at ``base`` with the node window
@@ -162,10 +236,17 @@ struct HierCycle {
     // the coarse pass at full width (hier_coarse.cuh): pending tasks, per
     // (row, pool) any-eligibility bits, candidate counts, the majority
     // pair's pool scores; then (block 0) the winner. Leaves H_HAS_WORK /
-    // H_WINNER (and H_OCC / H_FILL) in h.hs.
+    // H_WINNER (and H_OCC / H_FILL) in h.hs. The row walks take a warp a
+    // row, or with Bar::coarse_split a warp a (row, pool); a pool's scores
+    // take S warps, each over a segment of the pool (S from the launch's
+    // warps). The bits, scores and counters are the same either way.
     __device__ void coarse(bool act) {
+        constexpr bool split = Cy::BarT::coarse_split;
         const Params& p = sp;
         const int T = p.T, P = p.P, B = h.B, BW = h.BW, pool = h.pool;
+        const int rows = act ? P : T;
+        uint32_t* rbits = act ? h.pbits : h.tbits;
+        const int S = max(1, min(pool / 32, c.nwarps / B));
         c.node_views();
         for (int t = c.gtid; t < T; t += c.gsize) {
             const int j = max(p.tjob[t], 0);
@@ -174,40 +255,47 @@ struct HierCycle {
         }
         for (int q = c.gtid; q < P; q += c.gsize) h.pdem[q] = 0;
         for (int b = c.gtid; b < B; b += c.gsize) h.cand[b] = 0;
+        if (split)
+            for (int i = c.gtid; i < rows * BW; i += c.gsize) rbits[i] = 0;
         c.sync(PH_COARSE);
         // per row (a pending task, or every pair in the active set): one
         // bit per pool
         unsigned long long tested = 0, cells = 0;
-        coarse_bits(c, act ? P : T, B, BW, pool, 0, p.N,
-                    act ? h.pbits : h.tbits,
-                    [&](int r, int* sig, float* init) {
-                        if (act) {
-                            *sig = p.pair_sig[r];
-                            for (int k = 0; k < 3; ++k)
-                                init[k] = h.pair_init[r * 3 + k];
-                            return true;
-                        }
-                        if (!h.pending[r]) return false;
-                        *sig = p.tsig[r];
-                        for (int k = 0; k < 3; ++k)
-                            init[k] = p.init[r * 3 + k];
-                        return true;
-                    }, &tested, &cells);
-        if (c.lane == 0 && tested) {
+        auto row = [&](int r, int* sig, float* init) {
+            if (act) {
+                *sig = p.pair_sig[r];
+                for (int k = 0; k < 3; ++k) init[k] = h.pair_init[r * 3 + k];
+                return true;
+            }
+            if (!h.pending[r]) return false;
+            *sig = p.tsig[r];
+            for (int k = 0; k < 3; ++k) init[k] = p.init[r * 3 + k];
+            return true;
+        };
+        if (split)
+            coarse_bits_split(c, rows, B, BW, pool, 0, p.N, rbits, row,
+                              &tested, &cells);
+        else
+            coarse_bits(c, rows, B, BW, pool, 0, p.N, rbits, row, &tested,
+                        &cells);
+        if (c.lane == 0 && (tested || cells)) {
             atomicAdd(&h.counters[C_COARSE_ROWS], tested);
             atomicAdd(&h.counters[C_COARSE_CELLS], cells);
         }
         for (int t = c.gtid; t < T; t += c.gsize)
             if (h.pending[t]) atomicAdd(&h.pdem[p.tpair[t]], 1);
-        c.sync(PH_COARSE);
+        c.sync(PH_COARSE_ROWS);
         coarse_candidates(c, T, h.pending, BW,
                           [&](int t) { return bits(t, act); }, h.cand);
-        coarse_best(c, p, w, coarse_majority(c, h.pdem, P), B, pool, 0,
-                    p.N, h.best);
-        c.sync(PH_COARSE);
-        if (c.b0 && threadIdx.x == 0) {
-            coarse_winner(h.cand, h.blocked, h.best, B, h.hs);
-            h.counters[C_PASSES] += 1;
+        const int maj = coarse_majority(c, h.pdem, P);
+        coarse_best_split(c, p, w, maj, B, pool, 0, p.N, S, h.part);
+        c.sync(PH_COARSE_BEST);
+        if (c.b0) {
+            coarse_best_fold(h.part, B, S, h.best);
+            if (threadIdx.x == 0) {
+                coarse_winner(h.cand, h.blocked, h.best, B, h.hs);
+                h.counters[C_PASSES] += 1;
+            }
         }
         c.sync(PH_COARSE);
     }
@@ -369,7 +457,7 @@ struct HierCycle {
     }
 
     __device__ void run() {
-        if (c.gtid == 0) c.t_last = Cycle::now_ns();
+        if (c.gtid == 0) c.t_last = Cy::now_ns();
         int rounds, retries, stranded, occ, fill, blocks;
         int32_t act_words[4] = {0, 0, 0, 0};
         if (h.mode == MODE_AUDIT) {
@@ -413,6 +501,10 @@ struct HierCycle {
     }
 };
 
+// One launch runs every phase under one barrier kind (batched_round.cuh
+// CycleT): the grid route's cooperative grid (GridBar's sizes), or the
+// cluster route's one thread-block cluster.
+template <class Bar>
 __global__ void __launch_bounds__(NT, 1)
 hier_allocate_kernel(const __grid_constant__ Params pf,
                      const __grid_constant__ Params pa,
@@ -422,8 +514,8 @@ hier_allocate_kernel(const __grid_constant__ Params pf,
     __shared__ Params sp;
     if (threadIdx.x == 0) sp = pf;
     __syncthreads();
-    Cycle c(sp, w, skeys);
-    HierCycle hc(sp, pf, pa, w, h, c);
+    CycleT<Bar> c(sp, w, skeys);
+    HierCycle<CycleT<Bar>> hc(sp, pf, pa, w, h, c);
     hc.run();
 }
 
@@ -434,11 +526,14 @@ bool setup(const unsigned long long* ptrs_f, const unsigned long long* ptrs_a,
            Params* pf, Params* pa, Params* pmax, Hier* h) {
     *pf = make_params((const uint64_t*)ptrs_f, ints_f);
     *pa = make_params((const uint64_t*)ptrs_a, ints_a);
-    h->mode = hints[0];
-    h->pool = hints[1];
-    h->max_waves = hints[2];
+    h->mode = hints[HINT_MODE];
+    h->pool = hints[HINT_POOL];
+    h->max_waves = hints[HINT_WAVES];
+    h->route = hints[HINT_ROUTE];
+    h->ctas = hints[HINT_CLUSTER] > 0 ? hints[HINT_CLUSTER] : CLUSTER_CTAS;
     if (h->mode < MODE_HIER || h->mode > MODE_AUDIT || h->pool < 1
-        || pf->N % h->pool != 0)
+        || pf->N % h->pool != 0 || h->route < ROUTE_AUTO
+        || h->route > ROUTE_CLUSTER || hints[HINT_CLUSTER] < 0)
         return false;
     h->B = pf->N / h->pool;
     h->BW = (h->B + 31) / 32;
@@ -451,10 +546,89 @@ bool setup(const unsigned long long* ptrs_f, const unsigned long long* ptrs_a,
     *pmax = *pf;
     pmax->T = std::max(pf->T, pa->T);
     pmax->MT = pow2_at_least(pmax->T);
+    if (h->route == ROUTE_AUTO)
+        h->route = pmax->T <= CLUSTER_VIEW_MAX ? ROUTE_CLUSTER : ROUTE_GRID;
     return true;
 }
 
+// the grid route: every SM's worth of CTAs, one cooperative launch
+cudaError_t launch_grid(const Params& pf, const Params& pa, const Work& w,
+                        const Hier& h, size_t smem, int* info,
+                        cudaStream_t stream) {
+    auto kernel = hier_allocate_kernel<HierGridBar>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+        return err;
+    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                      dev)) != cudaSuccess)
+        return err;
+    if (!coop) return cudaErrorNotSupported;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, NT, smem)) != cudaSuccess)
+        return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    const int grid = sms * per_sm;
+    if (grid > MAX_GRID) return cudaErrorInvalidConfiguration;
+    info[0] = grid;
+    Params pfc = pf, pac = pa;
+    Work wc = w;
+    Hier hc = h;
+    void* args[] = {&pfc, &pac, &wc, &hc};
+    return cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                       dim3(NT), args, smem, stream);
+}
+
+// the cluster route: one cluster of h.ctas CTAs is the whole launch. A
+// cluster the card cannot place (too many CTAs, too much shared memory)
+// is refused with the runtime's error: no other route is taken.
+cudaError_t launch_cluster(const Params& pf, const Params& pa, const Work& w,
+                           const Hier& h, size_t smem, int* info,
+                           cudaStream_t stream) {
+    auto kernel = hier_allocate_kernel<HierClusterBar>;
+    if (h.ctas < 1) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
+        != cudaSuccess)
+        return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)h.ctas);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)h.ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int resident = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&resident, (void*)kernel,
+                                              &cfg)) != cudaSuccess)
+        return err;
+    if (resident < 1) return cudaErrorLaunchOutOfResources;
+    info[0] = h.ctas;
+    return cudaLaunchKernelEx(&cfg, kernel, pf, pa, w, h);
+}
+
 }  // namespace
+
+// The auto route's limits into out[0..2): the largest task view that
+// takes the cluster route (CLUSTER_VIEW_MAX) and the cluster route's CTAs
+// when the launch asks for none (CLUSTER_CTAS). Returns 0.
+extern "C" int kb_hier_route_limits(int* out) {
+    out[0] = CLUSTER_VIEW_MAX;
+    out[1] = CLUSTER_CTAS;
+    return 0;
+}
 
 // Workspace bytes for these sizes (the arrays as kb_hier_allocate takes
 // them). Returns a cudaError_t (0).
@@ -473,13 +647,16 @@ extern "C" int kb_hier_workspace(const int* ints_f, const int* ints_a,
 
 // Launch the cycle. ptrs_f / ints_f: the primary half in the batched
 // kernel's P_* / I_* order (its carry and packed result are committed;
-// P_WS the workspace, P_PHASE N_HIER_PHASES zeroed uint64); ptrs_a /
-// ints_a: the audit's active-set half (its carry and result scratch),
-// else the same arrays as the primary; hints: mode, pool width, wave cap
-// (0: the reference's); hptrs: the active-set half's pair rows (null in
-// MODE_HIER), then C_N zeroed uint64 counters (coarse passes, the rows
-// they tested, the rounds' task rows, waves); info (host, 3 ints): grid,
-// threads, dynamic shared bytes.
+// P_WS the workspace, P_PHASE N_HIER_PHASES + 1 zeroed uint64: the phase
+// times, then the barriers passed); ptrs_a / ints_a: the audit's
+// active-set half (its carry and result scratch), else the same arrays as
+// the primary; hints (N_HINTS): mode, pool width, wave cap (0: the
+// reference's), route (ROUTE_AUTO: from the sizes; ROUTE_GRID,
+// ROUTE_CLUSTER), cluster CTAs (0: CLUSTER_CTAS); hptrs: the active-set
+// half's pair rows (null in MODE_HIER), then C_N zeroed uint64 counters
+// (coarse passes, the rows they tested, the rounds' task rows, waves);
+// info (host, 5 ints): CTAs, threads, dynamic shared bytes, the route
+// taken, the cluster's CTAs (0 on the grid route).
 // Returns the cudaError_t of the setup and the launch.
 extern "C" int kb_hier_allocate(const unsigned long long* ptrs_f,
                                 const unsigned long long* ptrs_a,
@@ -500,32 +677,14 @@ extern "C" int kb_hier_allocate(const unsigned long long* ptrs_f,
     const size_t off = layout(pmax, ws, &w);
     hier_layout(off, pmax.T, pmax.P, h.B, h.BW, ws, &h);
     const size_t smem = smem_bytes(pmax);
-    cudaError_t err = cudaFuncSetAttribute(hier_allocate_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0, sms = 0, per_sm = 0, coop = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-        return (int)err;
-    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                      dev)) != cudaSuccess)
-        return (int)err;
-    if (!coop) return (int)cudaErrorNotSupported;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, hier_allocate_kernel, NT, smem)) != cudaSuccess)
-        return (int)err;
-    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    const int grid = sms * per_sm;
-    if (grid > MAX_GRID) return (int)cudaErrorInvalidConfiguration;
-    info[0] = grid;
     info[1] = NT;
     info[2] = (int)smem;
-    void* args[] = {&pf, &pa, &w, &h};
-    err = cudaLaunchCooperativeKernel((const void*)hier_allocate_kernel,
-                                      dim3(grid), dim3(NT), args, smem,
-                                      (cudaStream_t)stream);
+    info[3] = h.route;
+    info[4] = h.route == ROUTE_CLUSTER ? h.ctas : 0;
+    const cudaError_t err =
+        h.route == ROUTE_CLUSTER
+            ? launch_cluster(pf, pa, w, h, smem, info, (cudaStream_t)stream)
+            : launch_grid(pf, pa, w, h, smem, info, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -27,8 +27,8 @@ __device__ __forceinline__ void pool_part(int b, int pool, int g0, int nn,
 // into bits + r * BW. Returns this thread's (rows tested, cells needed:
 // per row and part, the nodes up to and including the first eligible
 // one, or the whole part) for the caller's counters.
-template <class Row>
-__device__ void coarse_bits(const Cycle& c, int rows, int B, int BW,
+template <class Cy, class Row>
+__device__ void coarse_bits(const Cy& c, int rows, int B, int BW,
                             int pool, int g0, int nn, uint32_t* bits,
                             Row row, unsigned long long* tested,
                             unsigned long long* cells) {
@@ -59,9 +59,40 @@ __device__ void coarse_bits(const Cycle& c, int rows, int B, int BW,
     }
 }
 
+// coarse_bits with one warp per (row, pool) instead of per row, so a row's
+// pools are walked side by side: the same bits (OR-ed into words the
+// caller zeroed before its last barrier, by integer atomics), rows and
+// cells (a row counted by its pool-0 warp)
+template <class Cy, class Row>
+__device__ void coarse_bits_split(const Cy& c, int rows, int B, int BW,
+                                  int pool, int g0, int nn, uint32_t* bits,
+                                  Row row, unsigned long long* tested,
+                                  unsigned long long* cells) {
+    for (int q = c.gwarp; q < rows * B; q += c.nwarps) {
+        const int r = q / B, b = q - r * B;
+        float init[3];
+        int sig;
+        if (!row(r, &sig, init)) continue;
+        int start, end;
+        pool_part(b, pool, g0, nn, &start, &end);
+        bool any = false;
+        for (int n0 = start; n0 < end && !any; n0 += 32) {
+            const int n = n0 + c.lane;
+            const uint32_t m = __ballot_sync(
+                FULL, n < end && c.cell(sig, init, n));
+            any = m != 0;
+            *cells += any ? __ffs(m) : min(32, end - n0);
+        }
+        if (any && c.lane == 0)
+            atomicOr(bits + (size_t)r * BW + (b >> 5), 1u << (b & 31));
+        if (b == 0) ++*tested;
+    }
+}
+
 // every block: the demand-majority pair, argmax of dem[0..P) (lowest
 // index on ties)
-__device__ int coarse_majority(const Cycle& c, const int32_t* dem, int P) {
+template <class Cy>
+__device__ int coarse_majority(const Cy& c, const int32_t* dem, int P) {
     __shared__ int s_v[NT / 32], s_i[NT / 32];
     int bv = -1, bi = 0;
     for (int q = threadIdx.x; q < P; q += blockDim.x) {
@@ -88,12 +119,27 @@ __device__ int coarse_majority(const Cycle& c, const int32_t* dem, int P) {
     return maj;
 }
 
+// node n's score for pair maj in the coarse pass: the pair's sig row
+// plus the dynamic term, the two-level graphs' one FMA
+// (kernels/xla_order.py WEIGHTED_SUM_FMA); -3e38 where its predicate row
+// or the room rule it out
+__device__ __forceinline__ float coarse_score(const Params& p, const Work& w,
+                                              int msig, int maj, float w0,
+                                              float w1, int n) {
+    float v = p.sig_scores[(size_t)msig * p.NS + n];
+    if (p.dyn)
+        v = v + kb::scan_node_score(
+            p.nz[n * 2], p.nz[n * 2 + 1], p.pair_nz[maj * 2],
+            p.pair_nz[maj * 2 + 1], p.cap[n * 2], p.cap[n * 2 + 1], w0, w1);
+    const bool ok = p.sig_pred[(size_t)msig * p.NS + n] && w.basep[n];
+    return ok ? v : -3.0e38f;
+}
+
 // grid, one warp a pool: the best score of pair maj over the pool's part
-// of [0, nn) among the nodes its predicate row and the room allow (the
-// others read -3e38; an empty part -inf). The dynamic term is the
-// two-level graphs' one FMA (kernels/xla_order.py WEIGHTED_SUM_FMA).
-// max is exact in any order.
-__device__ void coarse_best(const Cycle& c, const Params& p, const Work& w,
+// of [0, nn) (coarse_score; an empty part -inf). max is exact in any
+// order.
+template <class Cy>
+__device__ void coarse_best(const Cy& c, const Params& p, const Work& w,
                             int maj, int B, int pool, int g0, int nn,
                             float* best) {
     const int msig = p.pair_sig[maj];
@@ -102,27 +148,58 @@ __device__ void coarse_best(const Cycle& c, const Params& p, const Work& w,
         int start, end;
         pool_part(b, pool, g0, nn, &start, &end);
         float m = -INFINITY;
-        for (int n = start + c.lane; n < end; n += 32) {
-            float v = p.sig_scores[(size_t)msig * p.NS + n];
-            if (p.dyn)
-                v = v + kb::scan_node_score(
-                    p.nz[n * 2], p.nz[n * 2 + 1], p.pair_nz[maj * 2],
-                    p.pair_nz[maj * 2 + 1], p.cap[n * 2], p.cap[n * 2 + 1],
-                    w0, w1);
-            const bool ok = p.sig_pred[(size_t)msig * p.NS + n]
-                            && w.basep[n];
-            m = fmaxf(m, ok ? v : -3.0e38f);
-        }
+        for (int n = start + c.lane; n < end; n += 32)
+            m = fmaxf(m, coarse_score(p, w, msig, maj, w0, w1, n));
         for (int o = 16; o > 0; o >>= 1)
             m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
         if (c.lane == 0) best[b] = m;
     }
 }
 
+// coarse_best with each pool's part cut into S segments of whole 32-node
+// chunks, one warp a (pool, segment): segment s of pool b's maximum into
+// part[b * S + s] (an empty segment -inf); coarse_best_fold then takes
+// each pool's maximum over its segments
+template <class Cy>
+__device__ void coarse_best_split(const Cy& c, const Params& p,
+                                  const Work& w, int maj, int B, int pool,
+                                  int g0, int nn, int S, float* part) {
+    const int msig = p.pair_sig[maj];
+    const float w0 = p.dynw[0], w1 = p.dynw[1];
+    for (int q = c.gwarp; q < B * S; q += c.nwarps) {
+        const int b = q / S, s = q - b * S;
+        int start, end;
+        pool_part(b, pool, g0, nn, &start, &end);
+        const int width = (end - start + 32 * S - 1) / (32 * S) * 32;
+        const int lo = min(end, start + s * width);
+        const int hi = min(end, lo + width);
+        float m = -INFINITY;
+        for (int n = lo + c.lane; n < hi; n += 32)
+            m = fmaxf(m, coarse_score(p, w, msig, maj, w0, w1, n));
+        for (int o = 16; o > 0; o >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+        if (c.lane == 0) part[q] = m;
+    }
+}
+
+// block, one warp a pool: best[b] = max over part[b * S .. b * S + S)
+__device__ void coarse_best_fold(const float* part, int B, int S,
+                                 float* best) {
+    const int lane = threadIdx.x & 31;
+    for (int b = threadIdx.x >> 5; b < B; b += blockDim.x >> 5) {
+        float m = -INFINITY;
+        for (int s = lane; s < S; s += 32) m = fmaxf(m, part[b * S + s]);
+        for (int o = 16; o > 0; o >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+        if (lane == 0) best[b] = m;
+    }
+    __syncthreads();
+}
+
 // grid: cand[b] += the pending tasks t < T whose pool bits (bits_of(t),
 // BW words) have b
-template <class Bits>
-__device__ void coarse_candidates(const Cycle& c, int T,
+template <class Cy, class Bits>
+__device__ void coarse_candidates(const Cy& c, int T,
                                   const uint8_t* pending, int BW,
                                   Bits bits_of, int32_t* cand) {
     for (int t = c.gtid; t < T; t += c.gsize) {

@@ -30,10 +30,16 @@ Two implementations of one function, chosen by the tensors' device:
 - :func:`hier_allocate_plain` — plain PyTorch on CPU tensors, in the
   reference's order of float operations (the round's orders,
   kernels/xla_order.py). The CPU path, and the yardstick for the kernel.
-- the CUDA kernel ``csrc/hier_allocate.cu`` — one cooperative grid runs
-  every wave, round and epilogue pass; its rounds are the batched
-  kernel's round code (``csrc/batched_round.cuh``) with the node window
-  set to the winning pool.
+- the CUDA kernel ``csrc/hier_allocate.cu`` — one launch runs every
+  wave, round and epilogue pass; its rounds are the batched kernel's
+  round code (``csrc/batched_round.cuh``) with the node window set to the
+  winning pool. A launch whose largest task view is at most the kernel's
+  ``CLUSTER_VIEW_MAX`` tasks (:func:`route_limits`; every active-set
+  grain, and an audit whose
+  full half fits too) runs as one thread-block cluster (the cluster
+  route), larger ones (the two-level solves of cfg6 / cfg7) as one
+  cooperative grid over the card (the grid route); the route comes from
+  the sizes alone and is recorded in :data:`last_launch`.
 
 :func:`hier_packed` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other.
@@ -61,7 +67,7 @@ block (kernels/batched_sharded.py ``HierPlainRank`` / ``CudaHierRank``,
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -275,6 +281,8 @@ def hier_allocate(state: RoundState, a: CycleArrays, opts, max_rounds: int,
                 else:
                     blocked = blocked.clone()
                     blocked[winner] = True
+                    if stats is not None:
+                        stats["dead_waves"] = stats.get("dead_waves", 0) + 1
                 st = merged
                 blocks += 1
             if stats is not None:
@@ -412,20 +420,40 @@ def hier_packed(*args, **kwargs):
 
 # ---- the kernel launch ----------------------------------------------------
 
-#: grid, threads, dynamic shared bytes and workspace bytes of the last
-#: launch of csrc/hier_allocate.cu, its per-phase device ns (``phase_ns``:
-#: an int64 tensor on the card, kernels/batched.py PHASES order, then
-#: HIER_PHASES) and its work counters (``counters``: int64 on the card,
-#: COUNTERS order)
+#: CTAs (``grid``), threads, dynamic shared bytes and workspace bytes of
+#: the last launch of csrc/hier_allocate.cu, its route ("grid" or
+#: "cluster") and cluster CTAs (0 on the grid), its per-phase device ns
+#: (``phase_ns``: an int64 tensor on the card, kernels/batched.py PHASES
+#: order, then HIER_PHASES, then the barriers it passed) and its work
+#: counters (``counters``: int64 on the card, COUNTERS order)
 last_launch: dict = {}
+
+#: the launch routes (csrc/hier_allocate.cu ROUTE_*): "auto" takes the
+#: cluster at or below the kernel's CLUSTER_VIEW_MAX tasks, the grid above
+ROUTES = {"auto": 0, "grid": 1, "cluster": 2}
+ROUTE_NAMES = {1: "grid", 2: "cluster"}
+
+
+def route_limits() -> Tuple[int, int]:
+    """The kernel's CLUSTER_VIEW_MAX (the largest task view the auto
+    route sends to a cluster) and CLUSTER_CTAS (the cluster route's CTAs
+    when a launch asks for none), read from the built library."""
+    import ctypes
+
+    out = (ctypes.c_int * 2)()
+    _build.check_launch("hier_route_limits", _build.library(
+        "hier_allocate.cu").kb_hier_route_limits(ctypes.addressof(out)))
+    return int(out[0]), int(out[1])
 
 #: the kernel's work counters: coarse passes, the task (or pair) rows
 #: they tested, the rounds' task rows (participating and retrying),
 #: waves, and the coarse cells the rows needed (_coarse_pass)
 COUNTERS = ("coarse_passes", "coarse_rows", "rows", "waves", "coarse_cells")
 
-#: the phases the kernel times beyond the round's (batched.PHASES)
-HIER_PHASES = ("coarse", "waves")
+#: the phases the kernel times beyond the round's (batched.PHASES): the
+#: coarse pass's set-up and winner, the waves' own steps, the coarse
+#: pass's row walks and its pool scores
+HIER_PHASES = ("coarse", "waves", "coarse_rows", "coarse_best")
 
 #: VEC_EPS on each device it was asked for: uploaded once, so a launch
 #: makes no host->device copy (a pageable copy waits on the stream)
@@ -520,7 +548,8 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
            queue_keys=(K_PROP_SHARE,), prop_overused=True,
            dyn_enabled=False, pipe_enabled=True, max_rounds=64,
            amax_rounds=0, pool_size=0, max_waves=0, gang_enabled=True,
-           narrow=False, narrow_gate=False, in_place=False):
+           narrow=False, narrow_gate=False, in_place=False, route="auto",
+           cluster=0):
     """One launch of csrc/hier_allocate.cu. ``mode``: MODE_HIER (the
     two-level solve of ``cycle``), MODE_ACT (the active-set solve of
     ``cycle``, at grain width, with ``pair_init``) or MODE_AUDIT (the
@@ -531,7 +560,9 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
     kernel committed. ``in_place`` (MODE_ACT only): the kernel writes the
     carry into ``node``'s own carry tensors, which must be contiguous and
     share no byte with another argument, and returns them; else into
-    clones."""
+    clones. ``route`` ("auto", "grid", "cluster") and ``cluster`` (the
+    cluster route's CTAs, 0: the kernel's default) force a launch shape
+    for tests and timing; a cluster the card refuses raises."""
     import ctypes
 
     if len(job_keys) > 3 or any(k not in JOB_KEY_CODES for k in job_keys):
@@ -561,6 +592,8 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
                                   or tuple(pair_init.shape) != (p, 3)):
         raise ValueError(f"{what}: pair_init must be float32 ({p}, 3)")
     pool = hier_pool_size(n, pool_size)
+    if route not in ROUTES or int(cluster) < 0:
+        raise ValueError(f"{what}: route {route!r} / cluster {cluster}")
     if in_place:
         if mode != MODE_ACT:
             raise ValueError(f"{what}: only the active-set solve runs in "
@@ -583,7 +616,8 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
                 narrow=narrow, narrow_gate=narrow_gate)
     ints_f = _ints(n, t, j, q, p, max_rounds=max_rounds, **opts)
     lib = _build.library("hier_allocate.cu")
-    hints = np.asarray([mode, pool, int(max_waves)], dtype=np.int32)
+    hints = np.asarray([mode, pool, int(max_waves), ROUTES[route],
+                        int(cluster)], dtype=np.int32)
     ints_a = ints_f
     act_out = act_carry = None
     if act is not None:
@@ -597,7 +631,7 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
         ints_f.ctypes.data, ints_a.ctypes.data, hints.ctypes.data,
         ctypes.addressof(ws_bytes)))
     ws = torch.empty(ws_bytes.value, dtype=torch.uint8, device=dev)
-    phase_ns = torch.zeros(len(PHASES) + len(HIER_PHASES),
+    phase_ns = torch.zeros(len(PHASES) + len(HIER_PHASES) + 1,
                            dtype=torch.int64, device=dev)
     ptrs_f = _ptrs(carry, node, cycle, eps, packed, phase_ns, ws)
     ptrs_a = ptrs_f
@@ -610,7 +644,8 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
             phase_ns, ws, counters, pair_init])
     hptrs = np.asarray([pair_init.data_ptr() if pair_init is not None
                         else 0, counters.data_ptr()], dtype=np.uint64)
-    info = np.zeros(3, dtype=np.int32)
+    # CTAs, threads, shared bytes, route, cluster CTAs
+    info = np.zeros(5, dtype=np.int32)
     err = lib.kb_hier_allocate(
         ptrs_f.ctypes.data, ptrs_a.ctypes.data, ints_f.ctypes.data,
         ints_a.ctypes.data, hints.ctypes.data, hptrs.ctypes.data,
@@ -619,7 +654,9 @@ def launch(mode: int, node: dict, cycle: dict, act: Optional[dict],
     _build.count_launch(what + "_inplace" if in_place else what)
     last_launch.clear()
     last_launch.update(grid=int(info[0]), threads=int(info[1]),
-                       smem_bytes=int(info[2]), workspace_bytes=ws.numel(),
+                       smem_bytes=int(info[2]),
+                       route=ROUTE_NAMES[int(info[3])],
+                       cluster=int(info[4]), workspace_bytes=ws.numel(),
                        phase_ns=phase_ns, counters=counters, mode=mode)
     return (packed, carry["idle"], carry["releasing"], carry["n_tasks"],
             carry["nz_req"])

@@ -1386,14 +1386,40 @@ def test_hier_allocate_kernel_matches_plain(case, pool):
     assert counters == _plain_counters(stats)
 
 
+#: the launch shapes every active-set card case runs: the route the
+#: sizes choose, then each route forced (``launch(route=...)``)
+ROUTES = (("auto", 0), ("grid", 0), ("cluster", 0))
+
+
+def _want_route(*t_pads):
+    """The route csrc/hier_allocate.cu takes for these task views."""
+    from kubebatch_tpu_torch.kernels import hier
+
+    view_max, _ = hier.route_limits()
+    return "cluster" if max(t_pads) <= view_max else "grid"
+
+
+def _check_route(route, cluster, *t_pads):
+    from kubebatch_tpu_torch.kernels import hier
+
+    want = _want_route(*t_pads) if route == "auto" else route
+    assert hier.last_launch["route"] == want
+    if want == "cluster":
+        assert hier.last_launch["cluster"] == (cluster
+                                               or hier.route_limits()[1])
+        assert hier.last_launch["grid"] == hier.last_launch["cluster"]
+    else:
+        assert hier.last_launch["cluster"] == 0
+
+
 @pytest.mark.parametrize("grain", [0, 1024, 4096])
 @pytest.mark.parametrize("case", [(REDUCED5_B, None), (BASELINE_SPECS[2],
                                                         None)],
                          ids=["reduced5", "cfg2"])
 def test_activeset_kernels_match_plain(case, grain):
     """The active-set mode and the audit mode of the kernel against
-    their plain versions: packed result, frame and node carry; the audit
-    reports no divergence."""
+    their plain versions on every route: packed result, frame and node
+    carry; the audit reports no divergence."""
     _check_activeset(case, grain, 8)
 
 
@@ -1402,14 +1428,86 @@ def test_activeset_kernels_match_plain(case, grain):
 def test_activeset_kernels_match_plain_on_chain_shapes(spec, pool):
     """The same on the round chain's stress shapes, the grain forced to
     the task bucket: active-set views past the grid chain's threshold
-    (one task: a grain of 8)."""
+    (one task: a grain of 8); the cluster route forced on them too."""
     _need_cuda()
     inputs = _hier_inputs((spec, None))
     grain = max(8, int(inputs.task_valid.shape[0]))
     _check_activeset((spec, None), grain, pool, inputs=inputs)
 
 
-def _check_activeset(case, grain, pool, inputs=None):
+#: the cluster route's edges: (spec, pool width, grain). One task, one
+#: pair, one pool; 40 full gangs of 8 on 16 nodes in two pools, whose
+#: waves include dead ones that quarantine their pool (and the epilogue's
+#: three retries); 40 gangs of 4 in four pools (three retries); the
+#: gangs of 8 at a view of exactly the cluster route's largest (4,096
+#: tasks) and at 4,104, past it
+EDGE_GANGS = ClusterSpec(n_nodes=16, n_groups=40, pods_per_group=8,
+                         n_queues=2, queue_weights=(1, 3),
+                         pod_cpu_millis=1500, pod_mem_bytes=2 * GiB,
+                         jitter=0.3, seed=4)
+EDGE_RETRIES = ClusterSpec(n_nodes=16, n_groups=40, pods_per_group=4,
+                           n_queues=2, queue_weights=(1, 3),
+                           pod_cpu_millis=1500, pod_mem_bytes=2 * GiB,
+                           jitter=0.3, seed=0)
+ROUTE_EDGES = [(ONE_TASK, 8, 8), (EDGE_GANGS, 8, 0), (EDGE_RETRIES, 4, 0),
+               (EDGE_GANGS, 8, 4096), (EDGE_GANGS, 8, 4104)]
+ROUTE_EDGE_IDS = ["t1_one_pool", "dead_waves", "three_retries",
+                  "at_crossover", "past_crossover"]
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("spec,pool,grain", ROUTE_EDGES, ids=ROUTE_EDGE_IDS)
+def test_activeset_route_edges(spec, pool, grain, cluster):
+    """The cluster route's edges at clusters of 8 and 16 CTAs, beside the
+    route the sizes choose and the grid: every launch bitwise equal to
+    the plain version (which shows the edge: one pool, a dead wave, three
+    retries), the route as the sizes say."""
+    from kubebatch_tpu_torch.kernels.activeset import (
+        activeset_allocate_plain, prepare_activeset)
+    from kubebatch_tpu_torch.kernels.telemetry import F_RETRIES
+
+    _need_cuda()
+    inputs = _hier_inputs((spec, None))
+    args, statics, _ = prepare_activeset(inputs, grain=grain,
+                                         pool_size=pool)
+    stats = {}
+    want = activeset_allocate_plain(**_on_cpu(args), **statics, stats=stats)
+    t = args["task_valid"].shape[0]
+    frame = want[0][3 * t + 1:]
+    if spec is ONE_TASK:
+        assert int(args["task_valid"].sum()) == 1
+        assert args["idle"].shape[0] == pool
+    elif spec is EDGE_GANGS:
+        assert stats.get("dead_waves", 0) > 0
+        assert t == (grain or 1024)
+    else:
+        assert int(frame[F_RETRIES]) == 3
+    _check_activeset(None, grain, pool, inputs=inputs, audit=False,
+                     routes=(("auto", 0), ("grid", 0), ("cluster", cluster)),
+                     want=(want, stats))
+
+
+def test_activeset_refused_cluster_raises():
+    """A cluster the card cannot place (32 CTAs, past the largest
+    cluster) is refused: the launch raises, counts nothing and takes no
+    other route."""
+    from kubebatch_tpu_torch.kernels.activeset import (activeset_packed,
+                                                       prepare_activeset)
+
+    _need_cuda()
+    args, statics, _ = prepare_activeset(_hier_inputs((EDGE_RETRIES, None)),
+                                         pool_size=4)
+    n0 = _build.launch_count("activeset_allocate")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        activeset_packed(**args, **statics, route="cluster", cluster=32)
+    torch.cuda.synchronize()
+    assert _build.launch_count("activeset_allocate") == n0
+
+
+def _check_activeset(case, grain, pool, inputs=None, audit=True,
+                     routes=ROUTES, want=None):
+    """The active-set launch (and the audit's) on each (route, cluster)
+    against one plain run: results bitwise, work counters, the route."""
     from kubebatch_tpu_torch.kernels.activeset import (
         activeset_allocate_plain, activeset_audit_packed,
         activeset_audit_plain, activeset_packed, prepare_activeset,
@@ -1420,25 +1518,40 @@ def _check_activeset(case, grain, pool, inputs=None):
     inputs = inputs if inputs is not None else _hier_inputs(case)
     args, statics, g = prepare_activeset(inputs, grain=grain,
                                          pool_size=pool)
-    n0 = _build.launch_count("activeset_allocate")
-    got = activeset_packed(**args, **statics)
-    torch.cuda.synchronize()
-    counters, stats = _scale_counters(), {}
-    want = activeset_allocate_plain(**_on_cpu(args), **statics, stats=stats)
-    _assert_bitwise(want, [x.cpu() for x in got], "activeset_allocate")
-    assert counters == _plain_counters(stats)
+    if want is None:
+        stats = {}
+        want = (activeset_allocate_plain(**_on_cpu(args), **statics,
+                                         stats=stats), stats)
+    t = args["task_valid"].shape[0]
+    for route, cluster in routes:
+        n0 = _build.launch_count("activeset_allocate")
+        got = activeset_packed(**args, **statics, route=route,
+                               cluster=cluster)
+        torch.cuda.synchronize()
+        assert _build.launch_count("activeset_allocate") == n0 + 1
+        _check_route(route, cluster, t)
+        _assert_bitwise(want[0], [x.cpu() for x in got],
+                        f"activeset_allocate ({route}, {cluster})")
+        assert _scale_counters() == _plain_counters(want[1])
+    if not audit:
+        return
     node, act, full, statics, _ = prepare_activeset_audit(
         inputs, grain=grain, pool_size=pool)
-    got = activeset_audit_packed(node, act, full, **statics)
-    torch.cuda.synchronize()
-    assert _build.launch_count("activeset_allocate") == n0 + 2
-    counters, stats = _scale_counters(), {}
+    stats = {}
     want = activeset_audit_plain(_on_cpu(node), _on_cpu(act), _on_cpu(full),
                                  **statics, stats=stats)
-    _assert_bitwise(want, [x.cpu() for x in got], "activeset audit")
-    assert counters == _plain_counters(stats)
     t = full["task_valid"].shape[0]
-    assert int(got[0][3 * t + 1 + F_ACT_DEMOTED]) == 0
+    for route, cluster in routes:
+        n0 = _build.launch_count("activeset_allocate")
+        got = activeset_audit_packed(node, act, full, **statics,
+                                     route=route, cluster=cluster)
+        torch.cuda.synchronize()
+        assert _build.launch_count("activeset_allocate") == n0 + 1
+        _check_route(route, cluster, t, act["task_valid"].shape[0])
+        _assert_bitwise(want, [x.cpu() for x in got],
+                        f"activeset audit ({route}, {cluster})")
+        assert _scale_counters() == _plain_counters(stats)
+        assert int(got[0][3 * t + 1 + F_ACT_DEMOTED]) == 0
 
 
 def test_two_level_cycles_on_the_card_bind_what_the_cpu_binds(monkeypatch):
@@ -1511,16 +1624,21 @@ def test_activeset_inplace_launch_matches_cloning_and_plain(grain):
     args, statics, _ = prepare_activeset(_hier_inputs((REDUCED5_B, None)),
                                          grain=grain, pool_size=8)
     want = activeset_allocate_plain(**_on_cpu(args), **statics)
-    cloning = activeset_packed(**_clone_carry(args), **statics)
-    mine = _clone_carry(args)
-    n0 = _build.launch_count("activeset_allocate_inplace")
-    got = activeset_packed_inplace(**mine, **statics)
-    torch.cuda.synchronize()
-    assert _build.launch_count("activeset_allocate_inplace") == n0 + 1
-    assert all(g is mine[k] for g, k in zip(got[1:], NODE_ARGS[:4]))
-    _assert_bitwise(want, [x.cpu() for x in got], "in place vs plain")
-    _assert_bitwise([x.cpu() for x in cloning], [x.cpu() for x in got],
-                    "in place vs cloning")
+    t = args["task_valid"].shape[0]
+    for route, cluster in ROUTES:
+        cloning = activeset_packed(**_clone_carry(args), **statics,
+                                   route=route)
+        mine = _clone_carry(args)
+        n0 = _build.launch_count("activeset_allocate_inplace")
+        got = activeset_packed_inplace(**mine, **statics, route=route)
+        torch.cuda.synchronize()
+        assert _build.launch_count("activeset_allocate_inplace") == n0 + 1
+        _check_route(route, cluster, t)
+        assert all(g is mine[k] for g, k in zip(got[1:], NODE_ARGS[:4]))
+        _assert_bitwise(want, [x.cpu() for x in got],
+                        f"in place vs plain ({route})")
+        _assert_bitwise([x.cpu() for x in cloning], [x.cpu() for x in got],
+                        f"in place vs cloning ({route})")
     aliased = _clone_carry(args)
     aliased["backfilled"] = aliased["idle"]
     with pytest.raises(ValueError, match="overlaps"):
@@ -1551,18 +1669,30 @@ def test_deferred_copy_is_counted_once():
         copy.wait()
 
 
-def test_pipelined_scheduler_on_the_card_equals_sequential():
-    """Scheduler(pipeline=True) on a CUDA cache (the active set, audit
-    off) binds what its sequential twin binds, cycle for cycle after a
-    drain; every dispatch is one in-place launch consumed by one
-    deferred readback, with no blocking readback on the pipelined
-    cycles."""
+@pytest.mark.parametrize("audit_every", [0, 2], ids=["audit_off",
+                                                    "audit_every_2nd"])
+def test_pipelined_scheduler_on_the_card_equals_sequential(audit_every):
+    """Scheduler(pipeline=True) on a CUDA cache (the active set, its
+    audit off or on every 2nd cycle) binds what its sequential twin
+    binds, cycle for cycle after a drain, and what the same loops bind
+    on a CPU cache; every dispatch is one launch (in place, or the
+    cloning audit launch) consumed by one deferred readback, with no
+    blocking readback on the pipelined cycles; the audits find no
+    divergence."""
     _need_cuda()
-    out = pipelined_run("cuda")
+    out = pipelined_run("cuda", audit_every)
     assert out[True][0] == out[False][0] and out[True][0]
-    cycles, deferred, blocking, inplace = out[True][1]
-    assert cycles == deferred == inplace == 4 and blocking == 0
+    cycles, deferred, blocking, inplace, audits, diff = out[True][1]
+    assert cycles == deferred == 4 and blocking == 0
+    assert inplace + audits == 4 and diff == 0
+    assert audits == (2 if audit_every else 0)
     assert out[False][1][:2] == [0, 0]
+    # a CPU cache (the plain versions, no launch counted) decides alike
+    cpu = pipelined_run("cpu", audit_every)
+    for piped in (True, False):
+        assert cpu[piped][0] == out[piped][0]
+        assert cpu[piped][1][:3] + cpu[piped][1][4:] \
+            == out[piped][1][:3] + out[piped][1][4:]
 
 
 #: roomy: every cold pod binds, so each churn tick recycles gangs bound
@@ -1572,11 +1702,13 @@ ROOMY = ClusterSpec(n_nodes=64, n_groups=48, pods_per_group=4, n_queues=2,
                     pod_mem_bytes=GiB, jitter=0.2, seed=3)
 
 
-def pipelined_run(device):
+def pipelined_run(device, audit_every=0):
     """ROOMY through Scheduler(pipeline=True) and its sequential twin on
-    ``device``: cold, one cycle with no churn, three churn-32 cycles
-    (kubelet ticks between), then a drain. Per loop: (sorted binds, moves of pipeline_cycles_total,
-    deferred_readbacks, blocking_readbacks and in-place launches)."""
+    ``device`` (the active set's audit every ``audit_every`` cycles, 0:
+    off): cold, one cycle with no churn, three churn-32 cycles (kubelet
+    ticks between), then a drain. Per loop: (sorted binds, moves of
+    pipeline_cycles_total, deferred_readbacks, blocking_readbacks,
+    in-place launches, audits and divergences)."""
     from kubebatch_tpu_torch.kernels import activeset
     from kubebatch_tpu_torch.runtime import Scheduler, pipeline
 
@@ -1592,10 +1724,16 @@ def pipelined_run(device):
             sim.populate(cache)
             sched = Scheduler(cache, schedule_period=3600.0,
                               pipeline=piped, solver="activeset",
-                              solve_audit_every=0)
-            c0 = (metrics.pipeline_cycles_total(),
-                  metrics.deferred_readbacks(), metrics.blocking_readbacks(),
-                  _build.launch_count("activeset_allocate_inplace"))
+                              solve_audit_every=audit_every)
+
+            def counts():
+                return (metrics.pipeline_cycles_total(),
+                        metrics.deferred_readbacks(),
+                        metrics.blocking_readbacks(),
+                        _build.launch_count("activeset_allocate_inplace"),
+                        metrics.activeset_audits_total(),
+                        metrics.activeset_divergences_total())
+            c0 = counts()
             for k in range(5):
                 if k:
                     for pod in sim.pods:
@@ -1610,11 +1748,8 @@ def pipelined_run(device):
                 assert sched.run_cycle()
             if piped:
                 sched._pipeline.drain()
-            c1 = (metrics.pipeline_cycles_total(),
-                  metrics.deferred_readbacks(), metrics.blocking_readbacks(),
-                  _build.launch_count("activeset_allocate_inplace"))
             out[piped] = (sorted(binder.calls),
-                          [b - a for a, b in zip(c0, c1)])
+                          [b - a for a, b in zip(c0, counts())])
             cache.stop()
     finally:
         activeset.reset()

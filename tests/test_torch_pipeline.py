@@ -4,15 +4,19 @@ Both packages run the reference's pipeline harness (tests/test_pipeline.py:
 24 nodes of 8 cpus, 12 gangs x 2 pods in two queues, a quiet churn stream
 of one fresh 2-pod gang a cycle, bound pods flipped Running after each
 cycle) through their ``Scheduler(pipeline=True)`` with the active-set
-engine and its audit off: the reference's KUBEBATCH_SOLVER set to
-"activeset", the port's ``solver="activeset", solve_audit_every=0``.
+engine, its audit off unless a case sets ``solve_audit_every`` on both
+sides: the reference's KUBEBATCH_SOLVER set to "activeset", the port's
+``solver="activeset"``.
 Tolerance 0 throughout:
 
-- a quiet stream: binds in commit order, statuses, and the moves of
-  ``pipeline_cycles_total``, ``deferred_readbacks``,
-  ``blocking_readbacks`` and the ledger's ``deferred_closed_total`` equal
-  the reference's; the consume span carries its launching cycle's epoch;
-  the port's pipelined binds equal its sequential loop's;
+- a quiet stream, with the audit off and on every 2nd cycle (the
+  fourth audit's divergence word forced on both sides): binds in commit
+  order, statuses, and the moves of ``pipeline_cycles_total``,
+  ``deferred_readbacks``, ``blocking_readbacks``, the ledger's
+  ``deferred_closed_total``, ``activeset_audits_total``, the
+  divergences and the active set's demotions equal the reference's;
+  the consume span carries its launching cycle's epoch; the port's
+  pipelined binds equal its sequential loop's;
 - conflicts mid-flight (a placed pod deleted, every node's capacity
   changed): the same outcomes and counters, nothing bound twice, the
   deleted pod never bound, and after ``restore_carry`` the port's carry
@@ -46,6 +50,7 @@ from kubebatch_tpu.cache.eventfold import EventFold as JFold  # noqa: E402
 from kubebatch_tpu.conf import shipped_tiers as j_tiers  # noqa: E402
 from kubebatch_tpu.framework import OpenSession as JOpen  # noqa: E402
 from kubebatch_tpu.kernels import activeset as j_act  # noqa: E402
+from kubebatch_tpu.kernels import telemetry as j_telem  # noqa: E402
 from kubebatch_tpu.runtime import pipeline as j_pipe  # noqa: E402
 from kubebatch_tpu.runtime.scheduler import Scheduler as JScheduler  # noqa: E402
 from kubebatch_tpu_torch import faults as t_faults  # noqa: E402
@@ -58,6 +63,7 @@ from kubebatch_tpu_torch.cache.eventfold import EventFold as TFold  # noqa: E402
 from kubebatch_tpu_torch.conf import shipped_tiers as t_tiers  # noqa: E402
 from kubebatch_tpu_torch.framework import OpenSession as TOpen  # noqa: E402
 from kubebatch_tpu_torch.kernels import activeset as t_act  # noqa: E402
+from kubebatch_tpu_torch.kernels.telemetry import F_ACT_DEMOTED  # noqa: E402
 from kubebatch_tpu_torch.runtime import Scheduler as TScheduler  # noqa: E402
 from kubebatch_tpu_torch.runtime import pipeline as t_pipe  # noqa: E402
 
@@ -124,7 +130,7 @@ class Side:
     that package's objects, cache, Scheduler and counters."""
 
     def __init__(self, torch_side: bool, pipeline: bool = True,
-                 seed: int = 5):
+                 seed: int = 5, audit_every: int = 0):
         self.torch_side = torch_side
         m = self.objects = t_objects if torch_side else j_objects
         self.metrics = t_metrics if torch_side else j_metrics
@@ -152,10 +158,11 @@ class Side:
         if torch_side:
             self.sched = TScheduler(self.cache, schedule_period=3600.0,
                                     pipeline=pipeline, solver="activeset",
-                                    solve_audit_every=0)
+                                    solve_audit_every=audit_every)
         else:
             self.sched = JScheduler(self.cache, schedule_period=3600.0,
-                                    pipeline=pipeline)
+                                    pipeline=pipeline,
+                                    solve_audit_every=audit_every)
         self.next_gid = 100
 
     def rl(self, cpu, mem, pods=0):
@@ -219,7 +226,10 @@ class Side:
                 "deferred_readbacks": m.deferred_readbacks(),
                 "blocking_readbacks": m.blocking_readbacks(),
                 "deferred_closed": self.obs.ledger.stats()[
-                    "deferred_closed_total"]}
+                    "deferred_closed_total"],
+                "audits": m.activeset_audits_total(),
+                "divergences": m.activeset_divergences_total(),
+                "act_demotions": m.activeset_demotions_total()}
 
 
 def _delta(after, before):
@@ -233,10 +243,38 @@ def _delta(after, before):
     return out
 
 
-def _both(fn):
+def _both(fn, **kw):
     """fn(side) on the reference's side, then the port's; the pair of
     results."""
-    return [fn(Side(torch_side)) for torch_side in (False, True)]
+    return [fn(Side(torch_side, **kw)) for torch_side in (False, True)]
+
+
+def _force_divergence(monkeypatch, which: int):
+    """Both packages' audit launches with the ``which``-th one's
+    divergence word (the frame's act_demoted) set to 1 after the solve."""
+    seen = {"j": 0, "t": 0}
+    j_inner = j_act._activeset_audit_packed
+    t_inner = t_act.activeset_audit_packed
+
+    def j_audit(*args, **kw):
+        final, packed = j_inner(*args, **kw)
+        seen["j"] += 1
+        if seen["j"] == which:
+            t = (packed.shape[0] - 1 - j_telem.TELEM_WIDTH) // 3
+            packed = packed.at[3 * t + 1 + j_telem.F_ACT_DEMOTED].set(1)
+        return final, packed
+
+    def t_audit(node, act, full, **statics):
+        out = t_inner(node, act, full, **statics)
+        seen["t"] += 1
+        if seen["t"] == which:
+            t = full["task_valid"].shape[0]
+            out[0][3 * t + 1 + F_ACT_DEMOTED] = 1
+        return out
+
+    monkeypatch.setattr(j_act, "_activeset_audit_packed", j_audit)
+    monkeypatch.setattr(t_act, "activeset_audit_packed", t_audit)
+    return seen
 
 
 def _consume_epochs(obs, roots):
@@ -253,11 +291,19 @@ def _consume_epochs(obs, roots):
     return out
 
 
-def test_quiet_stream_matches_reference_and_sequential():
+@pytest.mark.parametrize("audit", ["off", "every_2nd"])
+def test_quiet_stream_matches_reference_and_sequential(audit, monkeypatch):
     """Twelve quiet cycles and a drain: binds in commit order, statuses
-    and the pipeline / readback / ledger counters equal the reference's;
-    every consume after the first cycle commits, tagged with the epoch
-    of the cycle before; the port's binds equal its sequential loop's."""
+    and the pipeline / readback / ledger / audit counters equal the
+    reference's; every consume commits, tagged with the epoch of the
+    cycle before; the port's binds equal its sequential loop's. With
+    the audit on every 2nd cycle its launches are in flight as the
+    steady ones are, and the fourth audit's divergence word is forced on
+    both sides: its consume demotes the active set, and the later
+    cycles run sequentially (one blocking readback each)."""
+    every = 0 if audit == "off" else 2
+    seen = _force_divergence(monkeypatch, 4) if every else None
+
     def run(side):
         roots = []
         side.obs.CYCLE_HOOKS.append(roots.append)
@@ -275,17 +321,33 @@ def test_quiet_stream_matches_reference_and_sequential():
             for launch, root in consumes)
         assert not side.pipe.demoted()
         return (side.seams.bind_events, side.statuses(),
-                _delta(side.counters(), c0), len(consumes))
+                _delta(side.counters(), c0), len(consumes),
+                (t_act if side.torch_side else j_act).demoted())
 
-    ref, port = _both(run)
+    ref, port = _both(run, audit_every=every)
     assert port == ref
-    binds, _, counters, consumes = port
+    binds, _, counters, consumes, demoted = port
     assert len(binds) == len({p for p, _ in binds}) == 24 + 24
-    assert counters["pipeline_cycles"] == consumes == 12
     assert counters["conflicts"] == {} and counters["demotions"] == 0
-    assert counters["deferred_readbacks"] == 12
-    assert counters["blocking_readbacks"] == 0
-    assert counters["deferred_closed"] == len(binds)
+    if every:
+        # audits on cycles 0, 2, 4 and 6; the fourth's consume (cycle 7)
+        # demotes, and cycles 7-11 run sequentially
+        assert seen == {"j": 4, "t": 4} and demoted
+        assert counters["audits"] == 4 and counters["divergences"] == 1
+        assert counters["act_demotions"] == 1
+        assert counters["pipeline_cycles"] == consumes == 7
+        assert counters["deferred_readbacks"] == 7
+        assert counters["blocking_readbacks"] == 5
+        assert 0 < counters["deferred_closed"] < len(binds)
+    else:
+        assert not demoted and counters["audits"] == 0
+        assert counters["pipeline_cycles"] == consumes == 12
+        assert counters["deferred_readbacks"] == 12
+        assert counters["blocking_readbacks"] == 0
+        assert counters["deferred_closed"] == len(binds)
+    # the sequential loop, audit off: an audit commits the full-width
+    # solve, which decides as the active set does
+    t_act.reset()
     seq = Side(True, pipeline=False)
     seq.run_quiet(12)
     assert seq.seams.bind_events == binds
