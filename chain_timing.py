@@ -1,12 +1,13 @@
 """Times the round kernels' chain on one NVIDIA GPU against another
 build of the same kernels, on the same inputs.
 
-    python3 chain_timing.py --before DIR [--set small|round|small,round]
+    python3 chain_timing.py --before DIR [--set small,round,sharded]
         [--only-before] [--out build/chain_timing/report.json]
 
 DIR is an unpacked checkout of an earlier commit; its
 kubebatch_tpu_torch/kernels/csrc/batched_allocate.cu and hier_allocate.cu
-are built into build/chain_timing/before/, beside this checkout's sources
+(the sets small and round) and sharded_round.cu (the set sharded) are
+built into build/chain_timing/before/, beside this checkout's sources
 built as the port builds them. The launch inputs are recorded once from
 the port's own allocate cycles on the card, then each launch runs with
 each build in turns; every build's results (packed result, frame, node
@@ -32,14 +33,32 @@ The sets:
   over 100,000 nodes). Each runs before, after, after, before, then this
   build with the route forced to the grid (``launch(route="grid")``),
   to the cluster and to a cluster of 8 CTAs, then the variants of VARIANTS
-  (hier_allocate.cu rebuilt with other settings).
+  (hier_allocate.cu rebuilt with other settings);
+- ``sharded`` (csrc/sharded_round.cu, rows 10, 10a and 8m): the
+  sharded inputs (batched_sharded.prepare_sharded) of the port's cold
+  cycles on the card, cfg5 at k = 2 and 4 ranks, 5p and 3p at k = 2
+  (the affinity branch), cfg6 at k = 2 through the two-level steps;
+  each solved by the k ranks in lock step in this process
+  (batched_sharded.solve_lockstep / solve_hier_lockstep on "cuda": one
+  stream, each launch alone on the card, the gathers device-side
+  stacks), in the order before, after, after, before, after one warm-up
+  solve of each build (its steps reported as ``first_solve``: the
+  first launches of a freshly loaded library). The packed result, the
+  node carry and the affinity [P,D] carry and port claims must equal
+  the earlier build's word for word. Per rank and step: CUDA-event ms
+  (each timed run), profiler device ms (one more run, each launch
+  matched to its step in launch order), the in-kernel phase timers and
+  the grid barriers passed (phase_ns after each launch; an earlier
+  build that does not count them reads 0). cfg5's bound at each k
+  (chip_smoke.sharded_bounds, from the one-card plain engine's counts).
 
 ``--only-before`` times the earlier build and this build's grid route
-alone (the parent's design, its phases and barriers), no cluster launch.
-The barrier probes of csrc/chain_probe.cu run last (the grid barrier,
-the cluster barrier at 8 and 16 CTAs). Prints one JSON line and writes
-it to --out. Needs torch with CUDA and nvcc; imports nothing of jax or
-the reference package.
+alone (the parent's design, its phases and barriers), no cluster launch;
+in the sharded set, the earlier build alone. The barrier probes of
+csrc/chain_probe.cu run last (the grid barrier, the cluster barrier at
+8 and 16 CTAs); the report also gives each build's library sizes.
+Prints one JSON line and writes it to --out. Needs torch with CUDA and
+nvcc; imports nothing of jax or the reference package.
 """
 from __future__ import annotations
 
@@ -55,6 +74,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("batched_allocate.cu", "hier_allocate.cu")
+SHARDED_SOURCES = ("sharded_round.cu",)
+
+#: the sharded set's solves: (label, BASELINE_SPECS key, ranks, through
+#: the two-level steps)
+SHARDED = (("cfg5 k=2", 5, 2, False), ("cfg5 k=4", 5, 4, False),
+           ("5p k=2", "5p", 2, False), ("3p k=2", "3p", 2, False),
+           ("cfg6 k=2", 6, 2, True))
 
 #: builds of csrc/hier_allocate.cu beside this one, each from a copy with
 #: one of the cluster route's settings (a ``constexpr`` of that name) set
@@ -371,6 +397,191 @@ def run_launch(label, kind, kw, configs, use, cs) -> dict:
     return row
 
 
+def record_sharded(dev) -> list:
+    """(label, solve) of the sharded set: each cold cycle's sharded inputs
+    (numpy node blocks, replicated arrays, statics, the shard bucket)
+    with its ranks, whether the two-level steps solve it and, for cfg5,
+    the one-card plain engine's counts (rank 0's bound)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from kubebatch_tpu_torch.actions.cycle_inputs import build_cycle_inputs
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import shipped_tiers
+    from kubebatch_tpu_torch.framework import OpenSession
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+    from kubebatch_tpu_torch.kernels import hier as hier_mod
+    from kubebatch_tpu_torch.kernels.batched import (CYCLE_ARGS, NODE_ARGS,
+                                                     arg_dtype,
+                                                     batched_allocate_plain)
+    from kubebatch_tpu_torch.sim import BASELINE_SPECS, build_cluster
+
+    calls, cycles = [], {}
+    for label, spec, k, two_level in SHARDED:
+        if spec not in cycles:
+            cache = SchedulerCache(device=dev, async_writeback=False,
+                                   incremental_snapshot=False)
+            build_cluster(BASELINE_SPECS[spec]).populate(cache)
+            cycles[spec] = (cache, build_cycle_inputs(
+                OpenSession(cache, shipped_tiers()),
+                allow_affinity=spec in ("5p", "3p")))
+        inputs = cycles[spec][1]
+        node, rep, statics, n_sh = bs.prepare_sharded(k, inputs.device,
+                                                      inputs)
+        if two_level:
+            statics.update(hier_mod.hier_sharded_statics(inputs, n_sh))
+        x = {"node": node, "rep": rep, "statics": statics, "n_sh": n_sh,
+             "k": k, "two_level": two_level}
+        if spec == 5:
+            t = {n: torch.from_numpy(np.ascontiguousarray(v)).to(arg_dtype(n))
+                 for n, v in {**node, **rep}.items()}
+            stats = {}
+            batched_allocate_plain(**{n: t[n] for n in NODE_ARGS + CYCLE_ARGS},
+                                   compact_bucket=0, stats=stats, **statics)
+            x["bound"] = lambda packed, carry, x=x, stats=stats: \
+                cs.sharded_bounds(x["node"], x["rep"], packed, carry, stats,
+                                  bool(x["statics"]["pipe_enabled"]), x["k"])
+        calls.append((label, x))
+    for cache, _ in cycles.values():
+        cache.stop()
+    return calls
+
+
+class StepLog:
+    """While installed, every CudaRank launch is logged: the rank (its
+    node block), the step and a copy of the rank's phase timers after it
+    (on the stream: no synchronization)."""
+
+    def __enter__(self):
+        from kubebatch_tpu_torch.kernels import batched_sharded as bs
+
+        self.cls, self.inner, self.rows = bs.CudaRank, bs.CudaRank._launch, []
+
+        def launch(rank, seg, *args, **kw):
+            out = self.inner(rank, seg, *args, **kw)
+            self.rows.append((rank.lo // rank.nb, seg, rank.phase_ns.clone()))
+            return out
+
+        self.cls._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._launch = self.inner
+
+
+def sharded_solve(x):
+    """One lock-step solve of the sharded set's input on the card: its
+    packed result, node carry and affinity carry (a list of tensors) and
+    the ranks."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import batched_sharded as bs
+
+    fn = bs.solve_hier_lockstep if x["two_level"] else bs.solve_lockstep
+    bs.last_solve.clear()
+    packed, carry, ranks = fn(x["node"], x["rep"], x["statics"], x["n_sh"],
+                              x["k"], "cuda")
+    torch.cuda.synchronize()
+    words = [packed.cpu(), carry.cpu()]
+    aff = bs.last_solve.get("aff")
+    for name in sorted(aff or {}):
+        if aff[name] is not None:
+            words.append(torch.from_numpy(aff[name].copy()))
+    return words, ranks
+
+
+def sharded_detail(x, keys) -> dict:
+    """One more solve with the current build under the profiler and the
+    step log: per rank and step the launches, the profiler's device ms
+    (each kernel matched to its launch in launch order; None when the
+    trace's kernels and the launches do not pair up), the phase timers'
+    ms and the barriers passed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with StepLog() as steps, profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as pr:
+        sharded_solve(x)
+    kern = sorted((e for e in pr.events()
+                   if "sharded_round_kernel" in e.name
+                   and e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    paired = len(kern) == len(steps.rows)
+    k = x["k"]
+    out = [{"launches": {}, "profiler_ms": {} if paired else None,
+            "phase_ms": {}, "barriers": {}} for _ in range(k)]
+    prev = [torch.zeros_like(steps.rows[0][2]) for _ in range(k)]
+    for i, (r, seg, ph) in enumerate(steps.rows):
+        o = out[r]
+        o["launches"][seg] = o["launches"].get(seg, 0) + 1
+        if paired:
+            o["profiler_ms"][seg] = (o["profiler_ms"].get(seg, 0.0)
+                                     + kern[i].time_range.elapsed_us() / 1e3)
+        d = (ph - prev[r]).cpu().tolist()
+        prev[r] = ph
+        tm = o["phase_ms"].setdefault(seg, {})
+        for name, v in zip(keys, d):
+            if v:
+                tm[name] = tm.get(name, 0.0) + v / 1e6
+        o["barriers"][seg] = o["barriers"].get(seg, 0) + d[len(keys)]
+    return {"ranks": out, "profiler_paired": paired,
+            "profiler_kernels": len(kern), "launches": len(steps.rows)}
+
+
+def time_sharded(label, x, configs, use) -> dict:
+    """Each config (name, build) in turn: the lock-step solve, its words,
+    each rank's CUDA-event ms by step; then one detailed solve a build
+    (sharded_detail)."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import batched as batched_mod
+    from kubebatch_tpu_torch.kernels import hier as hier_mod
+
+    keys = batched_mod.PHASES + hier_mod.HIER_PHASES[:2]
+    res, runs, info = {}, {}, {}
+    for name, build in configs:
+        use(build)
+        words, ranks = sharded_solve(x)
+        runs.setdefault(name, []).append([r.kernel_ms() for r in ranks])
+        res.setdefault(name, words)
+    for name, build in dict.fromkeys(configs):
+        use(build)
+        info[name] = sharded_detail(x, keys)
+    ref = res[configs[0][0]]
+    equal = {n: len(w) == len(ref) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        for a, b in zip(w, ref)) for n, w in res.items()}
+    rank0 = {n: min(sum(r[0].values()) for r in v) for n, v in runs.items()}
+    row = {"label": label, "k": x["k"], "two_level": x["two_level"],
+           "n_sh": x["n_sh"], "t_pad": int(x["rep"]["task_valid"].shape[0]),
+           "rank0_events_ms": rank0, "events_ms": runs, "detail": info,
+           "equal_to_before": equal}
+    if "bound" in x:
+        row["bound"] = x["bound"](*res[configs[0][0]][:2])
+    log(f"{label} (k={x['k']}): rank 0's events ms (best run) "
+        + json.dumps({n: round(v, 3) for n, v in rank0.items()})
+        + f"; equal to before {json.dumps(equal)}"
+        + (f"; bound {row['bound']['bound_ms']:.6f} ms "
+           f"({row['bound']['bound_by']})" if "bound" in row else ""))
+    for name, d in info.items():
+        for r, o in enumerate(d["ranks"]):
+            prof = o["profiler_ms"]
+            log(f"  {name} rank {r}: launches {json.dumps(o['launches'])}; "
+                f"profiler ms "
+                + (json.dumps({s: round(v, 3) for s, v in prof.items()})
+                   if prof is not None else
+                   f"unpaired ({d['profiler_kernels']} kernels, "
+                   f"{d['launches']} launches)")
+                + "; barriers " + json.dumps(o["barriers"]))
+            log(f"    phases " + json.dumps(
+                {s: {k: round(v, 3) for k, v in ph.items()}
+                 for s, ph in o["phase_ms"].items()}))
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -396,9 +607,11 @@ def main() -> int:
     report = {"card": cs.card_line(), "kind": torch.cuda.get_device_name(0),
               "sets": sets, "only_before": args.only_before}
     t0 = time.perf_counter()
+    sources = ((SOURCES if {"small", "round"} & set(sets) else ())
+               + (SHARDED_SOURCES if "sharded" in sets else ()))
     pending = {"before": start_builds(os.path.join(
         os.path.abspath(args.before), "kubebatch_tpu_torch", "kernels",
-        "csrc"), "before")}
+        "csrc"), "before", sources)}
     if "round" in sets and not args.only_before:
         pending["grid"] = start_builds(grid_sources(str(_build.CSRC)), "grid")
     if "small" in sets and not args.only_before:
@@ -407,17 +620,24 @@ def main() -> int:
                 patched_sources(str(_build.CSRC), name, "hier_allocate.cu",
                                 values), name, ("hier_allocate.cu",))
     _build.build_all()
-    for src in SOURCES:
+    for src in sources:
         _build.library(src)
-    libs = {"after": {s: _build._libs[s] for s in SOURCES}}
+    libs = {"after": {s: _build._libs[s] for s in sources}}
     for name, procs in pending.items():
         libs[name] = {**libs["after"],
                       **finish_builds(procs, earlier=name == "before")}
     report["build_s"] = time.perf_counter() - t0
-    log(f"builds {report['build_s']:.1f} s; {report['card']}")
+    report["library_bytes"] = {
+        "after": {s: os.path.getsize(_build._target(_build.CSRC / s))
+                  for s in sources},
+        **{name: {src: os.path.getsize(target)
+                  for src, target, _ in procs}
+           for name, procs in pending.items()}}
+    log(f"builds {report['build_s']:.1f} s; {report['card']}; library "
+        f"bytes {json.dumps(report['library_bytes'])}")
 
     def use(which):
-        for s in SOURCES:
+        for s in sources:
             _build._libs[s] = libs[which][s]
 
     use("after")
@@ -427,9 +647,26 @@ def main() -> int:
         calls += record_small(dev)
     if "round" in sets:
         calls += record_round(dev)
+    sharded = record_sharded(dev) if "sharded" in sets else []
     log(f"inputs recorded in {time.perf_counter() - t0:.1f} s: "
-        + ", ".join(c[0] for c in calls))
+        + ", ".join(c[0] for c in calls + sharded))
     rows = []
+    if sharded:
+        builds = ("before",) if args.only_before else ("before", "after")
+        report["sharded_first_solve"] = {}
+        for b in builds:
+            use(b)
+            _, ranks = sharded_solve(sharded[0][1])
+            report["sharded_first_solve"][b] = [r.kernel_ms() for r in ranks]
+        log("first solve of each build (" + sharded[0][0] + "), rank 0 by "
+            "step: " + json.dumps(
+                {b: {k: round(v, 3) for k, v in r[0].items()}
+                 for b, r in report["sharded_first_solve"].items()}))
+        seq = (("before", "before"),) * 2 if args.only_before else (
+            ("before", "before"), ("after", "after"), ("after", "after"),
+            ("before", "before"))
+        report["sharded"] = [time_sharded(label, x, list(seq), use)
+                             for label, x in sharded]
     for label, kind, kw in calls:
         grid = {"route": "grid"}
         if args.only_before:
@@ -455,6 +692,7 @@ def main() -> int:
         rows.append(run_launch(label, kind, kw, configs, use, cs))
     use("after")
     report["launches"] = rows
+    rows = rows + report.get("sharded", [])
     report["grid_barrier"] = cs.grid_barrier_us()
     report["cluster_barrier"] = [
         p for p in cluster_timing.cluster_probe()["probes"]

@@ -172,7 +172,12 @@ takes a cold cycle and two churn-256 cycles (sharded, fused, fused); at
 k = 4 the explicit-collective scan runs at T 256 x N_pad 8,192
 (csrc/sharded_scan.cu, one launch a step), checked the same way and
 against the plain ranks. Per rank: launches, device ms by step,
-collectives, stages and their host ms.
+collectives, stages and their host ms. Last, cfg5's sharded inputs at
+k = 2 run once more in lock step (``solve_lockstep(..., "cuda",
+check=True)``: the k ranks in this process, each launch alone on the
+card, every launch held against the plain version), then once
+unchecked; rank 0's device ms in the unchecked solve goes beside the
+mesh's (time-sliced) in the kernels line.
 
 Phase (l) is the predicate-rich and two-level mesh, run in phase (k)'s
 groups: at k = 2, (l1) 5p cold (full width: 5,000 nodes, 10,000 pods,
@@ -4803,6 +4808,29 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
     packed_p, carry_p, _ = bs.solve_lockstep(node, rep, statics, n_sh, k0,
                                              "cpu")
     plain_ms = (time.perf_counter() - t0) * 1e3
+    # the same inputs on the card in lock step (k0 ranks in this process,
+    # each launch alone on the card: no time-slicing), every launch held
+    # against the plain version (the ranks raise at the end)
+    packed_l, carry_l, lranks = bs.solve_lockstep(node, rep, statics, n_sh,
+                                                  k0, dev.type, check=True)
+    # then once unchecked: the checked solve's event pairs also hold the
+    # host's latency to each launch while the stream waits on the check
+    packed_u, carry_u, uranks = bs.solve_lockstep(node, rep, statics, n_sh,
+                                                  k0, dev.type)
+    on_card = dev.type == "cuda"
+    lock_steps = uranks[0].kernel_ms() if on_card else {}
+    checked_steps = lranks[0].cuda.kernel_ms() if on_card else {}
+    lockstep = {"ms": sum(lock_steps.values()),
+                "by_step": {s: round(v, 6) for s, v in lock_steps.items()},
+                "checked_ms": sum(checked_steps.values()),
+                "launches": uranks[0].launches if on_card else 0,
+                "compared": [r.compared for r in lranks] if on_card else []}
+    for what, pk, cr in (("checked", packed_l, carry_l),
+                         ("unchecked", packed_u, carry_u)):
+        if not torch.equal(pk.cpu(), packed_p) or not torch.equal(
+                cr.cpu(), carry_p):
+            raise AssertionError(f"(k) the {what} lock-step solve differs "
+                                 "from the plain ranks")
     tens = {name: torch.from_numpy(np.ascontiguousarray(v)).to(arg_dtype(name))
             for name, v in {**node, **rep}.items()}
     stats = {}
@@ -4816,6 +4844,12 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
     sb = sharded_bounds(node, rep, packed_p, carry_p, stats,
                         bool(statics["pipe_enabled"]), k0)
     r0 = runs[k0]["per_rank"][0]
+    log(f"(k) sharded_round cfg5 at k={k0}: rank 0's device ms "
+        f"{r0['kernel_ms']:.3f} on the gloo mesh (time-sliced), "
+        f"{lockstep['ms']:.3f} in lock step (events; by step "
+        + json.dumps(lockstep["by_step"]) + "), "
+        f"{lockstep['checked_ms']:.3f} in the checked lock-step solve "
+        f"({lockstep['compared']} checks; host gaps inside its events)")
     log(f"(k) sharded_round cfg5: rank 0's bound at k={k0} "
         f"{sb['bound_ms']:.6f} ms ({sb['bound_by']}: {sb['bytes']} B, "
         f"{sb['ops']} operations, {sb['rows']} task rows over "
@@ -4832,7 +4866,14 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
          "plain_is": f"the {k0} plain ranks in lock step (the whole solve)",
          "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
          "library_ms": None, "ms_is": f"rank 0's device ms over its "
-         f"launches of the main-path solve at k={k0}",
+         f"launches of the main-path solve at k={k0} (the gloo mesh: the "
+         f"ranks time-slice the card)",
+         "lockstep_ms": lockstep["ms"],
+         "lockstep_is": f"rank 0's device ms (events) over its launches of "
+         f"one solve_lockstep at k={k0} on the same inputs (each launch "
+         f"alone on the card), run after a checked one whose every launch "
+         f"equalled the plain version (checked_ms: its events, which also "
+         f"hold the host's latency to each launch)", "lockstep": lockstep,
          "bound_is": f"rank 0's work in that solve: its node block's real "
          f"nodes ({sb['block_real_nodes']} of {sb['block']})",
          "twin_batched_kernel_ms": twin_kernel_ms,

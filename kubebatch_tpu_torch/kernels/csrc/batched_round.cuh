@@ -215,8 +215,12 @@ struct Work {
 // pair flag words (two 64-bit words each)
 enum { F_BOOT, F_SAT, F_CARRIER, F_PREF, F_N };
 
+// the node-sharded round's gathered waterfall columns a node
+// (sharded_round.cu; waterfall_chain<true>)
+constexpr int WF_COLS = 5;
+
 enum { S_PROGRESS, S_MAJ, S_CNT, S_ANY_STRANDED, S_STRANDED, S_TCUR,
-       S_TRMAX, S_NSCAL };
+       S_TRMAX, S_STRANDED_ACC, S_NSCAL };
 
 // phases timed between grid barriers (kernels/batched.py PHASES names
 // them in this order): the interval that ends at each barrier is added
@@ -531,31 +535,41 @@ __device__ void block_tiled_cumsum(const float* x, float* y, int n, int ncol,
     }
 }
 
+// One level of block_column_sum's tree: the windows of 32 rows of x[n,
+// ncol] (the pad split evenly before and after), each summed in
+// sequence, into y[(n + 31) / 32, ncol]; threads tid, tid + nthr, ...
+__device__ __forceinline__ void column_windows(const float* x, int n,
+                                               int ncol, float* y, int tid,
+                                               int nthr) {
+    const int m = (n + 31) / 32;
+    const int lo = (m * 32 - n) / 2;
+    for (int q = tid; q < m * ncol; q += nthr) {
+        const int w = q / ncol, c = q % ncol;
+        float acc = 0.0f;
+        for (int j = 0; j < 32; ++j) {
+            const int i = w * 32 + j - lo;
+            const float v = (i >= 0 && i < n) ? x[(size_t)i * ncol + c]
+                                              : 0.0f;
+            acc = j == 0 ? v : acc + v;
+        }
+        y[q] = acc;
+    }
+}
+
 // Column sums of x[n, ncol] in the order of x.sum(axis=0): windows of 32
-// (the pad split evenly before and after) summed sequentially until 32 or
-// fewer rows remain, then those in sequence. Result in out[ncol].
+// (column_windows) summed until 32 or fewer rows remain, then those in
+// sequence. Result in out[ncol]. The tree is the same from any level of
+// it, so a caller may take its first levels elsewhere.
 __device__ void block_column_sum(const float* x, int n, int ncol, float* a,
                                  float* b, float* out) {
     const float* cur = x;
     float* dst = a;
     while (n > 32) {
-        const int m = (n + 31) / 32;
-        const int lo = (m * 32 - n) / 2;
-        for (int q = threadIdx.x; q < m * ncol; q += blockDim.x) {
-            const int w = q / ncol, c = q % ncol;
-            float acc = 0.0f;
-            for (int j = 0; j < 32; ++j) {
-                const int i = w * 32 + j - lo;
-                const float v = (i >= 0 && i < n) ? cur[(size_t)i * ncol + c]
-                                                  : 0.0f;
-                acc = j == 0 ? v : acc + v;
-            }
-            dst[q] = acc;
-        }
+        column_windows(cur, n, ncol, dst, threadIdx.x, blockDim.x);
         __syncthreads();
         cur = dst;
         dst = dst == a ? b : a;
-        n = m;
+        n = (n + 31) / 32;
     }
     for (int c = threadIdx.x; c < ncol; c += blockDim.x) {
         float acc = cur[c];
@@ -628,12 +642,14 @@ struct CycleT {
     //
     // The round's ordering steps (window, rank_tasks, accept_phase,
     // commit_node, commit_round, the affinity serialization and commit,
-    // the rollback's segment sums) are written once against a team: every
-    // CTA of the launch (GridTeam: its barrier is the launch's, the grid
-    // barrier or in a cluster launch the cluster barrier, timed into the
-    // caller's phase) or block 0 alone (BlockTeam: the other blocks skip
-    // the step and wait at the caller's next barrier). Every block calls
-    // chain(); a view above GRID_CHAIN_MIN tasks takes the whole launch.
+    // the stranded-job scan and the rollback's segment sums; the
+    // node-sharded round's too, sharded_round.cu) are written once
+    // against a team: every CTA of the launch (GridTeam: its barrier is
+    // the launch's, the grid barrier or in a cluster launch the cluster
+    // barrier, timed into the caller's phase) or block 0 alone
+    // (BlockTeam: the other blocks skip the step and wait at the caller's
+    // next barrier). Every block calls chain(); a view above
+    // GRID_CHAIN_MIN tasks takes the whole launch.
     // Which thread adds two floats never matters, only the operands and
     // their order, so both teams give the same bits.
 
@@ -1506,22 +1522,6 @@ struct CycleT {
             p.pclaim_out[i] = (w.pclaim[i / p.PT] >> (i % p.PT)) & 1ull;
     }
 
-    // ---- per-segment sums in task-index order (block 0) ---------------
-
-    // block 0 (the node-sharded round's commit_block): sort (segment << 32
-    // | k) for the tasks ``seg(k) >= 0`` of the view; returns the key
-    // array (sorted, NONE past the included ones).
-    template <class Seg>
-    __device__ uint64_t* segment_keys(Seg seg) {
-        const int tc = tcur(), m = p.MT;
-        uint64_t* keys = keybuf(m);
-        sort_keys(keys, tc, m, [&](int k) -> uint64_t {
-            const int s = seg(k);
-            return s < 0 ? NONE : ((uint64_t)s << 32) | (uint32_t)k;
-        });
-        return keys;
-    }
-
     // ---- round phases ---------------------------------------------------
 
     // every block: the job order (on the whole launch past GRID_JOBS_MIN
@@ -1865,27 +1865,44 @@ struct CycleT {
     // GRID_CHAIN_MIN is ordered across the launch (every block finds the
     // majority pair; the counting passes sort (ord_bits(-score), node) as
     // two 16-bit keys) and its cumsums taken there; a view past it takes
-    // the task-axis prefixes across the launch; the rest runs in block 0
-    __device__ void waterfall_chain() {
+    // the task-axis prefixes across the launch; the rest runs in block 0.
+    // Gathered: the node-sharded round's (sharded_round.cu), whose
+    // majority pair is already found and whose nodes' scores and rows are
+    // the gathered columns ``cols`` [N, WF_COLS] (score, capacity row,
+    // count; node-major). The one-card instantiation compiles to the
+    // steps without them.
+    template <bool Gathered = false>
+    __device__ void waterfall_chain(const int32_t* cols = nullptr) {
         const int tc = tcur(), N = p.N;
         const bool grid_nodes = N > GRID_CHAIN_MIN;
         const bool grid_tasks = tc > GRID_CHAIN_MIN;
         if (!grid_nodes && !grid_tasks) {
-            if (b0) waterfall();
+            if (b0) {
+                waterfall_nodes<Gathered>(cols);
+                waterfall_prefixes(N);
+            }
             return;
         }
         const GridTeam tm(this, PH_WATERFALL);
         if (grid_nodes) {
-            maj_pair();
+            if constexpr (!Gathered) maj_pair();
             const float* sc = w.sc + (size_t)w.iscal[S_MAJ] * N;
+            auto score = [&](int n) {
+                if constexpr (Gathered)
+                    return __int_as_float(cols[(size_t)n * WF_COLS]);
+                else
+                    return sc[n];
+            };
             sort_pos(tm, N, 1 << 16,
-                     [&](int n) { return (int)(ord_bits(-sc[n]) >> 16); },
+                     [&](int n) { return (int)(ord_bits(-score(n)) >> 16); },
                      1 << 16,
-                     [&](int n) { return (int)(ord_bits(-sc[n]) & 0xffffu); },
+                     [&](int n) {
+                         return (int)(ord_bits(-score(n)) & 0xffffu);
+                     },
                      [](int n) { return n; }, w.ord_sh, w.skey);
-            node_rows(gtid, gsize);
+            node_rows<Gathered>(cols, gtid, gsize);
         } else if (b0) {
-            waterfall_nodes();
+            waterfall_nodes<Gathered>(cols);
         }
         if (grid_tasks) task_mass(gtid, gsize);
         else if (b0) task_mass(threadIdx.x, blockDim.x);
@@ -1911,32 +1928,41 @@ struct CycleT {
         }
     }
 
-    // block 0: the shared waterfall's cumulative capacity and task prefixes
-    __device__ void waterfall() {
-        waterfall_nodes();
-        waterfall_prefixes(p.N);
-    }
-
-    // block 0: maj_pair, the nodes by the majority pair's score (highest
+    // block 0: (maj_pair,) the nodes by the majority pair's score (highest
     // first, lowest index on ties), their capacity and count rows
-    __device__ void waterfall_nodes() {
-        maj_pair();
+    template <bool Gathered>
+    __device__ void waterfall_nodes(const int32_t* cols) {
+        if constexpr (!Gathered) maj_pair();
         const int N = p.N;
-        const int maj = w.iscal[S_MAJ];
-        const float* shared_sc = w.sc + (size_t)maj * N;
+        const float* shared_sc = w.sc + (size_t)w.iscal[S_MAJ] * N;
         uint64_t* keys = keybuf(p.MN);
         sort_keys(keys, N, p.MN, [&](int n) {
-            return ((uint64_t)ord_bits(-shared_sc[n]) << 32) | (uint32_t)n;
+            float v;
+            if constexpr (Gathered)
+                v = __int_as_float(cols[(size_t)n * WF_COLS]);
+            else
+                v = shared_sc[n];
+            return ((uint64_t)ord_bits(-v) << 32) | (uint32_t)n;
         });
         for (int i = threadIdx.x; i < N; i += blockDim.x)
             w.ord_sh[i] = (int)(keys[i] & 0xffffffffu);
         __syncthreads();
-        node_rows(threadIdx.x, blockDim.x);
+        node_rows<Gathered>(cols, threadIdx.x, blockDim.x);
     }
 
     // the sorted nodes' capacity and count rows for the majority pair
-    __device__ void node_rows(int tid, int n_threads) {
+    template <bool Gathered>
+    __device__ void node_rows(const int32_t* cols, int tid, int n_threads) {
         const int N = p.N;
+        if constexpr (Gathered) {
+            for (int i = tid; i < N; i += n_threads) {
+                const int32_t* c = cols + (size_t)w.ord_sh[i] * WF_COLS;
+                for (int r = 0; r < 3; ++r)
+                    w.cm_in[i * 3 + r] = __int_as_float(c[1 + r]);
+                w.cnt_in[i] = __int_as_float(c[4]);
+            }
+            return;
+        }
         const uint8_t* maj_pred = p.sig_pred
             + (size_t)p.pair_sig[w.iscal[S_MAJ]] * p.NS;
         for (int i = tid; i < N; i += n_threads) {
@@ -2064,11 +2090,31 @@ struct CycleT {
     }
 
     // team: per node, proposers in global-rank order while the segmented
-    // prefix of accepted requests fits (reference accept_phase)
+    // prefix of accepted requests fits (reference accept_phase), against
+    // the node carry
     template <class Team>
     __device__ void accept_phase(Team tm, const int32_t* prop,
                                  const uint8_t* mask, const uint8_t* pa,
                                  uint8_t* acc, uint8_t* ob) {
+        accept_phase(tm, prop, mask, pa, acc, ob,
+                     [&](int, int n, float* ac, float* id, float* rl) {
+                         for (int r = 0; r < 3; ++r) {
+                             ac[r] = p.idle[n * 3 + r] + p.bf[n * 3 + r];
+                             id[r] = p.idle[n * 3 + r];
+                             rl[r] = p.rel[n * 3 + r];
+                         }
+                         return p.maxt[n] - p.ntasks[n];
+                     });
+    }
+
+    // accept_phase with the proposer's carry from carry(k, node, ac, id,
+    // rl): ac = idle + backfilled, id = idle, rl = releasing at its node,
+    // returning maxt - n_tasks there (the node-sharded round reads the
+    // owner's answer for task k instead)
+    template <class Team, class Carry>
+    __device__ void accept_phase(Team tm, const int32_t* prop,
+                                 const uint8_t* mask, const uint8_t* pa,
+                                 uint8_t* acc, uint8_t* ob, Carry carry) {
         const int tc = tcur(), N = p.N;
         // (node, global rank): the positions in rank order, by node
         sort_pos(tm, tc, N,
@@ -2098,16 +2144,16 @@ struct CycleT {
             const int nc = min(w.nid[i], N - 1);
             const bool part = mask[k], al = pa[k];
             const int excl_cnt = w.rcnt[i] - w.scnt[i];
-            const bool room = (p.maxt[nc] - p.ntasks[nc] - excl_cnt) > 0;
+            float ac[3], id[3], rl[3];
+            const bool room = (carry(k, nc, ac, id, rl) - excl_cnt) > 0;
             bool fa = true, fp = true, fi = true;
             for (int r = 0; r < 3; ++r) {
                 const float ea = w.rv[i * 6 + r] - w.sv[i * 6 + r];
                 const float ep = w.rv[i * 6 + 3 + r] - w.sv[i * 6 + 3 + r];
                 const float in = p.init[t * 3 + r];
-                const float acc_c = p.idle[nc * 3 + r] + p.bf[nc * 3 + r];
-                fa = fa && in <= (acc_c - ea) + p.eps[r];
-                fp = fp && in <= (p.rel[nc * 3 + r] - ep) + p.eps[r];
-                fi = fi && in <= (p.idle[nc * 3 + r] - ea) + p.eps[r];
+                fa = fa && in <= (ac[r] - ea) + p.eps[r];
+                fp = fp && in <= (rl[r] - ep) + p.eps[r];
+                fi = fi && in <= (id[r] - ea) + p.eps[r];
             }
             const bool ok_alloc = al && part && room && fa;
             const bool ok_pipe = p.pipe && !al && part && room && fp;
@@ -2120,18 +2166,21 @@ struct CycleT {
     // team: capacity commit of accepted proposals, per node in task-index
     // order, one thread a node (idle/rel: sum then subtract; nz: onto the
     // carry with ``fold_nz`` — phase 1, whose ``nz + segment_sum`` XLA
-    // folds into the scatter — else summed, then added: the retry's)
+    // folds into the scatter — else summed, then added: the retry's), on
+    // the window's nodes [n0, n0 + nn) held at p.idle[(n - n0) * 3] and
+    // so on (the whole window, or a node-sharded rank's part of it)
     template <class Team>
     __device__ void commit_node(Team tm, const uint8_t* acc,
                                 const int32_t* prop, const uint8_t* pa,
-                                bool fold_nz) {
+                                bool fold_nz, int n0 = 0, int nn = -1) {
         const int tc = tcur(), N = p.N;
+        if (nn < 0) nn = N;
         sort_pos(tm, tc, N, [&](int k) { return acc[k] ? prop[k] : -1; }, 1,
                  [](int) { return 0; }, [](int k) { return k; }, w.perm,
                  w.skey);
-        for (int n = tm.tid; n < N; n += tm.n) {
-            const int lo = lower_bound_i32(w.skey, tc, n);
-            const int hi = lower_bound_i32(w.skey, tc, n + 1);
+        for (int n = tm.tid; n < nn; n += tm.n) {
+            const int lo = lower_bound_i32(w.skey, tc, n0 + n);
+            const int hi = lower_bound_i32(w.skey, tc, n0 + n + 1);
             if (lo == hi) continue;
             float sa[3] = {0.0f, 0.0f, 0.0f}, sp[3] = {0.0f, 0.0f, 0.0f};
             float z0 = fold_nz ? p.nz[n * 2] : 0.0f;
@@ -2403,24 +2452,31 @@ struct CycleT {
         return p.tvalid[t] && (s == ALLOC || s == ALLOC_OB || s == PIPELINE);
     }
 
-    __device__ void stranded_jobs(bool include_killed) {
-        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
+    // team: the stranded jobs (w.stranded), their count in
+    // iscal[S_STRANDED] and whether there is one in iscal[S_ANY_STRANDED].
+    // The count gathers in iscal[S_STRANDED_ACC] (integer atomics: exact
+    // in any order) and is published with one store a word after the
+    // team's last barrier: the one-card epilogue's other blocks may still
+    // be reading S_ANY_STRANDED while block 0 rescans the same state in
+    // rollback_mask, so those words never hold a partial count.
+    template <class Team>
+    __device__ void stranded_jobs(Team tm, bool include_killed) {
+        for (int j = tm.tid; j < p.J; j += tm.n) {
             w.j_rows[j] = 0;
             w.j_placed[j] = 0;
             w.j_ob[j] = 0;
         }
-        __syncthreads();
-        for (int t = threadIdx.x; t < p.T; t += blockDim.x) {
+        if (tm.tid == 0) w.iscal[S_STRANDED_ACC] = 0;
+        tm.sync();
+        for (int t = tm.tid; t < p.T; t += tm.n) {
             const int j = max(p.tjob[t], 0);
             atomicOr(&w.j_rows[j], 1);
             if (placed(t)) atomicOr(&w.j_placed[j], 1);
             if (p.tvalid[t] && p.out[t] == ALLOC_OB) atomicAdd(&w.j_ob[j], 1);
         }
-        __shared__ int s_any, s_count;
-        if (threadIdx.x == 0) { s_any = 0; s_count = 0; }
-        __syncthreads();
-        int any = 0, count = 0;
-        for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
+        tm.sync();
+        int count = 0;
+        for (int j = tm.tid; j < p.J; j += tm.n) {
             // segment_max's identity (int32 min) is truthy: a job with no
             // task row reads as placed, as in the reference
             const bool jp = !w.j_rows[j] || w.j_placed[j];
@@ -2428,17 +2484,17 @@ struct CycleT {
             bool s = p.jvalid[j] && jp && !ready;
             if (!include_killed) s = s && w.alive[j];
             w.stranded[j] = s;
-            any |= s;
             count += s;
         }
-        if (any) atomicOr(&s_any, 1);
-        if (count) atomicAdd(&s_count, count);
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            w.iscal[S_ANY_STRANDED] = s_any;
-            w.iscal[S_STRANDED] = s_count;
+        count = __reduce_add_sync(FULL, count);
+        if (lane == 0 && count) atomicAdd(&w.iscal[S_STRANDED_ACC], count);
+        tm.sync();
+        if (tm.tid == 0) {
+            const int total = w.iscal[S_STRANDED_ACC];
+            w.iscal[S_STRANDED] = total;
+            w.iscal[S_ANY_STRANDED] = total != 0;
         }
-        __syncthreads();
+        tm.sync();
     }
 
     // every block: the stranded-gang rollback (block 0 finds the stranded
@@ -2446,7 +2502,7 @@ struct CycleT {
     // whole launch past Bar::rollback_min tasks; its passes walk the full
     // node and job axes)
     __device__ void rollback(bool revive, int ph) {
-        if (b0) rollback_mask(revive);
+        if (b0) rollback_mask(BlockTeam(), revive);
         sync(ph);
         chain_n(p.T, ph, [&](auto tm) {
             rollback_nodes(tm, 0, p.N);
@@ -2454,12 +2510,13 @@ struct CycleT {
         }, Bar::rollback_min);
     }
 
-    // block 0: the stranded jobs and the placements to revert (w.mask)
-    __device__ void rollback_mask(bool revive) {
-        stranded_jobs(revive);
-        for (int t = threadIdx.x; t < p.T; t += blockDim.x)
+    // team: the stranded jobs and the placements to revert (w.mask)
+    template <class Team>
+    __device__ void rollback_mask(Team tm, bool revive) {
+        stranded_jobs(tm, revive);
+        for (int t = tm.tid; t < p.T; t += tm.n)
             w.mask[t] = placed(t) && w.stranded[max(p.tjob[t], 0)];
-        __syncthreads();
+        tm.sync();
     }
 
     // team: the reverted placements off the node carry of global nodes
@@ -2653,7 +2710,7 @@ struct CycleT {
         int retries = 0, stranded = 0;
         if (p.gang) {
             while (true) {
-                if (b0) stranded_jobs(true);
+                if (b0) stranded_jobs(BlockTeam(), true);
                 sync(PH_EPILOGUE);
                 if (retries >= 3 || !w.iscal[S_ANY_STRANDED]) break;
                 rollback(true, PH_EPILOGUE);

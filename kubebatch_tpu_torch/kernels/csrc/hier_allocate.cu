@@ -405,7 +405,7 @@ struct HierCycle {
         stranded = 0;
         if (p.gang) {
             while (true) {
-                if (c.b0) c.stranded_jobs(true);
+                if (c.b0) c.stranded_jobs(typename Cy::BlockTeam(), true);
                 c.sync(PH_EPILOGUE);
                 if (retries >= 3 || !w.iscal[S_ANY_STRANDED]) break;
                 c.rollback(true, PH_EPILOGUE);

@@ -69,19 +69,36 @@
 // logic and the interpod sums beside them) and the [P, N_block] pair
 // scores are the operations; between them each launch runs a chain of
 // dependent steps over T (the sorts, scans and segment sums), replicated
-// on every rank, whose latency bounds it; k ranks sharing one card also
-// share its SMs (time-sliced contexts). The batched round's grid chain
-// (batched_round.cuh) runs window, rank_tasks, commit_round and the
-// affinity serialization and commit across the grid past GRID_CHAIN_MIN
-// tasks; this file's own steps (the gathered waterfall, accept_rows,
-// commit_block, the rollback) stay in block 0. Fewer launches a round
-// are later work.
+// on every rank, whose latency bounds it. Every step of that chain is
+// written once against batched_round.cuh's teams, and past
+// GRID_CHAIN_MIN tasks (nodes, for the waterfall's order) it runs on the
+// whole cooperative grid, at or below it in block 0, as in the one-card
+// round: the window, rank_tasks, commit_round and the affinity
+// serialization and commit; this file's acceptances (accept_phase with
+// each proposer's carry row from the owner's answer), the commits on the
+// rank's part (commit_node on the part's nodes), the gathered waterfall
+// (waterfall_chain<true> over the gathered columns, read once into a
+// node-major buffer; the [N] order by counting passes and the tiled
+// cumsums on the grid past GRID_CHAIN_MIN nodes), the stranded-gang
+// rollback (past rollback_min tasks) and the gathers of the payloads.
+// The stranded-job scan publishes its words once, after its last
+// barrier (batched_round.cuh stranded_jobs). The demand
+// window's pool sums take their first level across the grid past
+// GRID_CHAIN_MIN nodes, the rest of the tree in block 0 (the same tree).
+// The stranded-job scan runs there too (with the rollback). Block 0
+// alone keeps the majority pair (a P-long argmax: ~3 us a launch), the
+// job order at or below GRID_JOBS_MIN jobs, the wave's one-thread winner
+// and the frames. Every barrier is counted (ShardBar). On one card the k
+// ranks of a gloo mesh time-slice its SMs; the lock-step driver
+// (kernels/batched_sharded.py solve_lockstep) runs each launch alone.
+// Fewer launches a round are later work.
 #include "hier_coarse.cuh"
 
 namespace {
 
 constexpr int ENGINE_SHARDED = 5, ENGINE_HIER_SHARDED = 6;
-constexpr int W_AVAIL = 6, W_ROW = 10, W_PART = 13, W_COLS = 5, W_OWN = 11;
+constexpr int W_AVAIL = 6, W_ROW = 10, W_PART = 13, W_COLS = WF_COLS,
+              W_OWN = 11;
 constexpr int W_IP = 2;
 constexpr int MAX_RANKS = 16;
 
@@ -107,12 +124,22 @@ enum { HS_WORK, HS_WIN, HS_OCC, HS_FILL, HS_OCC0, HS_FILL0, HS_N };
 // the two-level phases timed after the round's (kernels/hier.py)
 enum { PH_COARSE = N_PHASES, PH_WAVES };
 
+// the cooperative grid's barrier, each one counted in the phase_ns word
+// after the two-level phases (the barriers passed)
+struct ShardBar : GridBar {
+    static constexpr int count_slot = PH_WAVES + 1;
+};
+
 struct SWork {
     int32_t* rows_fb;                      // [T, W_ROW] row at the argmax
     int32_t* rows1;                        // [T, W_ROW] row at proposal 1
     int32_t* rows_r;                       // [T, W_ROW] row at the retry's
     int32_t* pw;                           // [T] waterfall slot node
     uint8_t* slot_ok;                      // [T]
+    int32_t* cols;                         // [N, W_COLS] gathered columns
+    float* pool;                           // [N, 6] gathered pool rows
+    float* lev_a;                          // [N / 32 + 2, 6] column sums'
+    float* lev_b;                          // tree levels
     // the two-level solve (empty in the flat one)
     uint32_t* tbits;                       // [T, BW] gathered pool bits
     uint8_t* pending;                      // [T]
@@ -149,6 +176,11 @@ inline size_t shard_layout(const Params& p, int B, char* base, SWork* sw) {
     x.rows_r = (int32_t*)take(T * W_ROW * 4);
     x.pw = (int32_t*)take(T * 4);
     x.slot_ok = (uint8_t*)take(T);
+    const size_t N = p.N;
+    x.cols = (int32_t*)take(N * W_COLS * 4);
+    x.pool = (float*)take(N * 6 * 4);
+    x.lev_a = (float*)take((N / 32 + 2) * 6 * 4);
+    x.lev_b = (float*)take((N / 32 + 2) * 6 * 4);
     x.tbits = (uint32_t*)take(TB * BW * 4);
     x.pending = (uint8_t*)take(TB);
     x.elsewhere = (uint8_t*)take(TB);
@@ -164,7 +196,7 @@ inline size_t shard_layout(const Params& p, int B, char* base, SWork* sw) {
 __device__ __forceinline__ int32_t fbits(float f) { return __float_as_int(f); }
 __device__ __forceinline__ float fval(int32_t i) { return __int_as_float(i); }
 
-struct Shard : Cycle {
+struct Shard : CycleT<ShardBar> {
     const SWork& sw;
     const SArgs& a;
     int lo, nb, g0;                        // part: window start, size; its
@@ -174,7 +206,7 @@ struct Shard : Cycle {
 
     __device__ Shard(const Params& p_, const Work& w_, uint64_t* s,
                      const SWork& sw_, const SArgs& a_)
-        : Cycle(p_, w_, s), sw(sw_), a(a_), lo(a_.lo), nb(a_.nb),
+        : CycleT<ShardBar>(p_, w_, s), sw(sw_), a(a_), lo(a_.lo), nb(a_.nb),
           g0(a_.off + a_.lo), K(a_.K) {
         nbmax = 0;
         for (int r = 0; r < K; ++r) {
@@ -436,150 +468,45 @@ struct Shard : Cycle {
         }
     }
 
-    // ---- the replicated chain (block 0) ------------------------------------
+    // ---- the replicated steps ---------------------------------------------
 
-    // the demand window's pool: column sums of the gathered pool rows in
-    // window order (batched_round.cuh order_jobs' tail) into fscal[0..3)
-    __device__ void avail_sum(const int32_t* g) {
-        const int N = p.N;
-        for (int i = threadIdx.x; i < N * 3; i += blockDim.x) {
-            const int n = i / 3, r = owner_of(n);
-            w.col_in[i] = fval(g[(size_t)r * av_stride
-                                 + (n - plo_[r]) * W_AVAIL + i % 3]);
-        }
-        __syncthreads();
-        block_column_sum(w.col_in, N, 3, w.col_a, w.col_b, w.fscal);
-        if (p.pipe) {
-            for (int i = threadIdx.x; i < N * 3; i += blockDim.x) {
-                const int n = i / 3, r = owner_of(n);
-                w.col_in[i] = fval(g[(size_t)r * av_stride
-                                     + (n - plo_[r]) * W_AVAIL + 3 + i % 3]);
-            }
-            __syncthreads();
-            block_column_sum(w.col_in, N, 3, w.col_a, w.col_b, w.fscal + 3);
-            if (threadIdx.x < 3)
-                w.fscal[threadIdx.x] = w.fscal[threadIdx.x]
-                                       + w.fscal[3 + threadIdx.x];
-            __syncthreads();
+    // grid: the gathered pool rows in window order, node-major (sw.pool
+    // [N, 3], or [N, 6] with the releasing rows beside them)
+    __device__ void pool_rows(const int32_t* g) {
+        const int pc = p.pipe ? 6 : 3;
+        for (int n = gtid; n < p.N; n += gsize) {
+            const int r = owner_of(n);
+            const int32_t* e = g + (size_t)r * av_stride
+                               + (size_t)(n - plo_[r]) * W_AVAIL;
+            for (int c = 0; c < pc; ++c)
+                sw.pool[(size_t)n * pc + c] = fval(e[c]);
         }
     }
 
-    // the word c of window node n's gathered waterfall column
-    __device__ int32_t col_word(const int32_t* g, int n, int c) const {
-        const int r = owner_of(n);
-        return g[(size_t)r * col_stride + (n - plo_[r]) * W_COLS + c];
+    // grid: the gathered waterfall columns in window order, node-major
+    // (sw.cols [N, W_COLS])
+    __device__ void gather_cols(const int32_t* g) {
+        for (int n = gtid; n < p.N; n += gsize) {
+            const int r = owner_of(n);
+            const int32_t* e = g + (size_t)r * col_stride
+                               + (size_t)(n - plo_[r]) * W_COLS;
+            for (int c = 0; c < W_COLS; ++c)
+                sw.cols[(size_t)n * W_COLS + c] = e[c];
+        }
     }
 
-    // the shared waterfall on the gathered columns [N, W_COLS]
-    __device__ void waterfall_gathered(const int32_t* g) {
-        const int N = p.N;
-        uint64_t* keys = keybuf(p.MN);
-        sort_keys(keys, N, p.MN, [&](int n) {
-            return ((uint64_t)ord_bits(-fval(col_word(g, n, 0))) << 32)
-                   | (uint32_t)n;
-        });
-        for (int i = threadIdx.x; i < N; i += blockDim.x) {
-            const int n = (int)(keys[i] & 0xffffffffu);
-            w.ord_sh[i] = n;
-            for (int r = 0; r < 3; ++r)
-                w.cm_in[i * 3 + r] = fval(col_word(g, n, 1 + r));
-            w.cnt_in[i] = fval(col_word(g, n, 4));
+    // team: the owner's carry row (accept_phase's carry) of proposer k
+    // from rows[k]
+    static __device__ __forceinline__ int row_carry(const int32_t* rows,
+                                                    int k, float* ac,
+                                                    float* id, float* rl) {
+        const int32_t* rw = rows + (size_t)k * W_ROW;
+        for (int r = 0; r < 3; ++r) {
+            ac[r] = fval(rw[r]);
+            id[r] = fval(rw[3 + r]);
+            rl[r] = fval(rw[6 + r]);
         }
-        waterfall_prefixes(N);
-    }
-
-    // batched_round.cuh accept_phase with each proposer's carry row read
-    // from rows[k] (the owner's answer) instead of the node arrays
-    __device__ void accept_rows(const int32_t* prop, const uint8_t* mask,
-                                const uint8_t* pa, const int32_t* rows,
-                                uint8_t* acc, uint8_t* ob) {
-        const int tc = tcur(), m = p.MT, N = p.N;
-        uint64_t* keys = keybuf(m);
-        sort_keys(keys, tc, m, [&](int k) {
-            const uint32_t node = mask[k] ? (uint32_t)prop[k] : (uint32_t)N;
-            return ((uint64_t)node << 32) | (uint32_t)w.grank[k];
-        });
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            w.perm2[i] = w.order[(int)(keys[i] & 0xffffffffu)];
-            w.nid[i] = (int)(keys[i] >> 32);
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            const int k = w.perm2[i];
-            const int t = w.tmap[k];
-            const bool part = mask[k], al = pa[k];
-            for (int r = 0; r < 3; ++r) {
-                const float v = p.resreq[t * 3 + r];
-                w.sv[i * 6 + r] = (al && part) ? v : 0.0f;
-                w.sv[i * 6 + 3 + r] = (!al && part) ? v : 0.0f;
-            }
-            w.scnt[i] = part ? 1 : 0;
-            w.sflag[i] = i == search_left(w.nid, 1, tc, w.nid[i]);
-        }
-        __syncthreads();
-        SegScan<6>{w.sv, w.scnt, w.sflag, w.rv, w.rcnt, w.rflag}.run(tc);
-        for (int i = threadIdx.x; i < tc; i += blockDim.x) {
-            const int k = w.perm2[i];
-            const int t = w.tmap[k];
-            const int32_t* rw = rows + (size_t)k * W_ROW;
-            const bool part = mask[k], al = pa[k];
-            const int excl_cnt = w.rcnt[i] - w.scnt[i];
-            const bool room = (rw[9] - excl_cnt) > 0;
-            bool fa = true, fp = true, fi = true;
-            for (int r = 0; r < 3; ++r) {
-                const float ea = w.rv[i * 6 + r] - w.sv[i * 6 + r];
-                const float ep = w.rv[i * 6 + 3 + r] - w.sv[i * 6 + 3 + r];
-                const float in = p.init[t * 3 + r];
-                fa = fa && in <= (fval(rw[r]) - ea) + p.eps[r];
-                fp = fp && in <= (fval(rw[6 + r]) - ep) + p.eps[r];
-                fi = fi && in <= (fval(rw[3 + r]) - ea) + p.eps[r];
-            }
-            const bool ok_alloc = al && part && room && fa;
-            const bool ok_pipe = p.pipe && !al && part && room && fp;
-            acc[k] = ok_alloc || ok_pipe;
-            ob[k] = ok_alloc && !fi;
-        }
-        __syncthreads();
-    }
-
-    // batched_round.cuh commit_node on the owner's part: the accepted
-    // proposals to window nodes lo .. lo + nb, per node in task-index
-    // order
-    __device__ void commit_block(const uint8_t* acc, const int32_t* prop,
-                                 const uint8_t* pa, bool fold_nz) {
-        uint64_t* keys = segment_keys([&](int k) {
-            return acc[k] ? prop[k] : -1;
-        });
-        for (int m = threadIdx.x; m < nb; m += blockDim.x) {
-            const int n = lo + m;
-            const int lo_i = lower_bound_u64(keys, p.MT, (uint64_t)n << 32);
-            const int hi_i = lower_bound_u64(keys, p.MT,
-                                             (uint64_t)(n + 1) << 32);
-            if (lo_i == hi_i) continue;
-            float sa[3] = {0.0f, 0.0f, 0.0f}, sp[3] = {0.0f, 0.0f, 0.0f};
-            float z0 = fold_nz ? p.nz[m * 2] : 0.0f;
-            float z1 = fold_nz ? p.nz[m * 2 + 1] : 0.0f;
-            for (int i = lo_i; i < hi_i; ++i) {
-                const int k = (int)(keys[i] & 0xffffffffu);
-                const int t = w.tmap[k];
-                const bool al = pa[k];
-                for (int r = 0; r < 3; ++r) {
-                    const float v = p.resreq[t * 3 + r];
-                    sa[r] = sa[r] + (al ? v : 0.0f);
-                    sp[r] = sp[r] + (al ? 0.0f : v);
-                }
-                z0 = z0 + p.tnz[t * 2];
-                z1 = z1 + p.tnz[t * 2 + 1];
-            }
-            for (int r = 0; r < 3; ++r) {
-                p.idle[m * 3 + r] = p.idle[m * 3 + r] - sa[r];
-                p.rel[m * 3 + r] = p.rel[m * 3 + r] - sp[r];
-            }
-            p.ntasks[m] += hi_i - lo_i;
-            p.nz[m * 2] = fold_nz ? z0 : p.nz[m * 2] + z0;
-            p.nz[m * 2 + 1] = fold_nz ? z1 : p.nz[m * 2 + 1] + z1;
-        }
-        __syncthreads();
+        return rw[9];
     }
 
     // ---- the round's steps -------------------------------------------------
@@ -604,13 +531,34 @@ struct Shard : Cycle {
         views_and_avail();
     }
 
+    // the job order (batched_round.cuh order_jobs), and the demand
+    // window's pool: column sums of the gathered pool rows in window order
+    // into fscal[0..3) (with pipelining the releasing rows' added), the
+    // first level of their tree across the launch past GRID_CHAIN_MIN
+    // nodes, the rest in block 0
     __device__ void rows1() {
+        const int N = p.N, pc = p.pipe ? 6 : 3;
         const bool grid_jobs = p.J > GRID_JOBS_MIN;
+        const bool wide = N > GRID_CHAIN_MIN;
         if (grid_jobs) job_order_grid();
+        pool_rows(a.in);
+        sync(PH_ORDER);
+        if (wide) {
+            column_windows(sw.pool, N, pc, sw.lev_a, gtid, gsize);
+            sync(PH_ORDER);
+        }
         if (b0) {
             if (!grid_jobs) job_order();
             __syncthreads();
-            avail_sum(a.in);
+            if (wide)
+                block_column_sum(sw.lev_a, (N + 31) / 32, pc, sw.lev_b,
+                                 sw.lev_a, w.fscal);
+            else
+                block_column_sum(sw.pool, N, pc, sw.lev_a, sw.lev_b,
+                                 w.fscal);
+            if (p.pipe && threadIdx.x < 3)
+                w.fscal[threadIdx.x] = w.fscal[threadIdx.x]
+                                       + w.fscal[3 + threadIdx.x];
         }
         sync(PH_ORDER);
         engage();
@@ -659,7 +607,9 @@ struct Shard : Cycle {
     }
 
     __device__ void owner() {
-        if (b0) waterfall_gathered(a.in);
+        gather_cols(a.in);
+        sync(PH_WATERFALL);
+        waterfall_chain<true>(sw.cols);
         sync(PH_WATERFALL);
         const int N = p.N;
         for (int k = gtid; k < p.T; k += gsize) {
@@ -711,12 +661,16 @@ struct Shard : Cycle {
         sync(PH_PROPOSE);
         fit_rows(w.part2, sw.rows1, w.pa1);
         sync(PH_FIT1);
-        if (b0)
-            accept_rows(w.prop1, w.part2, w.pa1, sw.rows1, w.acc1, w.ob1);
-        sync(PH_ACCEPT1);
-        // remove in-round affinity / port races before the commit
-        if (p.aff) chain(PH_ACCEPT1, [&](auto tm) { aff_serialize(tm); });
-        if (b0) commit_block(w.acc1, w.prop1, w.pa1, true);
+        const int32_t* own = sw.rows1;
+        chain(PH_ACCEPT1, [&](auto tm) {
+            accept_phase(tm, w.prop1, w.part2, w.pa1, w.acc1, w.ob1,
+                         [&](int k, int, float* ac, float* id, float* rl) {
+                             return row_carry(own, k, ac, id, rl);
+                         });
+            // remove in-round affinity / port races before the commit
+            if (p.aff) aff_serialize(tm);
+            commit_node(tm, w.acc1, w.prop1, w.pa1, true, lo, nb);
+        });
         sync(PH_ACCEPT1);
         node_views_block();
         for (int k = gtid; k < T; k += gsize)
@@ -735,12 +689,13 @@ struct Shard : Cycle {
         sync(PH_RETRY);
         fit_rows(w.retry, sw.rows_r, w.par);
         sync(PH_FIT2);
-        if (b0) {
-            accept_rows(w.fbr, w.retry, w.par, sw.rows_r, w.accr, w.obr);
-            commit_block(w.accr, w.fbr, w.par, false);
-        }
-        sync(PH_ACCEPT2);
+        const int32_t* best = sw.rows_r;
         chain(PH_ACCEPT2, [&](auto tm) {
+            accept_phase(tm, w.fbr, w.retry, w.par, w.accr, w.obr,
+                         [&](int k, int, float* ac, float* id, float* rl) {
+                             return row_carry(best, k, ac, id, rl);
+                         });
+            commit_node(tm, w.accr, w.fbr, w.par, false, lo, nb);
             commit_round(tm, a.a0);
             if (p.aff) aff_commit(tm);
         });
@@ -749,21 +704,24 @@ struct Shard : Cycle {
         views_and_avail();
     }
 
+    // the stranded jobs (on the whole launch past rollback_min tasks)
     __device__ void stranded() {
-        if (b0) {
-            stranded_jobs(true);
-            if (threadIdx.x == 0) a.flags[1] = w.iscal[S_ANY_STRANDED];
-        }
+        chain_n(p.T, PH_EPILOGUE, [&](auto tm) { stranded_jobs(tm, true); },
+                BarT::rollback_min);
+        if (gtid == 0) a.flags[1] = w.iscal[S_ANY_STRANDED];
         sync(PH_EPILOGUE);
     }
 
+    // the stranded gangs' placements reverted (batched_round.cuh rollback)
+    // on the part's nodes and the replicated jobs, found and reverted on
+    // the whole launch past rollback_min tasks
     __device__ void rollback_step() {
-        if (b0) {
-            rollback_mask(a.a0 != 0);
-            rollback_nodes(BlockTeam(), g0, nb);
-            rollback_jobs(BlockTeam(), a.a0 != 0);
-            if (threadIdx.x == 0) a.flags[2] = w.iscal[S_STRANDED];
-        }
+        chain_n(p.T, PH_EPILOGUE, [&](auto tm) {
+            rollback_mask(tm, a.a0 != 0);
+            rollback_nodes(tm, g0, nb);
+            rollback_jobs(tm, a.a0 != 0);
+        }, BarT::rollback_min);
+        if (gtid == 0) a.flags[2] = w.iscal[S_STRANDED];
         sync(PH_EPILOGUE);
         views_and_avail();
     }

@@ -847,23 +847,27 @@ def solve_hier_sharded(mesh, device, inputs, max_rounds: int = 0,
     rank holds each launch against the plain version. Affinity cycles
     never reach it, as in the reference."""
     from .batched_sharded import run_sharded
-    from .narrow import narrow_enabled
 
     if inputs.affinity is not None:
         raise ValueError("hier requires an affinity-free cycle")
+    return run_sharded(mesh, device, inputs, "hier",
+                       lambda n_sh: hier_sharded_statics(inputs, n_sh,
+                                                         pool_size),
+                       max_rounds, check, span="hier_allocate_sharded")
+
+
+def hier_sharded_statics(inputs, n_sh: int, pool_size: int = 0) -> dict:
+    """The two-level solve's statics over a shard bucket of ``n_sh``
+    nodes beside prepare_sharded's: the pool ``hier_pool_size(n_sh,
+    pool_size)``, the wave budget and the narrow words by the whole
+    bucket."""
+    from .narrow import narrow_enabled
+
     t_pad = int(inputs.task_valid.shape[0])
-
-    def extra(n_sh: int) -> dict:
-        pool = hier_pool_size(n_sh, pool_size)
-        narrow = narrow_enabled(
-            n_sh, t_pad, static_scores=inputs.sig_scores,
-            dyn_weights=(inputs.dyn_weights if inputs.dyn_enabled
-                         else None))
-        return dict(pool_size=pool,
-                    max_waves=(t_pad + 8) * (n_sh // pool + 1),
-                    narrow=narrow,
-                    narrow_gate=(not narrow and narrow_enabled(n_sh,
-                                                               t_pad)))
-
-    return run_sharded(mesh, device, inputs, "hier", extra, max_rounds,
-                       check, span="hier_allocate_sharded")
+    pool = hier_pool_size(n_sh, pool_size)
+    narrow = narrow_enabled(
+        n_sh, t_pad, static_scores=inputs.sig_scores,
+        dyn_weights=(inputs.dyn_weights if inputs.dyn_enabled else None))
+    return dict(pool_size=pool, max_waves=(t_pad + 8) * (n_sh // pool + 1),
+                narrow=narrow,
+                narrow_gate=(not narrow and narrow_enabled(n_sh, t_pad)))

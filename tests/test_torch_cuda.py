@@ -2005,6 +2005,28 @@ def _sharded_inputs(name):
                        n_queues=4, queue_weights=(1, 2, 3, 4),
                        pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
                        jitter=0.2), None),
+        # contended task views of 1,024 tasks (T_pad 1,024: the chain in
+        # block 0) and 1,032 (T_pad 2,048: on the grid), stranded gangs
+        "t1024": (Spec(n_nodes=64, n_groups=128, pods_per_group=8,
+                       n_queues=4, queue_weights=(1, 2, 3, 4),
+                       pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
+                       jitter=0.2, seed=11), None),
+        "t1032": (Spec(n_nodes=64, n_groups=129, pods_per_group=8,
+                       n_queues=4, queue_weights=(1, 2, 3, 4),
+                       pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
+                       jitter=0.2, seed=11), None),
+        # a window of 2,048 nodes (1,100 real) and 320 tasks: the
+        # gathered waterfall's order and the pool sums on the grid
+        "n1100": (Spec(n_nodes=1100, n_groups=40, pods_per_group=8,
+                       n_queues=2, queue_weights=(1, 3),
+                       pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
+                       jitter=0.2, seed=13), None),
+        # whole gangs (min_member 8) over 1,280 tasks: the epilogue's
+        # rollbacks of stranded gangs on the grid
+        "strand": (Spec(n_nodes=96, n_groups=160, pods_per_group=8,
+                        min_member=8, n_queues=4, queue_weights=(1, 2, 3, 4),
+                        pod_cpu_millis=1000, pod_mem_bytes=2 * GiB,
+                        jitter=0.3, seed=17), None),
     }
     spec, prep = specs[name]
     sim = build_cluster(spec)
@@ -2029,12 +2051,18 @@ def _one_card_plain(node, rep, statics):
 
 @pytest.mark.parametrize("name,k", [("r5", 1), ("r5", 2), ("r5", 4),
                                     ("filled", 2), ("filled", 4),
-                                    ("half5", 4)])
+                                    ("half5", 4), ("t1024", 2),
+                                    ("t1032", 2), ("t1032", 4),
+                                    ("n1100", 2), ("n1100", 4),
+                                    ("strand", 2)])
 def test_sharded_round_kernels_match_plain(name, k):
     """Every launch of csrc/sharded_round.cu on k ranks in lock step (the
     per-block steps on column blocks, the chain on their concatenation)
     held bitwise against the plain version on the same inputs
-    (CheckedRank), and the result bitwise the one-card plain solve."""
+    (CheckedRank), and the result bitwise the one-card plain solve. The
+    task views just under and over GRID_CHAIN_MIN (t1024 / t1032), a
+    window past it (n1100) and the stranded gangs' rollbacks past it
+    (t1032, strand: the epilogue retried) take block 0 and the grid."""
     _need_cuda()
     from kubebatch_tpu_torch.kernels import batched_sharded as bs
 
@@ -2057,6 +2085,10 @@ def test_sharded_round_kernels_match_plain(name, k):
     assert launches == sum(r.cuda.launches for r in ranks)
     # every launch's payload checked, the flags and the result too
     assert all(r.compared > r.cuda.launches for r in ranks)
+    if name in ("t1032", "strand"):
+        assert int(p[3 * t_pad + 15]) > 0    # the frame's retries
+    if name == "n1100":
+        assert n_sh > 1024
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
@@ -2159,9 +2191,11 @@ def _sharded_aff_inputs(name):
 
     cache = SchedulerCache(async_writeback=False, incremental_snapshot=False,
                            device="cpu")
-    if name == "3p":
-        build_cluster(dataclasses.replace(BASELINE_SPECS["3p"], n_nodes=100,
-                                          n_groups=200)).populate(cache)
+    if name in ("3p", "3p1k"):
+        # 800 pods (T_pad 1,024: block 0) or 1,040 (2,048: the grid)
+        build_cluster(dataclasses.replace(
+            BASELINE_SPECS["3p"], n_nodes=100,
+            n_groups=200 if name == "3p" else 260)).populate(cache)
     else:
         from kubebatch_tpu_torch import objects
 
@@ -2175,7 +2209,7 @@ def _sharded_aff_inputs(name):
 
 
 @pytest.mark.parametrize("name,k", [("3p", 2), ("3p", 4), ("ports", 2),
-                                    ("ports", 4)])
+                                    ("ports", 4), ("3p1k", 2)])
 def test_sharded_affinity_kernels_match_plain(name, k):
     """The affinity branch of csrc/sharded_round.cu on k ranks in lock
     step: every launch held bitwise against the plain version
@@ -2228,20 +2262,24 @@ def test_sharded_affinity_kernels_match_plain(name, k):
     assert all(r.compared > r.cuda.launches for r in ranks)
 
 
-@pytest.mark.parametrize("k,seed,pool", [(4, 1, 32), (3, 0, 8), (2, 0, 8)])
+@pytest.mark.parametrize("k,seed,pool", [(4, 1, 32), (3, 0, 8), (2, 0, 8),
+                                         (2, 0, 2048)])
 def test_hier_sharded_kernels_match_plain(k, seed, pool):
     """The two-level steps of csrc/sharded_round.cu on k ranks in lock
     step (pools straddling the ranks' blocks at k = 4 and 3): every
     launch held bitwise against the plain version, the result bitwise the
     one-card plain two-level solve and one launch of
-    csrc/hier_allocate.cu with the same pool on the same bucket."""
+    csrc/hier_allocate.cu with the same pool on the same bucket. Pool
+    2,048: 2,100 nodes, 1,280 tasks, so the rounds' windows, task views
+    and rollbacks are past GRID_CHAIN_MIN (the grid)."""
     _need_cuda()
     from kubebatch_tpu_torch.kernels import batched_sharded as bs
     from kubebatch_tpu_torch.kernels import hier as th
     from kubebatch_tpu_torch.kernels.batched import CYCLE_ARGS, NODE_ARGS
 
+    nodes, groups = (2100, 160) if pool > 1024 else (48, 72)
     sim = build_cluster(ClusterSpec(
-        n_nodes=48, n_groups=72, pods_per_group=8, n_queues=4,
+        n_nodes=nodes, n_groups=groups, pods_per_group=8, n_queues=4,
         queue_weights=(1, 2, 3, 4), pod_cpu_millis=1000,
         pod_mem_bytes=2 * GiB, jitter=0.2, min_member=6, seed=seed))
     cache = SchedulerCache(async_writeback=False, incremental_snapshot=False,
