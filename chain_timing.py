@@ -1,14 +1,16 @@
 """Times the round kernels' chain on one NVIDIA GPU against another
 build of the same kernels, on the same inputs.
 
-    python3 chain_timing.py --before DIR [--set small,round,sharded]
+    python3 chain_timing.py --before DIR
+        [--set small,round,sharded,scan,explain]
         [--only-before] [--out build/chain_timing/report.json]
 
 DIR is an unpacked checkout of an earlier commit; its
 kubebatch_tpu_torch/kernels/csrc/batched_allocate.cu and hier_allocate.cu
-(the sets small and round) and sharded_round.cu (the set sharded) are
-built into build/chain_timing/before/, beside this checkout's sources
-built as the port builds them. The launch inputs are recorded once from
+(the sets small and round), sharded_round.cu (the set sharded),
+sharded_scan.cu (scan) and explain_counts.cu (explain) are built into
+build/chain_timing/before/, beside this checkout's sources built as the
+port builds them. The launch inputs are recorded once from
 the port's own allocate cycles on the card, then each launch runs with
 each build in turns; every build's results (packed result, frame, node
 carry) must equal the earlier build's word for word, and each is timed
@@ -52,9 +54,30 @@ The sets:
   build that does not count them reads 0). cfg5's bound at each k
   (chip_smoke.sharded_bounds, from the one-card plain engine's counts).
 
+- ``scan`` (csrc/sharded_scan.cu, row 11): chip_smoke.scan_args at T
+  256 x N_pad 8,192 (phase (k)'s scan) and a cfg5-shaped cut of it
+  (5,000 real nodes), each at k = 2 and 4 ranks, solved by
+  sharded.scan_lockstep on "cuda" (one stream, each launch alone on the
+  card) in the order before, after, after, before after one warm-up
+  scan of each build. The six outputs must equal the earlier build's and
+  the plain ranks' word for word. Per rank: CUDA-event ms over its 257
+  launches (each timed run), the profiler's device ms (one more run, the
+  k ranks' launches taken in turn), the phase timers (argmax, decision,
+  pack; a build without them reads 0), the bound a launch
+  (chip_smoke.sharded_scan_bounds) and this build's cluster
+  (sharded.scan_shape);
+- ``explain`` (csrc/explain_counts.cu, row 12): the explainer's
+  arguments on fresh cold sessions of cfg5, 5p, 3p and phase (h1)'s
+  saturated cfg4 (every pod pending, phase (h)'s full-width inputs),
+  launched before, after, after, before: the [T, 6] counts equal to the
+  earlier build's and the plain version's; CUDA-event ms (50 launches
+  back to back, the wrapper's host work included) and the profiler's
+  device ms (10 launches), this build's phase timers and launch shape,
+  and the bound (chip_smoke.explain_bounds).
+
 ``--only-before`` times the earlier build and this build's grid route
 alone (the parent's design, its phases and barriers), no cluster launch;
-in the sharded set, the earlier build alone. The barrier probes of
+in the sharded, scan and explain sets, the earlier build alone. The barrier probes of
 csrc/chain_probe.cu run last (the grid barrier, the cluster barrier at
 8 and 16 CTAs); the report also gives each build's library sizes.
 Prints one JSON line and writes it to --out. Needs torch with CUDA and
@@ -75,6 +98,30 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("batched_allocate.cu", "hier_allocate.cu")
 SHARDED_SOURCES = ("sharded_round.cu",)
+SCAN_SOURCES = ("sharded_scan.cu",)
+EXPLAIN_SOURCES = ("explain_counts.cu",)
+
+#: the scan set's solves: (label, ranks, real nodes of the 8,192: None
+#: for chip_smoke.scan_args' own mask, 5,000 for the cfg5-shaped cut)
+SCAN = (("T256xN8192 k=2", 2, None), ("T256xN8192 k=4", 4, None),
+        ("cfg5-shaped k=2", 2, 5000), ("cfg5-shaped k=4", 4, 5000))
+SCAN_PHASES = ("argmax", "decision", "pack")
+
+#: builds of csrc/sharded_scan.cu and csrc/explain_counts.cu beside this
+#: one, each from a copy with one ``constexpr`` set to another value and
+#: timed after the main sequence: the scan with 256 / 1,024 threads a CTA
+#: (4 / 1 gathered rows a thread) and at most 4 CTAs a cluster; the
+#: explainer with clusters of at most 1, 2, 4 and 8 CTAs
+SCAN_VARIANTS = {"nt256": {"NT": 256}, "nt1024": {"NT": 1024},
+                 "c4": {"kMaxCluster": 4}}
+EXPLAIN_VARIANTS = {f"c{c}": {"kMaxCluster": c} for c in (1, 2, 4, 8)}
+
+#: the explain set's inputs: (label, BASELINE_SPECS key, running_fill
+#: or None), each a fresh session over a cold cache (every pod pending),
+#: as chip_smoke.py phase (h) times cfg5 and 5p at full width; "cfg4"
+#: is (h1)'s saturated cfg4 (its fresh-inputs launch)
+EXPLAIN = (("cfg5", 5, None), ("5p", "5p", None), ("3p", "3p", None),
+           ("cfg4", 4, 0.95))
 
 #: the sharded set's solves: (label, BASELINE_SPECS key, ranks, through
 #: the two-level steps)
@@ -582,6 +629,200 @@ def time_sharded(label, x, configs, use) -> dict:
     return row
 
 
+def scan_inputs(real):
+    """The scan set's inputs: chip_smoke.scan_args at T 256 x N_pad
+    8,192 (seed 0), with the nodes past ``real`` cut (node_ok false) for
+    the cfg5-shaped case."""
+    import chip_smoke as cs
+
+    args = cs.scan_args(8192, 256, seed=0)
+    if real is not None:
+        args["node_ok"][real:] = False
+    return args
+
+
+def scan_detail(args, k) -> dict:
+    """One more lock-step scan under the profiler: per rank the
+    profiler's device ms over its launches (the k ranks launch in turn,
+    so kernel j is rank j % k's; None when the trace's kernels and the
+    launches do not pair up) and the phase timers' ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubebatch_tpu_torch.kernels import sharded as sh
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as pr:
+        _, ranks = sh.scan_lockstep(args, k, "cuda")
+        ranks[0].kernel_ms()
+    kern = sorted((e for e in pr.events()
+                   if "sharded_scan_kernel" in e.name
+                   and e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    launches = sum(r.launches for r in ranks)
+    prof = None
+    if len(kern) == launches:
+        prof = [0.0] * k
+        for j, e in enumerate(kern):
+            prof[j % k] += e.time_range.elapsed_us() / 1e3
+    return {"profiler_ms": prof, "profiler_kernels": len(kern),
+            "launches": [r.launches for r in ranks]}
+
+
+def time_scan(label, args, k, configs, use, cs) -> dict:
+    """Each config (name, build) in turn: the lock-step scan
+    (sharded.scan_lockstep on "cuda": k ranks in this process, each
+    launch alone on the card), its six outputs as words, each rank's
+    CUDA-event ms and phase ms over its launches; then one profiled scan
+    a build (scan_detail)."""
+    import torch
+
+    from kubebatch_tpu_torch.kernels import sharded as sh
+
+    res, runs, info = {}, {}, {}
+    for name, build in configs:
+        use(build)
+        out, ranks = sh.scan_lockstep(args, k, "cuda")
+        torch.cuda.synchronize()
+        runs.setdefault(name, []).append(
+            {"events_ms": [r.kernel_ms() for r in ranks],
+             "phase_ms": [r.phase_ms() for r in ranks]})
+        res.setdefault(name, [o.cpu().reshape(-1) for o in out])
+    for name, build in dict.fromkeys(configs):
+        use(build)
+        info[name] = scan_detail(args, k)
+    ref = res[configs[0][0]]
+    equal = {n: all(a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                    for a, b in zip(w, ref)) for n, w in res.items()}
+    launches = int(args["resreq"].shape[0]) + 1
+    rank0 = {n: min(r["events_ms"][0] for r in v) for n, v in runs.items()}
+    want, _ = sh.scan_lockstep(args, k, "cpu")
+    plain = all(torch.equal(a.reshape(-1), b.cpu().reshape(-1))
+                for a, b in zip(want, ref))
+    nb = args["node_ok"].shape[0] // k
+    row = {"label": label, "k": k, "nb": nb, "launches_a_rank": launches,
+           "rank0_events_ms": rank0,
+           "rank0_events_ms_a_launch": {n: v / launches
+                                        for n, v in rank0.items()},
+           "runs": runs, "detail": info, "equal_to_before": equal,
+           "equal_to_plain": plain,
+           "bound": cs.sharded_scan_bounds(args, want, k)}
+    if "after" in res:
+        use("after")
+        row["shape"] = sh.scan_shape(k, nb)
+    log(f"{label}: rank 0's events ms a launch (best run) "
+        + json.dumps({n: round(v, 5) for n, v in
+                      row["rank0_events_ms_a_launch"].items()})
+        + f"; equal to before {json.dumps(equal)}, to plain {plain}; "
+          f"bound a launch {row['bound']['launch_bound_ms']:.6f} ms "
+          f"({row['bound']['launch_bound_by']}); cluster "
+          f"{json.dumps(row.get('shape'))}")
+    for name, d in info.items():
+        prof = d["profiler_ms"]
+        log(f"  {name}: profiler ms a launch by rank "
+            + (json.dumps([round(v / launches, 5) for v in prof])
+               if prof is not None else
+               f"unpaired ({d['profiler_kernels']} kernels, "
+               f"{sum(d['launches'])} launches)")
+            + "; phase ms a launch, rank 0 "
+            + json.dumps({p: round(v / launches, 5) for p, v in
+                          runs[name][0]["phase_ms"][0].items()}))
+    return row
+
+
+def record_explain(dev) -> list:
+    """(label, kw, has_ports, t_real, n_cand) of the explain set: the
+    explainer's arguments (obs.explain.explain_args) on a fresh session
+    over a cold cache of each spec, copied."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from kubebatch_tpu_torch.actions.cycle_inputs import build_cycle_inputs
+    from kubebatch_tpu_torch.cache import SchedulerCache
+    from kubebatch_tpu_torch.conf import shipped_tiers
+    from kubebatch_tpu_torch.framework import CloseSession, OpenSession
+    from kubebatch_tpu_torch.obs import explain
+    from kubebatch_tpu_torch.sim import BASELINE_SPECS, build_cluster
+
+    calls = []
+    for label, spec, fill in EXPLAIN:
+        spec = BASELINE_SPECS[spec]
+        if fill is not None:
+            spec = dataclasses.replace(spec, running_fill=fill)
+        sim = build_cluster(spec)
+        cache = SchedulerCache(device=dev, binder=cs.FreshBinder())
+        sim.populate(cache)
+        ssn = OpenSession(cache, shipped_tiers())
+        inputs = build_cycle_inputs(ssn, allow_affinity=True)
+        kw, has_ports = explain.explain_args(inputs)
+        kw = {k: v.clone() for k, v in kw.items()}
+        CloseSession(ssn)
+        cache.stop()
+        calls.append((label, kw, has_ports, len(inputs.tasks),
+                      int(kw["node_ok"].sum())))
+    return calls
+
+
+def time_explain(label, kw, has_ports, t_real, n_cand, configs, use,
+                 cs) -> dict:
+    """Each config (name, build) in turn: the [T, 6] counts, CUDA-event
+    ms (50 launches back to back: the wrapper's host work included) and
+    the profiler's device ms (10 launches); this build's phase timers;
+    every result equal to the first config's and to the plain version."""
+    import torch
+
+    from kubebatch_tpu_torch.obs import explain
+
+    def call():
+        return explain.explain_counts(**kw, has_ports=has_ports)
+
+    res, ev, prof = {}, {}, {}
+    for name, build in configs:
+        use(build)
+        for _ in range(10):
+            call()
+        out = call()
+        torch.cuda.synchronize()
+        res.setdefault(name, out.cpu())
+        ev.setdefault(name, []).append(cs.cuda_ms(call, 50))
+        prof.setdefault(name, []).append(
+            cs.profiled_ms(call, "explain_counts_kernel", reps=10))
+    phases, shape = None, None
+    if "after" in res:
+        use("after")
+        call()
+        phases = {p: v / 1e6 for p, v in zip(
+            explain.PHASES, explain.last_launch["phase_ns"].cpu().tolist())}
+        shape = explain.launch_shape(*explain.last_launch["sizes"])
+    ref = res[configs[0][0]]
+    equal = {n: torch.equal(r, ref) for n, r in res.items()}
+    plain = torch.equal(explain.explain_counts_plain(
+        **{k: v.cpu() for k, v in kw.items()}, has_ports=has_ports), ref)
+    row = {"label": label, "t_pad": int(kw["task_valid"].shape[0]),
+           "n_pad": int(kw["idle"].shape[0]),
+           "s_pad": int(kw["sig_pred"].shape[0]),
+           "pt": int(kw["task_ports"].shape[1]), "has_ports": has_ports,
+           "t_real": t_real, "n_cand": n_cand, "events_ms": ev,
+           "profiler_ms": prof, "phase_ms_after": phases,
+           "shape_after": shape,
+           "equal_to_before": equal, "equal_to_plain": plain,
+           "bound": cs.explain_bounds(kw, ref, has_ports, t_real, n_cand)}
+    log(f"explain {label} (T_pad {row['t_pad']} x N_pad {row['n_pad']}, "
+        f"S {row['s_pad']}, PT {row['pt']}, ports {has_ports}; {t_real} "
+        f"tasks x {n_cand} candidates): profiler ms "
+        + json.dumps({n: [round(x, 5) if x else None for x in v]
+                      for n, v in prof.items()})
+        + "; events ms " + json.dumps({n: [round(x, 5) for x in v]
+                                       for n, v in ev.items()})
+        + f"; equal to before {json.dumps(equal)}, to plain {plain}; "
+          f"bound {row['bound']['bound_ms']:.6f} ms "
+          f"({row['bound']['bound_by']}); this build's phases "
+        + json.dumps({p: round(v, 5) for p, v in (phases or {}).items()})
+        + f"; shape {json.dumps(shape)}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -608,28 +849,42 @@ def main() -> int:
               "sets": sets, "only_before": args.only_before}
     t0 = time.perf_counter()
     sources = ((SOURCES if {"small", "round"} & set(sets) else ())
-               + (SHARDED_SOURCES if "sharded" in sets else ()))
+               + (SHARDED_SOURCES if "sharded" in sets else ())
+               + (SCAN_SOURCES if "scan" in sets else ())
+               + (EXPLAIN_SOURCES if "explain" in sets else ()))
     pending = {"before": start_builds(os.path.join(
         os.path.abspath(args.before), "kubebatch_tpu_torch", "kernels",
         "csrc"), "before", sources)}
     if "round" in sets and not args.only_before:
         pending["grid"] = start_builds(grid_sources(str(_build.CSRC)), "grid")
+    for src, variants, on in (("sharded_scan.cu", SCAN_VARIANTS, "scan"),
+                              ("explain_counts.cu", EXPLAIN_VARIANTS,
+                               "explain")):
+        if on in sets and not args.only_before:
+            for name, values in variants.items():
+                pending[name] = start_builds(
+                    patched_sources(str(_build.CSRC), name, src, values),
+                    name, (src,))
     if "small" in sets and not args.only_before:
         for name, values in VARIANTS.items():
             pending[name] = start_builds(
                 patched_sources(str(_build.CSRC), name, "hier_allocate.cu",
                                 values), name, ("hier_allocate.cu",))
-    _build.build_all()
-    for src in sources:
+    # the scan and explain sets record no allocate cycle: their own
+    # sources and the barrier probe are enough (before alone: the probe)
+    light = set(sets) <= {"scan", "explain"}
+    after = () if light and args.only_before else sources
+    _build.build_all(after + ("chain_probe.cu",) if light else None)
+    for src in after:
         _build.library(src)
-    libs = {"after": {s: _build._libs[s] for s in sources}}
+    libs = {"after": {s: _build._libs[s] for s in after}}
     for name, procs in pending.items():
         libs[name] = {**libs["after"],
                       **finish_builds(procs, earlier=name == "before")}
     report["build_s"] = time.perf_counter() - t0
     report["library_bytes"] = {
         "after": {s: os.path.getsize(_build._target(_build.CSRC / s))
-                  for s in sources},
+                  for s in after},
         **{name: {src: os.path.getsize(target)
                   for src, target, _ in procs}
            for name, procs in pending.items()}}
@@ -638,7 +893,8 @@ def main() -> int:
 
     def use(which):
         for s in sources:
-            _build._libs[s] = libs[which][s]
+            if s in libs[which]:
+                _build._libs[s] = libs[which][s]
 
     use("after")
     t0 = time.perf_counter()
@@ -648,9 +904,36 @@ def main() -> int:
     if "round" in sets:
         calls += record_round(dev)
     sharded = record_sharded(dev) if "sharded" in sets else []
+    explained = record_explain(dev) if "explain" in sets else []
     log(f"inputs recorded in {time.perf_counter() - t0:.1f} s: "
-        + ", ".join(c[0] for c in calls + sharded))
+        + ", ".join(c[0] for c in calls + sharded + explained))
     rows = []
+    seq = (("before", "before"),) * 2 if args.only_before else (
+        ("before", "before"), ("after", "after"), ("after", "after"),
+        ("before", "before"))
+    if "scan" in sets:
+        from kubebatch_tpu_torch.kernels import sharded as sh
+
+        warm = scan_inputs(None)
+        report["scan_first_solve"] = {}
+        for b in dict(seq):
+            use(b)
+            _, ranks = sh.scan_lockstep(warm, 2, "cuda")
+            report["scan_first_solve"][b] = [r.kernel_ms() for r in ranks]
+        log("first scan of each build (k=2), events ms by rank: "
+            + json.dumps(report["scan_first_solve"]))
+        more = [] if args.only_before else [
+            (v, v) for v in SCAN_VARIANTS for _ in range(2)]
+        report["scan"] = [time_scan(label, scan_inputs(real), k,
+                                    list(seq) + more, use, cs)
+                          for label, k, real in SCAN]
+        rows += report["scan"]
+    if explained:
+        more = [] if args.only_before else [
+            (v, v) for v in EXPLAIN_VARIANTS for _ in range(2)]
+        report["explain"] = [time_explain(*x, list(seq) + more, use, cs)
+                             for x in explained]
+        rows += report["explain"]
     if sharded:
         builds = ("before",) if args.only_before else ("before", "after")
         report["sharded_first_solve"] = {}
@@ -691,7 +974,7 @@ def main() -> int:
                 configs += [(name, name, {"route": "cluster"})] * 2
         rows.append(run_launch(label, kind, kw, configs, use, cs))
     use("after")
-    report["launches"] = rows
+    report["launches"] = [r for r in rows if "kind" in r]
     rows = rows + report.get("sharded", [])
     report["grid_barrier"] = cs.grid_barrier_us()
     report["cluster_barrier"] = [
@@ -704,7 +987,8 @@ def main() -> int:
         json.dump(report, f, indent=1)
     print(json.dumps(report), flush=True)
     bad = [r["label"] for r in rows
-           if not all(r["equal_to_before"].values())]
+           if not all(r["equal_to_before"].values())
+           or not r.get("equal_to_plain", True)]
     if bad:
         log(f"results differ from the earlier build: {bad}")
         return 1

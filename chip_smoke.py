@@ -170,8 +170,12 @@ again with every rank holding each launch bitwise against the plain
 version on its own inputs. At k = 2 ``Scheduler(mesh=...)`` in auto
 takes a cold cycle and two churn-256 cycles (sharded, fused, fused); at
 k = 4 the explicit-collective scan runs at T 256 x N_pad 8,192
-(csrc/sharded_scan.cu, one launch a step), checked the same way and
-against the plain ranks. Per rank: launches, device ms by step,
+(csrc/sharded_scan.cu, one launch a step over a thread-block cluster),
+checked the same way and against the plain ranks, then in lock step
+(``scan_lockstep(..., "cuda")``: checked, then once unchecked; rank 0's
+device ms over the unchecked scan, a launch's ms and phase ms beside
+its bound a launch, go into the kernels line's ``lockstep_ms``). Per
+rank: launches, device ms by step,
 collectives, stages and their host ms. Last, cfg5's sharded inputs at
 k = 2 run once more in lock step (``solve_lockstep(..., "cuda",
 check=True)``: the k ranks in this process, each launch alone on the
@@ -2883,21 +2887,35 @@ def scale_phase(dev, spec6, spec7) -> list:
 
 
 #: the least work of the explainer's counts (csrc/explain_counts.cu's
-#: function, counted as the card would do it at the fewest instructions):
-#: per (real task x candidate node) cell the three float32 request
-#: compares (FSETP chains their AND in its predicate input), and five
-#: 32-bit operations: the predicate byte's test, the eligible fold of the
-#: predicate, the resources result and the node's candidate-and-slot bit
-#: (one three-input LOP3), and the increments of the predicate, resources
-#: and eligible counts; with ports four more: the two words' AND folded
-#: to one by two LOP3 (lo & lo, then hi & hi | that), the zero test with
-#: the eligible AND in its predicate input, and the port count's
-#: increment. The task-slots column does not depend on the task: per node
-#: the candidate test and its count, the slot compare and its count.
+#: function, counted as the card would do it at the fewest instructions,
+#: whatever the design). A count over candidates needs one bit a
+#: candidate and one popcount and add a word of 32 of them, so only the
+#: bits are counted per cell: per (real task x candidate node) cell the
+#: three float32 request compares (FSETP chains their AND in its
+#: predicate input) and one 32-bit operation, the predicated set of the
+#: cell's bit in the row's result word; with ports two more, the port
+#: words' AND with its zero test (one LOP3 with a predicate output) and
+#: the set of the conflict bit. Per task row and word of 32 candidates:
+#: the resources count (the result word's popcount and add) and the
+#: eligible count (the result word ANDed with the signature's predicate
+#: and slot word, its popcount and add), 5; with ports the conflict
+#: word's popcount and add, 2 more (its complement joins the eligible
+#: AND's LOP3). The predicate column depends only on (signature, node):
+#: per signature and candidate its bit, per signature and word its
+#: popcount and add and the AND with the slot word. The task-slots and
+#: candidate columns depend only on the node: per node the candidate
+#: test and the slot compare, per word of 32 nodes their popcounts and
+#: adds; per task one read of its signature's count and of the totals.
 OPS_PER_CELL_EXPLAIN_F32 = 3
-OPS_PER_CELL_EXPLAIN_I32 = 5
-OPS_PER_CELL_EXPLAIN_PORTS = 4
-OPS_PER_NODE_EXPLAIN = 4
+OPS_PER_CELL_EXPLAIN_I32 = 1
+OPS_PER_CELL_EXPLAIN_PORTS = 2
+OPS_PER_ROW_WORD_EXPLAIN = 5
+OPS_PER_ROW_WORD_EXPLAIN_PORTS = 2
+OPS_PER_SIG_NODE_EXPLAIN = 1
+OPS_PER_SIG_WORD_EXPLAIN = 3
+OPS_PER_NODE_EXPLAIN = 2
+OPS_PER_NODE_WORD_EXPLAIN = 4
+OPS_PER_TASK_EXPLAIN = 2
 
 
 def explain_bounds(kw, out, has_ports: bool, t_real: int,
@@ -2905,11 +2923,14 @@ def explain_bounds(kw, out, has_ports: bool, t_real: int,
     """The explainer's roofline for one call: every input read once
     (the port arrays only with ``has_ports``) and the [T, 6] block
     written once, over the memory rate; the operations of the cells over
-    real tasks x candidate nodes (the port work only with ``has_ports``)
-    and of the nodes, float32 compares at the float32 rate and the rest
-    at the 32-bit integer rate. ``distinct_rows`` counts the real task
-    rows that differ in (signature, request, ports): a kernel folding
-    equal rows would need only that many rows of cells."""
+    real tasks x candidate nodes (one bit each; the port work only with
+    ``has_ports``), of the rows' popcounts a word of 32 candidates, of
+    the signatures' predicate columns over the signatures the real tasks
+    use x candidate nodes, of the nodes and of the tasks, float32
+    compares at the float32 rate and the rest at the 32-bit integer rate.
+    ``distinct_rows`` counts the real task rows that differ in
+    (signature, request, ports): a kernel folding equal rows would need
+    only that many rows of cells."""
     import torch
 
     nbytes = sum(v.numel() * v.element_size() for k, v in kw.items()
@@ -2917,9 +2938,17 @@ def explain_bounds(kw, out, has_ports: bool, t_real: int,
     nbytes += out.numel() * out.element_size()
     cells = t_real * n_cand
     n_pad = int(kw["idle"].shape[0])
+    sigs = int(torch.unique(kw["task_sig"][:t_real].cpu()).numel())
+    words = (n_cand + 31) // 32
     i32 = cells * (OPS_PER_CELL_EXPLAIN_I32 + (OPS_PER_CELL_EXPLAIN_PORTS
                                                if has_ports else 0)) \
-        + n_pad * OPS_PER_NODE_EXPLAIN
+        + t_real * words * (OPS_PER_ROW_WORD_EXPLAIN + (
+            OPS_PER_ROW_WORD_EXPLAIN_PORTS if has_ports else 0)) \
+        + sigs * (n_cand * OPS_PER_SIG_NODE_EXPLAIN
+                  + words * OPS_PER_SIG_WORD_EXPLAIN) \
+        + n_pad * OPS_PER_NODE_EXPLAIN \
+        + (n_pad + 31) // 32 * OPS_PER_NODE_WORD_EXPLAIN \
+        + t_real * OPS_PER_TASK_EXPLAIN
     f32 = cells * OPS_PER_CELL_EXPLAIN_F32
     t_ops = (f32 / PEAK_F32_PER_S + i32 / PEAK_I32_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -2931,8 +2960,8 @@ def explain_bounds(kw, out, has_ports: bool, t_real: int,
         cols.append(kw["task_ports"][:t_real].double())
     distinct = int(torch.unique(torch.cat(cols, 1).cpu(), dim=0).shape[0])
     return {"bytes": nbytes, "cells": cells, "ops": f32 + i32,
-            "f32_ops": f32, "i32_ops": i32, "distinct_rows": distinct,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "f32_ops": f32, "i32_ops": i32, "signatures": sigs,
+            "distinct_rows": distinct, "bound_ms": b_ms, "bound_by": b_by}
 
 
 class ExplainRecorder:
@@ -3100,11 +3129,19 @@ def obs_phase(dev, spec4, spec5, spec5p, spec3p,
             **kw, has_ports=has_ports), "explain_counts_kernel", reps=10)
         plain = cuda_ms(lambda: explain.explain_counts_plain(
             **kw, has_ports=has_ports), 3)
+        launch = {}
+        if kw["idle"].device.type == "cuda":
+            launch = {"shape": explain.launch_shape(
+                          *explain.last_launch["sizes"]),
+                      "phase_ms": dict(zip(explain.PHASES, (
+                          v / 1e6 for v in explain.last_launch[
+                              "phase_ns"].cpu().tolist())))}
         h3[label] = {"t_pad": int(kw["task_valid"].shape[0]),
                      "n_pad": int(kw["idle"].shape[0]), "t_real": t_real,
                      "n_cand": n_cand, "pt": int(kw["task_ports"].shape[1]),
                      "has_ports": has_ports, "event_ms": ev,
                      "profiler_ms": prof, "plain_ms": plain, **b,
+                     "launch": launch,
                      "unschedulable": snap["unschedulable_tasks"]}
         log(f"(h3) {label} fresh cold session: T_pad {h3[label]['t_pad']} x "
             f"N_pad {h3[label]['n_pad']} ({t_real} tasks x {n_cand} "
@@ -3114,7 +3151,8 @@ def obs_phase(dev, spec4, spec5, spec5p, spec3p,
             f"{b['bound_ms']:.6f} ms ({b['bound_by']}: {b['bytes']} B, "
             f"{b['cells']} cells, {b['f32_ops']} float32 + {b['i32_ops']} "
             f"integer operations), {ev / b['bound_ms']:.2f}x (events); "
-            f"{b['distinct_rows']} distinct task rows")
+            f"{b['distinct_rows']} distinct task rows, {b['signatures']} "
+            f"signatures; launch {json.dumps(launch)}")
 
     # ---- (h1) saturated cfg4 ----------------------------------------------
     t0 = time.perf_counter()
@@ -4495,7 +4533,14 @@ def sharded_scan_bounds(args, out, world: int) -> dict:
     [T, N] rows, the replicated task inputs and its share of the
     outputs, each moved once, over the memory rate, against
     OPS_PER_NODE_SCAN per real node (``node_ok``) of its block per task
-    step, over the float32 rate."""
+    step, over the float32 rate. And one launch's (``launch_*``, beside
+    the lock-step ms a launch): a step that applies a winner and packs
+    the next rows reads the gathered [world x block, 5] rows, the block's
+    carry and static rows (SCAN_READ_BYTES_PER_NODE) and its column of
+    the step's score and predicate rows, and writes the block's packed
+    rows, the decision and the winner's carry; its operations are one
+    compare a gathered row and OPS_PER_NODE_SCAN a real node of the
+    block."""
     import numpy as np
 
     n = args["node_ok"].shape[0]
@@ -4513,8 +4558,15 @@ def sharded_scan_bounds(args, out, world: int) -> dict:
         size = o.numel() * o.element_size()
         nbytes += size // world if o.dim() and o.shape[0] == n else size
     b_ms, b_by = bound(nbytes, t_steps * n_real * OPS_PER_NODE_SCAN)
+    launch_bytes = (n * 5 * 4 + nb * (SCAN_STEP_READ_BYTES_PER_NODE
+                                      + SCAN_STEP_WRITE_BYTES_PER_NODE)
+                    + SCAN_STEP_FIXED_BYTES)
+    launch_ops = n + n_real * OPS_PER_NODE_SCAN
+    l_ms, l_by = bound(launch_bytes, launch_ops)
     return {"bytes": nbytes, "block": nb, "block_real_nodes": n_real,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "launch_bytes": launch_bytes, "launch_ops": launch_ops,
+            "launch_bound_ms": l_ms, "launch_bound_by": l_by}
 
 
 def same_frame(got, want) -> bool:
@@ -4526,6 +4578,16 @@ def same_frame(got, want) -> bool:
 #: float32 compares and adds per node of one scan step (sharded_scan.cu:
 #: idle + bf, three fit tests of three compares each, the score select)
 OPS_PER_NODE_SCAN = 13
+#: one scan step's bytes a node of the rank's block: read idle, releasing
+#: and backfilled (36), max_task_num and n_tasks (8), node_ok (1) and the
+#: step's score and predicate (5); write the packed row (20)
+SCAN_STEP_READ_BYTES_PER_NODE = 50
+SCAN_STEP_WRITE_BYTES_PER_NODE = 20
+#: and a step's fixed bytes: the task's request and launch request (24),
+#: its validity (1), eps (12), min_available (4), the state read and
+#: written (16), the decision and node written (8), the winner's carry
+#: read and written (56)
+SCAN_STEP_FIXED_BYTES = 121
 
 
 def scan_args(n: int, t: int, seed: int) -> dict:
@@ -4561,7 +4623,8 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
     then the same cold inputs once more with every rank holding each
     launch bitwise against the plain version; at k = 2 Scheduler(mesh=...)
     in auto, cold and two churn cycles (sharded, fused, fused); at k = 4
-    the scan at T x N_pad ``scan_shape``. ``extra(k, mesh)``, when
+    the scan at T x N_pad ``scan_shape`` on the mesh, then in lock step
+    (checked, then timed unchecked). ``extra(k, mesh)``, when
     given, runs last in each k's group (phase (l) reuses the groups).
     Returns the kernels line's rows 10 and 11."""
     import tempfile
@@ -4773,6 +4836,27 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
                     if not torch.equal(a.cpu(), b.cpu()):
                         raise AssertionError("(k) scan differs from plain")
                 sb = sharded_scan_bounds(args, out, k)
+                # the same scan in lock step (the k ranks in this process,
+                # each launch alone on the card): every launch checked
+                # against the plain version, then once unchecked, timed
+                lock = {}
+                for check in (True, False):
+                    got, lranks = sh.scan_lockstep(args, k, dev.type,
+                                                   check=check)
+                    for a, b in zip(out, got):
+                        if not torch.equal(a.cpu(), b.cpu()):
+                            raise AssertionError(
+                                f"(k) scan: the lock-step scan (check="
+                                f"{check}) differs from the mesh's")
+                if dev.type == "cuda":
+                    lr0 = lranks[0]
+                    lock = {"ms": lr0.kernel_ms(),
+                            "ms_a_launch": lr0.kernel_ms() / lr0.launches,
+                            "launches_a_rank": lr0.launches,
+                            "phase_ms": lr0.phase_ms(),
+                            "cluster": sh.scan_shape(k, sb["block"]),
+                            "bound_ms_a_launch": sb["launch_bound_ms"],
+                            "bound_by_a_launch": sb["launch_bound_by"]}
                 scan = {"wall_ms": scan_wall,
                         "per_step_ms": scan_wall / t_steps,
                         "kernel_ms": scan_ranks[0]["kernel_ms"],
@@ -4788,7 +4872,8 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
                         "bound_ms": sb["bound_ms"],
                         "bound_by": sb["bound_by"], "bytes": sb["bytes"],
                         "block_real_nodes": sb["block_real_nodes"],
-                        "placed": int((out[0] > 0).sum())}
+                        "placed": int((out[0] > 0).sum()),
+                        "lockstep": lock}
                 log(f"(k) scan k={k} T {t_steps} x N_pad {n}: "
                     + json.dumps({a: (round(b, 6) if isinstance(b, float)
                                       else b) for a, b in scan.items()})
@@ -4888,6 +4973,13 @@ def sharded_phase(dev, spec5, worlds=(2, 4), churn: int = 256,
          "ms_is": "rank 0's device ms over its launches of the whole scan",
          "bound_is": "rank 0's work over the whole scan: its node block's "
                      "real nodes, every task step",
+         "lockstep_ms": scan["lockstep"].get("ms"),
+         "lockstep_is": "rank 0's device ms (events) over its launches of "
+                        "one unchecked scan_lockstep on the same inputs "
+                        "(each launch alone on the card), run after a "
+                        "checked one whose every launch equalled the plain "
+                        "version; lockstep.bound_ms_a_launch is one "
+                        "launch's bound beside lockstep.ms_a_launch",
          "scan": scan},
     ]
 

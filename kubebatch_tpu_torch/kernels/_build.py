@@ -79,9 +79,11 @@ EXPORTS: Dict[str, Dict[str, str]] = {
     },
     "sharded_scan.cu": {
         "kb_sharded_scan": "pipi" + "pppp",
+        "kb_sharded_scan_shape": "iip",
     },
     "explain_counts.cu": {
-        "kb_explain_counts": "p" * 10 + "i" * 4 + "p" * 2,
+        "kb_explain_counts": "p" * 10 + "i" * 5 + "p" * 3,
+        "kb_explain_shape": "i" * 4 + "p",
     },
 }
 
@@ -127,16 +129,17 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{_digest(src)}.so"
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every stale source in parallel. Returns per-source build
-    seconds (0.0 for an up-to-date library)."""
+def build_all(names=None) -> Dict[str, float]:
+    """Compile every stale source (of ``names``, default all) in
+    parallel. Returns per-source build seconds (0.0 for an up-to-date
+    library)."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = []
     out: Dict[str, float] = {}
-    for name in EXPORTS:
+    for name in (EXPORTS if names is None else names):
         src = CSRC / name
         target = _target(src)
         if target.exists():
@@ -165,14 +168,16 @@ def build_all() -> Dict[str, float]:
 
 def library(source: str) -> ctypes.CDLL:
     """The loaded library for ``source`` (a file name in ``csrc/``),
-    building stale sources first."""
+    building every stale source first when its own is stale; loads every
+    built library."""
     with _lock:
         lib = _libs.get(source)
         if lib is not None:
             return lib
-        build_all()
+        if not _target(CSRC / source).exists():
+            build_all()
         for name, funcs in EXPORTS.items():
-            if name in _libs:
+            if name in _libs or not _target(CSRC / name).exists():
                 continue
             loaded = ctypes.CDLL(str(_target(CSRC / name)))
             for fn, kinds in funcs.items():

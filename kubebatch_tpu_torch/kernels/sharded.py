@@ -12,10 +12,11 @@ vocabulary and no action reaches it (tools and tests do).
 
 Two implementations of one rank's steps: :class:`ScanPlain` (plain
 PyTorch, CPU tensors) and :class:`ScanCuda` (``csrc/sharded_scan.cu``,
-one launch a step: the previous step's winner applied, the next row
-packed, the argmax on the device). :func:`build_sharded_allocate`
-returns the callable with the reference's 13 inputs and 6 outputs on
-rank 0 of a mesh; the other ranks serve (parallel/worker.py).
+one launch a step over a thread-block cluster: the previous step's
+winner applied, the next row packed, the argmax on the device).
+:func:`build_sharded_allocate` returns the callable with the
+reference's 13 inputs and 6 outputs on rank 0 of a mesh; the other
+ranks serve (parallel/worker.py).
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ _DTYPES = {"max_task_num": torch.int32, "n_tasks": torch.int32,
            "pred_mask": torch.bool, "min_available": torch.int32,
            "init_allocated": torch.int32}
 W = 5
+#: the phase timers of csrc/sharded_scan.cu, in its order
+SCAN_PHASES = ("argmax", "decision", "pack")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -170,14 +173,19 @@ class ScanCuda:
             self.decision.data_ptr(), self.node_idx.data_ptr()],
             dtype=np.uint64)
         self.out = torch.empty((self.nb, W), dtype=torch.int32, device=dev)
+        #: the kernel's phase timers, added to by every launch (phase_ms)
+        self.phase_ns = torch.zeros(len(SCAN_PHASES), dtype=torch.int64,
+                                    device=dev)
+        #: the launch's ints; word 0 (the step) is set per launch
+        self.ints = np.asarray([0, self.steps, self.nb, self.lo, self.world],
+                               dtype=np.int32)
         self.lib = _build.library("sharded_scan.cu")
         self.launches = 0
         #: CUDA event pairs of this rank's launches (kernel_ms)
         self.events: List[tuple] = []
 
     def _launch(self, t: int, g):
-        ints = np.asarray([t, self.steps, self.nb, self.lo, self.world],
-                          dtype=np.int32)
+        self.ints[0] = t
         if g is not None:
             if g.device != self.dev or g.dtype != torch.int32:
                 raise ValueError("sharded_scan: gathered rows must be int32 "
@@ -187,9 +195,9 @@ class ScanCuda:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         err = self.lib.kb_sharded_scan(
-            self.ptrs.ctypes.data, self.ptrs.shape[0], ints.ctypes.data,
-            ints.shape[0], 0 if g is None else g.data_ptr(),
-            self.out.data_ptr(), None,
+            self.ptrs.ctypes.data, self.ptrs.shape[0], self.ints.ctypes.data,
+            self.ints.shape[0], 0 if g is None else g.data_ptr(),
+            self.out.data_ptr(), self.phase_ns.data_ptr(),
             torch.cuda.current_stream(self.dev).cuda_stream)
         _build.check_launch("sharded_scan", err)
         end.record()
@@ -203,6 +211,12 @@ class ScanCuda:
         torch.cuda.synchronize(self.dev)
         return sum(s.elapsed_time(e) for s, e in self.events)
 
+    def phase_ms(self) -> Dict[str, float]:
+        """The phase timers' ms over this rank's launches (CTA 0's thread
+        0 on the global timer; synchronizes)."""
+        return {p: v / 1e6 for p, v in zip(SCAN_PHASES,
+                                           self.phase_ns.cpu().tolist())}
+
     def first(self):
         return self._launch(-1, None)
 
@@ -213,6 +227,20 @@ class ScanCuda:
         b = self.b
         return (self.decision, self.node_idx, b["idle"], b["releasing"],
                 b["n_tasks"], self.state[0] >= self.min_av[0])
+
+
+def scan_shape(world: int, nb: int) -> Dict[str, int]:
+    """The thread-block cluster of a csrc/sharded_scan.cu step over
+    ``world`` ranks of ``nb`` nodes (read from the built kernel): its
+    CTAs, the gathered rows a CTA reduces, the block's nodes a CTA
+    packs."""
+    import ctypes
+
+    info = (ctypes.c_int * 3)()
+    err = _build.library("sharded_scan.cu").kb_sharded_scan_shape(
+        int(world), int(nb), ctypes.addressof(info))
+    _build.check_launch("sharded_scan shape", err)
+    return {"ctas": info[0], "rows_a_cta": info[1], "nodes_a_cta": info[2]}
 
 
 class ScanChecked:

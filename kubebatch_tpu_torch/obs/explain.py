@@ -98,6 +98,14 @@ def explain_counts_plain(idle, node_ok, n_tasks, max_task_num, sig_pred,
                       n_cand.expand(tvalid.shape[0])[:, None]], dim=1)
 
 
+#: the phase timers of csrc/explain_counts.cu, in its order: the ring's
+#: waits, the compaction to candidates, the cells, the cluster's sum
+PHASES = ("stage", "compact", "cells", "reduce")
+#: the latest launch: its phase timers (``phase_ns``, an int64 tensor on
+#: the card, PHASES order) and its sizes (``sizes``: T_pad, N_pad, S_pad
+#: and PT, 0 without ports; :func:`launch_shape` reads the cluster)
+last_launch: Dict[str, object] = {}
+
 #: explain_counts' tensor arguments and their dtypes, in call order
 ARG_DTYPES = (("idle", torch.float32), ("node_ok", torch.bool),
               ("n_tasks", torch.int32), ("max_task_num", torch.int32),
@@ -134,16 +142,44 @@ def explain_counts(idle, node_ok, n_tasks, max_task_num, sig_pred, task_sig,
     if not 1 <= pt <= 64:
         raise ValueError(f"explain_counts: {pt} ports, the kernel packs "
                          f"1 to 64 into one word")
+    if n == 0 or sig_pred.shape[0] == 0:
+        raise ValueError("explain_counts: the kernel takes at least one "
+                         "node and one signature row")
+    for a, (name, _) in zip(args, ARG_DTYPES):
+        if a.data_ptr() % 4:
+            raise ValueError(f"explain_counts: {name} must start on a "
+                             f"4-byte boundary (the kernel stages 4-byte "
+                             f"units)")
     out = torch.empty((t, 6), dtype=torch.int32, device=idle.device)
     if t == 0:
         return out
+    phase_ns = torch.empty(len(PHASES), dtype=torch.int64,
+                           device=idle.device)
     lib = _build.library("explain_counts.cu")
     err = lib.kb_explain_counts(
-        *(a.data_ptr() for a in args), t, n, pt, int(bool(has_ports)),
-        out.data_ptr(), torch.cuda.current_stream(idle.device).cuda_stream)
+        *(a.data_ptr() for a in args), t, n, sig_pred.shape[0], pt,
+        int(bool(has_ports)), out.data_ptr(), phase_ns.data_ptr(),
+        torch.cuda.current_stream(idle.device).cuda_stream)
     _build.check_launch("explain_counts", err)
     _build.count_launch("explain_counts")
+    last_launch.update(phase_ns=phase_ns, sizes=(
+        t, n, sig_pred.shape[0], pt if has_ports else 0))
     return out
+
+
+def launch_shape(t_pad: int, n_pad: int, s_pad: int, pt: int) -> dict:
+    """The launch csrc/explain_counts.cu makes for these sizes (pt 0
+    without ports), read from the built kernel: the cluster's CTAs, the
+    raw nodes of a chunk, whether the predicate bytes ride the ring, the
+    shared bytes a CTA and the tiles of task rows."""
+    import ctypes
+
+    info = (ctypes.c_int * 5)()
+    err = _build.library("explain_counts.cu").kb_explain_shape(
+        int(t_pad), int(n_pad), int(s_pad), int(pt), ctypes.addressof(info))
+    _build.check_launch("explain_counts shape", err)
+    return dict(zip(("ctas", "chunk", "pred_staged", "smem_bytes", "tiles"),
+                    info))
 
 
 def explain_args(inputs) -> Tuple[Dict[str, torch.Tensor], bool]:

@@ -1836,6 +1836,75 @@ def test_explain_counts_refuses_what_the_kernel_does_not_take():
     assert _build.launch_count("explain_counts") == c0
 
 
+def _explain_edge(name):
+    """(arguments, has_ports) of a named explain_counts edge case: chunks
+    of csrc/explain_counts.cu (256 raw nodes) with no candidate or only
+    the last one holding any, port widths 1 / 33 / 64, whole tiles of
+    padded task rows, N past one chunk ring (50,000 nodes), no candidate
+    at all, clusters of odd size, a node count that puts the signature
+    rows off a 4-byte boundary, and enough signatures that the predicate
+    bytes leave the ring or the chunk shrinks."""
+    shapes = {"empty-chunk": (300, 16384, 12),
+              "last-chunk": (300, 20000, 12),
+              "pt1": (300, 1000, 1), "pt33": (300, 1000, 33),
+              "pt64": (300, 1000, 64), "padded-tiles": (1000, 700, 12),
+              "n50000": (300, 50000, 12), "no-candidate": (600, 3000, 12),
+              "odd-cluster": (513, 1301, 5), "sigs300": (400, 1500, 3),
+              "sigs4096": (64, 600, 3)}
+    t, n, pt = shapes[name]
+    a = _explain_case(t, n, pt, seed=sum(map(ord, name)))
+    rng = np.random.default_rng(len(name))
+    if name == "empty-chunk":
+        a["node_ok"][256:512] = False
+        a["node_ok"][1024:1536] = False
+    elif name == "last-chunk":
+        a["node_ok"][:19800] = False
+    elif name == "padded-tiles":
+        a["task_valid"][:] = np.arange(t) < 300
+    elif name == "no-candidate":
+        a["node_ok"][:] = False
+    elif name.startswith("sigs"):
+        s = int(name[4:])
+        a["sig_pred"] = rng.random((s, n)) < 0.6
+        a["task_sig"] = rng.integers(0, s, t).astype(np.int32)
+    return a, name != "sigs4096"
+
+
+@pytest.mark.parametrize("name", ["empty-chunk", "last-chunk", "pt1", "pt33",
+                                  "pt64", "padded-tiles", "n50000",
+                                  "no-candidate", "odd-cluster", "sigs300",
+                                  "sigs4096"])
+def test_explain_counts_kernel_edge_cases(name):
+    """csrc/explain_counts.cu at the edges of its chunk ring, its cluster
+    and its tiles: one counted launch, bitwise equal to the plain
+    version."""
+    from kubebatch_tpu_torch import interop
+    from kubebatch_tpu_torch.obs import explain
+
+    _need_cuda()
+    a, has_ports = _explain_edge(name)
+    args = interop.explain_inputs_from_numpy(a, "cuda")
+    c0 = _build.launch_count("explain_counts")
+    got = explain.explain_counts(**args, has_ports=has_ports)
+    torch.cuda.synchronize()
+    assert _build.launch_count("explain_counts") == c0 + 1
+    want = explain.explain_counts_plain(
+        **interop.explain_inputs_from_numpy(a, "cpu"), has_ports=has_ports)
+    _assert_bitwise([want], [got.cpu()], f"explain_counts {name}")
+    shape = explain.launch_shape(*explain.last_launch["sizes"])
+    n = a["idle"].shape[0]
+    if name == "n50000":
+        assert n > shape["ctas"] * 4 * shape["chunk"]
+    if name == "odd-cluster":
+        assert shape["ctas"] not in (1, 2, 4, 8)
+    if name == "sigs300":
+        assert not shape["pred_staged"]
+    if name == "sigs4096":
+        assert shape["chunk"] < 256 and not shape["pred_staged"]
+    if name in ("empty-chunk", "last-chunk"):
+        assert shape["chunk"] == 256
+
+
 def test_explainer_cycle_on_the_card_matches_a_cpu_cache():
     """Scheduler(explain_unschedulable=True) on a CUDA and a CPU cache fed
     the same 2p cluster: one explain_counts launch on the card, one more
@@ -2125,6 +2194,100 @@ def test_sharded_scan_kernel_matches_plain(k):
     assert _build.launch_count("sharded_scan") == k * (t + 1)
     # the first rows, every step's rows but the last (none), the result
     assert all(r.compared == t + 6 for r in ranks)
+
+
+def _scan_edge(name):
+    """(the scan's inputs, k, steps) of a named csrc/sharded_scan.cu
+    edge case: k = 1, 2, 3, 4 and 8 at blocks that spread each step over
+    a cluster (8,192 / 4,096 / 1,001 / 2,048 / 1,040 nodes a rank: the
+    gathered rows past 1,024 a CTA at k = 8, a block that is no multiple
+    of the cluster's share at k = 3), equal maxima in several CTAs' and
+    ranks' slices, steps with every row -inf, winners in the last node
+    of a rank's block and of a CTA's share."""
+    import chip_smoke as cs
+
+    k, nb = {"k1": (1, 8192), "k2": (2, 4096), "k3": (3, 1001),
+             "k4": (4, 2048), "k8": (8, 1040), "ties": (4, 2048),
+             "zero-ties": (4, 2048), "all-inf": (2, 4096),
+             "last-node": (4, 2048)}[name]
+    t = 48
+    args = cs.scan_args(k * nb, t, seed=sum(map(ord, name)))
+    args["max_task_num"][:] = 8
+    if name == "ties":
+        # one score above every other at nodes in four CTAs and three
+        # ranks; each step's lowest eligible one must win
+        hot = np.asarray([7000, 5000, 3000, 1500, 2047, 2048])
+        args["scores"][:, hot] = 500.0
+        args["pred_mask"][:, hot] = True
+        args["node_ok"][hot] = True
+        args["idle"][hot] = 1e6
+        args["scores"][1::2, 1500] = -0.0
+        args["scores"][1::2, 3000] = 0.0
+    elif name == "zero-ties":
+        # odd steps: every row scores below 0 but -0.0 at node 1500 (rank
+        # 0) and +0.0 at node 3000 (rank 1, another CTA's slice); equal
+        # maxima, so the lower index, -0.0's, must win
+        odd = args["scores"][1::2]
+        args["scores"][1::2] = -np.abs(odd) - 1.0
+        args["scores"][1::2, 1500] = -0.0
+        args["scores"][1::2, 3000] = 0.0
+        args["pred_mask"][:, [1500, 3000]] = True
+        args["node_ok"][[1500, 3000]] = True
+        args["idle"][[1500, 3000]] = 1e6
+        args["max_task_num"][[1500, 3000]] = t
+    elif name == "all-inf":
+        args["pred_mask"][t // 2:] = False
+        args["min_available"] = np.int32(t)
+    elif name == "last-node":
+        share = nb // 8
+        ends = [r * nb + nb - 1 for r in range(k)] + [
+            share * c - 1 for c in range(1, 9)]
+        for s, node in enumerate(ends * (t // len(ends) + 1)):
+            if s < t:
+                args["scores"][s, node] = 900.0
+                args["pred_mask"][s, node] = True
+                args["node_ok"][node] = True
+                args["idle"][node] = 1e6
+        args["min_available"] = np.int32(t)
+    return args, k, t
+
+
+@pytest.mark.parametrize("name", ["k1", "k2", "k3", "k4", "k8", "ties",
+                                  "zero-ties", "all-inf", "last-node"])
+def test_sharded_scan_cluster_edges(name):
+    """Every launch of csrc/sharded_scan.cu held bitwise against the plain
+    version (ScanChecked) over a thread-block cluster at the edges of its
+    shares and its argmax order; the result equal to the plain ranks';
+    one counted launch a step a rank."""
+    _need_cuda()
+    from kubebatch_tpu_torch.kernels import sharded as sh
+
+    args, k, t = _scan_edge(name)
+    nb = args["node_ok"].shape[0] // k
+    shape = sh.scan_shape(k, nb)
+    assert shape["ctas"] > 1
+    if name == "k3":
+        assert nb % shape["nodes_a_cta"]
+    if name == "k8":
+        assert shape["rows_a_cta"] > 1024
+    _build.reset_launch_counts()
+    got, ranks = sh.scan_lockstep(args, k, "cuda", check=True)
+    want, _ = sh.scan_lockstep(args, k, "cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert _build.launch_count("sharded_scan") == k * (t + 1)
+    assert all(r.compared == t + 6 for r in ranks)
+    dec = want[0].numpy()
+    if name == "ties":
+        assert want[1][0] == 1500 and (dec[:4] > 0).all()
+    if name == "zero-ties":
+        assert (want[1][1::2] == 1500).all()
+        assert np.signbit(args["scores"][1, 1500])
+    if name == "all-inf":
+        assert (want[1][t // 2:] == 0).all()
+        assert dec[t // 2] == sh.FAIL or dec[t // 2] == sh.SKIP
+    if name == "last-node":
+        assert int(want[1][0]) == nb - 1
 
 
 def test_sharded_two_ranks_on_one_card(tmp_path):
